@@ -1,0 +1,11 @@
+"""StableLM-2-1.6B — dense, MHA (kv=32) [hf:stabilityai/stablelm-2-1_6b]."""
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="stablelm-1.6b", family="dense",
+        n_layers=24, d_model=2048, n_heads=32, n_kv_heads=32,
+        d_ff=5632, vocab=100352,
+        rotary_pct=0.25, qkv_bias=True,
+    )

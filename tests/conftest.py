@@ -20,6 +20,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "kernel: Pallas kernel parity sweeps (the `-m kernel` "
         "CI lane runs these in both matrix jobs)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's hand-written "
+        "kernels); skips without one")
 
 
 # ---------------------------------------------------------------------------
