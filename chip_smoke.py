@@ -15,7 +15,16 @@ Phases (each prints its own lines; any failure exits nonzero):
                 the qmm streams and paged attention; every kernel of the
                 path must have launched and the qmm "ref" path must not;
   5. step     — one mixed ragged step at full width through the kernels
-                and through the plain versions, logits compared.
+                and through the plain versions, logits compared;
+  6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
+                against its plain version at the read path's sizes, with
+                its time; quantize_model with every ported method and the
+                cache-less forward on one 2 x 256 token batch (finite
+                logits, QMC drifts less than RTN-INT4, as
+                examples/quickstart.py asserts); the ReRAM read path
+                (every inlier stream of the serve phase's QTensors packed
+                to 3 bits and decoded by the unpack3b kernel, bit-exact);
+                the fig4 memory co-design rows for hymba-1.5b.
 
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -36,10 +45,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import memsys  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.apply import (model_bits_per_weight,  # noqa: E402
+                                    quantize_model)
+from repro_torch.core.packing import pack_codes, packed_nbytes  # noqa: E402
 from repro_torch.core.qconfig import QMCConfig  # noqa: E402
-from repro_torch.core.qtensor import (dequantize_qtensor,  # noqa: E402
-                                      quantize_qtensor)
+from repro_torch.core.qtensor import (QTensor,  # noqa: E402
+                                      dequantize_qtensor, quantize_qtensor)
 from repro_torch.core.serving_quant import quantize_for_serving  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -47,7 +60,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     ragged_paged_attention_call)
 from repro_torch.kernels.qmm import qmm_colstrip, qmm_decode  # noqa: E402
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
-                                     ragged_paged_attention_ref)
+                                     ragged_paged_attention_ref,
+                                     unpack3b_ref)
+from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
 from repro_torch.models.model import forward, init_params  # noqa: E402
@@ -57,6 +72,15 @@ from repro_torch.serve.paged_kv import PagedKVPool  # noqa: E402
 from repro_torch.serve.sampling import DEAD_TOKEN  # noqa: E402
 
 QMM_SHAPES = [(2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352)]
+SERVE_KERNELS = ("qmm_decode", "qmm_colstrip", "ragged_paged_attention")
+# codes: the benchmarks/kernels.py size; the inlier stream of one
+# 2048 x 5632 projection and of the 2048 x 100352 head at rho 0.3; a
+# multiple of 8 that is not one of 32; and one that is not a multiple of 8
+# (the kernel's partial last quad)
+UNPACK_SIZES = [65_536, 8_074_240, 143_864_832, 65_544, 65_541]
+PTQ_METHODS = [("fp16", "fp16", False), ("rtn4", "rtn4", False),
+               ("mx4", "mx4", False), ("qmc", "qmc", False),
+               ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False)]
 # (memory bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data
 # sheets; the first name fragment found in the card's name wins
 PEAKS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
@@ -336,8 +360,9 @@ def serve(cfg, qparams, seed: int):
         require(DEAD_TOKEN not in r.out_tokens and all(
             0 <= t < cfg.vocab for t in r.out_tokens),
             f"request {r.uid} emitted an impossible token")
-    for k, v in launches.items():
-        require(v > 0, f"kernel {k} never launched on the serving path")
+    for k in SERVE_KERNELS:
+        require(launches[k] > 0, f"kernel {k} never launched on the "
+                f"serving path")
     require(paths["ref"] == 0, f"qmm took the plain 'ref' path "
             f"{paths['ref']} times on the serving path")
     ttft = float(np.percentile(s.ttft_s, 50)) * 1e3
@@ -412,13 +437,162 @@ def whole_step(cfg, qparams, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the PTQ entry point at full width
+# ---------------------------------------------------------------------------
+def check_unpack3b(timer, bw, fl, gen, rows):
+    """unpack3b against its plain version, bit-exact, at UNPACK_SIZES.
+    Bound: 3n/8 bytes read and 4n written; its 3 integer operations per
+    code (shift, mask, subtract) at the fp32 rate are never the limit."""
+    for n in UNPACK_SIZES:
+        codes = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        packed = pack_codes(codes, 3)
+        got = unpack3b_call(packed, n)
+        want = unpack3b_ref(packed, n)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want) and torch.equal(got, codes),
+                f"unpack3b n={n}: differs from its plain version")
+        ms = timer(lambda: unpack3b_call(packed, n))
+        host_ms = timer.host(lambda: unpack3b_call(packed, n))
+        plain_ms = timer(lambda: unpack3b_ref(packed, n))
+        b_ms, b_by = bound(3 * n // 8 + 4 * n, 3.0 * n, bw, fl)
+        rows.append(dict(kernel="unpack3b", shape=f"n={n}",
+                         dtype="uint8->int32", max_abs_err=0.0, ms=ms,
+                         host_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        print(f"[ptq] unpack3b n={n:11d} bit-exact ms={ms:.4f} "
+              f"host={host_ms:.4f} plain={plain_ms:.4f} "
+              f"bound={b_ms:.4f} ({b_by}); no single library call")
+        del codes, packed, got, want
+
+
+def drift(ref: torch.Tensor, out: torch.Tensor) -> float:
+    """examples/quickstart.py's relative logit drift."""
+    return float((ref - out).abs().mean() / (ref.abs().mean() + 1e-9))
+
+
+def ptq_quickstart(cfg, seed: int):
+    """examples/quickstart.py at full width on the card: every ported
+    quantize_model method, the cache-less forward over one 2 x 256 batch.
+    At most two full-width trees (the dense one and one quantized) live
+    on the card at a time."""
+    params = init_params(cfg, seed, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(2, 256)), device="cuda")
+    ref = forward(cfg, params, toks)
+    qmc = QMCConfig(rho=0.3, bits_in=3, bits_out=5, cell_bits=3)
+    out = {}
+    for label, method, noisy in PTQ_METHODS:
+        noise_gen = None
+        if noisy:
+            noise_gen = torch.Generator(device="cuda")
+            noise_gen.manual_seed(seed + 7)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        q = quantize_model(params, method, qmc=qmc, noise_gen=noise_gen,
+                           min_dim=64)
+        torch.cuda.synchronize()
+        ptq_s = time.monotonic() - t0
+        logits = forward(cfg, q, toks)
+        require(bool(torch.isfinite(logits).all()),
+                f"{label}: non-finite logits")
+        d = drift(ref, logits)
+        bpw = model_bits_per_weight(params, method, qmc)
+        print(f"[ptq] {label:16s} PTQ {ptq_s:7.2f}s  logit drift {d:.4f}  "
+              f"bits/weight {bpw:.3f}")
+        out[label] = dict(ptq_s=ptq_s, drift=d, bits_per_weight=bpw)
+        del q, logits
+    require(out["qmc"]["drift"] < out["rtn4"]["drift"],
+            f"QMC drift {out['qmc']['drift']:.4f} is not below RTN-INT4's "
+            f"{out['rtn4']['drift']:.4f}")
+    print(f"[ptq] QMC < RTN-INT4 drift, as examples/quickstart.py asserts; "
+          f"{16 / qmc.avg_bits:.2f}x logical compression of quantized "
+          f"layers")
+    return out
+
+
+def qtensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from qtensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from qtensors(v)
+    elif isinstance(tree, QTensor):
+        yield tree
+
+
+def reram_read_path(qparams):
+    """Every inlier stream of the serving QTensors packed to 3 bits on the
+    card and decoded through kernels.ops.unpack3b, bit-exact."""
+    packed_total = inlier_term = nbytes_packed = nbytes_container = 0
+    n_streams = 0
+    for qt in qtensors(qparams):
+        n = qt.in_codes.numel()
+        packed = pack_codes(qt.in_codes, 3)
+        require(packed.numel() == packed_nbytes(n, 3),
+                f"packed {packed.numel()} bytes for {n} codes")
+        codes = kops.unpack3b(packed, n)
+        require(torch.equal(codes, qt.in_codes.reshape(-1).to(torch.int32)),
+                f"unpack3b: stream {n_streams} ({qt.shape}) does not "
+                f"decode to its in_codes")
+        packed_total += packed.numel()
+        inlier_term += n * qt.bits_in / 8
+        nbytes_packed += qt.nbytes_packed()
+        nbytes_container += qt.nbytes_container()
+        n_streams += 1
+    torch.cuda.synchronize()
+    print(f"[ptq] ReRAM read path: {n_streams} inlier streams packed to "
+          f"{packed_total} bytes (inlier term of nbytes_packed "
+          f"{inlier_term:.0f}); decoded bit-exact; nbytes_packed "
+          f"{nbytes_packed}, int8 containers {nbytes_container}")
+    return dict(streams=n_streams, packed_bytes=packed_total,
+                inlier_term=inlier_term, nbytes_packed=nbytes_packed,
+                nbytes_container=nbytes_container)
+
+
+def fig4_rows(arch: str = "hymba-1.5b", seq: int = 1024):
+    """benchmarks/fig4.py's rows from the port's memsys."""
+    cfg = get_config(arch)
+    sys_cfg = memsys.MemSystemConfig()
+    res = {}
+    for m in ("fp16", "rtn4", "awq", "gptq", "mx4"):
+        legacy = m == "fp16"
+        res[m] = memsys.evaluate_conventional(
+            memsys.make_traffic(cfg, m, seq_len=seq, legacy_flash=legacy),
+            sys_cfg, legacy_flash=legacy)
+    for cell_bits, name in ((3, "qmc_3bit"), (2, "qmc_2bit")):
+        t = memsys.make_traffic(cfg, "qmc", seq_len=seq, qmc=QMCConfig(
+            rho=0.3, cell_bits=cell_bits))
+        res[name] = memsys.evaluate_hetero(t, memsys.dse(
+            t, cell_bits=cell_bits))
+    base = res["fp16"]
+    out = {}
+    for name, r in res.items():
+        out[name] = dict(
+            energy_mJ=r.energy_j * 1e3, latency_ms=r.latency_s * 1e3,
+            vs_fp16_energy=base.energy_j / r.energy_j,
+            vs_fp16_latency=base.latency_s / r.latency_s,
+            vs_fp16_cells=base.capacity_cells / r.capacity_cells)
+        print(f"[ptq] fig4/{arch}/{name:9s} energy {r.energy_j * 1e3:8.3f} "
+              f"mJ  latency {r.latency_s * 1e3:7.3f} ms  vs fp16: energy "
+              f"{out[name]['vs_fp16_energy']:6.2f}x latency "
+              f"{out[name]['vs_fp16_latency']:6.2f}x cells "
+              f"{out[name]['vs_fp16_cells']:5.2f}x")
+    return out
+
+
+# ---------------------------------------------------------------------------
 def summary(rows, launches, bw_name):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
-    projection, fp32; the mixed ragged chunk over fp32 pages)."""
+    projection, fp32; the mixed ragged chunk over fp32 pages; the
+    lm_head's inlier stream); ``launches`` per kernel from the run of the
+    path it serves."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
-            "ragged_paged_attention": ("chunk S=128", "float32")}
+            "ragged_paged_attention": ("chunk S=128", "float32"),
+            "unpack3b": ("n=143864832", "uint8->int32")}
     meta = {
         "qmm_decode": ("src/repro_torch/csrc/qmm.cu",
                        "src/repro/kernels/qmm.py:122"),
@@ -426,6 +600,8 @@ def summary(rows, launches, bw_name):
                          "src/repro/kernels/qmm.py:224"),
         "ragged_paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:180"),
+        "unpack3b": ("src/repro_torch/csrc/unpack3b.cu",
+                     "src/repro/kernels/unpack3b.py:30"),
     }
     out = []
     for name, (shape, dtype) in pick.items():
@@ -493,10 +669,31 @@ def main(argv=None) -> int:
     served = serve(cfg, qparams, args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
 
-    kernels = summary(rows, served["launches"], peak_name)
+    timer = Timer()
+    check_unpack3b(timer, bw, fl, gen, rows)
+    del timer
+    build.reset_launches()
+    kops.reset_path_counts()
+    quick = ptq_quickstart(cfg, args.seed)
+    read = reram_read_path(qparams)
+    torch.cuda.synchronize()
+    ptq_launches = dict(build.launches)
+    ptq_paths = dict(kops.path_counts)
+    print(f"[ptq] kernel launches {ptq_launches}; qmm paths {ptq_paths}")
+    for k in ("qmm_colstrip", "unpack3b"):
+        require(ptq_launches[k] > 0, f"kernel {k} never launched on the "
+                f"PTQ path")
+    require(ptq_paths["ref"] == 0, "qmm took the plain 'ref' path on the "
+            "PTQ path")
+    fig4 = fig4_rows()
+
+    launches = dict(served["launches"], unpack3b=ptq_launches["unpack3b"])
+    kernels = summary(rows, launches, peak_name)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, serve=served, step=stepped,
+        ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
+                 qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))
     print(f"[done] {time.monotonic() - t_start:.1f}s; details in {args.out}")
     print(smi)

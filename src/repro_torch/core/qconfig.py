@@ -1,5 +1,5 @@
-"""Quantization configuration dataclasses (a copy of the QMC parts of
-``repro.core.qconfig``; the port imports nothing of ``repro``)."""
+"""Quantization configuration dataclasses (a copy of the QMC, RTN and MX
+parts of ``repro.core.qconfig``; the port imports nothing of ``repro``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -60,3 +60,23 @@ class QMCConfig:
     @property
     def compression_vs_fp16(self) -> float:
         return 16.0 / self.avg_bits
+
+
+@dataclasses.dataclass(frozen=True)
+class RTNConfig:
+    bits: int = 4
+    channel_axis: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class MXConfig:
+    """MXINT-style microscaling: a shared 8-bit power-of-two exponent per
+    block."""
+
+    bits: int = 4
+    block: int = 32
+    block_axis: int = 0           # blocks along input-channel axis
+
+    @property
+    def avg_bits(self) -> float:
+        return self.bits + 8.0 / self.block

@@ -49,6 +49,22 @@ class QTensor:
             scale_in=self.scale_in.to(device),
             scale_out=self.scale_out.to(device))
 
+    def nbytes_packed(self) -> int:
+        """Memory-cell accounting (logical bits, no container padding)."""
+        n_in, n_out = self.in_codes.numel(), self.out_codes.numel()
+        meta = self.is_out.numel() / 8 + self.stream_pos.numel() * 4
+        scales = (self.scale_in.numel() + self.scale_out.numel()) * 4
+        return int((n_in * self.bits_in + n_out * self.bits_out) / 8
+                   + meta + scales)
+
+    def nbytes_container(self) -> int:
+        """What the port stores: int8 containers for both streams (the JAX
+        format's ``use_int4=False``) plus metadata."""
+        n_in, n_out = self.in_codes.numel(), self.out_codes.numel()
+        meta = self.is_out.numel() + self.stream_pos.numel() * 4
+        scales = (self.scale_in.numel() + self.scale_out.numel()) * 4
+        return int(n_in + n_out + meta + scales)
+
 
 def quantize_qtensor(w: torch.Tensor, cfg: QMCConfig) -> QTensor:
     """Build the dual-stream format from a dense 2-D weight (PTQ-time)."""

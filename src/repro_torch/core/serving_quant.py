@@ -21,14 +21,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.apply import is_quantizable
 from repro_torch.core.qconfig import QMCConfig
 from repro_torch.core.qtensor import (QTensor, dequantize_qtensor,
                                       quantize_qtensor)
-
-# leaves never quantized, by path substring (repro.core.apply)
-EXCLUDE_SUBSTRINGS = ("embed", "norm", "scale", "bias", "a_log", "dt_bias",
-                      "conv", "d_skip", "pos")
-_FLOAT = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _tileable(din: int, dout: int, cfg: QMCConfig) -> bool:
@@ -55,13 +51,9 @@ def quantize_for_serving(params, qmc: QMCConfig, min_dim: int = 128):
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}" if path else k)
                     for k, v in tree.items()}
-        leaf = tree
-        shape_ok = (isinstance(leaf, torch.Tensor) and 2 <= leaf.ndim <= 4
-                    and min(leaf.shape[-2:]) >= min_dim)
-        name_ok = not any(s in path.lower() for s in EXCLUDE_SUBSTRINGS)
-        if shape_ok and name_ok and leaf.dtype in _FLOAT:
-            return _convert_leaf(leaf, qmc)
-        return leaf
+        if is_quantizable(path, tree, min_dim):
+            return _convert_leaf(tree, qmc)
+        return tree
     return walk(params, "")
 
 

@@ -31,12 +31,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 LIB_NAME = "libqmc_kernels.so"
 
-KERNELS = ("qmm_decode", "qmm_colstrip", "ragged_paged_attention")
+KERNELS = ("qmm_decode", "qmm_colstrip", "ragged_paged_attention",
+           "unpack3b")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "qmc_qmm_decode": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _P],
@@ -46,6 +48,7 @@ _SIGNATURES = {
                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                    _F, _F, _I, _P],
     "qmc_ragged_paged_attention_smem": [_I, _I, _I],
+    "qmc_unpack3b": [_P, _P, _L, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

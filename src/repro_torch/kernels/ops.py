@@ -1,5 +1,8 @@
-"""The qmm dispatch point used by ``models.layers.matmul_any``
-(counterpart of ``repro.kernels.ops``).
+"""The kernel dispatch points (counterpart of ``repro.kernels.ops``):
+``qmm``, used by ``models.layers.matmul_any``, and ``unpack3b``, the 3-bit
+ReRAM read path. ``unpack3b`` is the kernel's wrapper itself: its kernel
+takes every n, so there is nothing to pick (the plain version on a CPU
+tensor, the kernel or an error on a CUDA one).
 
 ``qmm_plan`` keys the tiling on the flattened activation width M (= B*C
 under the serving step), with the JAX plan's path names and padding rule:
@@ -22,6 +25,8 @@ import torch.nn.functional as F
 from repro_torch.core.qtensor import QTensor
 from repro_torch.kernels.qmm import qmm_colstrip, qmm_decode
 from repro_torch.kernels.ref import qmm_ref
+from repro_torch.kernels.unpack3b import (  # noqa: F401 (re-exported)
+    unpack3b_call as unpack3b)
 
 path_counts: Dict[str, int] = {"decode": 0, "colstrip": 0, "ref": 0}
 
@@ -61,3 +66,4 @@ def qmm(x: torch.Tensor, qt: QTensor, use_kernels: bool = True
     kernel = qmm_colstrip if plan["path"] == "colstrip" else qmm_decode
     y = kernel(x2.contiguous(), qt)
     return y[:m].reshape(*lead, n)
+

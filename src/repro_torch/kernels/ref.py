@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.packing import unpack_codes
 from repro_torch.core.qtensor import QTensor, dequantize_qtensor
 
 
@@ -19,6 +20,12 @@ def qmm_ref(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     accumulation, result in x's dtype."""
     w = dequantize_qtensor(qt, dtype=torch.float32)
     return torch.matmul(x.to(torch.float32), w).to(x.dtype)
+
+
+def unpack3b_ref(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Decode a little-endian 3-bit stream (packed uint8) to int32 codes,
+    minus the bias 4: ``core.packing.unpack_codes`` for bits=3."""
+    return unpack_codes(packed, 3, n)
 
 
 def ragged_paged_attention_ref(

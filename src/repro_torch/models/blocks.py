@@ -67,18 +67,20 @@ def init_block(gen, kind: str, use_moe: bool, cfg, g: int, device,
 
 
 def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
-                positions: torch.Tensor, cache: dict,
+                positions: torch.Tensor, cache: Optional[dict] = None,
                 valid_len: Optional[torch.Tensor] = None,
                 use_kernels: bool = True,
                 paged_attention: bool = False) -> torch.Tensor:
-    """One block over one group's paged cache (updated in place)."""
+    """One block, cache-less or over one group's paged cache (updated in
+    place)."""
     if not kind.startswith("attn") or use_moe:
         raise NotImplementedError(
             f"block kind {kind!r} (moe={use_moe}) is not ported yet")
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.window if kind.endswith("_local") else None
     x = x + attn_block(p["attn"], h, cfg, positions=positions, window=window,
-                       cache=cache["attn"], valid_len=valid_len,
+                       cache=cache["attn"] if cache is not None else None,
+                       valid_len=valid_len,
                        use_kernels=use_kernels,
                        paged_attention=paged_attention)
     if "ffn" in p:

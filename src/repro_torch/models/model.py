@@ -1,5 +1,5 @@
-"""Top-level model API: ``init_params`` and the paged ``forward``
-(counterpart of ``repro.models.model`` for decoder-only attention
+"""Top-level model API: ``init_params`` and ``forward``, cache-less or
+paged (counterpart of ``repro.models.model`` for decoder-only attention
 stacks).
 
 Parameters are nested dicts in the JAX layout: block leaves are stacked
@@ -55,18 +55,26 @@ def group_slice(tree, g: int):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            positions: torch.Tensor, cache: dict,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None,
             valid_len: Optional[torch.Tensor] = None,
             use_kernels: bool = True,
             paged_attention: bool = False) -> torch.Tensor:
-    """Logits ``[B, S, V]`` of one paged step; K/V of ``tokens`` are
-    written into ``cache`` (the paged arena) in place.
+    """Logits ``[B, S, V]``.
 
+    Without ``cache`` every sequence attends over its own tokens, at
+    ``positions`` (default ``arange(S)`` in every row) — the forward the
+    PTQ path evaluates with. With ``cache`` (the paged arena) it is one
+    paged step: K/V of ``tokens`` are written into the arena in place, and
     ``valid_len [B]`` bounds each lane's KV (writes at or past it land on
     the null page). ``use_kernels=False`` runs the plain version of every
     kernel (the counterpart of JAX's ``use_pallas=False``);
     ``paged_attention`` selects the ragged paged-attention route over the
     full-width gather."""
+    if positions is None:
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)[None, :].expand(
+            b, s)
     x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed)
     for g in range(cfg.n_groups):
         for i, kind in enumerate(cfg.pattern):
@@ -74,7 +82,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             x = B.apply_block(
                 group_slice(params["blocks"][key], g), x, kind,
                 cfg.moe_slots[i], cfg, positions=positions,
-                cache=group_slice(cache[key], g), valid_len=valid_len,
+                cache=(group_slice(cache[key], g) if cache is not None
+                       else None), valid_len=valid_len,
                 use_kernels=use_kernels, paged_attention=paged_attention)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:

@@ -8,7 +8,7 @@ JAX it runs alone:
 Tolerances: qmm fp32 max abs error <= 1e-4 * max|y| (the same fp32
 products summed in another order), bf16 <= 1e-2 * max|y| (one bf16 ulp is
 2^-8 of the value); attention fp32 atol 1e-5 / rtol 1e-4, rows at or past
-kv_len exactly 0."""
+kv_len exactly 0; unpack3b bit-exact."""
 import sys
 from pathlib import Path
 
@@ -18,15 +18,18 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core.packing import pack_codes  # noqa: E402
 from repro_torch.core.qconfig import QMCConfig  # noqa: E402
 from repro_torch.core.qtensor import quantize_qtensor  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import qmm as kqmm  # noqa: E402
+from repro_torch.kernels import unpack3b as kunpack  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     ragged_paged_attention_call)
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
-                                     ragged_paged_attention_ref)
+                                     ragged_paged_attention_ref,
+                                     unpack3b_ref)
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +147,40 @@ def test_int8_pages_dequantize_like_the_plain_read(gen):
     assert codes.dtype == torch.int8 and scale.dtype == torch.bfloat16
     back = codes.float() * scale.float()[..., None]
     assert (back - x).abs().max() <= 2 * x.abs().max() / 127
+
+
+# the benchmarks/kernels.py size, the inlier streams of one 2048 x 5632
+# projection and of the full-width lm_head at rho 0.3, a multiple of 8 that
+# is not one of 32, and sizes that are not multiples of 8 (a partial last
+# quad of 1, 2 or 3 codes, whose second byte may lie past the stream)
+@pytest.mark.parametrize("n", [65_536, 8_074_240, 143_864_832, 65_544,
+                               65_541, 1, 2, 3, 5, 12, 13, 14, 1027])
+def test_unpack3b_kernel_matches_plain(gen, n):
+    codes = torch.randint(-4, 4, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    packed = pack_codes(codes, 3)
+    build.reset_launches()
+    got = kops.unpack3b(packed, n)
+    want = unpack3b_ref(packed, n)
+    torch.cuda.synchronize()
+    assert build.launches["unpack3b"] == 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, want) and torch.equal(got, codes)
+
+
+def test_unpack3b_never_takes_the_plain_version_and_refuses_bad_streams(
+        gen, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain unpack3b ran on a CUDA tensor")
+    monkeypatch.setattr(kunpack, "unpack3b_ref", refuse)
+    codes = torch.randint(-4, 4, (13,), generator=gen, device="cuda")
+    packed = pack_codes(codes, 3)                 # 5 bytes, n % 8 != 0
+    build.reset_launches()
+    assert torch.equal(kops.unpack3b(packed, 13), codes.int())
+    assert build.launches["unpack3b"] == 1
+    with pytest.raises(TypeError):
+        kunpack.unpack3b_call(packed.int(), 13)
+    with pytest.raises(ValueError):
+        kunpack.unpack3b_call(packed, 8)          # 5 bytes are not 3
+    with pytest.raises(ValueError):
+        kunpack.unpack3b_call(packed[:0], 0)
