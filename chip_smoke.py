@@ -9,7 +9,11 @@ Phases (each prints its own lines; any failure exits nonzero):
   2. build    — nvcc builds the kernels from ``src/repro_torch/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes, with its time, the plain
-                version's, a library call's (yardstick only) and its bound;
+                version's, a library call's (yardstick only; the
+                kernel/library ratio is what compares across cards) and
+                its bound; the column-strip qmm also on all-inlier,
+                all-outlier and checkerboard weights, attention also on
+                decode lanes at kv_len up to 4096 (split over spans);
   4. serve    — full-width stablelm-1.6b (random weights from a seed, QMC
                 PTQ on the card), 8 requests through the paged engine with
                 the qmm streams and paged attention; every kernel of the
@@ -27,8 +31,9 @@ Phases (each prints its own lines; any failure exits nonzero):
                 the fig4 memory co-design rows for hymba-1.5b.
 
 The line before the last is a JSON object with one row per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits nonzero before printing any result.
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+copied somewhere without ``src/repro_torch`` beside it, the script exits
+nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    # run alone, without the program: fail before printing any result
+    sys.exit("chip_smoke: src/repro_torch is not beside this script; run "
+             "it from the root of a checkout of the repository")
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import memsys  # noqa: E402
@@ -81,10 +90,12 @@ UNPACK_SIZES = [65_536, 8_074_240, 143_864_832, 65_544, 65_541]
 PTQ_METHODS = [("fp16", "fp16", False), ("rtn4", "rtn4", False),
                ("mx4", "mx4", False), ("qmc", "qmc", False),
                ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False)]
-# (memory bytes/s, fp32 FLOP/s outside the tensor cores), NVIDIA data
-# sheets; the first name fragment found in the card's name wins
-PEAKS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100", 3.35e12, 67e12)]
+# (memory bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32
+# tensor-core FLOP/s), NVIDIA data sheets; the first name fragment found in
+# the card's name wins
+PEAKS = [("H100 PCIe", 2.0e12, 51e12, 378e12),
+         ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+         ("H100", 3.35e12, 67e12, 495e12)]
 TOL_QMM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|y|
 ATT_ATOL, ATT_RTOL = 1e-5, 1e-4
 
@@ -95,12 +106,12 @@ def require(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str):
-    for frag, bw, fl in PEAKS:
+    for frag, bw, fl, tc in PEAKS:
         if frag in name:
-            return bw, fl, frag
+            return bw, fl, tc, frag
     print(f"[device] {name!r} is not in the peak table; bounds use the "
           f"H100 SXM figures")
-    return PEAKS[-1][1], PEAKS[-1][2], "H100"
+    return (*PEAKS[-1][1:], "H100")
 
 
 class Timer:
@@ -159,13 +170,53 @@ def make_weight(k: int, n: int, gen: torch.Generator) -> torch.Tensor:
     return torch.where(big, w * 8.0, w)
 
 
-def check_qmm(timer, bw, fl, gen, rows):
+def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
+    """Check one qmm call against its plain version, time it, and return
+    its row. The column-strip kernel runs TF32 tensor-core products (two
+    per k step for fp32 x, one for bf16), so its bound is those products
+    over the TF32 peak, or the bytes; ``bound_fp32_ms`` keeps the fp32
+    CUDA-core bound the PR 11 design had."""
+    bw, fl, tc = peak
+    k, n = qt.shape
+    dtype = x.dtype
+    y = kernel(x, qt)[:m].float()
+    y_ref = qmm_ref(x, qt)[:m].float()
+    torch.cuda.synchronize()
+    err = (y - y_ref).abs().max().item()
+    tol = TOL_QMM[dtype] * y_ref.abs().max().item()
+    require(err <= tol, f"{name} {label} {dtype}: max abs err {err:.3e} > "
+            f"{tol:.3e}")
+    ms = timer(lambda: kernel(x, qt))
+    host_ms = timer.host(lambda: kernel(x, qt))
+    plain_ms = timer(lambda: qmm_ref(x, qt))
+    xd = x.to(torch.float32)
+    lib_ms = timer(lambda: torch.matmul(xd, w_dense))
+    xb = x.element_size()
+    code_bytes = k * n + qt.stream_pos.numel() * 4 + qt.is_out.numel() \
+        + 2 * n * 4
+    nbytes = m * k * xb + code_bytes + m * n * xb
+    flops = 2.0 * m * k * n
+    b32_ms, b32_by = bound(nbytes, flops, bw, fl)
+    b_ms, b_by = b32_ms, b32_by
+    if name == "qmm_colstrip":
+        products = 2 if dtype == torch.float32 else 1
+        b_ms, b_by = bound(nbytes, flops * products, bw, tc)
+    row = dict(kernel=name, shape=label, dtype=str(dtype).replace(
+        "torch.", ""), max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        bound_fp32_ms=b32_ms)
+    print(f"[kernels] {name:13s} {label:31s} {row['dtype']:8s} err={err:.2e} "
+          f"(tol {tol:.1e}) ms={ms:.4f} host={host_ms:.4f} "
+          f"plain={plain_ms:.4f} lib={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
+          f"bound={b_ms:.4f} ({b_by}) fp32-bound={b32_ms:.4f}")
+    return row
+
+
+def check_qmm(timer, peak, gen, rows):
     for k, n in QMM_SHAPES:
         qt = quantize_qtensor(make_weight(k, n, gen), QMCConfig(
             rho=0.3, granularity="subtile"))
         w_dense = dequantize_qtensor(qt, torch.float32)
-        code_bytes = k * n + qt.stream_pos.numel() * 4 + qt.is_out.numel() \
-            + 2 * n * 4
         cases = [("qmm_decode", m, qmm_decode, 8) for m in (1, 4, 7)] + \
                 [("qmm_colstrip", m, qmm_colstrip, 128) for m in (128, 512)]
         for name, m, kernel, mult in cases:
@@ -174,33 +225,54 @@ def check_qmm(timer, bw, fl, gen, rows):
                 x = torch.zeros((pad, k), dtype=dtype, device="cuda")
                 x[:m] = torch.randn((m, k), generator=gen,
                                     device="cuda").to(dtype)
-                y = kernel(x, qt)[:m].float()
-                y_ref = qmm_ref(x, qt)[:m].float()
-                torch.cuda.synchronize()
-                err = (y - y_ref).abs().max().item()
-                scale = y_ref.abs().max().item()
-                tol = TOL_QMM[dtype] * scale
-                require(err <= tol, f"{name} M={m} K={k} N={n} {dtype}: max "
-                        f"abs err {err:.3e} > {tol:.3e}")
-                ms = timer(lambda: kernel(x, qt))
-                host_ms = timer.host(lambda: kernel(x, qt))
-                plain_ms = timer(lambda: qmm_ref(x, qt))
-                xd = x.to(torch.float32)
-                lib_ms = timer(lambda: torch.matmul(xd, w_dense))
-                xb = x.element_size()
-                b_ms, b_by = bound(m * k * xb + code_bytes + m * n * xb,
-                                   2.0 * m * k * n, bw, fl)
-                rows.append(dict(kernel=name, shape=f"M={m} K={k} N={n}",
-                                 dtype=str(dtype).replace("torch.", ""),
-                                 max_abs_err=err, tol=tol, ms=ms,
-                                 host_ms=host_ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms,
-                                 bound_ms=b_ms, bound_by=b_by))
-                print(f"[kernels] {name:13s} M={m:3d} K={k:5d} N={n:6d} "
-                      f"{rows[-1]['dtype']:8s} err={err:.2e} (tol "
-                      f"{tol:.1e}) ms={ms:.4f} host={host_ms:.4f} "
-                      f"plain={plain_ms:.4f} "
-                      f"lib={lib_ms:.4f} bound={b_ms:.4f} ({b_by})")
+                rows.append(qmm_row(timer, name, kernel, x, qt, w_dense, m,
+                                    f"M={m} K={k} N={n}", peak))
+        del qt, w_dense
+
+
+def patterned_qtensor(k, n, pattern, gen):
+    """Random codes whose subtiles are all inlier, all outlier, or a
+    checkerboard of both (the column-strip kernel picks its accumulator
+    per 8-deep k step by is_out)."""
+    gr, gc = k // 8, n // 128
+    ij = np.add.outer(np.arange(gr), np.arange(gc))
+    mask = {"all-inlier": ij < 0, "all-outlier": ij >= 0,
+            "checkerboard": ij % 2 == 1}[pattern]
+    flat = mask.reshape(-1)
+    n_out = int(flat.sum())
+    n_in = flat.size - n_out
+    pos = np.zeros(flat.size, np.int32)
+    pos[~flat] = np.arange(n_in)
+    pos[flat] = np.arange(n_out)
+
+    def codes(n_sub, lo, hi):
+        return torch.randint(lo, hi, (max(n_sub, 1), 8, 128), generator=gen,
+                             device="cuda").to(torch.int8)
+
+    def scale():
+        return torch.rand((1, n), generator=gen, device="cuda") * 0.02 \
+            + 0.002
+    return QTensor(in_codes=codes(n_in, -4, 4), out_codes=codes(n_out, -16,
+                                                               16),
+                   stream_pos=torch.as_tensor(pos.reshape(gr, gc),
+                                              device="cuda"),
+                   is_out=torch.as_tensor(mask, device="cuda"),
+                   scale_in=scale(), scale_out=scale(), shape=(k, n),
+                   bits_in=3, bits_out=5, subtile=(8, 128))
+
+
+def check_colstrip_patterns(timer, peak, gen, rows):
+    """The column-strip kernel on all-inlier, all-outlier and checkerboard
+    weights at the prefill MLP shape, fp32 and bf16 x."""
+    k, n, m = 2048, 5632, 512
+    for pattern in ("all-inlier", "all-outlier", "checkerboard"):
+        qt = patterned_qtensor(k, n, pattern, gen)
+        w_dense = dequantize_qtensor(qt, torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            rows.append(qmm_row(timer, "qmm_colstrip", qmm_colstrip, x, qt,
+                                w_dense, m, f"M={m} K={k} N={n} {pattern}",
+                                peak))
         del qt, w_dense
 
 
@@ -263,12 +335,18 @@ def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
     return nbytes, flops
 
 
-def check_attention(timer, bw, fl, gen, rows):
+def check_attention(timer, peak, gen, rows):
+    bw, fl, _ = peak
     hd, page, b = 64, 16, 4
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
+    # StableLM-2-1.6B's published context is 4096 tokens
+    long_ctx = [(4095, 1), (3000, 1), (1500, 1), (511, 1)]
     chunk = [(0, 128), (64, 100), (200, 1), (0, 0)]
     cases = [("decode S=1", decode, 32, 1, False, None, None),
              ("decode S=1", decode, 32, 1, True, None, None),
+             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, False, None,
+              None),
+             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, True, None, None),
              ("chunk S=128", chunk, 32, 1, False, None, None),
              ("chunk S=128", chunk, 32, 1, True, None, None),
              ("chunk S=128 window+softcap G=2", chunk, 16, 2, False, 32,
@@ -323,7 +401,7 @@ def check_attention(timer, bw, fl, gen, rows):
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         print(f"[kernels] attention {label:31s} {dt:7s} err={err:.2e} "
               f"ms={ms:.4f} host={host_ms:.4f} plain={plain_ms:.4f} "
-              f"sdpa={lib_ms:.4f} "
+              f"sdpa={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
               f"bound={b_ms:.4f} ({b_by})")
 
 
@@ -439,7 +517,7 @@ def whole_step(cfg, qparams, seed: int):
 # ---------------------------------------------------------------------------
 # phase 6: the PTQ entry point at full width
 # ---------------------------------------------------------------------------
-def check_unpack3b(timer, bw, fl, gen, rows):
+def check_unpack3b(timer, peak, gen, rows):
     """unpack3b against its plain version, bit-exact, at UNPACK_SIZES.
     Bound: 3n/8 bytes read and 4n written; its 3 integer operations per
     code (shift, mask, subtract) at the fp32 rate are never the limit."""
@@ -455,7 +533,7 @@ def check_unpack3b(timer, bw, fl, gen, rows):
         ms = timer(lambda: unpack3b_call(packed, n))
         host_ms = timer.host(lambda: unpack3b_call(packed, n))
         plain_ms = timer(lambda: unpack3b_ref(packed, n))
-        b_ms, b_by = bound(3 * n // 8 + 4 * n, 3.0 * n, bw, fl)
+        b_ms, b_by = bound(3 * n // 8 + 4 * n, 3.0 * n, *peak[:2])
         rows.append(dict(kernel="unpack3b", shape=f"n={n}",
                          dtype="uint8->int32", max_abs_err=0.0, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
@@ -639,9 +717,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    bw, fl, peak_name = peaks(name)
+    bw, fl, tc, peak_name = peaks(name)
+    peak = (bw, fl, tc)
     print(f"[device] {name}; nvidia-smi: {smi}; peaks ({peak_name}): "
-          f"{bw / 1e12:.2f} TB/s, {fl / 1e12:.0f} TFLOP/s fp32")
+          f"{bw / 1e12:.2f} TB/s, {fl / 1e12:.0f} TFLOP/s fp32, "
+          f"{tc / 1e12:.0f} TFLOP/s TF32 tensor cores")
 
     t0 = time.monotonic()
     build.library()
@@ -653,8 +733,9 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     timer = Timer()
     rows = []
-    check_qmm(timer, bw, fl, gen, rows)
-    check_attention(timer, bw, fl, gen, rows)
+    check_qmm(timer, peak, gen, rows)
+    check_colstrip_patterns(timer, peak, gen, rows)
+    check_attention(timer, peak, gen, rows)
     del timer
 
     cfg = get_config("stablelm-1.6b")
@@ -670,7 +751,7 @@ def main(argv=None) -> int:
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
-    check_unpack3b(timer, bw, fl, gen, rows)
+    check_unpack3b(timer, peak, gen, rows)
     del timer
     build.reset_launches()
     kops.reset_path_counts()

@@ -6,198 +6,447 @@
 // queries sit at absolute positions q_start[b] + t and attend the pages
 // block_tbl[b, p] causally, bounded by kv_len[b]; optional sliding window
 // and tanh softcap; GQA (G = H / KV query rows share one KV head); int8
-// pages are dequantized with per-(page slot, head) bf16 scales; online
-// softmax one page at a time. Rows at positions >= kv_len come out exactly
-// 0. Outputs o plus the softmax state (m, l) of every row.
+// pages carry per-(page slot, head) bf16 scales; online softmax. Rows at
+// positions >= kv_len come out exactly 0. Outputs o plus the softmax state
+// (m, l) of every row.
 //
-// Block = (lane b, KV head h, q block qb of q_blk query tokens x G rows).
-// The TPU grid's page axis becomes a loop inside the block that stops at
-// the block's causal limit, ceil(min(kv_len, q_start + (qb+1)*q_blk) /
-// page) pages: only causally live pages are read. Per page the block
-// stages K and V of its head in shared memory, computes the R x page
-// scores, masks them exactly as _accumulate does (masked probabilities
-// forced to 0), updates the running (m, l) per row and rescales the
-// accumulator, which lives in registers (R * hd <= 4096 at 128 threads).
+// What bounds it on an H100: memory latency and bytes. Decode (S = 1)
+// does ~4 FLOPs per K/V byte; a 16-token q block reuses each page for
+// 16 * G rows, still far below the ridge. So the design keeps many page
+// reads in flight and spends little on the arithmetic:
 //
-// What bounds it on an H100: memory. Decode (S = 1) does ~4 FLOPs per
-// K/V byte read; a prefill chunk reuses each page for up to q_blk * G
-// rows, still far below the fp32 ridge. The design reads each live page of
-// a head once per q block; tensor cores, a pipelined page ring (cp.async
-// or TMA) and splitting long sequences over blocks are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//   * Split-KV (flash-decoding). The causally live pages of one (lane, KV
+//     head, q block) -- ceil(min(kv_len, q_start + (qb+1)*q_blk) / page),
+//     the bound the engine's prefill_kv_pages_live counter mirrors -- are
+//     cut into spans of span_pages pages (a multiple of one ring stage).
+//     grid = (span, lane * KV head, q block). A span block writes its
+//     partial (o*l, m, l) to an fp32 workspace; a second pass merges the
+//     spans of each row in span order (deterministic, no atomics) -- the
+//     (o, m, l) merge of paged_attention.py:346-351. A (lane, head, q
+//     block) with one span writes o, m, l directly and the merge skips it;
+//     a dead q block (q_start + qb*q_blk >= kv_len) writes its zero rows
+//     from span 0 and exits; spans past the live pages exit at once.
+//   * A page ring in shared memory filled by cp.async (16-byte copies,
+//     zero-filled past the span; the int8 scales as 4-byte words), 2 or 3
+//     stages of 64 keys, so the next stages' K, V and scales are in flight
+//     while this one is computed; one __syncthreads per stage. The span's
+//     block-table entries are read once into shared memory.
+//   * Chunk path (q_blk = 16 tokens x G rows, padded to 16-row m tiles):
+//     QK^T and PV on tensor cores, mma.sync m16n8k8 TF32. fp32 operands
+//     are split into hi + lo TF32 parts and three products (hi*hi + hi*lo
+//     + lo*hi) keep fp32 accuracy. int8 K is exact in TF32 and its scale
+//     factors out of the dot (s = ks[t] * (q . k_int8[t])), so only q is
+//     split; vs[t] is folded into p before PV, where p is split. Each
+//     warp owns one m tile and a group of 16-key tiles with its own
+//     running (m, l, acc); the reduction index of QK^T is permuted so the
+//     score fragment is PV's A fragment as it stands, and the shared
+//     memory rows are padded so every fragment load is conflict-free.
+//   * Decode path (S = 1, R = G rows): a 16-row mma tile would be G/16
+//     full, so each warp takes one 16-key tile of the stage and the lanes
+//     split hd (hd/32 dims each); dots are warp-shuffle reductions.
+//   * The warps' softmax states are merged in warp order through shared
+//     memory at the end of the span.
+//
+// Sources: this file (chunk path, span merge, C entry points),
+// paged_attention_decode.cu (decode path, built in parallel) and
+// paged_attention.cuh (what both share).
+#include "paged_attention.cuh"
 
+namespace qmc_pa {
 namespace {
 
-constexpr int PA_THREADS = 128;
-constexpr int PA_ACC = 32;  // accumulator slots per thread: R * hd <= 4096
+// ---------------------------------------------------------------------------
+// chunk path: tensor cores, one m tile of 16 rows and a key group per warp
+// ---------------------------------------------------------------------------
+template <bool QUANT, int NT>  // NT = hd / 8
+__global__ void __launch_bounds__(MAX_THREADS)
+attn_chunk_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int HD = NT * 8;
+  const int G = a.H / a.KV;
+  const int rows = a.q_blk * G;
+  const int MT = (rows + 15) / 16;
+  const int rows_pad = MT * 16;
+  const int n_warps = blockDim.x >> 5;
+  const int groups = n_warps / MT;
+  Span s;
+  if (!span_of(a, rows, s)) return;
 
-__global__ void __launch_bounds__(PA_THREADS)
-ragged_paged_attention_kernel(
-    const float* __restrict__ q, const void* __restrict__ k_pages,
-    const void* __restrict__ v_pages, const __nv_bfloat16* __restrict__ k_scale,
-    const __nv_bfloat16* __restrict__ v_scale, const int32_t* __restrict__ tbl,
-    const int32_t* __restrict__ q_start, const int32_t* __restrict__ kv_len,
-    float* __restrict__ o, float* __restrict__ m_out,
-    float* __restrict__ l_out, int S_pad, int H, int KV, int hd, int page,
-    int P, int q_blk, int window, float softcap, float scale,
-    int quantized) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, qb = blockIdx.z;
-  const int G = H / KV;
-  const int R = q_blk * G;
-  float* q_s = smem;              // [R][hd], pre-scaled
-  float* k_s = q_s + R * hd;      // [page][hd]
-  float* v_s = k_s + page * hd;   // [page][hd]
-  float* p_s = v_s + page * hd;   // [R][page] scores, then probabilities
-  float* m_s = p_s + R * page;    // [R]
-  float* l_s = m_s + R;           // [R]
-  float* c_s = l_s + R;           // [R] rescale factor of this page
+  const Layout L = layout(HD, QUANT, rows_pad, groups, a.span_pages,
+                          a.stages, true);
+  int* tbl_s = reinterpret_cast<int*>(smem);
+  unsigned char* ring = smem + L.tbl;
+  const int ring_or_scratch = L.ring > L.scratch ? L.ring : L.scratch;
+  uint32_t* q_hi = reinterpret_cast<uint32_t*>(ring + ring_or_scratch);
+  uint32_t* q_lo = q_hi + rows_pad * (HD + 8);
+  constexpr int QS = HD + 8;
 
   const int tid = threadIdx.x;
-  const int kl = kv_len[b];
-  const int qs = q_start[b];
-  const int q0 = qs + qb * q_blk;  // position of the block's first token
-  const int row0 = b * S_pad + qb * q_blk;  // first token row of q / o
-  const int kvd = KV * hd;
-
-  for (int i = tid; i < R * hd; i += PA_THREADS) {
-    const int r = i / hd, d = i - r * hd;
-    const int tok = r / G, gg = r - tok * G;
-    q_s[i] = q[((size_t)(row0 + tok) * H + h * G + gg) * hd + d] * scale;
+  // q rows land in q_lo with the first stage (padding rows zero-filled);
+  // they are scaled and split in place once that stage has arrived
+  for (int i = tid; i < rows_pad * (HD / 4); i += blockDim.x) {
+    const int r = i / (HD / 4), c = i - r * (HD / 4);
+    const float* src = a.q;
+    if (r < rows) src = a.q + out_row(a, s.b, s.h, s.qb, r) * HD + c * 4;
+    cp16(q_lo + r * QS + c * 4, src, r < rows ? 16 : 0);
   }
-  for (int r = tid; r < R; r += PA_THREADS) {
-    m_s[r] = -1e30f;
-    l_s[r] = 0.f;
-  }
-  float acc[PA_ACC];
-#pragma unroll
-  for (int j = 0; j < PA_ACC; ++j) acc[j] = 0.f;
-
-  int n_live = 0;
-  if (q0 < kl) {
-    const int limit = min(kl, qs + (qb + 1) * q_blk);
-    n_live = (limit + page - 1) / page;
-  }
+  const int n_pg = (s.n_keys + a.page - 1) / a.page;
+  for (int i = tid; i < n_pg; i += blockDim.x)
+    tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i];
   __syncthreads();
 
-  for (int p = 0; p < n_live; ++p) {
-    const size_t pid = (size_t)tbl[(size_t)b * P + p];
-    for (int i = tid; i < page * hd; i += PA_THREADS) {
-      const int t = i / hd, d = i - t * hd;
-      const size_t off = (pid * page + t) * kvd + (size_t)h * hd + d;
-      if (quantized) {
-        const size_t so = (pid * page + t) * KV + h;
-        k_s[i] = (float)static_cast<const int8_t*>(k_pages)[off] *
-                 __bfloat162float(k_scale[so]);
-        v_s[i] = (float)static_cast<const int8_t*>(v_pages)[off] *
-                 __bfloat162float(v_scale[so]);
-      } else {
-        k_s[i] = static_cast<const float*>(k_pages)[off];
-        v_s[i] = static_cast<const float*>(v_pages)[off];
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < R * page; i += PA_THREADS) {
-      const int r = i / page, t = i - r * page;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = fmaf(q_s[r * hd + d], k_s[t * hd + d], s);
-      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-      const int pos_q = q0 + r / G;
-      const int pos_k = p * page + t;
-      const bool ok = pos_k <= pos_q && pos_k < kl && pos_q < kl &&
-                      (window <= 0 || pos_q - pos_k < window);
-      p_s[i] = ok ? s : -INFINITY;  // -inf marks a masked entry
-    }
-    __syncthreads();
-    for (int r = tid; r < R; r += PA_THREADS) {
-      float cm = -1e30f;  // masked scores count as -1e30
-      for (int t = 0; t < page; ++t) cm = fmaxf(cm, p_s[r * page + t]);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, cm);
-      float lsum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        const float s = p_s[r * page + t];
-        const float pr = (s == -INFINITY) ? 0.f : expf(s - m_new);
-        p_s[r * page + t] = pr;
-        lsum += pr;
-      }
-      const float corr = expf(m_old - m_new);
-      l_s[r] = l_s[r] * corr + lsum;
-      m_s[r] = m_new;
-      c_s[r] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < PA_ACC; ++j) {
-      const int i = tid + j * PA_THREADS;
-      if (i < R * hd) {
-        const int r = i / hd, d = i - r * hd;
-        float a = acc[j] * c_s[r];
-        for (int t = 0; t < page; ++t)
-          a = fmaf(p_s[r * page + t], v_s[t * hd + d], a);
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
+  for (int st = 0; st < a.stages - 1; ++st) {
+    if (st < s.n_stages)
+      load_stage(a, ring + st * L.stage, L, tbl_s, st * STAGE_KEYS, s.n_keys,
+                 s.h);
+    cp_commit();
   }
 
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int mt = warp % MT, grp = warp / MT;
+  const int r0 = mt * 16 + g, r1 = r0 + 8;
+  const int pq0 = r0 < rows ? s.q0 + r0 / G : 0x7fffffff;
+  const int pq1 = r1 < rows ? s.q0 + r1 / G : 0x7fffffff;
+  float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;
+  float acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < PA_ACC; ++j) {
-    const int i = tid + j * PA_THREADS;
-    if (i < R * hd) {
-      const int r = i / hd, d = i - r * hd;
-      const int tok = r / G, gg = r - tok * G;
-      // a row with no live position keeps l == 0 -> output exactly 0
-      o[((size_t)(row0 + tok) * H + h * G + gg) * hd + d] =
-          acc[j] / fmaxf(l_s[r], 1e-30f);
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int st = 0; st < s.n_stages; ++st) {
+    if (a.stages == 3)
+      cp_wait<1>();
+    else
+      cp_wait<0>();
+    __syncthreads();
+    const int nx = st + a.stages - 1;
+    if (nx < s.n_stages)
+      load_stage(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
+                 nx * STAGE_KEYS, s.n_keys, s.h);
+    cp_commit();
+
+    if (st == 0) {  // q, pre-scaled, as TF32 hi + lo
+      for (int i = tid; i < rows_pad * HD; i += blockDim.x) {
+        const int r = i / HD, d = i - r * HD;
+        uint32_t hi, lo;
+        split(__uint_as_float(q_lo[r * QS + d]) * a.scale, hi, lo);
+        q_hi[r * QS + d] = hi;
+        q_lo[r * QS + d] = lo;
+      }
+      __syncthreads();
+    }
+    const unsigned char* stg = ring + (st % a.stages) * L.stage;
+    const int key0 = st * STAGE_KEYS;
+    for (int kt = grp; kt < TILES; kt += groups) {
+      if (key0 + kt * KEY_TILE >= s.n_keys) break;
+      const int kb = kt * KEY_TILE;  // stage-local first key of the tile
+      // ---- S = q K^T (16 rows x 16 keys) ---------------------------------
+      // one accumulator per product keeps the mma chains independent
+      float sc[2][4], sx[2][4], sy[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = sx[j][e] = sy[j][e] = 0.f;
+#pragma unroll 4
+      for (int ks = 0; ks < NT; ++ks) {
+        const int col = ks * 8 + 2 * tig;
+        const uint2 h0 = *reinterpret_cast<const uint2*>(q_hi + r0 * QS + col);
+        const uint2 h1 = *reinterpret_cast<const uint2*>(q_hi + r1 * QS + col);
+        const uint2 w0 = *reinterpret_cast<const uint2*>(q_lo + r0 * QS + col);
+        const uint2 w1 = *reinterpret_cast<const uint2*>(q_lo + r1 * QS + col);
+        // reduction index k <-> dim: tig -> 2*tig, tig + 4 -> 2*tig + 1
+        const uint32_t ah[4] = {h0.x, h1.x, h0.y, h1.y};
+        const uint32_t al[4] = {w0.x, w1.x, w0.y, w1.y};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int key = kb + 8 * j + g;
+          if (QUANT) {  // int8 K is exact in TF32
+            const uint32_t kw = *reinterpret_cast<const uint16_t*>(
+                stg + key * L.k_row + col);
+            const uint32_t b0 = __float_as_uint(i8_float(kw, 0));
+            const uint32_t b1 = __float_as_uint(i8_float(kw, 1));
+            mma(sx[j], al, b0, b1);
+            mma(sc[j], ah, b0, b1);
+          } else {
+            const float2 kv = *reinterpret_cast<const float2*>(
+                stg + key * L.k_row + col * 4);
+            uint32_t b0h, b0l, b1h, b1l;
+            split(kv.x, b0h, b0l);
+            split(kv.y, b1h, b1l);
+            mma(sy[j], al, b0h, b1h);
+            mma(sx[j], ah, b0l, b1l);
+            mma(sc[j], ah, b0h, b1h);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] += sx[j][e] + sy[j][e];
+      // ---- mask, softcap, online softmax (rows r0, r1) -------------------
+      const int kpos = s.p0 * a.page + key0 + kb;  // position of key kb
+      float cm0 = NEG, cm1 = NEG;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 8 * j + 2 * tig + (e & 1);  // key within the tile
+          float v = sc[j][e];
+          if (QUANT)
+            v *= stage_scale(a, stg, L, tbl_s, key0, kb + kk, 0, s.h);
+          if (a.softcap > 0.f) v = a.softcap * tanhf(v / a.softcap);
+          const bool ok = visible(a, e < 2 ? pq0 : pq1, kpos + kk, s.kl);
+          sc[j][e] = ok ? v : -INFINITY;
+          if (e < 2)
+            cm0 = fmaxf(cm0, sc[j][e]);
+          else
+            cm1 = fmaxf(cm1, sc[j][e]);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        cm0 = fmaxf(cm0, __shfl_xor_sync(0xffffffffu, cm0, off));
+        cm1 = fmaxf(cm1, __shfl_xor_sync(0xffffffffu, cm1, off));
+      }
+      const float mn0 = fmaxf(m0, cm0), mn1 = fmaxf(m1, cm1);
+      const float c0 = expf(m0 - mn0), c1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = sc[j][e];
+          const float p = v == -INFINITY ? 0.f : expf(v - (e < 2 ? mn0 : mn1));
+          sc[j][e] = p;
+          if (e < 2)
+            ps0 += p;
+          else
+            ps1 += p;
+        }
+      l0 = l0 * c0 + ps0;  // lane-partial sums; the quad adds them at the end
+      l1 = l1 * c1 + ps1;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[nt][0] *= c0;
+        acc[nt][1] *= c0;
+        acc[nt][2] *= c1;
+        acc[nt][3] *= c1;
+      }
+      // ---- acc += P V: the score fragment is the A fragment --------------
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ka = kb + 8 * j + 2 * tig;  // stage-local keys ka, ka + 1
+        float p[4] = {sc[j][0], sc[j][2], sc[j][1], sc[j][3]};
+        if (QUANT) {
+          const float v0 = stage_scale(a, stg, L, tbl_s, key0, ka, 1, s.h);
+          const float v1 = stage_scale(a, stg, L, tbl_s, key0, ka + 1, 1, s.h);
+          p[0] *= v0;
+          p[1] *= v0;
+          p[2] *= v1;
+          p[3] *= v1;
+        }
+        uint32_t ph[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(p[e], ph[e], pl[e]);
+        const unsigned char* v0r = stg + STAGE_KEYS * L.k_row + ka * L.v_row;
+        const unsigned char* v1r = v0r + L.v_row;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int d = nt * 8 + g;
+          if (QUANT) {
+            const uint32_t b0 = __float_as_uint(i8_float(v0r[d], 0));
+            const uint32_t b1 = __float_as_uint(i8_float(v1r[d], 0));
+            mma(acc[nt], pl, b0, b1);
+            mma(acc[nt], ph, b0, b1);
+          } else {
+            uint32_t b0h, b0l, b1h, b1l;
+            split(reinterpret_cast<const float*>(v0r)[d], b0h, b0l);
+            split(reinterpret_cast<const float*>(v1r)[d], b1h, b1l);
+            mma(acc[nt], pl, b0h, b1h);
+            mma(acc[nt], ph, b0l, b1l);
+            mma(acc[nt], ph, b0h, b1h);
+          }
+        }
+      }
     }
   }
-  for (int r = tid; r < R; r += PA_THREADS) {
-    const int tok = r / G, gg = r - tok * G;
-    const size_t ml = (size_t)(row0 + tok) * H + h * G + gg;
-    m_out[ml] = m_s[r];
-    l_out[ml] = l_s[r];
+  cp_wait<0>();
+  __syncthreads();  // the ring is drained: reuse it as scratch
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  float* scratch = reinterpret_cast<float*>(ring);
+  constexpr int SS = HD + 2;
+  float* s0 = scratch + ((size_t)grp * rows_pad + r0) * SS;
+  float* s1 = scratch + ((size_t)grp * rows_pad + r1) * SS;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int d = nt * 8 + 2 * tig;
+    s0[d] = acc[nt][0];
+    s0[d + 1] = acc[nt][1];
+    s1[d] = acc[nt][2];
+    s1[d + 1] = acc[nt][3];
+  }
+  if (tig == 0) {
+    s0[HD] = m0;
+    s0[HD + 1] = l0;
+    s1[HD] = m1;
+    s1[HD + 1] = l1;
+  }
+  __syncthreads();
+  epilogue(a, scratch, groups, rows, rows_pad, s.b, s.h, s.qb, s.sp, s.n_sp);
+}
+
+// ---------------------------------------------------------------------------
+// second pass: merge the spans of every row in span order (one warp a row)
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
+  const size_t rows_total = (size_t)a.B * a.S_pad * a.H;
+  const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows_total) return;
+  const int b = (int)(row / ((size_t)a.S_pad * a.H));
+  const int t = (int)((row / a.H) % a.S_pad);
+  const int n_live = live_pages(a, b, t / a.q_blk);
+  const int n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+  if (n_sp <= 1) return;  // written by its only span (or dead)
+  float mx = NEG;
+  for (int sp = 0; sp < n_sp; ++sp)
+    mx = fmaxf(mx, a.pm[(size_t)sp * rows_total + row]);
+  float lsum = 0.f;
+  for (int sp = 0; sp < n_sp; ++sp) {
+    const size_t pr = (size_t)sp * rows_total + row;
+    lsum += a.pl[pr] * expf(a.pm[pr] - mx);
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  for (int d = lane; d < a.hd; d += 32) {
+    float acc = 0.f;
+    for (int sp = 0; sp < n_sp; ++sp) {
+      const size_t pr = (size_t)sp * rows_total + row;
+      acc += a.po[pr * a.hd + d] * expf(a.pm[pr] - mx);
+    }
+    a.o[row * a.hd + d] = acc * inv;
+  }
+  if (lane == 0) {
+    a.m[row] = mx;
+    a.l[row] = lsum;
   }
 }
 
+template <bool QUANT>
+int launch_span(dim3 grid, int threads, int smem, const Args& a,
+                cudaStream_t st) {
+  if (a.q_blk == 1) return launch_decode_path(QUANT, grid, smem, a, st);
+  switch (a.hd) {
+    case 32: return launch<attn_chunk_kernel<QUANT, 4>>(grid, threads, smem, a, st);
+    case 64: return launch<attn_chunk_kernel<QUANT, 8>>(grid, threads, smem, a, st);
+    case 128: return launch<attn_chunk_kernel<QUANT, 16>>(grid, threads, smem, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Block geometry of a call: threads, rows_pad (rows of the state), groups
+// (warp key groups) and whether it takes the chunk path.
+struct Geometry {
+  int threads, rows_pad, groups;
+  bool chunk;
+};
+
+Geometry geometry(int rows, int q_blk) {
+  Geometry g;
+  g.chunk = q_blk > 1;
+  if (!g.chunk) {
+    g.rows_pad = rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : 8;
+    g.groups = TILES;
+    g.threads = DEC_THREADS;
+    return g;
+  }
+  const int mt = (rows + 15) / 16;
+  g.rows_pad = mt * 16;
+  g.groups = (mt <= TILES && TILES % mt == 0) ? TILES / mt : 1;
+  g.threads = mt * g.groups * 32;
+  return g;
+}
+
+int smem_bytes(int rows, int q_blk, int hd, int quantized, int span_pages,
+               int* stages) {
+  const Geometry g = geometry(rows, q_blk);
+  // three stages while two blocks still fit on an SM, else two
+  for (int s = 3; s >= 2; --s) {
+    const Layout L = layout(hd, quantized, g.rows_pad, g.groups, span_pages,
+                            s, g.chunk);
+    if (s == 2 || L.total <= 113 * 1024) {
+      *stages = s;
+      return L.total;
+    }
+  }
+  return 0;
+}
+
 }  // namespace
+}  // namespace qmc_pa
+
+using namespace qmc_pa;
 
 extern "C" {
 
-// Shared memory bytes the kernel needs for one block (the wrapper checks
-// it against the 48 KB a block may use without opting in).
-int qmc_ragged_paged_attention_smem(int R, int hd, int page) {
-  return (int)sizeof(float) * (R * hd + 2 * page * hd + R * page + 3 * R);
+// Dynamic shared memory bytes one span block needs (R = q_blk * G rows).
+// The wrapper checks it against the 227 KB a block may opt into.
+int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int quantized,
+                                    int span_pages) {
+  int stages;
+  return smem_bytes(R, q_blk, hd, quantized, span_pages, &stages);
 }
 
 // q [B, S_pad, H, hd] fp32 (S_pad a multiple of q_blk); k/v pages
 // [n_pages, page, KV*hd] fp32, or int8 with bf16 scales [n_pages, page, KV];
 // tbl [B, P] int32; q_start / kv_len [B] int32. o [B, S_pad, H, hd] and
-// m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off.
-// Returns cudaGetLastError().
-int qmc_ragged_paged_attention(const void* q, const void* k_pages,
-                               const void* v_pages, const void* k_scale,
-                               const void* v_scale, const void* tbl,
-                               const void* q_start, const void* kv_len,
-                               void* o, void* m, void* l, int B, int S_pad,
-                               int H, int KV, int hd, int page, int P,
-                               int q_blk, int window, float softcap,
-                               float scale, int quantized, void* stream) {
-  const int R = q_blk * (H / KV);
-  const int smem = qmc_ragged_paged_attention_smem(R, hd, page);
-  dim3 grid(B, KV, S_pad / q_blk);
-  ragged_paged_attention_kernel<<<grid, PA_THREADS, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), k_pages, v_pages,
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const __nv_bfloat16*>(v_scale),
-      static_cast<const int32_t*>(tbl), static_cast<const int32_t*>(q_start),
-      static_cast<const int32_t*>(kv_len), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), S_pad, H, KV, hd, page,
-      P, q_blk, window, softcap, scale, quantized);
+// m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off. Spans
+// of span_pages pages (a multiple of 64 / page), n_spans = ceil(P /
+// span_pages); with n_spans > 1, po / pm / pl are the fp32 workspace
+// [n_spans, B, S_pad, H(, hd)]. Returns cudaGetLastError().
+int qmc_ragged_paged_attention(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* tbl,
+    const void* q_start, const void* kv_len, void* o, void* m, void* l,
+    void* po, void* pm, void* pl, int B, int S_pad, int H, int KV, int hd,
+    int page, int P, int q_blk, int window, float softcap, float scale,
+    int quantized, int span_pages, int n_spans, void* stream) {
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.k_pages = static_cast<const unsigned char*>(k_pages);
+  a.v_pages = static_cast<const unsigned char*>(v_pages);
+  a.k_scale = static_cast<const unsigned char*>(k_scale);
+  a.v_scale = static_cast<const unsigned char*>(v_scale);
+  a.tbl = static_cast<const int32_t*>(tbl);
+  a.q_start = static_cast<const int32_t*>(q_start);
+  a.kv_len = static_cast<const int32_t*>(kv_len);
+  a.o = static_cast<float*>(o);
+  a.m = static_cast<float*>(m);
+  a.l = static_cast<float*>(l);
+  a.po = static_cast<float*>(po);
+  a.pm = static_cast<float*>(pm);
+  a.pl = static_cast<float*>(pl);
+  a.B = B; a.S_pad = S_pad; a.H = H; a.KV = KV; a.hd = hd; a.page = page;
+  a.P = P; a.q_blk = q_blk; a.window = window; a.softcap = softcap;
+  a.scale = scale; a.quantized = quantized; a.span_pages = span_pages;
+  a.n_spans = n_spans;
+  const int rows = q_blk * (H / KV);
+  const Geometry g = geometry(rows, q_blk);
+  const int smem = smem_bytes(rows, q_blk, hd, quantized, span_pages,
+                              &a.stages);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_spans, B * KV, S_pad / q_blk);
+  const int rc = quantized ? launch_span<true>(grid, g.threads, smem, a, st)
+                           : launch_span<false>(grid, g.threads, smem, a, st);
+  if (rc != 0 || n_spans == 1) return rc;
+  const size_t rows_total = (size_t)B * S_pad * H;
+  attn_merge_kernel<<<(unsigned)((rows_total + 3) / 4), 128, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

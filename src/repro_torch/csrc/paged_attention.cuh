@@ -1,0 +1,294 @@
+// Shared pieces of the ragged paged-attention kernels (paged_attention.cu:
+// the chunk path, the span merge and the C entry points;
+// paged_attention_decode.cu: the decode path). The design note is at the
+// top of paged_attention.cu.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace qmc_pa {
+
+constexpr int STAGE_KEYS = 64;  // keys per ring stage
+constexpr int KEY_TILE = 16;    // keys per warp work item
+constexpr int TILES = STAGE_KEYS / KEY_TILE;
+constexpr int MAX_THREADS = 256;
+constexpr int DEC_THREADS = TILES * 32;  // decode path: a warp per key tile
+constexpr float NEG = -1e30f;  // the reference's mask value
+
+struct Args {
+  const float* q;
+  const unsigned char* k_pages;
+  const unsigned char* v_pages;
+  const unsigned char* k_scale;  // bf16 [n_pages, page, KV]
+  const unsigned char* v_scale;
+  const int32_t* tbl;
+  const int32_t* q_start;
+  const int32_t* kv_len;
+  float* o;   // [B, S_pad, H, hd]
+  float* m;   // [B, S_pad, H]
+  float* l;
+  float* po;  // [n_spans, B, S_pad, H, hd] partial o*l (n_spans > 1)
+  float* pm;  // [n_spans, B, S_pad, H]
+  float* pl;
+  int B, S_pad, H, KV, hd, page, P, q_blk, window;
+  float softcap, scale;
+  int quantized, span_pages, n_spans, stages;
+};
+
+// ---- shared-memory layout (host and device agree) ------------------------
+struct Layout {
+  int k_row, v_row;  // bytes per key row of K / V in a stage
+  int stage;         // bytes per stage
+  int tbl, ring, q, scratch, total;
+};
+
+__host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
+
+__host__ __device__ inline Layout layout(int hd, int quantized, int rows_pad,
+                                         int groups, int span_pages,
+                                         int stages, bool chunk) {
+  Layout L;
+  // padding makes the fragment loads conflict-free (see the note above)
+  L.k_row = quantized ? hd + 16 : (hd + 8) * 4;
+  L.v_row = quantized ? hd + 16 : (hd + 4) * 4;
+  L.stage = STAGE_KEYS * (L.k_row + L.v_row) + (quantized ? 2 * 4 * STAGE_KEYS : 0);
+  L.tbl = align16(span_pages * 4);
+  L.ring = stages * L.stage;
+  L.q = chunk ? 2 * rows_pad * (hd + 8) * 4 : 0;
+  // the warps' final states, written over the ring once it is drained
+  L.scratch = groups * rows_pad * (hd + 2) * 4;
+  L.total = L.tbl + (L.ring > L.scratch ? L.ring : L.scratch) + L.q;
+  return L;
+}
+
+// ---- PTX helpers -----------------------------------------------------------
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo + r, |r| < 2^-20 |x|: both parts keep 11 significant bits
+// (valid TF32), cut by masking (full-rate logic, not conversions)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+// byte j of w (an int8) as an exact float: 2^23 + (x + 128) - (2^23 + 128)
+__device__ __forceinline__ float i8_float(uint32_t w, int j) {
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4b000000u,
+                                     0x7540 | j)) - 8388736.f;
+}
+// c += a * b, m16n8k8, TF32 inputs, fp32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf16_half(uint32_t word, int odd) {
+  const uint16_t bits = odd ? (uint16_t)(word >> 16) : (uint16_t)word;
+  return __bfloat162float(__ushort_as_bfloat16(bits));
+}
+
+// Live pages of (lane b, q block qb): 0 for a dead q block. The kernel and
+// the merge pass both use it; kernels/paged_attention.py:span_plan mirrors it.
+__device__ __forceinline__ int live_pages(const Args& a, int b, int qb) {
+  const int kl = a.kv_len[b], qs = a.q_start[b];
+  if (qs + qb * a.q_blk >= kl) return 0;
+  const int limit = min(kl, qs + (qb + 1) * a.q_blk);
+  return (limit + a.page - 1) / a.page;
+}
+
+// Global row index of row r (= token * G + g) of (lane b, head h, block qb).
+__device__ __forceinline__ size_t out_row(const Args& a, int b, int h, int qb,
+                                          int r) {
+  const int G = a.H / a.KV;
+  const int tok = r / G, gg = r - tok * G;
+  return ((size_t)b * a.S_pad + qb * a.q_blk + tok) * a.H + h * G + gg;
+}
+
+__device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
+
+// One ring stage: keys [key0, key0 + 64) of the span (span-local), rows
+// past key_end zero-filled. K/V rows are 16-byte chunks; the scale of
+// (page id, slot, head) travels as the aligned 4-byte word holding it.
+// page and the chunks per row are powers of two.
+__device__ inline void load_stage(const Args& a, unsigned char* st, const Layout& L,
+                           const int* tbl_s, int key0, int key_end, int h) {
+  const int row_bytes = a.quantized ? a.hd : a.hd * 4;
+  const int c_log = ilog2(row_bytes >> 4);  // log2 chunks per row
+  const int n_log = c_log + 6;              // log2(STAGE_KEYS * chunks)
+  const int p_log = ilog2(a.page);
+  unsigned char* ks = st;
+  unsigned char* vs = st + STAGE_KEYS * L.k_row;
+  for (int i = threadIdx.x; i < (2 << n_log); i += blockDim.x) {
+    const int which = i >> n_log;  // 0: K, 1: V
+    const int j = i & ((1 << n_log) - 1);
+    const int row = j >> c_log, c = j & ((1 << c_log) - 1);
+    const int key = key0 + row;
+    const bool ok = key < key_end;
+    const unsigned char* base = which ? a.v_pages : a.k_pages;
+    const unsigned char* src = base;
+    if (ok) {
+      const size_t r = ((size_t)tbl_s[key >> p_log] * a.page +
+                        (key & (a.page - 1))) * a.KV + h;
+      src = base + r * row_bytes + c * 16;
+    }
+    unsigned char* dst =
+        (which ? vs + row * L.v_row : ks + row * L.k_row) + c * 16;
+    cp16(dst, src, ok ? 16 : 0);
+  }
+  if (a.quantized) {
+    uint32_t* sc = reinterpret_cast<uint32_t*>(
+        st + STAGE_KEYS * (L.k_row + L.v_row));
+    for (int i = threadIdx.x; i < 2 * STAGE_KEYS; i += blockDim.x) {
+      const int which = i >= STAGE_KEYS;
+      const int key = key0 + (i & (STAGE_KEYS - 1));
+      const bool ok = key < key_end;
+      const unsigned char* base = which ? a.v_scale : a.k_scale;
+      const unsigned char* src = base;
+      if (ok) {
+        const size_t e = ((size_t)tbl_s[key >> p_log] * a.page +
+                          (key & (a.page - 1))) * a.KV + h;
+        src = base + (e & ~(size_t)1) * 2;
+      }
+      cp4(sc + i, src, ok ? 4 : 0);
+    }
+  }
+}
+
+// Scale of span-local key `key` from its stage word (which: 0 K, 1 V).
+__device__ __forceinline__ float stage_scale(const Args& a,
+                                             const unsigned char* st,
+                                             const Layout& L, const int* tbl_s,
+                                             int key0, int row, int which,
+                                             int h) {
+  const uint32_t* sc =
+      reinterpret_cast<const uint32_t*>(st + STAGE_KEYS * (L.k_row + L.v_row));
+  const int key = key0 + row;
+  const size_t e = ((size_t)tbl_s[key >> ilog2(a.page)] * a.page +
+                    (key & (a.page - 1))) * a.KV + h;
+  return bf16_half(sc[which * STAGE_KEYS + row], (int)(e & 1));
+}
+
+__device__ __forceinline__ bool visible(const Args& a, int pos_q, int pos_k,
+                                        int kl) {
+  return pos_k <= pos_q && pos_k < kl && pos_q < kl &&
+         (a.window <= 0 || pos_q - pos_k < a.window);
+}
+
+// The span's epilogue: merge the warps' states (groups in order) and write
+// the final (o, m, l) (one span) or this span's partial.
+__device__ inline void epilogue(const Args& a, const float* scratch, int groups,
+                         int rows, int rows_pad, int b, int h, int qb, int sp,
+                         int n_sp) {
+  const int hd = a.hd;
+  const int stride = hd + 2;  // per row: hd accumulators, then m, l
+  const size_t rows_total = (size_t)a.B * a.S_pad * a.H;
+  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    float mx = NEG;
+    for (int gi = 0; gi < groups; ++gi)
+      mx = fmaxf(mx, scratch[((size_t)gi * rows_pad + r) * stride + hd]);
+    float acc = 0.f, lsum = 0.f;
+    for (int gi = 0; gi < groups; ++gi) {
+      const float* s = scratch + ((size_t)gi * rows_pad + r) * stride;
+      const float w = expf(s[hd] - mx);
+      acc += s[d] * w;
+      lsum += s[hd + 1] * w;
+    }
+    const size_t row = out_row(a, b, h, qb, r);
+    if (n_sp == 1) {
+      a.o[row * hd + d] = acc / fmaxf(lsum, 1e-30f);
+      if (d == 0) {
+        a.m[row] = mx;
+        a.l[row] = lsum;
+      }
+    } else {
+      const size_t prow = (size_t)sp * rows_total + row;
+      a.po[prow * hd + d] = acc;
+      if (d == 0) {
+        a.pm[prow] = mx;
+        a.pl[prow] = lsum;
+      }
+    }
+  }
+}
+
+__device__ inline void write_dead(const Args& a, int b, int h, int qb, int rows) {
+  for (int i = threadIdx.x; i < rows * a.hd; i += blockDim.x) {
+    const int r = i / a.hd, d = i - r * a.hd;
+    const size_t row = out_row(a, b, h, qb, r);
+    a.o[row * a.hd + d] = 0.f;
+    if (d == 0) {
+      a.m[row] = NEG;
+      a.l[row] = 0.f;
+    }
+  }
+}
+
+// Common prologue of both paths. Returns false when the block has no work.
+struct Span {
+  int b, h, qb, sp, n_sp, kl, q0, p0, n_keys, n_stages;
+};
+
+__device__ inline bool span_of(const Args& a, int rows, Span& s) {
+  s.sp = blockIdx.x;
+  s.b = blockIdx.y / a.KV;
+  s.h = blockIdx.y - s.b * a.KV;
+  s.qb = blockIdx.z;
+  const int n_live = live_pages(a, s.b, s.qb);
+  if (n_live == 0) {  // dead q block: its rows are exactly 0
+    if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
+    return false;
+  }
+  s.n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+  if (s.sp >= s.n_sp) return false;
+  s.p0 = s.sp * a.span_pages;
+  const int p1 = min(n_live, s.p0 + a.span_pages);
+  s.n_keys = (p1 - s.p0) * a.page;
+  s.n_stages = (s.n_keys + STAGE_KEYS - 1) / STAGE_KEYS;
+  s.kl = a.kv_len[s.b];
+  s.q0 = a.q_start[s.b] + s.qb * a.q_blk;
+  return true;
+}
+
+// ---- launch ----------------------------------------------------------------
+template <void (*KERNEL)(Args)>
+int launch(dim3 grid, int threads, int smem, const Args& a,
+           cudaStream_t stream) {
+  // above 48 KB a block's shared memory needs the opt-in, once per kernel
+  static int granted = 48 * 1024;
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
+  KERNEL<<<grid, threads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The decode path's launcher (paged_attention_decode.cu).
+int launch_decode_path(bool quantized, dim3 grid, int smem, const Args& a,
+                       cudaStream_t stream);
+
+}  // namespace qmc_pa

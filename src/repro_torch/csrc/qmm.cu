@@ -19,14 +19,31 @@
 //     row. N/128 strips is only 16 blocks at N = 2048, so K is split over
 //     blocks; the partial sums go to an fp32 workspace and a second pass
 //     adds them in a fixed order (deterministic, no atomics).
-//   * colstrip: arithmetic at M >= 128 (2*M FLOPs per code byte). Each
-//     block dequantizes 4 subtile rows at a time into a shared fp32
-//     staging tile (32 x 128) and runs an fp32 CUDA-core product with an
-//     8 x 8 register tile per thread. At N = 2048 and M = 128 there are
-//     only 16 output tiles, so K is split over blocks here too (same
-//     workspace and fixed-order second pass as decode) until about two
-//     blocks per SM are in flight. Tensor cores (wgmma) are later work;
-//     until then the fp32 peak (67 TFLOP/s) bounds it.
+//   * colstrip: arithmetic at M >= 128 (2*M FLOPs per code byte), so the
+//     product runs on tensor cores: mma.sync m16n8k8 TF32 (wgmma with a
+//     TMA ring is the full-rate route, later work). The weight side is
+//     exact: codes are integers of at most 5 bits, exact in TF32, and one
+//     8-deep k step covers exactly one subtile row of one stream (the
+//     block's 128 columns are one strip), so the block stages the raw
+//     codes, keeps two fp32 accumulators (inlier, outlier codes), picks
+//     one per k step by is_out (block-uniform), and applies scale_in /
+//     scale_out per column in the epilogue. x is then the only operand
+//     that rounds: fp32 x is split into TF32 hi + lo, two products per k
+//     step (one TF32 pass would round x to 2^-11, ~3e-4 max|y| at K =
+//     2048, above the 1e-4 tolerance); bf16 x is exact in one pass. A
+//     4-stage cp.async ring (16-byte copies) holds the 64 x 32 x tile and
+//     the 32 code rows (128 contiguous bytes each) of a step; the strip's
+//     is_out / stream_pos entries for the block's K range are read into
+//     shared memory once. Block = 64 x 128 output tile, 8 warps of 32 x 32;
+//     x rows are padded to 40 (fp32) / 20 (bf16) words and code rows to
+//     144 bytes, and the reduction index is permuted so each lane loads
+//     neighbouring values, which makes every fragment load conflict-free.
+//     At N = 2048 and M = 128 there are only 32 output tiles, so K is
+//     split over blocks (same workspace and fixed-order second pass as
+//     decode); kernels/qmm.py:colstrip_splits picks the split by rounds of
+//     resident blocks (two per SM) times K steps per block, which also
+//     evens out the last round (M = 512, N = 5632: 352 tiles x 3 splits
+//     = 4 full rounds of 264).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,15 +171,107 @@ __global__ void qmm_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// column strip: block = one 128 x 128 output tile
+// column strip: block = one 64 x 128 output tile (one 128-wide strip),
+// tensor cores (mma.sync m16n8k8 TF32) over the raw codes
 // ---------------------------------------------------------------------------
-constexpr int CS_BM = 128;
-constexpr int CS_BN = 128;
-constexpr int CS_BK = 32;  // 4 subtile rows per K step
-constexpr int CS_THREADS = 256;
+constexpr int CS_BM = 64;
+constexpr int CS_BN = SUB_C;  // one strip: every column shares is_out
+constexpr int CS_BK = 32;     // 4 subtile rows per ring stage
+constexpr int CS_STAGES = 4;
+constexpr int CS_THREADS = 256;  // 8 warps: 2 (M) x 4 (N), 32 x 32 each
+constexpr int CS_CODE_ROW = SUB_C + 16;  // bytes: conflict-free B loads
+
+// bytes per x row in a stage: 32 values plus padding that makes the A
+// fragment loads conflict-free (fp32: 40 words a row, bf16: 20)
+template <typename T> __host__ __device__ constexpr int cs_x_row() {
+  return sizeof(T) == 4 ? 160 : 80;
+}
+template <typename T> __host__ __device__ constexpr int cs_stage_bytes() {
+  return CS_BM * cs_x_row<T>() + CS_BK * CS_CODE_ROW;
+}
+template <typename T> int cs_smem_bytes(int k_per_split) {
+  return CS_STAGES * cs_stage_bytes<T>() + (k_per_split / SUB_R) * 4;
+}
+
+__device__ __forceinline__ void cs_cp16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+// byte j of w (an int8 code) as an exact float, without a conversion
+// instruction: 2^23 + (code + 128) - (2^23 + 128)
+__device__ __forceinline__ uint32_t cs_code(uint32_t w, int j) {
+  return __float_as_uint(__uint_as_float(__byte_perm(w ^ 0x80808080u,
+                                                     0x4b000000u, 0x7540 | j)) -
+                         8388736.f);
+}
+__device__ __forceinline__ void cs_mma(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments of one 8-deep k step for the warp's two m tiles. The
+// reduction index is permuted (k = tig <-> 2*tig, tig + 4 <-> 2*tig + 1)
+// so each lane reads two neighbouring x values at once. fp32 x is split
+// into TF32 hi + lo (two products, |x - hi - lo| < 2^-20 |x|); bf16 x is
+// exact in TF32 (lo unused).
+template <typename T>
+__device__ __forceinline__ void cs_a_frags(const unsigned char* xs, int kk,
+                                           int wm0, int g, int tig,
+                                           uint32_t (&hi)[2][4],
+                                           uint32_t (&lo)[2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    float v[4];  // (g, 2tig), (g+8, 2tig), (g, 2tig+1), (g+8, 2tig+1)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm0 + mt * 16 + g + 8 * h;
+      if (sizeof(T) == 4) {
+        const float2 p = *reinterpret_cast<const float2*>(
+            xs + r * cs_x_row<T>() + (kk * 8 + 2 * tig) * 4);
+        v[h] = p.x;
+        v[h + 2] = p.y;
+      } else {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            xs + r * cs_x_row<T>() + (kk * 8 + 2 * tig) * 2);
+        v[h] = __uint_as_float(w << 16);
+        v[h + 2] = __uint_as_float(w & 0xffff0000u);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (sizeof(T) == 4) {  // 11 significant bits each, cut by masking
+        hi[mt][e] = __float_as_uint(v[e]) & 0xffffe000u;
+        lo[mt][e] =
+            __float_as_uint(v[e] - __uint_as_float(hi[mt][e])) & 0xffffe000u;
+      } else {
+        hi[mt][e] = __float_as_uint(v[e]);
+      }
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(CS_THREADS)
+__device__ __forceinline__ void cs_kstep(float (&acc)[2][4][4],
+                                         const uint32_t (&hi)[2][4],
+                                         const uint32_t (&lo)[2][4],
+                                         const uint32_t (&b0)[4],
+                                         const uint32_t (&b1)[4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (sizeof(T) == 4) cs_mma(acc[mt][j], lo[mt], b0[j], b1[j]);
+      cs_mma(acc[mt][j], hi[mt], b0[j], b1[j]);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CS_THREADS, 2)
 qmm_colstrip_kernel(const T* __restrict__ x,
                     const int8_t* __restrict__ in_codes,
                     const int8_t* __restrict__ out_codes,
@@ -172,73 +281,129 @@ qmm_colstrip_kernel(const T* __restrict__ x,
                     const float* __restrict__ scale_out,
                     float* __restrict__ partial, T* __restrict__ y, int M,
                     int K, int N, int k_per_split) {
-  __shared__ float xs[CS_BK][CS_BM + 4];  // x tile, k-major
-  __shared__ float ws[CS_BK][CS_BN];      // dequantized staging tile
+  extern __shared__ __align__(16) unsigned char cs_smem[];
+  constexpr int STAGE = cs_stage_bytes<T>();
+  constexpr int XROW = cs_x_row<T>();
+  constexpr int XCH = 32 * (int)sizeof(T) / 16;  // 16-byte chunks per x row
+  int* tag = reinterpret_cast<int*>(cs_smem + CS_STAGES * STAGE);
 
   const int strip = blockIdx.x;
-  const int mt = blockIdx.y;
+  const int m0 = blockIdx.y * CS_BM;
   const int split = blockIdx.z;
   const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
+  const int n_steps = (k_end - k_begin) / CS_BK;
   const int gc = N / SUB_C;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int dc = threadIdx.x % CS_BN;  // staging column of this thread
-  const int dr0 = threadIdx.x / CS_BN;  // first staging row (0 or 1)
-  const float s_in = scale_in[strip * CS_BN + dc];
-  const float s_out = scale_out[strip * CS_BN + dc];
+  const int tid = threadIdx.x;
 
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += CS_BK) {
-#pragma unroll
-    for (int i = 0; i < (CS_BM * CS_BK) / CS_THREADS; ++i) {
-      const int idx = threadIdx.x + CS_THREADS * i;
-      const int m = idx / CS_BK, kk = idx % CS_BK;
-      xs[kk][m] = to_f32(x[(size_t)(mt * CS_BM + m) * K + k0 + kk]);
-    }
-#pragma unroll
-    for (int i = 0; i < CS_BK / 2; ++i) {
-      const int r = dr0 + 2 * i;
-      const int gi = (k0 + r) / SUB_R;
-      const int rr = (k0 + r) % SUB_R;
-      const int t = gi * gc + strip;
-      const bool o = is_out[t] != 0;
-      const int8_t* sub =
-          (o ? out_codes : in_codes) + (size_t)stream_pos[t] * SUB_ELEMS;
-      ws[r][dc] = (float)sub[rr * SUB_C + dc] * (o ? s_out : s_in);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < CS_BK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+  // the strip's stream entries for this K range, read once:
+  // (stream_pos << 1) | is_out per subtile row
+  const int gi0 = k_begin / SUB_R;
+  for (int i = tid; i < (k_end - k_begin) / SUB_R; i += CS_THREADS) {
+    const int t = (gi0 + i) * gc + strip;
+    tag[i] = (stream_pos[t] << 1) | (is_out[t] ? 1 : 0);
   }
-  // one split writes y; several write their fp32 partial sums
+  __syncthreads();
+
+  auto load = [&](int step) {
+    unsigned char* st = cs_smem + (step % CS_STAGES) * STAGE;
+    const int k0 = k_begin + step * CS_BK;
+    for (int i = tid; i < CS_BM * XCH; i += CS_THREADS) {
+      const int r = i / XCH, c = i - r * XCH;
+      cs_cp16(st + r * XROW + c * 16,
+              reinterpret_cast<const unsigned char*>(
+                  x + (size_t)(m0 + r) * K + k0) + c * 16);
+    }
+    unsigned char* cs = st + CS_BM * XROW;
+    const int r = tid >> 3, c = tid & 7;  // 32 code rows x 8 chunks
+    const int e = tag[(k0 - k_begin + r) / SUB_R];
+    const int8_t* base = (e & 1) ? out_codes : in_codes;
+    cs_cp16(cs + r * CS_CODE_ROW + c * 16,
+            base + (size_t)(e >> 1) * SUB_ELEMS + ((k0 + r) % SUB_R) * SUB_C +
+                c * 16);
+  };
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int wm0 = (warp >> 2) * 32;  // warp's first row in the tile
+  const int wn0 = (warp & 3) * 32;   // warp's first column in the strip
+  // two accumulators (inlier / outlier codes); scales in the epilogue.
+  // n tile j, mma column n <-> strip column wn0 + 4n + j, so one 32-bit
+  // load gives a lane its B values of all four n tiles
+  float acc_in[2][4][4], acc_out[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_in[mt][j][e] = acc_out[mt][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < CS_STAGES - 1; ++s) {
+    if (s < n_steps) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(CS_STAGES - 2) : "memory");
+    __syncthreads();  // this stage landed; the stage refilled below is free
+    if (step + CS_STAGES - 1 < n_steps) load(step + CS_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+    const unsigned char* xs = cs_smem + (step % CS_STAGES) * STAGE;
+    const unsigned char* cs = xs + CS_BM * XROW;
+    const int t0 = step * CS_BK / SUB_R;
+#pragma unroll
+    for (int kk = 0; kk < CS_BK / SUB_R; ++kk) {
+      uint32_t hi[2][4], lo[2][4], b0[4], b1[4];
+      cs_a_frags<T>(xs, kk, wm0, g, tig, hi, lo);
+      const int kr = kk * 8 + 2 * tig;
+      const uint32_t w0 =
+          *reinterpret_cast<const uint32_t*>(cs + kr * CS_CODE_ROW + wn0 + 4 * g);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+          cs + (kr + 1) * CS_CODE_ROW + wn0 + 4 * g);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // codes are exact in TF32
+        b0[j] = cs_code(w0, j);
+        b1[j] = cs_code(w1, j);
+      }
+      if (tag[t0 + kk] & 1)  // one subtile row of one stream: block-uniform
+        cs_kstep<T>(acc_out, hi, lo, b0, b1);
+      else
+        cs_kstep<T>(acc_in, hi, lo, b0, b1);
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // epilogue: y = s_in * acc_in + s_out * acc_out per column; lane holds
+  // columns wn0 + 8 tig + [0, 8) of rows g, g + 8 of each m tile
+  const int col0 = strip * SUB_C + wn0 + 8 * tig;
+  float si[8], so[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    si[c] = scale_in[col0 + c];
+    so[c] = scale_out[col0 + c];
+  }
   float* part = partial ? partial + (size_t)split * M * N : nullptr;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const size_t at =
-          (size_t)(mt * CS_BM + ty + 16 * i) * N + strip * CS_BN + tx + 16 * j;
-      if (part)
-        part[at] = acc[i][j];
-      else
-        y[at] = from_f32<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + wm0 + mt * 16 + g + 8 * h;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = si[j] * acc_in[mt][j][2 * h] + so[j] * acc_out[mt][j][2 * h];
+        v[4 + j] = si[4 + j] * acc_in[mt][j][2 * h + 1] +
+                   so[4 + j] * acc_out[mt][j][2 * h + 1];
+      }
+      const size_t at = (size_t)r * N + col0;
+      if (part) {
+        float4* p = reinterpret_cast<float4*>(part + at);
+        p[0] = make_float4(v[0], v[1], v[2], v[3]);
+        p[1] = make_float4(v[4], v[5], v[6], v[7]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) y[at + c] = from_f32<T>(v[c]);
+      }
     }
 }
 
@@ -280,8 +445,18 @@ int launch_colstrip(const void* x, const void* in_codes,
                     const void* scale_out, void* partial, void* y, int M,
                     int K, int N, int splits, int k_per_split,
                     cudaStream_t stream) {
+  const int smem = cs_smem_bytes<T>(k_per_split);
+  // above 48 KB a block's shared memory needs the opt-in, once per type
+  static int granted = 48 * 1024;
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm_colstrip_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
   dim3 grid(N / CS_BN, M / CS_BM, splits);
-  qmm_colstrip_kernel<T><<<grid, CS_THREADS, 0, stream>>>(
+  qmm_colstrip_kernel<T><<<grid, CS_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(in_codes),
       static_cast<const int8_t*>(out_codes),
       static_cast<const int32_t*>(stream_pos),
@@ -317,7 +492,8 @@ int qmc_qmm_decode(const void* x, int x_bf16, const void* in_codes,
                               splits, rows_per_split, s);
 }
 
-// k_per_split is a multiple of 32; with splits == 1 partial is unused.
+// M a multiple of 64; k_per_split a multiple of 32; x 16-byte aligned;
+// with splits == 1 partial is unused.
 int qmc_qmm_colstrip(const void* x, int x_bf16, const void* in_codes,
                      const void* out_codes, const void* stream_pos,
                      const void* is_out, const void* scale_in,

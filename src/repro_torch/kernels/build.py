@@ -44,10 +44,9 @@ _SIGNATURES = {
                        _I, _I, _I, _I, _I, _P],
     "qmc_qmm_colstrip": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
-    "qmc_ragged_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                   _F, _F, _I, _P],
-    "qmc_ragged_paged_attention_smem": [_I, _I, _I],
+    "qmc_ragged_paged_attention": [_P] * 14 + [_I] * 9 + [_F, _F]
+                                  + [_I] * 3 + [_P],
+    "qmc_ragged_paged_attention_smem": [_I] * 5,
     "qmc_unpack3b": [_P, _P, _L, _P],
 }
 

@@ -1,5 +1,6 @@
 """Wrapper of the ragged paged-attention kernel
-(``csrc/paged_attention.cu``), the counterpart of
+(``csrc/paged_attention.cu``; its decode path in
+``csrc/paged_attention_decode.cu``), the counterpart of
 ``repro.kernels.paged_attention.ragged_paged_attention``.
 
 ONE kernel serves every attention read of the serving step: decode lanes
@@ -10,10 +11,13 @@ the pages of ``block_tbl[b]`` causally, bounded by ``kv_len[b]``; query
 rows at or past ``kv_len`` emit exactly 0.
 
 The kernel walks each (lane, KV head, q block of ``Q_BLOCK`` tokens)'s
-causally live pages only. ``Q_BLOCK`` is mirrored by the host-side stream
-account (``memsys.workload.chunk_pages_streamed`` and the engine's
-``prefill_kv_pages_live`` counter), which must stay page-for-page with
-the kernel's loop bound.
+causally live pages only (``live_pages``). ``Q_BLOCK`` is mirrored by the
+host-side stream account (``memsys.workload.chunk_pages_streamed`` and the
+engine's ``prefill_kv_pages_live`` counter), which must stay page-for-page
+with the kernel's loop bound. The live pages are cut into spans of
+``span_pages`` pages, one block each (split-KV); ``span_plan`` lists the
+page ranges the span blocks walk, and the kernel's second pass merges the
+spans of a row in span order.
 
 On a CPU tensor the wrapper runs the plain version
 (``kernels.ref.ragged_paged_attention_ref``); on a CUDA tensor it
@@ -21,6 +25,7 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -30,8 +35,50 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import ragged_paged_attention_ref
 
 Q_BLOCK = 16
-_ACC_LIMIT = 32 * 128     # R * hd the kernel's register accumulator holds
-_SMEM_LIMIT = 48 * 1024   # shared memory a block may use without opt-in
+STAGE_KEYS = 64           # keys per stage of the kernel's page ring
+_BLOCKS_PER_SM = 2        # span blocks in flight per SM the split aims for
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
+_DECODE_HD = (32, 64, 128, 256)   # decode path: hd / 32 dims per lane
+_CHUNK_HD = (32, 64, 128)         # chunk path: hd / 8 mma n tiles
+_MAX_G = 8                # decode rows (G) / chunk 16-row m tiles
+
+
+def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
+               page: int) -> int:
+    """Causally live pages of q block ``qb`` of one lane: 0 when the block
+    is dead (its first position is at or past ``kv_len``), else
+    ``ceil(min(kv_len, q_start + (qb+1)*q_blk) / page)``."""
+    if q_start + qb * q_blk >= kv_len:
+        return 0
+    return -(-min(kv_len, q_start + (qb + 1) * q_blk) // page)
+
+
+def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132
+               ) -> int:
+    """Pages per span: the ``n_items`` (lane, KV head, q block) work items
+    times the spans of a full ``n_tbl``-page table come to about
+    ``_BLOCKS_PER_SM`` blocks per SM; a span is whole ring stages."""
+    unit = max(1, STAGE_KEYS // page)
+    want = max(1, -(-_BLOCKS_PER_SM * n_sm // max(n_items, 1)))
+    per = -(-max(n_tbl, 1) // want)
+    return max(unit, -(-per // unit) * unit)
+
+
+def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int
+              ) -> list:
+    """The page ranges ``[p0, p1)`` the span blocks of each (lane, q block)
+    walk, per lane and q block, for queries of width ``s`` (what the
+    kernel computes on the card from the same rule)."""
+    q_blk = min(Q_BLOCK, s)
+    out = []
+    for qs, kl in zip(q_start, kv_len):
+        lane = []
+        for qb in range(-(-s // q_blk)):
+            n = live_pages(int(qs), int(kl), qb, q_blk, page)
+            lane.append([(p0, min(n, p0 + n_span_pages))
+                         for p0 in range(0, n, n_span_pages)])
+        out.append(lane)
+    return out
 
 
 def _check(q, cache, n_kv, head_dim):
@@ -61,8 +108,30 @@ def _check(q, cache, n_kv, head_dim):
     if tbl.dtype != torch.int32 or tbl.ndim != 2 or tbl.shape[0] != b:
         raise TypeError("block_tbl must be int32 [B, P]")
     for t in tensors:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"arena leaves must be contiguous on {q.device}")
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"arena leaves must be contiguous and 16-byte "
+                             f"aligned on {q.device}")
+    page = kp.shape[1]
+    if STAGE_KEYS % page:
+        raise ValueError(f"page size {page} must divide {STAGE_KEYS}")
+    if quantized and (hd % 16 or ks.numel() % 2):
+        raise ValueError("int8 pages need hd % 16 == 0 and an even number "
+                         "of scales (16-byte rows, 4-byte scale words)")
+    g = h // n_kv
+    q_blk = min(Q_BLOCK, q.shape[1])
+    if q_blk == 1 and (hd not in _DECODE_HD or g > _MAX_G):
+        raise ValueError(f"decode path takes hd in {_DECODE_HD} and G <= "
+                         f"{_MAX_G}, got hd {hd}, G {g}")
+    if q_blk > 1 and (hd not in _CHUNK_HD or -(-q_blk * g // 16) > _MAX_G):
+        raise ValueError(f"chunk path takes hd in {_CHUNK_HD} and "
+                         f"{q_blk} x G <= {16 * _MAX_G} rows, got hd {hd}, "
+                         f"G {g}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ragged_paged_attention_call(
@@ -83,38 +152,50 @@ def ragged_paged_attention_call(
     q_blk = min(Q_BLOCK, s)
     qb_n = -(-s // q_blk)
     s_pad = qb_n * q_blk
-    if q_blk * g * hd > _ACC_LIMIT:
-        raise ValueError(f"q block of {q_blk * g} rows x hd {hd} exceeds "
-                         f"the kernel's {_ACC_LIMIT}-value accumulator")
     lib = build.library()
-    page = cache["k_pages"].shape[1]
-    smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, hd, page)
+    tbl = cache["block_tbl"]
+    page, n_tbl = cache["k_pages"].shape[1], tbl.shape[1]
+    quantized = "k_scale_pages" in cache
+    n_sm = _sm_count(q.device)
+    sp = span_pages(b * n_kv * qb_n, n_tbl, page, n_sm)
+    n_spans = max(1, -(-n_tbl // sp))
+    smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd,
+                                               int(quantized), sp)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"kernel needs {smem} B of shared memory "
                          f"(> {_SMEM_LIMIT})")
     qp = q if s_pad == s else F.pad(q, (0, 0, 0, 0, 0, s_pad - s))
     qp = qp.contiguous()
+    if qp.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned (the kernel copies q "
+                         "rows in 16-byte pieces)")
     qs = q_start.to(device=q.device, dtype=torch.int32).contiguous()
     kl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     if qs.shape != (b,) or kl.shape != (b,):
         raise ValueError("q_start and kv_len must be [B]")
-    o = torch.empty((b, s_pad, h, hd), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, s_pad, h), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((b, s_pad, h, hd), **f32)
+    m = torch.empty((b, s_pad, h), **f32)
     l = torch.empty_like(m)
-    quantized = "k_scale_pages" in cache
+    po = pm = pl = None
+    if n_spans > 1:   # the spans' partial (o * l, m, l), merged in order
+        po = torch.empty((n_spans, b, s_pad, h, hd), **f32)
+        pm = torch.empty((n_spans, b, s_pad, h), **f32)
+        pl = torch.empty_like(pm)
     ks = cache["k_scale_pages"].data_ptr() if quantized else None
     vs = cache["v_scale_pages"].data_ptr() if quantized else None
-    tbl = cache["block_tbl"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.qmc_ragged_paged_attention(
             qp.data_ptr(), cache["k_pages"].data_ptr(),
             cache["v_pages"].data_ptr(), ks, vs, tbl.data_ptr(),
             qs.data_ptr(), kl.data_ptr(), o.data_ptr(), m.data_ptr(),
-            l.data_ptr(), b, s_pad, h, n_kv, hd, page, tbl.shape[1], q_blk,
+            l.data_ptr(), *(t.data_ptr() if t is not None else None
+                            for t in (po, pm, pl)),
+            b, s_pad, h, n_kv, hd, page, n_tbl, q_blk,
             int(window) if window is not None else 0,
             float(attn_softcap) if attn_softcap else 0.0,
-            float(hd) ** -0.5, int(quantized), stream)
+            float(hd) ** -0.5, int(quantized), sp, n_spans, stream)
     build.check(rc, "ragged_paged_attention")
     build.count_launch("ragged_paged_attention")
     return o[:, :s], m[:, :s], l[:, :s]

@@ -35,12 +35,29 @@ def decode_splits(m: int, k: int, n: int) -> Tuple[int, int]:
     return _k_splits((n // 128) * (m // 8), k // 8, 8)
 
 
+COLSTRIP_BM = 64   # rows of the column-strip kernel's output tile
+_SPLIT_SLACK = 1.05   # modeled cost a column-strip plan may trade for
+                      # fewer K splits
+
+
 def colstrip_splits(m: int, k: int, n: int) -> Tuple[int, int]:
     """(K splits, K rows per split) of the column-strip kernel: its
-    (N/128) x (M/128) tiles split over K in 32-row steps, >= 8 steps
-    (256 rows) each."""
-    splits, steps = _k_splits((n // 128) * (m // 128), k // 32, 8)
-    return splits, steps * 32
+    (N/128) x (M/64) output tiles split over K in 32-row steps, >= 8 steps
+    (256 rows) each. The cost of a split is its rounds of
+    ``_TARGET_BLOCKS`` resident blocks times K steps per block; the fewest
+    splits within ``_SPLIT_SLACK`` of the least cost are taken, since each
+    split adds an M x N fp32 partial to write and sum."""
+    tiles = (n // 128) * (m // COLSTRIP_BM)
+    steps = k // 32
+    plans = {}
+    for want in range(1, max(1, steps // 8) + 1):
+        per = -(-steps // want)
+        splits = -(-steps // per)
+        plans[splits] = (-(-tiles * splits // _TARGET_BLOCKS) * per, per)
+    least = min(cost for cost, _ in plans.values())
+    splits = min(s for s, (cost, _) in plans.items()
+                 if cost <= _SPLIT_SLACK * least)
+    return splits, plans[splits][1] * 32
 
 
 def _check(x: torch.Tensor, qt: QTensor, m_multiple: int) -> None:
@@ -48,8 +65,9 @@ def _check(x: torch.Tensor, qt: QTensor, m_multiple: int) -> None:
         raise ValueError(f"expected a CUDA tensor, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if x.ndim != 2 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous [M, K] tensor")
+    if x.ndim != 2 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be a contiguous, 16-byte aligned [M, K] "
+                         "tensor")
     m, k = x.shape
     if tuple(qt.subtile) != (8, 128):
         raise ValueError(f"kernel takes (8, 128) subtiles, got {qt.subtile}")

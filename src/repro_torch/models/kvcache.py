@@ -46,7 +46,7 @@ def paged_attn_cache(cfg, n_pages: int, page: int, max_slots: int,
 
 def paged_init_cache(cfg, n_pages: int, page: int, max_slots: int,
                      max_pages_per_seq: int, dtype=torch.float32,
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
     """Paged pool: ``{"b<i>": {"attn": {...}}}``, leaves with a leading
     n_groups dim (the JAX layout). ``n_pages`` includes the null page."""
     out = {}

@@ -16,6 +16,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.memsys.workload import pages_for  # noqa: F401
 from repro_torch.models import kvcache as KV
 from repro_torch.models.config import ModelConfig
@@ -38,7 +39,7 @@ class PagedKVPool:
 
     def __init__(self, cfg: ModelConfig, *, n_pages: int, page: int,
                  max_slots: int, max_pages_per_seq: int,
-                 cache_dtype=torch.float32, device="cpu"):
+                 cache_dtype=torch.float32, device="cuda"):
         if page & (page - 1):
             raise ValueError(f"page size must be a power of 2, got {page}")
         self.cfg = cfg
@@ -47,7 +48,7 @@ class PagedKVPool:
         self.max_slots = max_slots
         self.max_pages_per_seq = max_pages_per_seq
         self.cache_dtype = cache_dtype
-        self.device = device
+        self.device = resolve_device(device)
         self.free: deque = deque(range(1, n_pages + 1))
         self._free_set = set(self.free)
         self.ref = np.zeros(n_pages + 1, np.int32)

@@ -1,0 +1,127 @@
+"""Host-side planning of the port's split kernels, on the CPU.
+
+The ragged paged-attention kernel cuts each (lane, KV head, q block)'s
+causally live pages into spans, one block each, and merges them in span
+order; the column-strip qmm splits K over blocks. Both plans are plain
+Python (``kernels.paged_attention.span_pages`` / ``span_plan`` /
+``live_pages``, ``kernels.qmm.colstrip_splits``) that the kernels mirror.
+These tests hold the attention plan to the stream account the serving
+engine keeps: every causally live page is visited exactly once, and the
+live-page total equals ``memsys.workload.chunk_pages_streamed`` (the
+engine's ``prefill_kv_pages_live`` counter), in the port and in the JAX
+package."""
+import numpy as np
+import pytest
+
+from repro.memsys.workload import chunk_pages_streamed as jax_streamed
+from repro_torch.kernels.paged_attention import (Q_BLOCK, STAGE_KEYS,
+                                                 live_pages, span_pages,
+                                                 span_plan)
+from repro_torch.kernels.qmm import COLSTRIP_BM, colstrip_splits
+from repro_torch.memsys.workload import chunk_pages_streamed
+
+
+def _lanes(seed: int, n: int, s: int, max_start: int):
+    """Random (q_start, n_new) lanes for a step of width s: idle lanes,
+    decode lanes and chunks of up to s tokens."""
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for _ in range(n):
+        kind = rng.integers(3)
+        n_new = 0 if kind == 0 else 1 if kind == 1 else int(
+            rng.integers(1, s + 1))
+        lanes.append((int(rng.integers(0, max_start)), n_new))
+    return lanes
+
+
+CASES = [  # (seed, lanes, S, page, max start, SMs)
+    (0, 4, 1, 16, 4096, 132),      # long-context decode
+    (1, 4, 128, 16, 256, 132),     # prefill chunks
+    (2, 8, 64, 16, 512, 132),      # a mixed ragged step
+    (3, 6, 40, 8, 300, 132),
+    (4, 5, 17, 32, 700, 16),       # few SMs: many spans
+    (5, 3, 1, 64, 9000, 132),
+    (6, 7, 3, 2, 90, 132),
+]
+
+
+@pytest.mark.parametrize("seed,n,s,page,max_start,n_sm", CASES)
+def test_span_plan_visits_every_live_page_once(seed, n, s, page, max_start,
+                                               n_sm):
+    lanes = _lanes(seed, n, s, max_start)
+    q_start = [a for a, _ in lanes]
+    kv_len = [a + b for a, b in lanes]
+    q_blk = min(Q_BLOCK, s)
+    qb_n = -(-s // q_blk)
+    n_tbl = max(-(-kl // page) for kl in kv_len) + 1
+    sp = span_pages(n * 4 * qb_n, n_tbl, page, n_sm)
+    plan = span_plan(q_start, kv_len, s, page, sp)
+    for (qs, kl), lane in zip(zip(q_start, kv_len), plan):
+        assert len(lane) == qb_n
+        for qb, spans in enumerate(lane):
+            q0 = qs + qb * q_blk
+            # pages causally visible to some live row of the block
+            want = set()
+            for pos_q in range(q0, min(kl, q0 + q_blk)):
+                want |= {p for p in range(n_tbl) if p * page <= pos_q}
+            visited = [p for p0, p1 in spans for p in range(p0, p1)]
+            assert len(visited) == len(set(visited))      # once each
+            assert set(visited) == want                   # all, no more
+            assert len(spans) <= -(-n_tbl // sp)          # within the grid
+            assert all(p1 - p0 <= sp for p0, p1 in spans)
+            assert len(visited) == live_pages(qs, kl, qb, q_blk, page)
+
+
+@pytest.mark.parametrize("seed,n,s,page,max_start,n_sm", CASES)
+def test_span_plan_total_is_the_engines_stream_account(seed, n, s, page,
+                                                       max_start, n_sm):
+    lanes = _lanes(seed, n, s, max_start)
+    q_start = [a for a, _ in lanes]
+    kv_len = [a + b for a, b in lanes]
+    n_tbl = max(-(-kl // page) for kl in kv_len) + 1
+    for sp in (1, span_pages(n * 4, n_tbl, page, n_sm), n_tbl + 5):
+        plan = span_plan(q_start, kv_len, s, page, sp)
+        for (qs, n_new), lane in zip(lanes, plan):
+            total = sum(p1 - p0 for spans in lane for p0, p1 in spans)
+            if s >= Q_BLOCK or n_new <= 1:
+                # the engine's q block: 16 tokens (a decode step's width
+                # 1 covers the same pages)
+                assert total == chunk_pages_streamed(qs, n_new, page=page)
+                assert total == jax_streamed(qs, n_new, page=page)
+            assert total == chunk_pages_streamed(qs, n_new, page=page,
+                                                 q_block=min(Q_BLOCK, s))
+
+
+@pytest.mark.parametrize("page", [1, 2, 8, 16, 32, 64])
+@pytest.mark.parametrize("n_items,n_tbl,n_sm", [
+    (128, 256, 132), (1024, 17, 132), (4, 1, 132), (1, 4096, 132),
+    (128, 17, 132), (256, 300, 16)])
+def test_span_pages_are_whole_ring_stages(page, n_items, n_tbl, n_sm):
+    sp = span_pages(n_items, n_tbl, page, n_sm)
+    assert sp * page % STAGE_KEYS == 0 or page > STAGE_KEYS
+    assert sp >= 1
+    n_spans = -(-n_tbl // sp)
+    # enough blocks to fill the card unless the table runs out of stages
+    unit = max(1, STAGE_KEYS // page)
+    if sp > unit:
+        assert n_items * n_spans >= 2 * n_sm or n_spans * sp >= n_tbl
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 2048), (128, 5632, 2048),
+                                   (512, 2048, 5632), (512, 5632, 2048),
+                                   (512, 2048, 100352), (256, 2048, 2048)])
+def test_colstrip_split_takes_the_fewest_rounds(m, k, n):
+    """No feasible split (>= 8 K steps each) needs 5% fewer rounds of 264
+    resident blocks times K steps per block than the one taken; the
+    lm_head's 784 strips fill the card unsplit."""
+    splits, rows = colstrip_splits(m, k, n)
+    assert splits == 1 or n < 100352
+    tiles = (n // 128) * (m // COLSTRIP_BM)
+    assert rows % 32 == 0 and splits * rows >= k > (splits - 1) * rows
+
+    def cost(s, per):
+        return -(-tiles * s // 264) * per
+    steps = k // 32
+    for want in range(1, steps // 8 + 1):
+        per = -(-steps // want)
+        assert cost(splits, rows // 32) <= 1.05 * cost(-(-steps // per), per)

@@ -48,6 +48,16 @@ def gen():
     return g
 
 
+def _from_chip_smoke(name):
+    """A case builder of chip_smoke.py (the same inputs on both)."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    return getattr(chip_smoke, name)
+
+
 def _streams(k, n, gen):
     w = torch.randn((k, n), generator=gen, device="cuda") / k ** 0.5
     big = torch.rand((k, n), generator=gen, device="cuda") < 0.002
@@ -71,6 +81,43 @@ def test_qmm_kernels_match_plain(gen, m, k, n, dtype):
     assert kops.path_counts[path] == 1 and kops.path_counts["ref"] == 0
     assert build.launches[f"qmm_{path}"] == 1
     assert y.dtype == dtype and y.shape == (m, n)
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("pattern", ["all-inlier", "all-outlier",
+                                     "checkerboard"])
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 2048), (256, 5632, 2048),
+                                   (512, 2048, 5632), (128, 2048, 100352)],
+                         ids=["split-K", "split-K-5632", "split-K-512",
+                              "no-split"])
+def test_colstrip_stream_patterns(gen, m, k, n, pattern, dtype):
+    qt = _from_chip_smoke("patterned_qtensor")(k, n, pattern, gen)
+    splits, _ = kqmm.colstrip_splits(m, k, n)
+    assert (splits > 1) == (n < 100352)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    build.reset_launches()
+    y = kqmm.qmm_colstrip(x, qt)
+    again = kqmm.qmm_colstrip(x, qt)
+    want = qmm_ref(x, qt)
+    torch.cuda.synchronize()
+    assert build.launches["qmm_colstrip"] == 2
+    assert torch.equal(y, again)                      # deterministic
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_colstrip_lm_head_width(gen, dtype):
+    """N = 100352, the full-width lm_head (K split off at M = 512)."""
+    qt = _streams(2048, 100352, gen)
+    x = torch.randn((512, 2048), generator=gen, device="cuda").to(dtype)
+    y = kqmm.qmm_colstrip(x, qt)
+    want = qmm_ref(x, qt)
+    torch.cuda.synchronize()
     err = (y.float() - want.float()).abs().max().item()
     assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
 
@@ -99,13 +146,9 @@ def test_qmm_wrappers_refuse_what_the_kernels_do_not_take(gen):
 
 
 def _attn_case(lanes, *, n_kv, g, hd, page, quantized, gen):
-    sys.path.insert(0, str(ROOT))
-    try:
-        from chip_smoke import make_attn_case
-    finally:
-        sys.path.remove(str(ROOT))
-    return make_attn_case(lanes, n_kv=n_kv, g=g, hd=hd, page=page,
-                          quantized=quantized, gen=gen)
+    return _from_chip_smoke("make_attn_case")(
+        lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quantized,
+        gen=gen)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
@@ -129,6 +172,69 @@ def test_attention_kernel_matches_plain(gen, lanes, n_kv, g, window, cap,
     for got, want in ((o, o_r), (m, m_r), (l, l_r)):
         torch.testing.assert_close(got[valid], want[valid], atol=1e-5,
                                    rtol=1e-4)
+
+
+def _attn_check(lanes, *, n_kv, g, quantized, gen, window=None, cap=None,
+                page=16, hd=64):
+    """Kernel vs plain on one ragged case; returns the kernel's o. Rows at
+    or past kv_len must be exactly 0 (m = -1e30, l = 0), two calls
+    bit-identical."""
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quantized,
+        gen=gen)
+    kw = dict(n_kv=n_kv, head_dim=hd, window=window, attn_softcap=cap)
+    build.reset_launches()
+    o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    o2, m2, l2 = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    o_r, m_r, l_r = ragged_paged_attention_ref(q, cache, qs, kl, **kw)
+    torch.cuda.synchronize()
+    assert build.launches["ragged_paged_attention"] == 2
+    assert torch.equal(o, o2) and torch.equal(m, m2) and torch.equal(l, l2)
+    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
+    assert (o[~valid] == 0).all() and (l[~valid] == 0).all()
+    assert (m[~valid] == -1e30).all()
+    for got, want in ((o, o_r), (m, m_r), (l, l_r)):
+        torch.testing.assert_close(got[valid], want[valid], atol=1e-5,
+                                   rtol=1e-4)
+    return o
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+@pytest.mark.parametrize("kv", [1, 15, 16, 17, 4096])
+def test_attention_kv_len_edges(gen, kv, path, quantized):
+    """kv_len = 1, page - 1, page, page + 1 and 4096 (StableLM-2-1.6B's
+    context; split over several spans) on the decode path (S = 1) and the
+    chunk path (the last min(16, kv) positions as one q block, beside a
+    16-token lane so that S = 16 even at kv_len 1)."""
+    if path == "decode":
+        lanes = ((kv - 1, 1), (0, 0), (kv // 2, 1))
+    else:
+        n = min(16, kv)
+        lanes = ((kv - n, n), (0, 0), (40, 16))
+    _attn_check(lanes, n_kv=4, g=1, quantized=quantized, gen=gen)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_attention_chunk_straddles_spans_with_window_and_gqa4(gen,
+                                                              quantized):
+    """One lane, one KV head, G = 4: the single work item is split into
+    spans of one ring stage (64 keys), so the q block at positions 200-215
+    (14 live pages) straddles four spans, and its window of 70 keys crosses
+    the span boundary at key 128; softcap on."""
+    from repro_torch.kernels.paged_attention import span_pages
+    assert span_pages(1, 15, 16) == 4                 # 4 pages = 64 keys
+    _attn_check(((200, 16),), n_kv=1, g=4, quantized=quantized, gen=gen,
+                window=70, cap=30.0)
+    _attn_check(((200, 16),), n_kv=1, g=4, quantized=quantized, gen=gen)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
+def test_attention_long_context_decode_mixed_lengths(gen, quantized):
+    """Decode lanes at kv_len up to 4096 beside short and idle lanes: the
+    long lanes take several spans merged in order, the short ones one."""
+    lanes = ((4095, 1), (2047, 1), (5, 1), (0, 0), (3000, 1))
+    _attn_check(lanes, n_kv=8, g=2, quantized=quantized, gen=gen)
 
 
 def test_attention_wrapper_refuses_bf16_queries(gen):
