@@ -11,9 +11,12 @@ Phases (each prints its own lines; any failure exits nonzero):
                 at the main path's shapes, with its time, the plain
                 version's, a library call's (yardstick only; the
                 kernel/library ratio is what compares across cards) and
-                its bound; the column-strip qmm also on all-inlier,
-                all-outlier and checkerboard weights, attention also on
-                decode lanes at kv_len up to 4096 (split over spans);
+                its bound; the decode-width qmm also at M=64 (eight M
+                tiles) and both qmm kernels on all-inlier, all-outlier
+                and checkerboard weights, attention also on decode lanes
+                at kv_len up to 4096 (split over spans); and the time of
+                an empty kernel launch, the floor under any one-launch
+                call;
   4. serve    — full-width stablelm-1.6b (random weights from a seed, QMC
                 PTQ on the card), 8 requests through the paged engine with
                 the qmm streams and paged attention; every kernel of the
@@ -31,7 +34,9 @@ Phases (each prints its own lines; any failure exits nonzero):
                 the fig4 memory co-design rows for hymba-1.5b.
 
 The line before the last is a JSON object with one row per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+last line is ``{"ok": true, "device": {...}}``. ``--decode-only`` runs
+phases 1-3 for the decode-width qmm alone (its rows and the empty launch)
+and prints no such lines: a quick measurement while the kernel changes. Without a CUDA device, or
 copied somewhere without ``src/repro_torch`` beside it, the script exits
 nonzero before printing any result.
 """
@@ -67,7 +72,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     ragged_paged_attention_call)
-from repro_torch.kernels.qmm import qmm_colstrip, qmm_decode  # noqa: E402
+from repro_torch.kernels.qmm import (empty_launch,  # noqa: E402
+                                     qmm_colstrip, qmm_decode)
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
                                      ragged_paged_attention_ref,
                                      unpack3b_ref)
@@ -212,13 +218,20 @@ def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
     return row
 
 
-def check_qmm(timer, peak, gen, rows):
+def check_qmm(timer, peak, gen, rows, decode_only=False):
+    """Both qmm kernels at the main path's shapes: decode at M = 1, 4, 7
+    (padded to 8) and, for the 2048 x 5632 MLP projection, M = 64 (the
+    width ladder's C = 16 rung at 4 slots: eight M tiles); colstrip at
+    M = 128 and 512."""
     for k, n in QMM_SHAPES:
         qt = quantize_qtensor(make_weight(k, n, gen), QMCConfig(
             rho=0.3, granularity="subtile"))
         w_dense = dequantize_qtensor(qt, torch.float32)
-        cases = [("qmm_decode", m, qmm_decode, 8) for m in (1, 4, 7)] + \
-                [("qmm_colstrip", m, qmm_colstrip, 128) for m in (128, 512)]
+        ms = (1, 4, 7, 64) if (k, n) == (2048, 5632) else (1, 4, 7)
+        cases = [("qmm_decode", m, qmm_decode, 8) for m in ms]
+        if not decode_only:
+            cases += [("qmm_colstrip", m, qmm_colstrip, 128)
+                      for m in (128, 512)]
         for name, m, kernel, mult in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 pad = -(-m // mult) * mult
@@ -232,8 +245,8 @@ def check_qmm(timer, peak, gen, rows):
 
 def patterned_qtensor(k, n, pattern, gen):
     """Random codes whose subtiles are all inlier, all outlier, or a
-    checkerboard of both (the column-strip kernel picks its accumulator
-    per 8-deep k step by is_out)."""
+    checkerboard of both (both qmm kernels pick an accumulator per
+    subtile row by is_out)."""
     gr, gc = k // 8, n // 128
     ij = np.add.outer(np.arange(gr), np.arange(gc))
     mask = {"all-inlier": ij < 0, "all-outlier": ij >= 0,
@@ -261,19 +274,35 @@ def patterned_qtensor(k, n, pattern, gen):
                    bits_in=3, bits_out=5, subtile=(8, 128))
 
 
-def check_colstrip_patterns(timer, peak, gen, rows):
-    """The column-strip kernel on all-inlier, all-outlier and checkerboard
-    weights at the prefill MLP shape, fp32 and bf16 x."""
-    k, n, m = 2048, 5632, 512
+def check_patterns(timer, peak, gen, rows, decode_only=False):
+    """The qmm kernels on all-inlier, all-outlier and checkerboard weights
+    at the MLP shape, fp32 and bf16 x: decode at M = 4 (padded to 8),
+    colstrip at the prefill M = 512."""
+    k, n = 2048, 5632
+    cases = [("qmm_decode", qmm_decode, 4, 8)]
+    if not decode_only:
+        cases.append(("qmm_colstrip", qmm_colstrip, 512, 512))
     for pattern in ("all-inlier", "all-outlier", "checkerboard"):
         qt = patterned_qtensor(k, n, pattern, gen)
         w_dense = dequantize_qtensor(qt, torch.float32)
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
-            rows.append(qmm_row(timer, "qmm_colstrip", qmm_colstrip, x, qt,
-                                w_dense, m, f"M={m} K={k} N={n} {pattern}",
-                                peak))
+        for name, kernel, m, pad in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.zeros((pad, k), dtype=dtype, device="cuda")
+                x[:m] = torch.randn((m, k), generator=gen,
+                                    device="cuda").to(dtype)
+                rows.append(qmm_row(timer, name, kernel, x, qt, w_dense, m,
+                                    f"M={m} K={k} N={n} {pattern}", peak))
         del qt, w_dense
+
+
+def check_empty_launch(timer):
+    """An empty kernel's launch, timed as the kernels are: the device-time
+    floor under any one-launch call."""
+    ms = timer(empty_launch)
+    host_ms = timer.host(empty_launch)
+    print(f"[kernels] empty kernel launch ms={ms:.4f} host={host_ms:.4f} "
+          f"(the floor under any one-launch call, same timer)")
+    return dict(ms=ms, host_ms=host_ms)
 
 
 def make_attn_case(lanes, *, n_kv, g, hd, page, quantized, gen,
@@ -701,6 +730,8 @@ def summary(rows, launches, bw_name):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-only", action="store_true",
+                    help="time the decode-width qmm alone and stop")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "chip_smoke.json",
                     help="where the full JSON report goes")
@@ -733,8 +764,17 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     timer = Timer()
     rows = []
-    check_qmm(timer, peak, gen, rows)
-    check_colstrip_patterns(timer, peak, gen, rows)
+    check_qmm(timer, peak, gen, rows, args.decode_only)
+    check_patterns(timer, peak, gen, rows, args.decode_only)
+    empty = check_empty_launch(timer)
+    if args.decode_only:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(dict(
+            device=name, nvidia_smi=smi, rows=rows, empty_launch=empty),
+            indent=1))
+        print(f"[done] decode-only, {time.monotonic() - t_start:.1f}s; "
+              f"details in {args.out}")
+        return 0
     check_attention(timer, peak, gen, rows)
     del timer
 
@@ -772,7 +812,8 @@ def main(argv=None) -> int:
     kernels = summary(rows, launches, peak_name)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
-        device=name, nvidia_smi=smi, rows=rows, serve=served, step=stepped,
+        device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
+        serve=served, step=stepped,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

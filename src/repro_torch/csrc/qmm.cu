@@ -470,9 +470,18 @@ int launch_colstrip(const void* x, const void* in_codes,
   return launch_reduce<T>(partial, y, splits, (size_t)M * N, stream);
 }
 
+// Does nothing: chip_smoke.py times its launch with the same timer as the
+// kernels, as the floor under any one-launch call.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 extern "C" {
+
+int qmc_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
 
 // x_bf16 selects the activation type (0: fp32, 1: bf16); y has x's type.
 // partial is an fp32 workspace of splits * M * N. Returns cudaGetLastError().

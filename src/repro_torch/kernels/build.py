@@ -48,6 +48,7 @@ _SIGNATURES = {
                                   + [_I] * 3 + [_P],
     "qmc_ragged_paged_attention_smem": [_I] * 5,
     "qmc_unpack3b": [_P, _P, _L, _P],
+    "qmc_empty": [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
