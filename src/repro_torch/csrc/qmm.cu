@@ -67,95 +67,228 @@ from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
+__device__ __forceinline__ void cs_cp16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+// byte j of w (an int8 code) as an exact float, without a conversion
+// instruction: 2^23 + (code + 128) - (2^23 + 128)
+__device__ __forceinline__ uint32_t cs_code(uint32_t w, int j) {
+  return __float_as_uint(__uint_as_float(__byte_perm(w ^ 0x80808080u,
+                                                     0x4b000000u, 0x7540 | j)) -
+                         8388736.f);
+}
+
 // ---------------------------------------------------------------------------
-// decode width: block = (128-column strip, 8-row M tile, K split)
+// decode width: block = (128-column strip, 8-row M tile, K split), one warp
+// per subtile of a ring stage
 // ---------------------------------------------------------------------------
-constexpr int DEC_WARPS = 4;    // warps share the block's subtile rows
-constexpr int DEC_M = 8;        // x rows per block
-constexpr int DEC_KCHUNK = 32;  // subtile rows of x staged at a time (256 K)
+constexpr int DEC_WARPS = 8;
+constexpr int DEC_THREADS = DEC_WARPS * 32;
+constexpr int DEC_M = 8;                  // x rows per block
+constexpr int DEC_P = DEC_WARPS;          // subtiles per ring stage
+constexpr int DEC_STAGES = 4;
+constexpr int DEC_STAGE_BYTES = DEC_P * SUB_ELEMS;               // 8 KB
+constexpr int DEC_RING_BYTES = DEC_STAGES * DEC_STAGE_BYTES;     // 32 KB
+// the warps' partial tiles reuse the ring once the loop is done
+static_assert(DEC_WARPS * DEC_M * SUB_C * 4 <= DEC_RING_BYTES, "red");
+
+// ring | x slice (DEC_M rows of rows_per_split * 8 fp32) | scale_in,
+// scale_out of the strip | stream entries of the block's subtile rows
+int dec_smem_bytes(int rows_per_split) {
+  return DEC_RING_BYTES + DEC_M * rows_per_split * SUB_R * 4 + 2 * SUB_C * 4 +
+         rows_per_split * 4;
+}
+
+// acc[m][j] += x[m][k0 + r] * code[r][j] over the 8 rows of one subtile;
+// xk points at x[0][k0] in shared memory (row pitch kx floats)
+__device__ __forceinline__ void dec_subtile(float (&acc)[DEC_M][4],
+                                            const float (&c)[SUB_R][4],
+                                            const float* xk, int kx) {
+#pragma unroll
+  for (int mm = 0; mm < DEC_M; ++mm) {
+    const float4 a = *reinterpret_cast<const float4*>(xk + mm * kx);
+    const float4 b = *reinterpret_cast<const float4*>(xk + mm * kx + 4);
+    const float xv[SUB_R] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int r = 0; r < SUB_R; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mm][j] = fmaf(xv[r], c[r][j], acc[mm][j]);
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
+__device__ __forceinline__ void dec_store(T* y, float4 v);
+template <> __device__ __forceinline__ void dec_store<float>(float* y,
+                                                             float4 v) {
+  *reinterpret_cast<float4*>(y) = v;
+}
+template <> __device__ __forceinline__ void dec_store<__nv_bfloat16>(
+    __nv_bfloat16* y, float4 v) {
+  __nv_bfloat162 lo, hi;
+  lo.x = from_f32<__nv_bfloat16>(v.x);
+  lo.y = from_f32<__nv_bfloat16>(v.y);
+  hi.x = from_f32<__nv_bfloat16>(v.z);
+  hi.y = from_f32<__nv_bfloat16>(v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(y) = u;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DEC_THREADS, 2)
 qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
                   const int8_t* __restrict__ out_codes,
                   const int32_t* __restrict__ stream_pos,
                   const uint8_t* __restrict__ is_out,
                   const float* __restrict__ scale_in,
                   const float* __restrict__ scale_out,
-                  float* __restrict__ partial, int M, int K, int N,
+                  float* __restrict__ partial, int* __restrict__ counters,
+                  T* __restrict__ y, int M, int K, int N,
                   int rows_per_split) {
-  __shared__ float xs[DEC_M][DEC_KCHUNK * SUB_R];
-  __shared__ float red[DEC_WARPS][DEC_M][SUB_C];
-
+  extern __shared__ __align__(16) unsigned char dec_smem[];
   const int strip = blockIdx.x;
   const int m0 = blockIdx.y * DEC_M;
   const int split = blockIdx.z;
+  const int splits = gridDim.z;
   const int gc = N / SUB_C;
-  const int gr = K / SUB_R;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = strip * SUB_C + lane * 4;  // this thread's 4 columns
-  const int gi_begin = split * rows_per_split;
-  const int gi_end = min(gr, gi_begin + rows_per_split);
+  const int g0 = split * rows_per_split;
+  const int rows = min(K / SUB_R, g0 + rows_per_split) - g0;
+  const int kx = rows * SUB_R;  // x columns of this block: xs row pitch
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* xs = reinterpret_cast<float*>(dec_smem + DEC_RING_BYTES);
+  float* sc = xs + DEC_M * rows_per_split * SUB_R;  // scale_in | scale_out
+  int* tag = reinterpret_cast<int*>(sc + 2 * SUB_C);
+  const T* xg = x + (size_t)m0 * K + (size_t)g0 * SUB_R;
 
-  float s_in[4], s_out[4];
+  // fp32 x and the strip's scales ride in the first copy group
+  if (sizeof(T) == 4) {
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    s_in[c] = scale_in[col0 + c];
-    s_out[c] = scale_out[col0 + c];
+    for (int mm = 0; mm < DEC_M; ++mm)
+      for (int c = tid; c < kx / 4; c += DEC_THREADS)
+        cs_cp16(xs + mm * kx + c * 4,
+                reinterpret_cast<const float*>(xg) + (size_t)mm * K + c * 4);
   }
-  float acc[DEC_M][4];
-#pragma unroll
-  for (int mm = 0; mm < DEC_M; ++mm)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[mm][c] = 0.f;
+  if (tid < 2 * SUB_C / 4)
+    cs_cp16(sc + tid * 4, (tid < SUB_C / 4 ? scale_in + tid * 4
+                                           : scale_out + tid * 4 - SUB_C) +
+                              strip * SUB_C);
+  // the strip's stream entries for this K range, read once:
+  // (stream_pos << 1) | is_out per subtile row
+  for (int i = tid; i < rows; i += DEC_THREADS) {
+    const int t = (g0 + i) * gc + strip;
+    tag[i] = (stream_pos[t] << 1) | (is_out[t] ? 1 : 0);
+  }
+  __syncthreads();
 
-  for (int g0 = gi_begin; g0 < gi_end; g0 += DEC_KCHUNK) {
-    const int g1 = min(gi_end, g0 + DEC_KCHUNK);
-    const int nk = (g1 - g0) * SUB_R;
-    __syncthreads();  // the previous chunk's x is consumed
-    for (int i = threadIdx.x; i < DEC_M * nk; i += blockDim.x) {
-      const int mm = i / nk, kk = i - mm * nk;
-      xs[mm][kk] = to_f32(x[(size_t)(m0 + mm) * K + g0 * SUB_R + kk]);
-    }
-    __syncthreads();
-    for (int gi = g0 + warp; gi < g1; gi += DEC_WARPS) {
-      const int t = gi * gc + strip;
-      const bool o = is_out[t] != 0;
-      const int8_t* sub =
-          (o ? out_codes : in_codes) + (size_t)stream_pos[t] * SUB_ELEMS;
-      const int kb = (gi - g0) * SUB_R;
+  // ring stage s: subtiles s * DEC_P + [0, DEC_P), 64 copies of 16 bytes
+  // each, from the stream that owns it
+  const int n_stages = (rows + DEC_P - 1) / DEC_P;
+  auto load = [&](int s) {
+    unsigned char* st = dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES;
 #pragma unroll
-      for (int r = 0; r < SUB_R; ++r) {
-        const char4 q =
-            *reinterpret_cast<const char4*>(sub + r * SUB_C + lane * 4);
-        const float w0 = (float)q.x * (o ? s_out[0] : s_in[0]);
-        const float w1 = (float)q.y * (o ? s_out[1] : s_in[1]);
-        const float w2 = (float)q.z * (o ? s_out[2] : s_in[2]);
-        const float w3 = (float)q.w * (o ? s_out[3] : s_in[3]);
-#pragma unroll
-        for (int mm = 0; mm < DEC_M; ++mm) {
-          const float xv = xs[mm][kb + r];
-          acc[mm][0] = fmaf(xv, w0, acc[mm][0]);
-          acc[mm][1] = fmaf(xv, w1, acc[mm][1]);
-          acc[mm][2] = fmaf(xv, w2, acc[mm][2]);
-          acc[mm][3] = fmaf(xv, w3, acc[mm][3]);
-        }
+    for (int c = tid; c < DEC_P * 64; c += DEC_THREADS) {
+      const int i = s * DEC_P + (c >> 6);
+      if (i < rows) {
+        const int e = tag[i];
+        cs_cp16(st + c * 16, ((e & 1) ? out_codes : in_codes) +
+                                 (size_t)(e >> 1) * SUB_ELEMS + (c & 63) * 16);
       }
     }
+  };
+#pragma unroll
+  for (int s = 0; s < DEC_STAGES - 1; ++s) {
+    if (s < n_stages) load(s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
+  // bf16 x: 16-byte loads widened to fp32 as they are stored, while the
+  // first stages are in flight
+  if (sizeof(T) == 2) {
+#pragma unroll
+    for (int mm = 0; mm < DEC_M; ++mm)
+      for (int c = tid; c < kx / 8; c += DEC_THREADS) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
+                                  xg + (size_t)mm * K) + c);
+        float4* d = reinterpret_cast<float4*>(xs + mm * kx + c * 8);
+        d[0] = make_float4(__uint_as_float(w.x << 16),
+                           __uint_as_float(w.x & 0xffff0000u),
+                           __uint_as_float(w.y << 16),
+                           __uint_as_float(w.y & 0xffff0000u));
+        d[1] = make_float4(__uint_as_float(w.z << 16),
+                           __uint_as_float(w.z & 0xffff0000u),
+                           __uint_as_float(w.w << 16),
+                           __uint_as_float(w.w & 0xffff0000u));
+      }
+  }
+
+  // inlier and outlier code sums; the scales multiply them at the end
+  float acc_in[DEC_M][4], acc_out[DEC_M][4];
 #pragma unroll
   for (int mm = 0; mm < DEC_M; ++mm)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) red[warp][mm][lane * 4 + c] = acc[mm][c];
-  __syncthreads();
-  for (int i = threadIdx.x; i < DEC_M * SUB_C; i += blockDim.x) {
-    const int mm = i / SUB_C, cc = i - mm * SUB_C;
-    float s = 0.f;
+    for (int j = 0; j < 4; ++j) acc_in[mm][j] = acc_out[mm][j] = 0.f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(DEC_STAGES - 2) : "memory");
+    __syncthreads();  // stage s landed; the stage refilled below is free
+    if (s + DEC_STAGES - 1 < n_stages) load(s + DEC_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int i = s * DEC_P + warp;
+    if (i < rows) {
+      // lane's 4 columns of each subtile row: one conflict-free word
+      const unsigned char* sub =
+          dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES + warp * SUB_ELEMS;
+      float c[SUB_R][4];
 #pragma unroll
-    for (int w = 0; w < DEC_WARPS; ++w) s += red[w][mm][cc];
-    partial[((size_t)split * M + m0 + mm) * N + strip * SUB_C + cc] = s;
+      for (int r = 0; r < SUB_R; ++r) {
+        const uint32_t w =
+            *reinterpret_cast<const uint32_t*>(sub + r * SUB_C + lane * 4);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) c[r][j] = __uint_as_float(cs_code(w, j));
+      }
+      if (tag[i] & 1)  // warp-uniform: one subtile of one stream
+        dec_subtile(acc_out, c, xs + i * SUB_R, kx);
+      else
+        dec_subtile(acc_in, c, xs + i * SUB_R, kx);
+    }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // every warp is done with the ring
+
+  // the warps' scaled partial tiles, then their sum in warp order: thread
+  // tid owns row tid / 32, columns 4 * (tid % 32) + [0, 4) of the tile
+  float4* red = reinterpret_cast<float4*>(dec_smem);
+  {
+    const float4 si = reinterpret_cast<const float4*>(sc)[lane];
+    const float4 so = reinterpret_cast<const float4*>(sc + SUB_C)[lane];
+#pragma unroll
+    for (int mm = 0; mm < DEC_M; ++mm)
+      red[(warp * DEC_M + mm) * 32 + lane] = make_float4(
+          si.x * acc_in[mm][0] + so.x * acc_out[mm][0],
+          si.y * acc_in[mm][1] + so.y * acc_out[mm][1],
+          si.z * acc_in[mm][2] + so.z * acc_out[mm][2],
+          si.w * acc_in[mm][3] + so.w * acc_out[mm][3]);
+  }
+  __syncthreads();
+  const int mm = tid >> 5;
+  float4 v = red[mm * 32 + lane];
+#pragma unroll
+  for (int w = 1; w < DEC_WARPS; ++w) {
+    const float4 p = red[(w * DEC_M + mm) * 32 + lane];
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  const size_t at = (size_t)(m0 + mm) * N + strip * SUB_C + lane * 4;
+  if (splits == 1) {
+    dec_store<T>(y + at, v);
+    return;
+  }
+
+  __stcg(reinterpret_cast<float4*>(partial + split * (size_t)M * N + at), v);
 }
 
 // Adds the K-split partial sums in split order and casts to y's type.
@@ -193,18 +326,6 @@ template <typename T> int cs_smem_bytes(int k_per_split) {
   return CS_STAGES * cs_stage_bytes<T>() + (k_per_split / SUB_R) * 4;
 }
 
-__device__ __forceinline__ void cs_cp16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-// byte j of w (an int8 code) as an exact float, without a conversion
-// instruction: 2^23 + (code + 128) - (2^23 + 128)
-__device__ __forceinline__ uint32_t cs_code(uint32_t w, int j) {
-  return __float_as_uint(__uint_as_float(__byte_perm(w ^ 0x80808080u,
-                                                     0x4b000000u, 0x7540 | j)) -
-                         8388736.f);
-}
 __device__ __forceinline__ void cs_mma(float (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -422,19 +543,30 @@ template <typename T>
 int launch_decode(const void* x, const void* in_codes, const void* out_codes,
                   const void* stream_pos, const void* is_out,
                   const void* scale_in, const void* scale_out, void* partial,
-                  void* y, int M, int K, int N, int splits,
+                  void* counters, void* y, int M, int K, int N, int splits,
                   int rows_per_split, cudaStream_t stream) {
+  const int smem = dec_smem_bytes(rows_per_split);
+  // above 48 KB a block's shared memory needs the opt-in, once per type
+  static int granted = 48 * 1024;
+  if (smem > granted) {
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    granted = smem;
+  }
   dim3 grid(N / SUB_C, M / DEC_M, splits);
-  qmm_decode_kernel<T><<<grid, DEC_WARPS * 32, 0, stream>>>(
+  qmm_decode_kernel<T><<<grid, DEC_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const int8_t*>(in_codes),
       static_cast<const int8_t*>(out_codes),
       static_cast<const int32_t*>(stream_pos),
       static_cast<const uint8_t*>(is_out),
       static_cast<const float*>(scale_in),
-      static_cast<const float*>(scale_out), static_cast<float*>(partial), M,
-      K, N, rows_per_split);
+      static_cast<const float*>(scale_out), static_cast<float*>(partial),
+      static_cast<int*>(counters), static_cast<T*>(y), M, K, N,
+      rows_per_split);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || splits == 1) return (int)err;
   return launch_reduce<T>(partial, y, splits, (size_t)M * N, stream);
 }
 
@@ -484,21 +616,26 @@ int qmc_empty(void* stream) {
 }
 
 // x_bf16 selects the activation type (0: fp32, 1: bf16); y has x's type.
-// partial is an fp32 workspace of splits * M * N. Returns cudaGetLastError().
+// M a multiple of 8, K and N of 128, rows_per_split <= 256 subtile rows;
+// x, the streams and the scales 16-byte aligned. With splits > 1, partial
+// is an fp32 workspace of splits * M * N and counters a zeroed int32
+// buffer of (N / 128) * (M / 8), left zeroed; with splits == 1 neither is
+// read. Returns cudaGetLastError().
 int qmc_qmm_decode(const void* x, int x_bf16, const void* in_codes,
                    const void* out_codes, const void* stream_pos,
                    const void* is_out, const void* scale_in,
-                   const void* scale_out, void* partial, void* y, int M,
-                   int K, int N, int splits, int rows_per_split,
-                   void* stream) {
+                   const void* scale_out, void* partial, void* counters,
+                   void* y, int M, int K, int N, int splits,
+                   int rows_per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch_decode<__nv_bfloat16>(x, in_codes, out_codes, stream_pos,
                                         is_out, scale_in, scale_out, partial,
-                                        y, M, K, N, splits, rows_per_split, s);
+                                        counters, y, M, K, N, splits,
+                                        rows_per_split, s);
   return launch_decode<float>(x, in_codes, out_codes, stream_pos, is_out,
-                              scale_in, scale_out, partial, y, M, K, N,
-                              splits, rows_per_split, s);
+                              scale_in, scale_out, partial, counters, y, M,
+                              K, N, splits, rows_per_split, s);
 }
 
 // M a multiple of 64; k_per_split a multiple of 32; x 16-byte aligned;

@@ -8,7 +8,7 @@ picks between them and pads M.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,21 +18,23 @@ from repro_torch.kernels.ref import qmm_ref
 
 # blocks in flight a K split aims for (2 per SM of an H100)
 _TARGET_BLOCKS = 264
-
-
-def _k_splits(tiles: int, steps: int, min_steps: int) -> Tuple[int, int]:
-    """(splits, steps per split) that bring ``tiles`` output tiles up to
-    about ``_TARGET_BLOCKS`` blocks, never fewer than ``min_steps`` of the
-    ``steps`` K steps per split."""
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), steps // min_steps))
-    per = -(-steps // splits)
-    return -(-steps // per), per
+# subtile rows a decode block may take: its x slice, 8 rows of 8 * 256
+# fp32 values, is 64 KB of shared memory beside a 32 KB ring, so two
+# blocks still fit an SM
+DECODE_MAX_ROWS = 256
 
 
 def decode_splits(m: int, k: int, n: int) -> Tuple[int, int]:
     """(K splits, subtile rows per split) of the decode-width kernel: its
-    (N/128) strips x (M/8) tiles split over K, >= 8 subtile rows each."""
-    return _k_splits((n // 128) * (m // 8), k // 8, 8)
+    (N/128) strips x (M/8) tiles split over K up to about
+    ``_TARGET_BLOCKS`` blocks, >= 8 and <= ``DECODE_MAX_ROWS`` subtile rows
+    each."""
+    tiles = (n // 128) * (m // 8)
+    gr = k // 8
+    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), gr // 8),
+                 -(-gr // DECODE_MAX_ROWS))
+    per = -(-gr // splits)
+    return -(-gr // per), per
 
 
 COLSTRIP_BM = 64   # rows of the column-strip kernel's output tile
@@ -96,6 +98,9 @@ def _check(x: torch.Tensor, qt: QTensor, m_multiple: int) -> None:
                 or t.data_ptr() % 16:
             raise ValueError(f"qt.{name} must be a 16-byte aligned "
                              f"[n, 8, 128] stream")
+    for name in ("scale_in", "scale_out"):
+        if getattr(qt, name).data_ptr() % 16:
+            raise ValueError(f"qt.{name} must be 16-byte aligned")
 
 
 def _operands(x: torch.Tensor, qt: QTensor):
@@ -105,22 +110,47 @@ def _operands(x: torch.Tensor, qt: QTensor):
             qt.scale_in.data_ptr(), qt.scale_out.data_ptr())
 
 
+# the decode kernel's split tickets: one zeroed int32 per (strip, M tile),
+# per (device, stream); the kernel leaves them zeroed
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def decode_counters(device: torch.device, stream: int,
+                    need: int) -> torch.Tensor:
+    """The cached ticket buffer of ``(device, stream)``, at least ``need``
+    counters long (a larger grid replaces it by a larger zeroed one)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 def qmm_decode(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x [M, K] @ dequant(qt) via the decode-width kernel (M % 8 == 0)."""
+    """x [M, K] @ dequant(qt) via the decode-width kernel (M % 8 == 0),
+    one launch whatever the K split."""
     if x.device.type == "cpu":
         return qmm_ref(x, qt)
     _check(x, qt, 8)
     m, k = x.shape
     n = qt.shape[1]
     splits, rows = decode_splits(m, k, n)
-    partial = torch.empty((splits, m, n), dtype=torch.float32,
-                          device=x.device)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.qmc_qmm_decode(*_operands(x, qt), partial.data_ptr(),
-                                y.data_ptr(), m, k, n, splits, rows, stream)
+        partial = counters = None
+        if splits > 1:
+            partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                  device=x.device)
+            counters = decode_counters(x.device, stream,
+                                       (n // 128) * (m // 8))
+        rc = lib.qmc_qmm_decode(
+            *_operands(x, qt),
+            partial.data_ptr() if partial is not None else None,
+            counters.data_ptr() if counters is not None else None,
+            y.data_ptr(), m, k, n, splits, rows, stream)
     build.check(rc, "qmm_decode")
     build.count_launch("qmm_decode")
     return y

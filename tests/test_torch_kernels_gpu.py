@@ -122,6 +122,68 @@ def test_colstrip_lm_head_width(gen, dtype):
     assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
 
 
+def _decode_counters_zero():
+    torch.cuda.synchronize()
+    return all(int(c.abs().sum()) == 0 for c in kqmm._counters.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("pattern", ["all-inlier", "all-outlier",
+                                     "checkerboard"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (5632, 2048), (2048, 100352)],
+                         ids=["many-splits", "K-5632", "one-split"])
+@pytest.mark.parametrize("m", [8, 64, 120])
+def test_decode_stream_patterns(gen, m, k, n, pattern, dtype):
+    """The decode kernel on all-inlier, all-outlier and checkerboard
+    weights: many K splits (N = 2048), a split whose subtile rows do not
+    divide K's (K = 5632), and none (the 100352-wide lm_head); two calls
+    bit-identical, one launch each, and the split tickets left at zero."""
+    splits, rows = kqmm.decode_splits(m, k, n)
+    assert (splits == 1) == (n == 100352)
+    if k == 5632:
+        assert (k // 8) % rows != 0 and splits > 1
+    qt = _from_chip_smoke("patterned_qtensor")(k, n, pattern, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    build.reset_launches()
+    y = kqmm.qmm_decode(x, qt)
+    again = kqmm.qmm_decode(x, qt)
+    want = qmm_ref(x, qt)
+    torch.cuda.synchronize()
+    assert build.launches["qmm_decode"] == 2
+    assert y.dtype == dtype and y.shape == (m, n)
+    assert torch.equal(y, again)                      # deterministic
+    err = (y.float() - want.float()).abs().max().item()
+    assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+    assert _decode_counters_zero()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_decode_two_streams(gen, dtype):
+    """Two calls on two streams with different x, each with its own split
+    tickets, each equal to its own plain result."""
+    qt = _streams(2048, 5632, gen)
+    assert kqmm.decode_splits(8, 2048, 5632)[0] > 1
+    xs = [torch.randn((8, 2048), generator=gen, device="cuda").to(dtype)
+          for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    ys = [[], []]
+    for _ in range(4):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                ys[i].append(kqmm.qmm_decode(xs[i], qt))
+    torch.cuda.synchronize()
+    for i, st in enumerate(streams):
+        assert (xs[i].device.index, st.cuda_stream) in kqmm._counters
+        want = qmm_ref(xs[i], qt)
+        err = (ys[i][0].float() - want.float()).abs().max().item()
+        assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+        assert all(torch.equal(ys[i][0], y) for y in ys[i][1:])
+    assert _decode_counters_zero()
+
+
 def test_qmm_kernels_never_take_the_plain_version(gen, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain qmm ran on a CUDA tensor")

@@ -16,7 +16,9 @@ from repro.kernels import ops as jax_ops
 from repro.kernels.ref import qmm_ref as jax_qmm_ref
 from repro_torch.bridge import params_from_numpy
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.qmm import colstrip_splits, decode_splits
+from repro_torch.kernels import qmm as kqmm
+from repro_torch.kernels.qmm import (DECODE_MAX_ROWS, colstrip_splits,
+                                     decode_counters, decode_splits)
 from repro_torch.kernels.ref import qmm_ref
 from test_torch_bridge import jax_tree_to_numpy
 
@@ -102,12 +104,35 @@ def test_batch_dims_and_plain_path(streams_128x256):
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 2048, 100352),
-                                   (8, 5632, 2048), (64, 128, 256)])
+                                   (8, 5632, 2048), (64, 128, 256),
+                                   (64, 2048, 5632), (120, 5632, 2048),
+                                   (8, 5632, 100352), (8, 8192, 100352)])
 def test_decode_split_covers_every_subtile_row(m, k, n):
+    """Every subtile row in exactly one split, >= 8 rows a split, and no
+    more than DECODE_MAX_ROWS (the x slice a block stages in shared
+    memory): K = 5632 and 8192 at the lm_head's width split for that
+    alone."""
     splits, rows = decode_splits(m, k, n)
     gr = k // 8
     assert splits * rows >= gr > (splits - 1) * rows
     assert rows >= 8 or splits == 1
+    assert rows <= DECODE_MAX_ROWS
+    if n == 100352:
+        assert splits == -(-gr // DECODE_MAX_ROWS)
+
+
+def test_decode_counters_grow_and_stay_cached(monkeypatch):
+    """One zeroed ticket buffer per (device, stream): reused while large
+    enough, replaced by a larger zeroed one when a grid needs more."""
+    monkeypatch.setattr(kqmm, "_counters", {})
+    cpu = torch.device("cpu")
+    a = decode_counters(cpu, 7, 44)
+    assert a.dtype == torch.int32 and a.numel() == 44 and not a.any()
+    assert decode_counters(cpu, 7, 16) is a
+    b = decode_counters(cpu, 7, 784)
+    assert b is not a and b.numel() == 784 and not b.any()
+    assert decode_counters(cpu, 8, 16) is not b       # another stream
+    assert len(kqmm._counters) == 2
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 2048, 2048), (128, 5632, 2048),
