@@ -149,6 +149,7 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
                   T* __restrict__ y, int M, int K, int N,
                   int rows_per_split) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
+  __shared__ int last;
   const int strip = blockIdx.x;
   const int m0 = blockIdx.y * DEC_M;
   const int split = blockIdx.z;
@@ -288,7 +289,30 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
     return;
   }
 
-  __stcg(reinterpret_cast<float4*>(partial + split * (size_t)M * N + at), v);
+  // K split: every block writes its partial tile; the block that takes the
+  // last ticket of its (strip, M tile) adds all of them in split order 0..
+  // splits-1 (its own read back too), so the sum does not depend on which
+  // block came last, writes y and resets the counter for the next call
+  const size_t mn = (size_t)M * N;
+  __stcg(reinterpret_cast<float4*>(partial + split * mn + at), v);
+  __threadfence();
+  __syncthreads();
+  int* counter = counters + blockIdx.y * gridDim.x + strip;
+  if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 p = __ldcg(reinterpret_cast<const float4*>(partial +
+                                                            sp * mn + at));
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
+  dec_store<T>(y + at, v);
+  if (tid == 0) *counter = 0;
 }
 
 // Adds the K-split partial sums in split order and casts to y's type.
@@ -565,9 +589,7 @@ int launch_decode(const void* x, const void* in_codes, const void* out_codes,
       static_cast<const float*>(scale_out), static_cast<float*>(partial),
       static_cast<int*>(counters), static_cast<T*>(y), M, K, N,
       rows_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return launch_reduce<T>(partial, y, splits, (size_t)M * N, stream);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
