@@ -54,10 +54,6 @@ constexpr int SUB_R = 8;
 constexpr int SUB_C = 128;
 constexpr int SUB_ELEMS = SUB_R * SUB_C;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
@@ -87,35 +83,93 @@ __device__ __forceinline__ uint32_t cs_code(uint32_t w, int j) {
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
 constexpr int DEC_M = 8;                  // x rows per block
-constexpr int DEC_P = DEC_WARPS;          // subtiles per ring stage
-constexpr int DEC_STAGES = 4;
-constexpr int DEC_STAGE_BYTES = DEC_P * SUB_ELEMS;               // 8 KB
-constexpr int DEC_RING_BYTES = DEC_STAGES * DEC_STAGE_BYTES;     // 32 KB
+constexpr int DEC_SPW = 1;                // subtiles per warp per stage
+constexpr int DEC_P = DEC_WARPS * DEC_SPW;  // subtiles per ring stage
+constexpr int DEC_STAGES = 3;
+constexpr int DEC_MAX_ROWS = 256;         // kernels/qmm.py:DECODE_MAX_ROWS
+constexpr int DEC_STAGE_BYTES = DEC_P * SUB_ELEMS;
+constexpr int DEC_RING_BYTES = DEC_STAGES * DEC_STAGE_BYTES;
 // the warps' partial tiles reuse the ring once the loop is done
-static_assert(DEC_WARPS * DEC_M * SUB_C * 4 <= DEC_RING_BYTES, "red");
+constexpr int DEC_RED_BYTES = DEC_WARPS * DEC_M * SUB_C * 4;
+constexpr int DEC_HEAD_BYTES =
+    DEC_RING_BYTES > DEC_RED_BYTES ? DEC_RING_BYTES : DEC_RED_BYTES;
+// 16-byte chunks of x a thread loads per x row, at most
+template <typename T> __host__ __device__ constexpr int dec_xch() {
+  return (DEC_MAX_ROWS * SUB_R * (int)sizeof(T) / 16 + DEC_THREADS - 1) /
+         DEC_THREADS;
+}
 
 // ring | x slice (DEC_M rows of rows_per_split * 8 fp32) | scale_in,
 // scale_out of the strip | stream entries of the block's subtile rows
 int dec_smem_bytes(int rows_per_split) {
-  return DEC_RING_BYTES + DEC_M * rows_per_split * SUB_R * 4 + 2 * SUB_C * 4 +
-         rows_per_split * 4;
+  return DEC_HEAD_BYTES + DEC_M * rows_per_split * SUB_R * 4 +
+         2 * SUB_C * 4 + rows_per_split * 4;
 }
 
-// acc[m][j] += x[m][k0 + r] * code[r][j] over the 8 rows of one subtile;
-// xk points at x[0][k0] in shared memory (row pitch kx floats)
+// acc[m][j] += x[m][k0 + r] * code[r][j] over the 8 rows of one subtile,
+// for the first MR x rows (the others are zero in this block's slice):
+// w[r] holds the lane's 4 codes of row r, xk points at x[0][k0] in shared
+// memory (row pitch kx floats). Each half subtile loads 4 x values of
+// every row (broadcast float4s) and then runs row by row, so 4 * MR
+// independent sums lie between two dependent FMAs.
+template <int MR>
 __device__ __forceinline__ void dec_subtile(float (&acc)[DEC_M][4],
-                                            const float (&c)[SUB_R][4],
+                                            const uint32_t (&w)[SUB_R],
                                             const float* xk, int kx) {
 #pragma unroll
-  for (int mm = 0; mm < DEC_M; ++mm) {
-    const float4 a = *reinterpret_cast<const float4*>(xk + mm * kx);
-    const float4 b = *reinterpret_cast<const float4*>(xk + mm * kx + 4);
-    const float xv[SUB_R] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  for (int h = 0; h < 2; ++h) {
+    float4 xv[MR];
 #pragma unroll
-    for (int r = 0; r < SUB_R; ++r)
+    for (int mm = 0; mm < MR; ++mm)
+      xv[mm] = *reinterpret_cast<const float4*>(xk + mm * kx + 4 * h);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mm][j] = fmaf(xv[r], c[r][j], acc[mm][j]);
+    for (int r = 0; r < 4; ++r) {
+      float c[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        c[j] = __uint_as_float(cs_code(w[4 * h + r], j));
+#pragma unroll
+      for (int mm = 0; mm < MR; ++mm) {
+        const float xr = r == 0 ? xv[mm].x : r == 1 ? xv[mm].y
+                       : r == 2 ? xv[mm].z : xv[mm].w;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mm][j] = fmaf(xr, c[j], acc[mm][j]);
+      }
+    }
   }
+}
+
+// the subtile into the accumulator of its stream, at the block's live
+// row count (1, 2, 4 or 8; block-uniform)
+__device__ __forceinline__ void dec_subtile_any(float (&acc)[DEC_M][4],
+                                                const uint32_t (&w)[SUB_R],
+                                                const float* xk, int kx,
+                                                int mr) {
+  if (mr > 4)
+    dec_subtile<8>(acc, w, xk, kx);
+  else if (mr > 2)
+    dec_subtile<4>(acc, w, xk, kx);
+  else if (mr > 1)
+    dec_subtile<2>(acc, w, xk, kx);
+  else
+    dec_subtile<1>(acc, w, xk, kx);
+}
+
+// the x values of one 16-byte chunk (4 fp32 or 8 bf16) as fp32
+__device__ __forceinline__ void dec_x_store(float* d, uint4 w, float) {
+  *reinterpret_cast<uint4*>(d) = w;
+}
+__device__ __forceinline__ void dec_x_store(float* d, uint4 w,
+                                            __nv_bfloat16) {
+  float4* f = reinterpret_cast<float4*>(d);
+  f[0] = make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
+  f[1] = make_float4(__uint_as_float(w.z << 16),
+                     __uint_as_float(w.z & 0xffff0000u),
+                     __uint_as_float(w.w << 16),
+                     __uint_as_float(w.w & 0xffff0000u));
 }
 
 template <typename T>
@@ -149,6 +203,7 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
                   T* __restrict__ y, int M, int K, int N,
                   int rows_per_split) {
   extern __shared__ __align__(16) unsigned char dec_smem[];
+  __shared__ unsigned live_rows[DEC_WARPS];
   __shared__ int last;
   const int strip = blockIdx.x;
   const int m0 = blockIdx.y * DEC_M;
@@ -159,30 +214,59 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
   const int rows = min(K / SUB_R, g0 + rows_per_split) - g0;
   const int kx = rows * SUB_R;  // x columns of this block: xs row pitch
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* xs = reinterpret_cast<float*>(dec_smem + DEC_RING_BYTES);
+  float* xs = reinterpret_cast<float*>(dec_smem + DEC_HEAD_BYTES);
   float* sc = xs + DEC_M * rows_per_split * SUB_R;  // scale_in | scale_out
   int* tag = reinterpret_cast<int*>(sc + 2 * SUB_C);
   const T* xg = x + (size_t)m0 * K + (size_t)g0 * SUB_R;
 
-  // fp32 x and the strip's scales ride in the first copy group
-  if (sizeof(T) == 4) {
-#pragma unroll
-    for (int mm = 0; mm < DEC_M; ++mm)
-      for (int c = tid; c < kx / 4; c += DEC_THREADS)
-        cs_cp16(xs + mm * kx + c * 4,
-                reinterpret_cast<const float*>(xg) + (size_t)mm * K + c * 4);
-  }
+  // Every global read of the set-up is issued before any waits on one:
+  // the strip's scales (a copy in the first copy group), x in 16-byte
+  // loads to registers, and the stream entries.
   if (tid < 2 * SUB_C / 4)
     cs_cp16(sc + tid * 4, (tid < SUB_C / 4 ? scale_in + tid * 4
                                            : scale_out + tid * 4 - SUB_C) +
                               strip * SUB_C);
+  constexpr int XCH = dec_xch<T>();
+  constexpr int VPC = 16 / (int)sizeof(T);  // x values per chunk
+  const int nch = kx / VPC;                 // chunks per x row
+  uint4 xb[DEC_M][XCH];
+#pragma unroll
+  for (int mm = 0; mm < DEC_M; ++mm)
+#pragma unroll
+    for (int q = 0; q < XCH; ++q) {
+      const int c = tid + q * DEC_THREADS;
+      if (c < nch)
+        xb[mm][q] = __ldg(reinterpret_cast<const uint4*>(
+                              xg + (size_t)mm * K) + c);
+    }
   // the strip's stream entries for this K range, read once:
   // (stream_pos << 1) | is_out per subtile row
   for (int i = tid; i < rows; i += DEC_THREADS) {
     const int t = (g0 + i) * gc + strip;
     tag[i] = (stream_pos[t] << 1) | (is_out[t] ? 1 : 0);
   }
+  // x into shared memory as fp32, and which of its rows hold a nonzero
+  // bit anywhere in this slice (M is padded with zero rows; the products
+  // of the others are skipped, which changes no result)
+  unsigned nz = 0;
+#pragma unroll
+  for (int mm = 0; mm < DEC_M; ++mm)
+#pragma unroll
+    for (int q = 0; q < XCH; ++q) {
+      const int c = tid + q * DEC_THREADS;
+      if (c < nch) {
+        const uint4 w = xb[mm][q];
+        dec_x_store(xs + mm * kx + c * VPC, w, T());
+        if (w.x | w.y | w.z | w.w) nz |= 1u << mm;
+      }
+    }
+  nz = __reduce_or_sync(0xffffffffu, nz);
+  if (lane == 0) live_rows[warp] = nz;
   __syncthreads();
+  unsigned live = 0;
+#pragma unroll
+  for (int w = 0; w < DEC_WARPS; ++w) live |= live_rows[w];
+  const int mr = 32 - __clz(live);  // x rows up to the last live one
 
   // ring stage s: subtiles s * DEC_P + [0, DEC_P), 64 copies of 16 bytes
   // each, from the stream that owns it
@@ -204,25 +288,6 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
     if (s < n_stages) load(s);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  // bf16 x: 16-byte loads widened to fp32 as they are stored, while the
-  // first stages are in flight
-  if (sizeof(T) == 2) {
-#pragma unroll
-    for (int mm = 0; mm < DEC_M; ++mm)
-      for (int c = tid; c < kx / 8; c += DEC_THREADS) {
-        const uint4 w = __ldg(reinterpret_cast<const uint4*>(
-                                  xg + (size_t)mm * K) + c);
-        float4* d = reinterpret_cast<float4*>(xs + mm * kx + c * 8);
-        d[0] = make_float4(__uint_as_float(w.x << 16),
-                           __uint_as_float(w.x & 0xffff0000u),
-                           __uint_as_float(w.y << 16),
-                           __uint_as_float(w.y & 0xffff0000u));
-        d[1] = make_float4(__uint_as_float(w.z << 16),
-                           __uint_as_float(w.z & 0xffff0000u),
-                           __uint_as_float(w.w << 16),
-                           __uint_as_float(w.w & 0xffff0000u));
-      }
-  }
 
   // inlier and outlier code sums; the scales multiply them at the end
   float acc_in[DEC_M][4], acc_out[DEC_M][4];
@@ -236,23 +301,24 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
     __syncthreads();  // stage s landed; the stage refilled below is free
     if (s + DEC_STAGES - 1 < n_stages) load(s + DEC_STAGES - 1);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const int i = s * DEC_P + warp;
-    if (i < rows) {
-      // lane's 4 columns of each subtile row: one conflict-free word
-      const unsigned char* sub =
-          dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES + warp * SUB_ELEMS;
-      float c[SUB_R][4];
 #pragma unroll
-      for (int r = 0; r < SUB_R; ++r) {
-        const uint32_t w =
-            *reinterpret_cast<const uint32_t*>(sub + r * SUB_C + lane * 4);
+    for (int q = 0; q < DEC_SPW; ++q) {
+      const int p = warp + q * DEC_WARPS;  // subtile of the stage
+      const int i = s * DEC_P + p;
+      if (i < rows) {
+        // lane's 4 columns of each subtile row: one conflict-free word
+        const unsigned char* sub =
+            dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES + p * SUB_ELEMS;
+        uint32_t w[SUB_R];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) c[r][j] = __uint_as_float(cs_code(w, j));
+        for (int r = 0; r < SUB_R; ++r)
+          w[r] = *reinterpret_cast<const uint32_t*>(sub + r * SUB_C +
+                                                    lane * 4);
+        if (tag[i] & 1)  // warp-uniform: one subtile of one stream
+          dec_subtile_any(acc_out, w, xs + i * SUB_R, kx, mr);
+        else
+          dec_subtile_any(acc_in, w, xs + i * SUB_R, kx, mr);
       }
-      if (tag[i] & 1)  // warp-uniform: one subtile of one stream
-        dec_subtile(acc_out, c, xs + i * SUB_R, kx);
-      else
-        dec_subtile(acc_in, c, xs + i * SUB_R, kx);
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -273,6 +339,7 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
           si.w * acc_in[mm][3] + so.w * acc_out[mm][3]);
   }
   __syncthreads();
+  static_assert(DEC_THREADS == DEC_M * 32, "one float4 of the tile each");
   const int mm = tid >> 5;
   float4 v = red[mm * 32 + lane];
 #pragma unroll
@@ -295,13 +362,16 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
   // block came last, writes y and resets the counter for the next call
   const size_t mn = (size_t)M * N;
   __stcg(reinterpret_cast<float4*>(partial + split * mn + at), v);
-  __threadfence();
-  __syncthreads();
+  __syncthreads();  // the block's partial tile precedes thread 0's release
   int* counter = counters + blockIdx.y * gridDim.x + strip;
-  if (tid == 0) last = atomicAdd(counter, 1) == splits - 1;
-  __syncthreads();
+  if (tid == 0) {
+    int ticket;
+    asm volatile("atom.add.acq_rel.gpu.s32 %0, [%1], 1;\n"
+                 : "=r"(ticket) : "l"(counter) : "memory");
+    last = ticket == splits - 1;
+  }
+  __syncthreads();  // and thread 0's acquire precedes the block's reads
   if (!last) return;
-  __threadfence();
   v = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int sp = 0; sp < splits; ++sp) {
     const float4 p = __ldcg(reinterpret_cast<const float4*>(partial +
