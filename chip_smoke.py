@@ -34,11 +34,11 @@ Phases (each prints its own lines; any failure exits nonzero):
                 the fig4 memory co-design rows for hymba-1.5b.
 
 The line before the last is a JSON object with one row per kernel; the
-last line is ``{"ok": true, "device": {...}}``. ``--decode-only`` runs
-phases 1-3 for the decode-width qmm alone (its rows and the empty launch)
-and prints no such lines: a quick measurement while the kernel changes. Without a CUDA device, or
-copied somewhere without ``src/repro_torch`` beside it, the script exits
-nonzero before printing any result.
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or copied somewhere without ``src/repro_torch`` beside it, the script
+exits nonzero before printing any result. ``--decode-only`` runs phases
+1-3 for the decode-width qmm alone (its rows and the empty launch) and
+prints neither JSON line: a quick measurement while that kernel changes.
 """
 from __future__ import annotations
 

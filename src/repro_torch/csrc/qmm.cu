@@ -11,14 +11,33 @@
 // owning stream, per output column. Accumulation is fp32; y takes x's type.
 //
 // What bounds them on an H100:
-//   * decode: memory. Every code byte (K*N of them) is read once, and a
-//     decode step does 2*M FLOPs per byte at M <= 8. The design reads only
-//     the owning stream's 1 KB subtile (the TPU's _hold_tables DMA elision
-//     has no counterpart: a GPU thread simply does not load the dead
-//     stream), with 4-byte loads so one warp reads a whole 128-byte subtile
-//     row. N/128 strips is only 16 blocks at N = 2048, so K is split over
-//     blocks; the partial sums go to an fp32 workspace and a second pass
-//     adds them in a fixed order (deterministic, no atomics).
+//   * decode (replaces qmm_pallas / _qmm_kernel): memory at M <= 8. Every
+//     code byte (K*N of them) is read once, 2*M FLOPs per byte; at the
+//     padded M = 8 the fp32 FMAs (8 per byte, 67 TFLOP/s) come close
+//     behind the bytes (3.35 TB/s), so the products must stay off the
+//     slow pipes. One launch per call, block = (128-column strip, 8-row
+//     M tile, K split), 8 warps. The block first issues every global read
+//     of its set-up at once: its slice of x (16-byte loads, widened to
+//     fp32 into shared memory; rows unpadded, as every x read in the
+//     products is a broadcast), the strip's scales and its subtile rows'
+//     stream entries ((stream_pos << 1) | is_out, read once into shared
+//     memory). A 3-stage cp.async ring of whole subtiles follows (8 per
+//     stage, one per warp: 1 KB of the owning stream as 64 16-byte
+//     copies; one barrier per stage); each lane reads its 4 columns of a
+//     subtile row as one conflict-free word. Codes stay raw: a byte
+//     permute and one subtraction make them floats (no int-to-float
+//     instruction), and they go into an inlier or an outlier accumulator
+//     chosen per subtile (warp-uniform); scale_in / scale_out multiply
+//     the two per column at the end. x rows that are zero in the block's
+//     slice (M is padded to 8 with zero rows) are skipped: the products
+//     run at 1, 2, 4 or 8 rows, with no change to any result. N/128
+//     strips is only 16 blocks at N = 2048, so K is split
+//     (kernels/qmm.py:decode_splits, about two blocks per SM); each split
+//     block writes its partial tile and takes a ticket on its (strip, M
+//     tile) counter (release/acquire, no float atomics), and the block
+//     with the last ticket adds the partials in split order 0..S-1, so
+//     the result does not depend on which block came last (bit-identical
+//     from run to run), writes y and resets the counter to 0.
 //   * colstrip: arithmetic at M >= 128 (2*M FLOPs per code byte), so the
 //     product runs on tensor cores: mma.sync m16n8k8 TF32 (wgmma with a
 //     TMA ring is the full-rate route, later work). The weight side is
@@ -39,11 +58,11 @@
 //     144 bytes, and the reduction index is permuted so each lane loads
 //     neighbouring values, which makes every fragment load conflict-free.
 //     At N = 2048 and M = 128 there are only 32 output tiles, so K is
-//     split over blocks (same workspace and fixed-order second pass as
-//     decode); kernels/qmm.py:colstrip_splits picks the split by rounds of
-//     resident blocks (two per SM) times K steps per block, which also
-//     evens out the last round (M = 512, N = 5632: 352 tiles x 3 splits
-//     = 4 full rounds of 264).
+//     split over blocks (an fp32 workspace and a second pass that adds
+//     the partials in split order); kernels/qmm.py:colstrip_splits picks
+//     the split by rounds of resident blocks (two per SM) times K steps
+//     per block, which also evens out the last round (M = 512, N = 5632:
+//     352 tiles x 3 splits = 4 full rounds of 264).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -160,6 +160,36 @@ def test_decode_stream_patterns(gen, m, k, n, pattern, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
+@pytest.mark.parametrize("k,n", [(2048, 5632), (2048, 100352)],
+                         ids=["split", "one-split"])
+def test_decode_zero_rows_change_no_result(gen, k, n, dtype):
+    """A block skips the products of x rows that are zero in its slice of
+    K. The rows that are not zeroed come out bit-identical to a call where
+    no row is zero, and the zeroed rows exactly 0: rows 4-7 zero (M = 4
+    padded to 8), rows 1-7 zero, rows 4-7 zero in the first half of K
+    only, and x all zero."""
+    qt = _streams(k, n, gen)
+    full = torch.randn((8, k), generator=gen, device="cuda").to(dtype)
+    y_full = kqmm.qmm_decode(full, qt)
+    for rows, cols in ((slice(4, 8), slice(None)), (slice(1, 8), slice(None)),
+                       (slice(4, 8), slice(0, k // 2)),
+                       (slice(0, 8), slice(None))):
+        x = full.clone()
+        x[rows, cols] = 0
+        y = kqmm.qmm_decode(x, qt)
+        want = qmm_ref(x, qt)
+        torch.cuda.synchronize()
+        err = (y.float() - want.float()).abs().max().item()
+        assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+        kept = torch.ones(8, dtype=torch.bool, device="cuda")
+        kept[rows] = False
+        assert torch.equal(y[kept], y_full[kept])
+        if cols == slice(None):
+            assert not y[rows].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 def test_decode_two_streams(gen, dtype):
     """Two calls on two streams with different x, each with its own split
     tickets, each equal to its own plain result."""
