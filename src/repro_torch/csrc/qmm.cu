@@ -102,8 +102,7 @@ __device__ __forceinline__ uint32_t cs_code(uint32_t w, int j) {
 constexpr int DEC_WARPS = 8;
 constexpr int DEC_THREADS = DEC_WARPS * 32;
 constexpr int DEC_M = 8;                  // x rows per block
-constexpr int DEC_SPW = 1;                // subtiles per warp per stage
-constexpr int DEC_P = DEC_WARPS * DEC_SPW;  // subtiles per ring stage
+constexpr int DEC_P = DEC_WARPS;          // subtiles per ring stage
 constexpr int DEC_STAGES = 3;
 constexpr int DEC_MAX_ROWS = 256;         // kernels/qmm.py:DECODE_MAX_ROWS
 constexpr int DEC_STAGE_BYTES = DEC_P * SUB_ELEMS;
@@ -320,24 +319,19 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
     __syncthreads();  // stage s landed; the stage refilled below is free
     if (s + DEC_STAGES - 1 < n_stages) load(s + DEC_STAGES - 1);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int i = s * DEC_P + warp;  // the warp's subtile of the stage
+    if (i < rows) {
+      // lane's 4 columns of each subtile row: one conflict-free word
+      const unsigned char* sub =
+          dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES + warp * SUB_ELEMS;
+      uint32_t w[SUB_R];
 #pragma unroll
-    for (int q = 0; q < DEC_SPW; ++q) {
-      const int p = warp + q * DEC_WARPS;  // subtile of the stage
-      const int i = s * DEC_P + p;
-      if (i < rows) {
-        // lane's 4 columns of each subtile row: one conflict-free word
-        const unsigned char* sub =
-            dec_smem + (s % DEC_STAGES) * DEC_STAGE_BYTES + p * SUB_ELEMS;
-        uint32_t w[SUB_R];
-#pragma unroll
-        for (int r = 0; r < SUB_R; ++r)
-          w[r] = *reinterpret_cast<const uint32_t*>(sub + r * SUB_C +
-                                                    lane * 4);
-        if (tag[i] & 1)  // warp-uniform: one subtile of one stream
-          dec_subtile_any(acc_out, w, xs + i * SUB_R, kx, mr);
-        else
-          dec_subtile_any(acc_in, w, xs + i * SUB_R, kx, mr);
-      }
+      for (int r = 0; r < SUB_R; ++r)
+        w[r] = *reinterpret_cast<const uint32_t*>(sub + r * SUB_C + lane * 4);
+      if (tag[i] & 1)  // warp-uniform: one subtile of one stream
+        dec_subtile_any(acc_out, w, xs + i * SUB_R, kx, mr);
+      else
+        dec_subtile_any(acc_in, w, xs + i * SUB_R, kx, mr);
     }
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
