@@ -36,9 +36,7 @@ Phases (each prints its own lines; any failure exits nonzero):
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or copied somewhere without ``src/repro_torch`` beside it, the script
-exits nonzero before printing any result. ``--decode-only`` runs phases
-1-3 for the decode-width qmm alone (its rows and the empty launch) and
-prints neither JSON line: a quick measurement while that kernel changes.
+exits nonzero before printing any result.
 """
 from __future__ import annotations
 
@@ -178,10 +176,13 @@ def make_weight(k: int, n: int, gen: torch.Generator) -> torch.Tensor:
 
 def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
     """Check one qmm call against its plain version, time it, and return
-    its row. The column-strip kernel runs TF32 tensor-core products (two
-    per k step for fp32 x, one for bf16), so its bound is those products
-    over the TF32 peak, or the bytes; ``bound_fp32_ms`` keeps the fp32
-    CUDA-core bound the PR 11 design had."""
+    its row. The codes are integers of at most 5 bits, exact in TF32, so
+    the least time for the same function on the card is TF32 tensor-core
+    products (two per k step for fp32 x, split hi + lo; one for bf16),
+    as the column-strip kernel runs them: the bound of both kernels is
+    those products over the TF32 peak, or the bytes. ``bound_fp32_ms``
+    keeps the FLOPs over the fp32 CUDA-core peak, where the decode-width
+    kernel runs them."""
     bw, fl, tc = peak
     k, n = qt.shape
     dtype = x.dtype
@@ -202,11 +203,9 @@ def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
         + 2 * n * 4
     nbytes = m * k * xb + code_bytes + m * n * xb
     flops = 2.0 * m * k * n
-    b32_ms, b32_by = bound(nbytes, flops, bw, fl)
-    b_ms, b_by = b32_ms, b32_by
-    if name == "qmm_colstrip":
-        products = 2 if dtype == torch.float32 else 1
-        b_ms, b_by = bound(nbytes, flops * products, bw, tc)
+    b32_ms, _ = bound(nbytes, flops, bw, fl)
+    products = 2 if dtype == torch.float32 else 1
+    b_ms, b_by = bound(nbytes, flops * products, bw, tc)
     row = dict(kernel=name, shape=label, dtype=str(dtype).replace(
         "torch.", ""), max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -218,7 +217,7 @@ def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
     return row
 
 
-def check_qmm(timer, peak, gen, rows, decode_only=False):
+def check_qmm(timer, peak, gen, rows):
     """Both qmm kernels at the main path's shapes: decode at M = 1, 4, 7
     (padded to 8) and, for the 2048 x 5632 MLP projection, M = 64 (the
     width ladder's C = 16 rung at 4 slots: eight M tiles); colstrip at
@@ -228,10 +227,8 @@ def check_qmm(timer, peak, gen, rows, decode_only=False):
             rho=0.3, granularity="subtile"))
         w_dense = dequantize_qtensor(qt, torch.float32)
         ms = (1, 4, 7, 64) if (k, n) == (2048, 5632) else (1, 4, 7)
-        cases = [("qmm_decode", m, qmm_decode, 8) for m in ms]
-        if not decode_only:
-            cases += [("qmm_colstrip", m, qmm_colstrip, 128)
-                      for m in (128, 512)]
+        cases = [("qmm_decode", m, qmm_decode, 8) for m in ms] + \
+                [("qmm_colstrip", m, qmm_colstrip, 128) for m in (128, 512)]
         for name, m, kernel, mult in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 pad = -(-m // mult) * mult
@@ -274,14 +271,13 @@ def patterned_qtensor(k, n, pattern, gen):
                    bits_in=3, bits_out=5, subtile=(8, 128))
 
 
-def check_patterns(timer, peak, gen, rows, decode_only=False):
+def check_patterns(timer, peak, gen, rows):
     """The qmm kernels on all-inlier, all-outlier and checkerboard weights
     at the MLP shape, fp32 and bf16 x: decode at M = 4 (padded to 8),
     colstrip at the prefill M = 512."""
     k, n = 2048, 5632
-    cases = [("qmm_decode", qmm_decode, 4, 8)]
-    if not decode_only:
-        cases.append(("qmm_colstrip", qmm_colstrip, 512, 512))
+    cases = [("qmm_decode", qmm_decode, 4, 8),
+             ("qmm_colstrip", qmm_colstrip, 512, 512)]
     for pattern in ("all-inlier", "all-outlier", "checkerboard"):
         qt = patterned_qtensor(k, n, pattern, gen)
         w_dense = dequantize_qtensor(qt, torch.float32)
@@ -730,8 +726,6 @@ def summary(rows, launches, bw_name):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--decode-only", action="store_true",
-                    help="time the decode-width qmm alone and stop")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "chip_smoke.json",
                     help="where the full JSON report goes")
@@ -764,17 +758,9 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     timer = Timer()
     rows = []
-    check_qmm(timer, peak, gen, rows, args.decode_only)
-    check_patterns(timer, peak, gen, rows, args.decode_only)
+    check_qmm(timer, peak, gen, rows)
+    check_patterns(timer, peak, gen, rows)
     empty = check_empty_launch(timer)
-    if args.decode_only:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(dict(
-            device=name, nvidia_smi=smi, rows=rows, empty_launch=empty),
-            indent=1))
-        print(f"[done] decode-only, {time.monotonic() - t_start:.1f}s; "
-              f"details in {args.out}")
-        return 0
     check_attention(timer, peak, gen, rows)
     del timer
 

@@ -238,12 +238,8 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
   const T* xg = x + (size_t)m0 * K + (size_t)g0 * SUB_R;
 
   // Every global read of the set-up is issued before any waits on one:
-  // the strip's scales (a copy in the first copy group), x in 16-byte
-  // loads to registers, and the stream entries.
-  if (tid < 2 * SUB_C / 4)
-    cs_cp16(sc + tid * 4, (tid < SUB_C / 4 ? scale_in + tid * 4
-                                           : scale_out + tid * 4 - SUB_C) +
-                              strip * SUB_C);
+  // x in 16-byte loads to registers, the strip's scales (one per thread)
+  // and the stream entries.
   constexpr int XCH = dec_xch<T>();
   constexpr int VPC = 16 / (int)sizeof(T);  // x values per chunk
   const int nch = kx / VPC;                 // chunks per x row
@@ -257,6 +253,10 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
         xb[mm][q] = __ldg(reinterpret_cast<const uint4*>(
                               xg + (size_t)mm * K) + c);
     }
+  static_assert(DEC_THREADS == 2 * SUB_C, "one scale per thread");
+  const float scale = tid < SUB_C ? __ldg(scale_in + strip * SUB_C + tid)
+                                  : __ldg(scale_out + strip * SUB_C + tid -
+                                          SUB_C);
   // the strip's stream entries for this K range, read once:
   // (stream_pos << 1) | is_out per subtile row
   for (int i = tid; i < rows; i += DEC_THREADS) {
@@ -266,6 +266,7 @@ qmm_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ in_codes,
   // x into shared memory as fp32, and which of its rows hold a nonzero
   // bit anywhere in this slice (M is padded with zero rows; the products
   // of the others are skipped, which changes no result)
+  sc[tid] = scale;
   unsigned nz = 0;
 #pragma unroll
   for (int mm = 0; mm < DEC_M; ++mm)
@@ -721,17 +722,20 @@ int qmc_empty(void* stream) {
 }
 
 // x_bf16 selects the activation type (0: fp32, 1: bf16); y has x's type.
-// M a multiple of 8, K and N of 128, rows_per_split <= 256 subtile rows;
-// x, the streams and the scales 16-byte aligned. With splits > 1, partial
-// is an fp32 workspace of splits * M * N and counters a zeroed int32
-// buffer of (N / 128) * (M / 8), left zeroed; with splits == 1 neither is
-// read. Returns cudaGetLastError().
+// M a multiple of 8, K and N of 128, rows_per_split in [1, 256] subtile
+// rows (else cudaErrorInvalidValue); x and the streams 16-byte aligned.
+// With splits > 1, partial is an fp32 workspace of splits * M * N and
+// counters a zeroed int32 buffer of (N / 128) * (M / 8), left zeroed; with
+// splits == 1 neither is read. Returns cudaGetLastError().
 int qmc_qmm_decode(const void* x, int x_bf16, const void* in_codes,
                    const void* out_codes, const void* stream_pos,
                    const void* is_out, const void* scale_in,
                    const void* scale_out, void* partial, void* counters,
                    void* y, int M, int K, int N, int splits,
                    int rows_per_split, void* stream) {
+  // x is staged in registers sized for DEC_MAX_ROWS subtile rows
+  if (rows_per_split < 1 || rows_per_split > DEC_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch_decode<__nv_bfloat16>(x, in_codes, out_codes, stream_pos,

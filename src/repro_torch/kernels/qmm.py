@@ -98,9 +98,6 @@ def _check(x: torch.Tensor, qt: QTensor, m_multiple: int) -> None:
                 or t.data_ptr() % 16:
             raise ValueError(f"qt.{name} must be a 16-byte aligned "
                              f"[n, 8, 128] stream")
-    for name in ("scale_in", "scale_out"):
-        if getattr(qt, name).data_ptr() % 16:
-            raise ValueError(f"qt.{name} must be 16-byte aligned")
 
 
 def _operands(x: torch.Tensor, qt: QTensor):

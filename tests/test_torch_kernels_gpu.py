@@ -214,6 +214,38 @@ def test_decode_two_streams(gen, dtype):
     assert _decode_counters_zero()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_decode_takes_scales_at_any_offset(gen, dtype):
+    """The decode kernel reads the scales one float per thread, so scales
+    4 bytes past a 16-byte boundary give the same bits as aligned ones."""
+    qt = _streams(2048, 5632, gen)
+    x = torch.randn((8, 2048), generator=gen, device="cuda").to(dtype)
+    y = kqmm.qmm_decode(x, qt)
+    for name in ("scale_in", "scale_out"):
+        t = getattr(qt, name)
+        moved = torch.empty(t.numel() + 1, device="cuda")[1:].view_as(t)
+        moved.copy_(t)
+        assert moved.data_ptr() % 16 == 4
+        setattr(qt, name, moved)
+    assert torch.equal(kqmm.qmm_decode(x, qt), y)
+
+
+@pytest.mark.parametrize("rows", [0, kqmm.DECODE_MAX_ROWS + 1])
+def test_decode_entry_refuses_rows_past_its_staging(gen, rows):
+    """The C entry point returns an error, and launches nothing, for a K
+    split whose subtile rows the kernel's x staging does not cover."""
+    qt = _streams(2048, 2048, gen)
+    x = torch.randn((8, 2048), generator=gen, device="cuda")
+    y = torch.empty((8, 2048), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = build.library().qmc_qmm_decode(
+        *kqmm._operands(x, qt), None, None, y.data_ptr(), 8, 2048, 2048, 1,
+        rows, stream)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        build.check(rc, "qmm_decode")
+
+
 def test_qmm_kernels_never_take_the_plain_version(gen, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("plain qmm ran on a CUDA tensor")
