@@ -8,7 +8,8 @@ Phases (each prints its own lines; any failure exits nonzero):
   1. device   — the card's name and power limit (nvidia-smi);
   2. build    — nvcc builds the kernels from ``src/repro_torch/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card,
-                at the main path's shapes, with its time, the plain
+                at the main path's shapes (attention also over bf16 q and
+                bf16 pages), with its time, the plain
                 version's, a library call's (yardstick only; the
                 kernel/library ratio is what compares across cards) and
                 its bound; the decode-width qmm also at M=64 (eight M
@@ -19,8 +20,17 @@ Phases (each prints its own lines; any failure exits nonzero):
                 call;
   4. serve    — full-width stablelm-1.6b (random weights from a seed, QMC
                 PTQ on the card), 8 requests through the paged engine with
-                the qmm streams and paged attention; every kernel of the
-                path must have launched and the qmm "ref" path must not;
+                the qmm streams and paged attention, three times: (a)
+                eager, (b) one CUDA graph per step width, (c) graphs and
+                the pipelined loop; each engine runs the requests once
+                (the graphs are captured there) and then again, measured,
+                with the launch counts set to 0 just before it. The tokens
+                must be identical in all three; in every run each kernel
+                of the path must have launched (on replay, too) and the
+                qmm "ref" path must not; captures stay within the declared
+                widths. One eager step runs under the CUDA sync debugger,
+                and torch.profiler reads the device's idle share over a
+                steady decode window of (a) and (b);
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -302,9 +312,9 @@ def check_empty_launch(timer):
 
 
 def make_attn_case(lanes, *, n_kv, g, hd, page, quantized, gen,
-                   poison=1e3):
+                   poison=1e3, bf16=False):
     """A ragged case on the card: per-lane (q_start, n_new), shuffled page
-    ids, the null page poisoned."""
+    ids, the null page poisoned; with ``bf16``, q and the pages in bf16."""
     q_start = torch.tensor([a for a, _ in lanes], dtype=torch.int32,
                            device="cuda")
     n_new = torch.tensor([b for _, b in lanes], dtype=torch.int32,
@@ -332,11 +342,15 @@ def make_attn_case(lanes, *, n_kv, g, hd, page, quantized, gen,
                      k_scale_pages=ks.contiguous(),
                      v_scale_pages=vs.contiguous())
     else:
-        cache.update(k_pages=kf.reshape(n_pages, page, -1).contiguous(),
-                     v_pages=vf.reshape(n_pages, page, -1).contiguous())
+        dt = torch.bfloat16 if bf16 else torch.float32
+        cache.update(
+            k_pages=kf.reshape(n_pages, page, -1).to(dt).contiguous(),
+            v_pages=vf.reshape(n_pages, page, -1).to(dt).contiguous())
     s = max(1, int(n_new.max()))
     q = torch.randn((len(lanes), s, n_kv * g, hd), generator=gen,
                     device="cuda")
+    if bf16:
+        q = q.to(torch.bfloat16)
     return q, cache, q_start, kv_len, n_new, live
 
 
@@ -345,7 +359,8 @@ def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
     live (unmasked) score entries of this data."""
     b, s, h, _ = q.shape
     kv_el = cache["k_pages"].element_size()
-    nbytes = 2 * q.numel() * 4 + 2 * b * s * h * 4          # q, o, m, l
+    nbytes = q.numel() * (q.element_size() + 4) + 2 * b * s * h * 4
+    #        q read, o written in fp32, m and l
     nbytes += 2 * sum(live) * page * n_kv * hd * kv_el
     if "k_scale_pages" in cache:
         nbytes += 2 * sum(live) * page * n_kv * 2
@@ -361,25 +376,34 @@ def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
 
 
 def check_attention(timer, peak, gen, rows):
+    """The attention kernel at the serve phase's shapes (hd 64, 32 KV
+    heads, 4 lanes, page 16) over fp32, int8 and bf16 pages (bf16 q with
+    bf16 pages, the arena of a bf16 model), against its plain version on
+    the same inputs."""
     bw, fl, _ = peak
     hd, page, b = 64, 16, 4
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
     # StableLM-2-1.6B's published context is 4096 tokens
     long_ctx = [(4095, 1), (3000, 1), (1500, 1), (511, 1)]
     chunk = [(0, 128), (64, 100), (200, 1), (0, 0)]
-    cases = [("decode S=1", decode, 32, 1, False, None, None),
-             ("decode S=1", decode, 32, 1, True, None, None),
-             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, False, None,
+    cases = [("decode S=1", decode, 32, 1, "float32", None, None),
+             ("decode S=1", decode, 32, 1, "int8", None, None),
+             ("decode S=1", decode, 32, 1, "bfloat16", None, None),
+             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, "float32", None,
               None),
-             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, True, None, None),
-             ("chunk S=128", chunk, 32, 1, False, None, None),
-             ("chunk S=128", chunk, 32, 1, True, None, None),
-             ("chunk S=128 window+softcap G=2", chunk, 16, 2, False, 32,
+             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, "int8", None,
+              None),
+             ("decode S=1 kv_len<=4096", long_ctx, 32, 1, "bfloat16", None,
+              None),
+             ("chunk S=128", chunk, 32, 1, "float32", None, None),
+             ("chunk S=128", chunk, 32, 1, "int8", None, None),
+             ("chunk S=128", chunk, 32, 1, "bfloat16", None, None),
+             ("chunk S=128 window+softcap G=2", chunk, 16, 2, "float32", 32,
               50.0)]
-    for label, lanes, n_kv, g, quant, window, cap in cases:
+    for label, lanes, n_kv, g, dt, window, cap in cases:
         q, cache, qs, kl, n_new, live = make_attn_case(
-            lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quant,
-            gen=gen)
+            lanes, n_kv=n_kv, g=g, hd=hd, page=page,
+            quantized=dt == "int8", bf16=dt == "bfloat16", gen=gen)
         kw = dict(n_kv=n_kv, head_dim=hd, window=window, attn_softcap=cap)
         o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
         o_r, m_r, l_r = ragged_paged_attention_ref(q, cache, qs, kl, **kw)
@@ -419,12 +443,11 @@ def check_attention(timer, peak, gen, rows):
         nbytes, flops = attn_cost(q, cache, qs, n_new, live, n_kv=n_kv,
                                   hd=hd, page=page, window=window)
         b_ms, b_by = bound(nbytes, flops, bw, fl)
-        dt = "int8" if quant else "float32"
         rows.append(dict(kernel="ragged_paged_attention", shape=label,
                          dtype=dt, max_abs_err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernels] attention {label:31s} {dt:7s} err={err:.2e} "
+        print(f"[kernels] attention {label:31s} {dt:8s} err={err:.2e} "
               f"ms={ms:.4f} host={host_ms:.4f} plain={plain_ms:.4f} "
               f"sdpa={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
               f"bound={b_ms:.4f} ({b_by})")
@@ -444,10 +467,27 @@ def make_requests(cfg, n: int, seed: int):
     return reqs
 
 
-def serve(cfg, qparams, seed: int):
-    eng = ServeEngine(cfg, qparams, slots=4, max_len=256,
-                      paged_attention=True, weight_plan=False,
-                      device="cuda")
+# the three serve runs: (a) eager, (b) graphed, (c) graphed + pipelined
+SERVE_RUNS = [("a eager", dict(cuda_graphs=False)),
+              ("b graphed", dict(cuda_graphs=True)),
+              ("c graphed+pipelined", dict(cuda_graphs=True,
+                                           pipelined=True))]
+
+
+def serve_engine(cfg, qparams, **kw):
+    return ServeEngine(cfg, qparams, slots=4, max_len=256,
+                       paged_attention=True, weight_plan=False,
+                       device="cuda", **kw)
+
+
+def serve(cfg, qparams, seed: int, label: str, **kw):
+    """One serve configuration on 8 requests: a first run (the graphs are
+    captured there), then the measured run of the same requests, with the
+    launch counts set to 0 just before it and read just after."""
+    eng = serve_engine(cfg, qparams, **kw)
+    eng.run(make_requests(cfg, 8, seed))
+    torch.cuda.synchronize()
+    first = eng.stats
     reqs = make_requests(cfg, 8, seed)
     build.reset_launches()
     kops.reset_path_counts()
@@ -458,30 +498,186 @@ def serve(cfg, qparams, seed: int):
     s = eng.stats
     for r in reqs:
         require(len(r.out_tokens) == r.max_new_tokens,
-                f"request {r.uid} emitted {len(r.out_tokens)} of "
+                f"{label}: request {r.uid} emitted {len(r.out_tokens)} of "
                 f"{r.max_new_tokens} tokens")
         require(DEAD_TOKEN not in r.out_tokens and all(
             0 <= t < cfg.vocab for t in r.out_tokens),
-            f"request {r.uid} emitted an impossible token")
+            f"{label}: request {r.uid} emitted an impossible token")
     for k in SERVE_KERNELS:
-        require(launches[k] > 0, f"kernel {k} never launched on the "
-                f"serving path")
-    require(paths["ref"] == 0, f"qmm took the plain 'ref' path "
+        require(launches[k] > 0, f"{label}: kernel {k} never launched on "
+                f"the serving path")
+    require(paths["ref"] == 0, f"{label}: qmm took the plain 'ref' path "
             f"{paths['ref']} times on the serving path")
+    sset = eng.step_set
+    surface = len(sset.step.widths)
+    captures = first.graph_captures + s.graph_captures
+    require(sset.step.captures <= surface
+            and sset.solo_step.captures <= surface,
+            f"{label}: {sset.step.captures} step / {sset.solo_step.captures} "
+            f"solo captures past the declared surface of {surface} widths")
+    if kw.get("cuda_graphs"):
+        require(s.graph_replays > 0 and s.graph_captures == 0,
+                f"{label}: the measured run captured {s.graph_captures} "
+                f"graphs and replayed {s.graph_replays}")
     ttft = float(np.percentile(s.ttft_s, 50)) * 1e3
-    print(f"[serve] {s.tokens_out} tokens, {s.rounds} rounds "
-          f"({s.prefill_chunks} prefill chunks, {s.decode_steps} decode "
-          f"rounds), {s.wall_s:.3f}s, {s.tokens_per_s:.1f} tok/s, TTFT "
-          f"p50 {ttft:.1f} ms, preemptions {s.preemptions}")
     round_ms = np.asarray(s.step_seconds) * 1e3
-    print(f"[serve] round wall ms: p50 {np.median(round_ms):.1f}, max "
-          f"{round_ms.max():.1f}")
-    print(f"[serve] kernel launches {launches}; qmm paths {paths}")
-    return dict(tokens=s.tokens_out, rounds=s.rounds, wall_s=s.wall_s,
-                tokens_per_s=s.tokens_per_s, ttft_p50_ms=ttft,
-                round_ms_p50=float(np.median(round_ms)),
-                round_ms_max=float(round_ms.max()),
-                launches=launches, qmm_paths=paths)
+    print(f"[serve] {label}: {s.tokens_out} tokens, {s.rounds} rounds "
+          f"({s.prefill_chunks} prefill chunks, {s.decode_steps} decode "
+          f"rounds), {s.wall_s:.3f}s, {s.tokens_per_s:.1f} tok/s, round ms "
+          f"p50 {np.median(round_ms):.2f} max {round_ms.max():.2f} (wall "
+          f"per round {s.wall_s / s.rounds * 1e3:.2f}), TTFT "
+          f"p50 {ttft:.1f} ms, preemptions {s.preemptions}")
+    print(f"[serve] {label}: graphs captured {captures} (of a surface of "
+          f"{surface} widths x 2 callables; {first.capture_s:.2f}s), "
+          f"replays {s.graph_replays}, graph pool {sset.pool_bytes} bytes; "
+          f"solo rounds {s.solo_rounds}, pipelined {s.pipelined_rounds}, "
+          f"drains {s.pipeline_barriers}, lag-trimmed tokens "
+          f"{s.lag_trimmed_tokens}; first run {first.tokens_per_s:.1f} "
+          f"tok/s")
+    print(f"[serve] {label}: kernel launches {launches}; qmm paths {paths}")
+    out = dict(tokens=s.tokens_out, rounds=s.rounds, wall_s=s.wall_s,
+               tokens_per_s=s.tokens_per_s, ttft_p50_ms=ttft,
+               round_ms_p50=float(np.median(round_ms)),
+               round_ms_max=float(round_ms.max()),
+               first_run_tokens_per_s=first.tokens_per_s,
+               graph_captures=captures, capture_s=first.capture_s,
+               graph_replays=s.graph_replays, pool_bytes=sset.pool_bytes,
+               solo_rounds=s.solo_rounds,
+               pipelined_rounds=s.pipelined_rounds,
+               pipeline_barriers=s.pipeline_barriers,
+               lag_trimmed_tokens=s.lag_trimmed_tokens,
+               launches=launches, qmm_paths=paths)
+    return out, [r.out_tokens for r in reqs], eng
+
+
+def check_no_host_sync(eng):
+    """One eager step of the step set at C = 1 under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in the step may
+    read the device from the host (what stream capture forbids). Every
+    lane idle, so it writes only the null page."""
+    sset = eng.step_set
+    z = np.zeros(sset.max_slots, np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sset.step(eng._exec_params, np.zeros((sset.max_slots, 1), np.int32),
+                  eng._arena, z, z, np.zeros(sset.max_slots, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[serve] one eager step under set_sync_debug_mode('error'): no "
+          "read of the device from the host")
+
+
+def decode_requests(cfg, seed: int):
+    """4 requests of 8 prompt tokens and 48 new ones: one short prefill
+    round, then a steady window of 4-lane decode rounds."""
+    rng = np.random.default_rng(seed + 1)
+    return [Request(uid=i, prompt=rng.integers(2, cfg.vocab, size=8).astype(
+        np.int32), max_new_tokens=48) for i in range(4)]
+
+
+def idle_share(eng, cfg, seed: int, label: str):
+    """The device's idle share over a steady decode window of this engine
+    (warm: a first run captures what it needs): ``torch.profiler`` with
+    CPU and CUDA activity; busy = the union of the device activity
+    intervals, idle = 1 - busy / the run's wall time. The profiler's host
+    tracing slows the host, so the same window is also run without it,
+    and its wall time gives a second share from the same busy time. If
+    the profiler shows no device activity, CUDA events time the C = 1 step
+    instead (busy = decode rounds x its device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.run(decode_requests(cfg, seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(decode_requests(cfg, seed))
+    torch.cuda.synchronize()
+    plain_wall_us = (time.perf_counter() - t0) * 1e6
+    plain_p50 = float(np.median(eng.stats.step_seconds) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(decode_requests(cfg, seed))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    s = eng.stats
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy = 0.0
+    cur0 = cur1 = None
+    for a, b in spans:
+        if cur1 is None or a > cur1:
+            if cur1 is not None:
+                busy += cur1 - cur0
+            cur0, cur1 = a, b
+        else:
+            cur1 = max(cur1, b)
+    if cur1 is not None:
+        busy += cur1 - cur0
+    source = "torch.profiler"
+    if busy <= 0:
+        print(f"[idle] {label}: the profiler shows no device time; timing "
+              f"the C = 1 step with CUDA events instead")
+        source = "cuda events"
+        sset = eng.step_set
+        z = np.zeros(sset.max_slots, np.int32)
+        args = (eng._exec_params, np.zeros((sset.max_slots, 1), np.int32),
+                eng._arena, z, z + 0, np.zeros(sset.max_slots, np.float32))
+        sset.step(*args)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            sset.step(*args)
+        b.record()
+        b.synchronize()
+        busy = a.elapsed_time(b) / 20 * 1e3 * s.rounds
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kern[e.key] = kern.get(e.key, 0.0) + e.self_device_time_total
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    share = 1.0 - busy / wall_us
+    plain_share = 1.0 - busy / plain_wall_us
+    print(f"[idle] {label}: {s.rounds} rounds ({s.decode_steps} decode) in "
+          f"{wall_us / 1e3:.2f} ms under the profiler, device busy "
+          f"{busy / 1e3:.2f} ms ({source}), idle share {share:.4f}, round "
+          f"ms p50 {np.median(s.step_seconds) * 1e3:.2f}; without the "
+          f"profiler {plain_wall_us / 1e3:.2f} ms, round ms p50 "
+          f"{plain_p50:.2f}, idle share {plain_share:.4f}")
+    for name, us in top:
+        print(f"[idle] {label}:   {us / 1e3:9.3f} ms  {name[:90]}")
+    return dict(rounds=s.rounds, wall_ms=wall_us / 1e3,
+                busy_ms=busy / 1e3, idle_share=share, source=source,
+                round_ms_p50=float(np.median(s.step_seconds) * 1e3),
+                plain_wall_ms=plain_wall_us / 1e3,
+                plain_round_ms_p50=plain_p50, plain_idle_share=plain_share,
+                top_kernels_ms={k: v / 1e3 for k, v in top})
+
+
+def serve_phase(cfg, qparams, seed: int):
+    """(a), (b) and (c) on the same 8 requests, identical tokens required;
+    the idle share of (a) and (b) over a steady decode window."""
+    out, toks, idle = {}, {}, {}
+    for label, kw in SERVE_RUNS:
+        out[label], toks[label], eng = serve(cfg, qparams, seed, label,
+                                             **kw)
+        if label.startswith("a"):
+            check_no_host_sync(eng)
+        if not label.startswith("c"):
+            idle[label] = idle_share(eng, cfg, seed, label)
+        del eng
+        torch.cuda.empty_cache()
+    ref = toks[SERVE_RUNS[0][0]]
+    for label, _ in SERVE_RUNS[1:]:
+        require(toks[label] == ref, f"serve: {label} tokens differ from "
+                f"the eager run's")
+    print("[serve] identical tokens in the eager, graphed and "
+          "graphed+pipelined runs")
+    return dict(runs=out, idle=idle)
 
 
 def whole_step(cfg, qparams, seed: int):
@@ -691,7 +887,7 @@ def summary(rows, launches, bw_name):
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
     lm_head's inlier stream); ``launches`` per kernel from the run of the
-    path it serves."""
+    path it serves (the serving kernels: the graphed run (b))."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -773,7 +969,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[serve] stablelm-1.6b full width: init + QMC PTQ on the card in "
           f"{time.monotonic() - t0:.1f}s")
-    served = serve(cfg, qparams, args.seed)
+    served = serve_phase(cfg, qparams, args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -794,7 +990,8 @@ def main(argv=None) -> int:
             "PTQ path")
     fig4 = fig4_rows()
 
-    launches = dict(served["launches"], unpack3b=ptq_launches["unpack3b"])
+    launches = dict(served["runs"]["b graphed"]["launches"],
+                    unpack3b=ptq_launches["unpack3b"])
     kernels = summary(rows, launches, peak_name)
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(

@@ -6,7 +6,10 @@
 // queries sit at absolute positions q_start[b] + t and attend the pages
 // block_tbl[b, p] causally, bounded by kv_len[b]; optional sliding window
 // and tanh softcap; GQA (G = H / KV query rows share one KV head); int8
-// pages carry per-(page slot, head) bf16 scales; online softmax. Rows at
+// pages carry per-(page slot, head) bf16 scales; q may be fp32 or bf16 and
+// the pages fp32, bf16 or int8, each widened to fp32 on the way into the
+// product, as the reference casts them (paged_attention.py:118-121);
+// online softmax. Rows at
 // positions >= kv_len come out exactly 0. Outputs o plus the softmax state
 // (m, l) of every row.
 //
@@ -36,7 +39,10 @@
 //     are split into hi + lo TF32 parts and three products (hi*hi + hi*lo
 //     + lo*hi) keep fp32 accuracy. int8 K is exact in TF32 and its scale
 //     factors out of the dot (s = ks[t] * (q . k_int8[t])), so only q is
-//     split; vs[t] is folded into p before PV, where p is split. Each
+//     split; vs[t] is folded into p before PV, where p is split. bf16
+//     pages are exact in TF32 too (8 significant bits of 11): widened by
+//     a shift as they leave the ring, they take the int8 route's two
+//     products, with no scale. Each
 //     warp owns one m tile and a group of 16-key tiles with its own
 //     running (m, l, acc); the reduction index of QK^T is permuted so the
 //     score fragment is PV's A fragment as it stands, and the shared
@@ -47,9 +53,11 @@
 //   * The warps' softmax states are merged in warp order through shared
 //     memory at the end of the span.
 //
-// Sources: this file (chunk path, span merge, C entry points),
-// paged_attention_decode.cu (decode path, built in parallel) and
-// paged_attention.cuh (what both share).
+// Sources: this file (chunk path, span merge, C entry points), the decode
+// path's kernel in paged_attention_decode.cuh, instantiated for fp32,
+// int8 and bf16 pages in paged_attention_decode.cu, _i8.cu and _bf16.cu
+// (one unit per page kind, built in parallel: 16 instantiations each),
+// and paged_attention.cuh (what all share).
 #include "paged_attention.cuh"
 
 namespace qmc_pa {
@@ -58,9 +66,10 @@ namespace {
 // ---------------------------------------------------------------------------
 // chunk path: tensor cores, one m tile of 16 rows and a key group per warp
 // ---------------------------------------------------------------------------
-template <bool QUANT, int NT>  // NT = hd / 8
+template <int KIND, int NT>  // NT = hd / 8
 __global__ void __launch_bounds__(MAX_THREADS)
 attn_chunk_kernel(Args a) {
+  constexpr bool QUANT = KIND == KIND_I8;
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int HD = NT * 8;
   const int G = a.H / a.KV;
@@ -72,7 +81,7 @@ attn_chunk_kernel(Args a) {
   Span s;
   if (!span_of(a, rows, s)) return;
 
-  const Layout L = layout(HD, QUANT, rows_pad, groups, a.span_pages,
+  const Layout L = layout(HD, KIND, rows_pad, groups, a.span_pages,
                           a.stages, true);
   int* tbl_s = reinterpret_cast<int*>(smem);
   unsigned char* ring = smem + L.tbl;
@@ -82,12 +91,13 @@ attn_chunk_kernel(Args a) {
   constexpr int QS = HD + 8;
 
   const int tid = threadIdx.x;
-  // q rows land in q_lo with the first stage (padding rows zero-filled);
-  // they are scaled and split in place once that stage has arrived
-  for (int i = tid; i < rows_pad * (HD / 4); i += blockDim.x) {
+  // fp32 q rows land in q_lo with the first stage (padding rows
+  // zero-filled); they are scaled and split in place once that stage has
+  // arrived. bf16 q is read then, straight from device memory.
+  for (int i = tid; !a.q_bf16 && i < rows_pad * (HD / 4); i += blockDim.x) {
     const int r = i / (HD / 4), c = i - r * (HD / 4);
-    const float* src = a.q;
-    if (r < rows) src = a.q + out_row(a, s.b, s.h, s.qb, r) * HD + c * 4;
+    const float* src = static_cast<const float*>(a.q);
+    if (r < rows) src += out_row(a, s.b, s.h, s.qb, r) * HD + c * 4;
     cp16(q_lo + r * QS + c * 4, src, r < rows ? 16 : 0);
   }
   const int n_pg = (s.n_keys + a.page - 1) / a.page;
@@ -129,8 +139,12 @@ attn_chunk_kernel(Args a) {
     if (st == 0) {  // q, pre-scaled, as TF32 hi + lo
       for (int i = tid; i < rows_pad * HD; i += blockDim.x) {
         const int r = i / HD, d = i - r * HD;
+        float qv = __uint_as_float(q_lo[r * QS + d]);
+        if (a.q_bf16)
+          qv = r < rows ? q_at(a, out_row(a, s.b, s.h, s.qb, r) * HD + d)
+                        : 0.f;
         uint32_t hi, lo;
-        split(__uint_as_float(q_lo[r * QS + d]) * a.scale, hi, lo);
+        split(qv * a.scale, hi, lo);
         q_hi[r * QS + d] = hi;
         q_lo[r * QS + d] = lo;
       }
@@ -168,6 +182,11 @@ attn_chunk_kernel(Args a) {
             const uint32_t b1 = __float_as_uint(i8_float(kw, 1));
             mma(sx[j], al, b0, b1);
             mma(sc[j], ah, b0, b1);
+          } else if (KIND == KIND_BF16) {  // so is bf16 K
+            const uint32_t kw = *reinterpret_cast<const uint32_t*>(
+                stg + key * L.k_row + col * 2);
+            mma(sx[j], al, kw << 16, kw & 0xffff0000u);
+            mma(sc[j], ah, kw << 16, kw & 0xffff0000u);
           } else {
             const float2 kv = *reinterpret_cast<const float2*>(
                 stg + key * L.k_row + col * 4);
@@ -260,6 +279,11 @@ attn_chunk_kernel(Args a) {
             const uint32_t b1 = __float_as_uint(i8_float(v1r[d], 0));
             mma(acc[nt], pl, b0, b1);
             mma(acc[nt], ph, b0, b1);
+          } else if (KIND == KIND_BF16) {
+            const uint32_t b0 = __float_as_uint(bf16_at(v0r, d));
+            const uint32_t b1 = __float_as_uint(bf16_at(v1r, d));
+            mma(acc[nt], pl, b0, b1);
+            mma(acc[nt], ph, b0, b1);
           } else {
             uint32_t b0h, b0l, b1h, b1l;
             split(reinterpret_cast<const float*>(v0r)[d], b0h, b0l);
@@ -338,14 +362,31 @@ __global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
   }
 }
 
-template <bool QUANT>
+template <int KIND>
+int launch_chunk(dim3 grid, int threads, int smem, const Args& a,
+                 cudaStream_t st) {
+  switch (a.hd) {
+    case 32: return launch<attn_chunk_kernel<KIND, 4>>(grid, threads, smem, a, st);
+    case 64: return launch<attn_chunk_kernel<KIND, 8>>(grid, threads, smem, a, st);
+    case 128: return launch<attn_chunk_kernel<KIND, 16>>(grid, threads, smem, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 int launch_span(dim3 grid, int threads, int smem, const Args& a,
                 cudaStream_t st) {
-  if (a.q_blk == 1) return launch_decode_path(QUANT, grid, smem, a, st);
-  switch (a.hd) {
-    case 32: return launch<attn_chunk_kernel<QUANT, 4>>(grid, threads, smem, a, st);
-    case 64: return launch<attn_chunk_kernel<QUANT, 8>>(grid, threads, smem, a, st);
-    case 128: return launch<attn_chunk_kernel<QUANT, 16>>(grid, threads, smem, a, st);
+  if (a.q_blk == 1) {
+    switch (a.kind) {
+      case KIND_F32: return launch_decode_f32(grid, smem, a, st);
+      case KIND_I8: return launch_decode_i8(grid, smem, a, st);
+      case KIND_BF16: return launch_decode_bf16(grid, smem, a, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (a.kind) {
+    case KIND_F32: return launch_chunk<KIND_F32>(grid, threads, smem, a, st);
+    case KIND_I8: return launch_chunk<KIND_I8>(grid, threads, smem, a, st);
+    case KIND_BF16: return launch_chunk<KIND_BF16>(grid, threads, smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -373,13 +414,13 @@ Geometry geometry(int rows, int q_blk) {
   return g;
 }
 
-int smem_bytes(int rows, int q_blk, int hd, int quantized, int span_pages,
+int smem_bytes(int rows, int q_blk, int hd, int kind, int span_pages,
                int* stages) {
   const Geometry g = geometry(rows, q_blk);
   // three stages while two blocks still fit on an SM, else two
   for (int s = 3; s >= 2; --s) {
-    const Layout L = layout(hd, quantized, g.rows_pad, g.groups, span_pages,
-                            s, g.chunk);
+    const Layout L = layout(hd, kind, g.rows_pad, g.groups, span_pages, s,
+                            g.chunk);
     if (s == 2 || L.total <= 113 * 1024) {
       *stages = s;
       return L.total;
@@ -397,14 +438,16 @@ extern "C" {
 
 // Dynamic shared memory bytes one span block needs (R = q_blk * G rows).
 // The wrapper checks it against the 227 KB a block may opt into.
-int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int quantized,
+// kind: 0 fp32 pages, 1 int8 pages with bf16 scales, 2 bf16 pages.
+int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int kind,
                                     int span_pages) {
   int stages;
-  return smem_bytes(R, q_blk, hd, quantized, span_pages, &stages);
+  return smem_bytes(R, q_blk, hd, kind, span_pages, &stages);
 }
 
-// q [B, S_pad, H, hd] fp32 (S_pad a multiple of q_blk); k/v pages
-// [n_pages, page, KV*hd] fp32, or int8 with bf16 scales [n_pages, page, KV];
+// q [B, S_pad, H, hd] fp32, or bf16 when q_bf16 (S_pad a multiple of
+// q_blk); k/v pages [n_pages, page, KV*hd] fp32 (kind 0), int8 with bf16
+// scales [n_pages, page, KV] (kind 1) or bf16 (kind 2);
 // tbl [B, P] int32; q_start / kv_len [B] int32. o [B, S_pad, H, hd] and
 // m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off. Spans
 // of span_pages pages (a multiple of 64 / page), n_spans = ceil(P /
@@ -416,9 +459,10 @@ int qmc_ragged_paged_attention(
     const void* q_start, const void* kv_len, void* o, void* m, void* l,
     void* po, void* pm, void* pl, int B, int S_pad, int H, int KV, int hd,
     int page, int P, int q_blk, int window, float softcap, float scale,
-    int quantized, int span_pages, int n_spans, void* stream) {
+    int q_bf16, int kind, int span_pages, int n_spans, void* stream) {
+  if (kind < KIND_F32 || kind > KIND_BF16) return (int)cudaErrorInvalidValue;
   Args a;
-  a.q = static_cast<const float*>(q);
+  a.q = q;
   a.k_pages = static_cast<const unsigned char*>(k_pages);
   a.v_pages = static_cast<const unsigned char*>(v_pages);
   a.k_scale = static_cast<const unsigned char*>(k_scale);
@@ -434,16 +478,15 @@ int qmc_ragged_paged_attention(
   a.pl = static_cast<float*>(pl);
   a.B = B; a.S_pad = S_pad; a.H = H; a.KV = KV; a.hd = hd; a.page = page;
   a.P = P; a.q_blk = q_blk; a.window = window; a.softcap = softcap;
-  a.scale = scale; a.quantized = quantized; a.span_pages = span_pages;
+  a.scale = scale; a.q_bf16 = q_bf16; a.kind = kind;
+  a.span_pages = span_pages;
   a.n_spans = n_spans;
   const int rows = q_blk * (H / KV);
   const Geometry g = geometry(rows, q_blk);
-  const int smem = smem_bytes(rows, q_blk, hd, quantized, span_pages,
-                              &a.stages);
+  const int smem = smem_bytes(rows, q_blk, hd, kind, span_pages, &a.stages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_spans, B * KV, S_pad / q_blk);
-  const int rc = quantized ? launch_span<true>(grid, g.threads, smem, a, st)
-                           : launch_span<false>(grid, g.threads, smem, a, st);
+  const int rc = launch_span(grid, g.threads, smem, a, st);
   if (rc != 0 || n_spans == 1) return rc;
   const size_t rows_total = (size_t)B * S_pad * H;
   attn_merge_kernel<<<(unsigned)((rows_total + 3) / 4), 128, 0, st>>>(a);

@@ -17,8 +17,13 @@ constexpr int MAX_THREADS = 256;
 constexpr int DEC_THREADS = TILES * 32;  // decode path: a warp per key tile
 constexpr float NEG = -1e30f;  // the reference's mask value
 
+// What the K/V pages hold. fp32 pages are split into hi + lo TF32 parts on
+// the chunk path; int8 codes (with bf16 scales) and bf16 values are exact
+// in TF32 and are widened to fp32 as they leave the ring.
+enum Kind { KIND_F32 = 0, KIND_I8 = 1, KIND_BF16 = 2 };
+
 struct Args {
-  const float* q;
+  const void* q;  // fp32, or bf16 when q_bf16 (widened as it is read)
   const unsigned char* k_pages;
   const unsigned char* v_pages;
   const unsigned char* k_scale;  // bf16 [n_pages, page, KV]
@@ -34,7 +39,7 @@ struct Args {
   float* pl;
   int B, S_pad, H, KV, hd, page, P, q_blk, window;
   float softcap, scale;
-  int quantized, span_pages, n_spans, stages;
+  int q_bf16, kind, span_pages, n_spans, stages;
 };
 
 // ---- shared-memory layout (host and device agree) ------------------------
@@ -46,14 +51,21 @@ struct Layout {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-__host__ __device__ inline Layout layout(int hd, int quantized, int rows_pad,
+__host__ __device__ inline int row_bytes(int hd, int kind) {
+  return kind == KIND_I8 ? hd : kind == KIND_BF16 ? 2 * hd : 4 * hd;
+}
+
+__host__ __device__ inline Layout layout(int hd, int kind, int rows_pad,
                                          int groups, int span_pages,
                                          int stages, bool chunk) {
   Layout L;
-  // padding makes the fragment loads conflict-free (see the note above)
-  L.k_row = quantized ? hd + 16 : (hd + 8) * 4;
-  L.v_row = quantized ? hd + 16 : (hd + 4) * 4;
-  L.stage = STAGE_KEYS * (L.k_row + L.v_row) + (quantized ? 2 * 4 * STAGE_KEYS : 0);
+  // 16 bytes of padding per row (fp32 K: 32) make the fragment loads
+  // conflict-free (see the note in paged_attention.cu)
+  const int rb = row_bytes(hd, kind);
+  L.k_row = kind == KIND_F32 ? rb + 32 : rb + 16;
+  L.v_row = rb + 16;
+  L.stage = STAGE_KEYS * (L.k_row + L.v_row) +
+            (kind == KIND_I8 ? 2 * 4 * STAGE_KEYS : 0);
   L.tbl = align16(span_pages * 4);
   L.ring = stages * L.stage;
   L.q = chunk ? 2 * rows_pad * (hd + 8) * 4 : 0;
@@ -107,6 +119,18 @@ __device__ __forceinline__ float bf16_half(uint32_t word, int odd) {
   const uint16_t bits = odd ? (uint16_t)(word >> 16) : (uint16_t)word;
   return __bfloat162float(__ushort_as_bfloat16(bits));
 }
+// element i of a bf16 row as an exact float (its bits, shifted up)
+__device__ __forceinline__ float bf16_at(const unsigned char* row, int i) {
+  return __uint_as_float(
+      (uint32_t)reinterpret_cast<const uint16_t*>(row)[i] << 16);
+}
+// element i of q, widened to fp32 when q is bf16
+__device__ __forceinline__ float q_at(const Args& a, size_t i) {
+  if (a.q_bf16)
+    return __uint_as_float(
+        (uint32_t)static_cast<const uint16_t*>(a.q)[i] << 16);
+  return static_cast<const float*>(a.q)[i];
+}
 
 // Live pages of (lane b, q block qb): 0 for a dead q block. The kernel and
 // the merge pass both use it; kernels/paged_attention.py:span_plan mirrors it.
@@ -133,8 +157,8 @@ __device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
 // page and the chunks per row are powers of two.
 __device__ inline void load_stage(const Args& a, unsigned char* st, const Layout& L,
                            const int* tbl_s, int key0, int key_end, int h) {
-  const int row_bytes = a.quantized ? a.hd : a.hd * 4;
-  const int c_log = ilog2(row_bytes >> 4);  // log2 chunks per row
+  const int rb = row_bytes(a.hd, a.kind);
+  const int c_log = ilog2(rb >> 4);  // log2 chunks per row
   const int n_log = c_log + 6;              // log2(STAGE_KEYS * chunks)
   const int p_log = ilog2(a.page);
   unsigned char* ks = st;
@@ -150,13 +174,13 @@ __device__ inline void load_stage(const Args& a, unsigned char* st, const Layout
     if (ok) {
       const size_t r = ((size_t)tbl_s[key >> p_log] * a.page +
                         (key & (a.page - 1))) * a.KV + h;
-      src = base + r * row_bytes + c * 16;
+      src = base + r * rb + c * 16;
     }
     unsigned char* dst =
         (which ? vs + row * L.v_row : ks + row * L.k_row) + c * 16;
     cp16(dst, src, ok ? 16 : 0);
   }
-  if (a.quantized) {
+  if (a.kind == KIND_I8) {
     uint32_t* sc = reinterpret_cast<uint32_t*>(
         st + STAGE_KEYS * (L.k_row + L.v_row));
     for (int i = threadIdx.x; i < 2 * STAGE_KEYS; i += blockDim.x) {
@@ -287,8 +311,12 @@ int launch(dim3 grid, int threads, int smem, const Args& a,
   return (int)cudaGetLastError();
 }
 
-// The decode path's launcher (paged_attention_decode.cu).
-int launch_decode_path(bool quantized, dim3 grid, int smem, const Args& a,
+// The decode path's launchers, one unit per page kind so that they compile
+// in parallel: paged_attention_decode.cu (fp32), _i8.cu, _bf16.cu.
+int launch_decode_f32(dim3 grid, int smem, const Args& a,
+                      cudaStream_t stream);
+int launch_decode_i8(dim3 grid, int smem, const Args& a, cudaStream_t stream);
+int launch_decode_bf16(dim3 grid, int smem, const Args& a,
                        cudaStream_t stream);
 
 }  // namespace qmc_pa

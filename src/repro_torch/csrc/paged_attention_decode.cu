@@ -1,175 +1,13 @@
-// Ragged paged attention, decode path (S = 1), for Hopper (sm_90a): one
-// block per (span, lane * KV head); each warp takes one 16-key tile of a
-// ring stage and the lanes split hd (hd/32 dims each), with warp-shuffle
-// dot products. Built as its own unit so its 32 instantiations compile
-// beside the chunk path's. Design note: paged_attention.cu.
-#include "paged_attention.cuh"
+// Ragged paged attention, decode path (S = 1), over fp32 pages: the
+// instantiations of paged_attention_decode.cuh's kernel for that page kind
+// (int8 pages: paged_attention_decode_i8.cu; bf16: _bf16.cu). Design
+// note: paged_attention.cu.
+#include "paged_attention_decode.cuh"
 
 namespace qmc_pa {
-namespace {
 
-// ---------------------------------------------------------------------------
-// decode path (S = 1): warps over 16-key tiles, lanes over hd
-// ---------------------------------------------------------------------------
-template <bool QUANT, int GM, int DPL>  // GM >= G rows, DPL = hd / 32
-__global__ void __launch_bounds__(DEC_THREADS)
-attn_decode_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int HD = DPL * 32;
-  const int G = a.H / a.KV;  // rows (q_blk = 1)
-  Span s;
-  if (!span_of(a, G, s)) return;
-
-  const Layout L = layout(HD, QUANT, GM, TILES, a.span_pages, a.stages,
-                          false);
-  int* tbl_s = reinterpret_cast<int*>(smem);
-  unsigned char* ring = smem + L.tbl;
-  const int tid = threadIdx.x;
-  const int n_pg = (s.n_keys + a.page - 1) / a.page;
-  for (int i = tid; i < n_pg; i += blockDim.x)
-    tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i];
-  __syncthreads();
-  for (int st = 0; st < a.stages - 1; ++st) {
-    if (st < s.n_stages)
-      load_stage(a, ring + st * L.stage, L, tbl_s, st * STAGE_KEYS, s.n_keys,
-                 s.h);
-    cp_commit();
-  }
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int d0 = lane * DPL;
-  float q[GM][DPL], acc[GM][DPL], m[GM], l[GM];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      q[g][i] = g < G ? a.q[out_row(a, s.b, s.h, s.qb, g) * HD + d0 + i] *
-                            a.scale
-                      : 0.f;
-      acc[g][i] = 0.f;
-    }
-    m[g] = NEG;
-    l[g] = 0.f;
-  }
-
-  for (int st = 0; st < s.n_stages; ++st) {
-    if (a.stages == 3)
-      cp_wait<1>();
-    else
-      cp_wait<0>();
-    __syncthreads();
-    const int nx = st + a.stages - 1;
-    if (nx < s.n_stages)
-      load_stage(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
-                 nx * STAGE_KEYS, s.n_keys, s.h);
-    cp_commit();
-
-    const unsigned char* stg = ring + (st % a.stages) * L.stage;
-    const int key0 = st * STAGE_KEYS;
-    const int kb = warp * KEY_TILE;
-    if (key0 + kb >= s.n_keys) continue;
-    const int kpos = s.p0 * a.page + key0 + kb;
-    float ksc[KEY_TILE], vsc[KEY_TILE];
-    if (QUANT) {
-#pragma unroll
-      for (int j = 0; j < KEY_TILE; ++j) {
-        ksc[j] = stage_scale(a, stg, L, tbl_s, key0, kb + j, 0, s.h);
-        vsc[j] = stage_scale(a, stg, L, tbl_s, key0, kb + j, 1, s.h);
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g >= G) break;
-      float sv[KEY_TILE];
-      float cm = NEG;
-#pragma unroll
-      for (int j = 0; j < KEY_TILE; ++j) {
-        const unsigned char* kr = stg + (kb + j) * L.k_row;
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const float kv = QUANT ? i8_float(kr[d0 + i], 0)
-                                 : reinterpret_cast<const float*>(kr)[d0 + i];
-          part = fmaf(q[g][i], kv, part);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, off);
-        if (QUANT) part *= ksc[j];
-        if (a.softcap > 0.f) part = a.softcap * tanhf(part / a.softcap);
-        sv[j] = visible(a, s.q0, kpos + j, s.kl) ? part : -INFINITY;
-        cm = fmaxf(cm, sv[j]);
-      }
-      const float mn = fmaxf(m[g], cm);
-      const float c = expf(m[g] - mn);
-      m[g] = mn;
-      float ps = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[g][i] *= c;
-#pragma unroll
-      for (int j = 0; j < KEY_TILE; ++j) {
-        const float p = sv[j] == -INFINITY ? 0.f : expf(sv[j] - mn);
-        ps += p;
-        const float pv = QUANT ? p * vsc[j] : p;
-        const unsigned char* vr =
-            stg + STAGE_KEYS * L.k_row + (kb + j) * L.v_row;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const float vv = QUANT ? i8_float(vr[d0 + i], 0)
-                                 : reinterpret_cast<const float*>(vr)[d0 + i];
-          acc[g][i] = fmaf(pv, vv, acc[g][i]);
-        }
-      }
-      l[g] = l[g] * c + ps;
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  float* scratch = reinterpret_cast<float*>(ring);
-  constexpr int SS = HD + 2;
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    float* sr = scratch + ((size_t)warp * GM + g) * SS;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sr[d0 + i] = acc[g][i];
-    if (lane == 0) {
-      sr[HD] = m[g];
-      sr[HD + 1] = l[g];
-    }
-  }
-  __syncthreads();
-  epilogue(a, scratch, TILES, G, GM, s.b, s.h, s.qb, s.sp, s.n_sp);
-}
-
-template <bool QUANT, int GM>
-int launch_decode(dim3 grid, int smem, const Args& a, cudaStream_t st) {
-  switch (a.hd) {
-    case 32: return launch<attn_decode_kernel<QUANT, GM, 1>>(grid, DEC_THREADS, smem, a, st);
-    case 64: return launch<attn_decode_kernel<QUANT, GM, 2>>(grid, DEC_THREADS, smem, a, st);
-    case 128: return launch<attn_decode_kernel<QUANT, GM, 4>>(grid, DEC_THREADS, smem, a, st);
-    case 256: return launch<attn_decode_kernel<QUANT, GM, 8>>(grid, DEC_THREADS, smem, a, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-int launch_decode_path(bool quantized, dim3 grid, int smem, const Args& a,
-                       cudaStream_t st) {
-  const int G = a.H / a.KV;
-  if (quantized) {
-    if (G <= 1) return launch_decode<true, 1>(grid, smem, a, st);
-    if (G <= 2) return launch_decode<true, 2>(grid, smem, a, st);
-    if (G <= 4) return launch_decode<true, 4>(grid, smem, a, st);
-    if (G <= 8) return launch_decode<true, 8>(grid, smem, a, st);
-  } else {
-    if (G <= 1) return launch_decode<false, 1>(grid, smem, a, st);
-    if (G <= 2) return launch_decode<false, 2>(grid, smem, a, st);
-    if (G <= 4) return launch_decode<false, 4>(grid, smem, a, st);
-    if (G <= 8) return launch_decode<false, 8>(grid, smem, a, st);
-  }
-  return (int)cudaErrorInvalidValue;
+int launch_decode_f32(dim3 grid, int smem, const Args& a, cudaStream_t st) {
+  return launch_decode_kind<KIND_F32>(grid, smem, a, st);
 }
 
 }  // namespace qmc_pa

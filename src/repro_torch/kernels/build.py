@@ -45,7 +45,7 @@ _SIGNATURES = {
     "qmc_qmm_colstrip": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
     "qmc_ragged_paged_attention": [_P] * 14 + [_I] * 9 + [_F, _F]
-                                  + [_I] * 3 + [_P],
+                                  + [_I] * 4 + [_P],
     "qmc_ragged_paged_attention_smem": [_I] * 5,
     "qmc_unpack3b": [_P, _P, _L, _P],
     "qmc_empty": [_P],
@@ -90,7 +90,8 @@ def _digest() -> str:
 def build() -> Path:
     """Build the kernel library if this source hash has none yet; return
     its path. Compiler output (with ``-Xptxas -v`` register and shared
-    memory reports) lands in ``build_info["log"]``."""
+    memory reports) lands in ``build_info["log"]``, each unit's compile
+    seconds in ``build_info["unit_seconds"]``."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -102,17 +103,27 @@ def build() -> Path:
     t0 = time.monotonic()
     units = [s for s in _sources() if s.suffix == ".cu"]
     objs = [tmp / (s.stem + ".o") for s in units]
-    procs = [subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(s), "-o", str(o)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for s, o in zip(units, objs)]
+    outs = [tmp / (s.stem + ".log") for s in units]
+    procs = []
+    for src, obj, out in zip(units, objs, outs):
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+                 str(obj)], stdout=f, stderr=subprocess.STDOUT))
+    # each unit's wall seconds, to the 50 ms poll
+    unit_seconds: Dict[str, float] = {}
+    while len(unit_seconds) < len(units):
+        for src, p in zip(units, procs):
+            if src.name not in unit_seconds and p.poll() is not None:
+                unit_seconds[src.name] = time.monotonic() - t0
+        time.sleep(0.05)
     logs = []
     failed = []
-    for s, p in zip(units, procs):
-        out, _ = p.communicate()
-        logs.append(f"== {s.name}\n{out}")
+    for src, p, out in zip(units, procs, outs):
+        logs.append(f"== {src.name} ({unit_seconds[src.name]:.1f} s)\n"
+                    f"{out.read_text()}")
         if p.returncode:
-            failed.append(s.name)
+            failed.append(src.name)
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
     link = subprocess.run(
@@ -124,7 +135,7 @@ def build() -> Path:
     os.replace(tmp / LIB_NAME, lib)
     shutil.rmtree(tmp, ignore_errors=True)
     build_info.update(path=str(lib), seconds=time.monotonic() - t0,
-                      log="\n".join(logs))
+                      unit_seconds=unit_seconds, log="\n".join(logs))
     return lib
 
 

@@ -19,6 +19,11 @@ with the kernel's loop bound. The live pages are cut into spans of
 page ranges the span blocks walk, and the kernel's second pass merges the
 spans of a row in span order.
 
+q may be fp32 or bf16 and the pages fp32, bf16 or int8 (with bf16
+scales): the kernel widens each to fp32 as it reads it, as the reference
+casts them, and returns ``(o, m, l)`` in fp32; ``ragged_paged_attention``
+casts ``o`` to q's dtype.
+
 On a CPU tensor the wrapper runs the plain version
 (``kernels.ref.ragged_paged_attention_ref``); on a CUDA tensor it
 launches the kernel or raises.
@@ -41,6 +46,8 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
 _DECODE_HD = (32, 64, 128, 256)   # decode path: hd / 32 dims per lane
 _CHUNK_HD = (32, 64, 128)         # chunk path: hd / 8 mma n tiles
 _MAX_G = 8                # decode rows (G) / chunk 16-row m tiles
+# the kernel's page kinds (csrc/paged_attention.cuh: Kind)
+_PAGE_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
 
 def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
@@ -81,11 +88,13 @@ def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int
     return out
 
 
-def _check(q, cache, n_kv, head_dim):
+def _check(q, cache, n_kv, head_dim) -> int:
+    """Raise on what the kernel does not take; return the page kind."""
     if q.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {q.device}")
-    if q.dtype != torch.float32 or q.ndim != 4:
-        raise TypeError("q must be a float32 [B, S, H, hd] tensor")
+    if q.dtype not in (torch.float32, torch.bfloat16) or q.ndim != 4:
+        raise TypeError("q must be a float32 or bfloat16 [B, S, H, hd] "
+                        "tensor")
     b, _, h, hd = q.shape
     if hd != head_dim or h % n_kv:
         raise ValueError((tuple(q.shape), n_kv, head_dim))
@@ -93,10 +102,14 @@ def _check(q, cache, n_kv, head_dim):
     if kp.ndim != 3 or kp.shape[-1] != n_kv * hd or kp.shape != vp.shape:
         raise ValueError("k/v pages must be [n_pages, page, KV*hd]")
     quantized = "k_scale_pages" in cache
-    want = torch.int8 if quantized else torch.float32
     tensors = [kp, vp, cache["block_tbl"]]
-    if kp.dtype != want or vp.dtype != want:
-        raise TypeError(f"k/v pages must be {want}")
+    if quantized and kp.dtype != torch.int8:
+        raise TypeError("k/v pages with scales must be int8")
+    if kp.dtype not in _PAGE_KIND or (not quantized
+                                       and kp.dtype == torch.int8) \
+            or vp.dtype != kp.dtype:
+        raise TypeError(f"k/v pages must be float32 or bfloat16, or int8 "
+                        f"with scales; got {kp.dtype}, {vp.dtype}")
     if quantized:
         ks, vs = cache["k_scale_pages"], cache["v_scale_pages"]
         if ks.dtype != torch.bfloat16 or vs.dtype != torch.bfloat16 \
@@ -127,6 +140,7 @@ def _check(q, cache, n_kv, head_dim):
         raise ValueError(f"chunk path takes hd in {_CHUNK_HD} and "
                          f"{q_blk} x G <= {16 * _MAX_G} rows, got hd {hd}, "
                          f"G {g}")
+    return _PAGE_KIND[kp.dtype]
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,14 +153,14 @@ def ragged_paged_attention_call(
         kv_len: torch.Tensor, *, n_kv: int, head_dim: int,
         window: Optional[int] = None, attn_softcap: Optional[float] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns ``(o [B, S, H, hd], m, l [B, S, H])`` in fp32: the output
-    plus every row's softmax max and sum (what a cross-device merge of
-    partial results needs)."""
+    """Returns ``(o [B, S, H, hd], m, l [B, S, H])`` in fp32, whatever the
+    dtypes of q and the pages: the output plus every row's softmax max and
+    sum (what a cross-device merge of partial results needs)."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, cache, q_start, kv_len, n_kv=n_kv, head_dim=head_dim,
             window=window, attn_softcap=attn_softcap)
-    _check(q, cache, n_kv, head_dim)
+    kind = _check(q, cache, n_kv, head_dim)
     b, s, h, hd = q.shape
     g = h // n_kv
     q_blk = min(Q_BLOCK, s)
@@ -159,8 +173,8 @@ def ragged_paged_attention_call(
     n_sm = _sm_count(q.device)
     sp = span_pages(b * n_kv * qb_n, n_tbl, page, n_sm)
     n_spans = max(1, -(-n_tbl // sp))
-    smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd,
-                                               int(quantized), sp)
+    smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd, kind,
+                                               sp)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"kernel needs {smem} B of shared memory "
                          f"(> {_SMEM_LIMIT})")
@@ -195,7 +209,8 @@ def ragged_paged_attention_call(
             b, s_pad, h, n_kv, hd, page, n_tbl, q_blk,
             int(window) if window is not None else 0,
             float(attn_softcap) if attn_softcap else 0.0,
-            float(hd) ** -0.5, int(quantized), sp, n_spans, stream)
+            float(hd) ** -0.5, int(q.dtype == torch.bfloat16), kind, sp,
+            n_spans, stream)
     build.check(rc, "ragged_paged_attention")
     build.count_launch("ragged_paged_attention")
     return o[:, :s], m[:, :s], l[:, :s]

@@ -110,15 +110,21 @@ def _operands(x: torch.Tensor, qt: QTensor):
 # the decode kernel's split tickets: one zeroed int32 per (strip, M tile),
 # per (device, stream); the kernel leaves them zeroed
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
+# buffers a larger grid replaced: a CUDA graph captured with one of them
+# still launches on it, so none is ever freed
+_outgrown: list = []
 
 
 def decode_counters(device: torch.device, stream: int,
                     need: int) -> torch.Tensor:
     """The cached ticket buffer of ``(device, stream)``, at least ``need``
-    counters long (a larger grid replaces it by a larger zeroed one)."""
+    counters long (a larger grid replaces it by a larger zeroed one and
+    keeps the old one alive)."""
     key = (device.index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < need:
+        if buf is not None:
+            _outgrown.append(buf)
         buf = torch.zeros(need, dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -41,6 +41,7 @@ def ragged_paged_attention_ref(
     b, s, h, hd = q.shape
     g = h // n_kv
     k, v = paged_cache_read(cache, torch.float32, n_kv, hd)   # [B,T,KV,hd]
+    k, v = k.to(torch.float32), v.to(torch.float32)          # bf16 pages
     t = k.shape[1]
     qg = q.to(torch.float32).reshape(b, s, n_kv, g, hd) * float(hd) ** -0.5
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k)

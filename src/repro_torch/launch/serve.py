@@ -6,8 +6,9 @@ device, batched requests through the paged engine.
 
 Takes the JAX CLI's flags (``python -m repro.launch.serve``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch version of
-every kernel). Flags of features not ported yet (sampling, speculative
-decode, the pipelined loop, the prefix cache, meshes, tracing and
+every kernel). ``--pipelined`` runs the pipelined round loop; on the card
+every step width is a captured CUDA graph. Flags of features not ported
+yet (sampling, speculative decode, the prefix cache, meshes, tracing and
 profiling) are refused with an error instead of being ignored.
 """
 from __future__ import annotations
@@ -74,7 +75,6 @@ def _refuse_unported(ap, args) -> None:
         "--top-k": args.top_k != 0,
         "--top-p": args.top_p != 1.0,
         "--speculative": args.speculative != 0,
-        "--pipelined": args.pipelined,
         "--prefix-cache": args.prefix_cache,
         "--data-shards": args.data_shards != 1,
         "--model-shards": args.model_shards != 1,
@@ -120,13 +120,18 @@ def main(argv=None):
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=max_len,
                       page_size=args.page_size, chunk_tokens=chunk,
                       paged_attention=args.paged_attention,
-                      device=args.device)
+                      pipelined=args.pipelined, device=args.device)
     eng.run(reqs)
     s = eng.stats
     print(f"[serve] {s.prefills} prefills ({s.prefill_chunks} chunks of "
           f"<= {chunk} tokens), {s.decode_steps} decode steps, "
           f"{s.tokens_out} tokens in {s.wall_s:.2f}s "
           f"({s.tokens_per_s:.1f} tok/s) on {eng.device}")
+    if args.pipelined:
+        print(f"[serve] pipelined: {s.pipelined_rounds}/{s.rounds} "
+              f"rounds overlapped ({s.pipeline_overlap:.0%}), "
+              f"{s.pipeline_barriers} drains, "
+              f"{s.lag_trimmed_tokens} lag-trimmed tokens")
     if s.ttft_s:
         print(f"[serve] TTFT p50={np.percentile(s.ttft_s, 50) * 1e3:.1f}ms "
               f"p95={np.percentile(s.ttft_s, 95) * 1e3:.1f}ms")

@@ -35,7 +35,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     t = k.shape[1]
     n_kv = k.shape[2]
     qg = q.reshape(b, s, n_kv, h // n_kv, d)
-    scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
+    # a fill on the device, not a copy from the host: a CUDA graph of the
+    # step can capture it
+    scale = torch.full((), d ** -0.5, dtype=q.dtype, device=q.device)
     scores = torch.einsum("bskgd,btkd->bkgst", (qg * scale).float(),
                           k.float())
     scores = softcap(scores, attn_softcap)
@@ -73,7 +75,7 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_positions = F.pad(kv_positions, (0, pad), value=2 ** 30)
         t += pad
     g = h // n_kv
-    scale = torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
+    scale = torch.full((), d ** -0.5, dtype=q.dtype, device=q.device)
     qg = (q.reshape(b, s, n_kv, g, d) * scale).float()
     pq = q_positions[:, None, None, :, None]             # [B,1,1,S,1]
     m = torch.full((b, n_kv, g, s), -1e30, device=q.device)

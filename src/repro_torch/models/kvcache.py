@@ -45,10 +45,12 @@ def paged_attn_cache(cfg, n_pages: int, page: int, max_slots: int,
 
 
 def paged_init_cache(cfg, n_pages: int, page: int, max_slots: int,
-                     max_pages_per_seq: int, dtype=torch.float32,
+                     max_pages_per_seq: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
     """Paged pool: ``{"b<i>": {"attn": {...}}}``, leaves with a leading
-    n_groups dim (the JAX layout). ``n_pages`` includes the null page."""
+    n_groups dim (the JAX layout). ``n_pages`` includes the null page.
+    Unquantized pages default to bf16, as the reference's do; the engines
+    name their dtype (fp32 by default)."""
     out = {}
     for i, kind in enumerate(cfg.pattern):
         if not kind.startswith("attn"):

@@ -74,8 +74,8 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
                  scale: bool = False) -> torch.Tensor:
     x = table[tokens]
     if scale:
-        x = x * torch.tensor(table.shape[1] ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * torch.full((), table.shape[1] ** 0.5, dtype=x.dtype,
+                           device=x.device)
     return x
 
 

@@ -1,5 +1,5 @@
-"""Synchronous paged continuous-batching engine (counterpart of
-``repro.serve.engine.ServeEngine``'s synchronous loop).
+"""Paged continuous-batching engine (counterpart of
+``repro.serve.engine.ServeEngine``: its synchronous and pipelined loops).
 
 Every round, all active slots run in ONE ragged step against a shared
 paged KV arena: decode lanes carry one token each, prefilling lanes a
@@ -8,7 +8,13 @@ FIFO admission, a per-round chunk budget and recompute-style preemption
 (``serve/scheduler.py``). Each round runs at the smallest width of the
 pow2 ladder (``steps.width_ladder``) that covers its widest grant, C = 1
 for pure decode, and uploads changed block tables in one page-ops flush
-before the step.
+before the step. A round with exactly one live lane runs the batch-1
+``solo_step`` (``EngineStats.solo_rounds``).
+
+The steps come from a step set (``steps.build_paged_steps``, or
+``step_set=``, checked against this engine's geometry): on the card each
+token width is one captured CUDA graph (``cuda_graphs=True``, the
+default; ``False`` runs the same steps eagerly, to compare against).
 
 Weights may be dense or QMC streams. With ``weight_plan=False`` (the
 default) stream leaves go through the qmm kernels; ``weight_plan=True``
@@ -17,12 +23,30 @@ weights. ``paged_attention=True`` (the default) attends through the
 ragged paged-attention kernel. On ``device="cpu"`` every kernel wrapper
 runs its plain PyTorch version.
 
+The pipelined loop (``pipelined=True``), with the JAX engine's contract:
+
+  * **What overlaps.** Only pure-decode rounds with an idle admission
+    queue. The next round's tokens are the previous step's output on the
+    device (``steps.carry_decode_tokens``), and each dispatch starts a
+    non-blocking copy of its outputs to pinned host memory and records an
+    event; the round is retired (emission, EOS checks, scheduling) one
+    round later, while the next one runs.
+  * **What drains.** Admission, preemption, prefill grants and any
+    allocation that would need a preemption retire the round in flight
+    first and run the next round synchronously.
+  * **EOS lag.** Budget and capacity finishes are predicted at dispatch
+    (``FifoScheduler.grant_decode``); an EOS retired during the lag
+    overran by the one token in flight, which is never emitted: its pages
+    are rolled back with ``PagedKVPool.trim``
+    (``EngineStats.lag_trimmed_tokens``) and the slot is freed once the
+    overrun round retires.
+
 Under greedy decoding the engine is token-identical to the JAX engine on
-the same weights: the same admission, chunking and preemption decisions,
-and causal attention makes each query independent of how its prompt was
-chunked. Not ported yet: the pipelined loop, speculative decode, the
-prefix cache and in-flight dedup, the solo-lane step, sampled lanes, and
-the obs tracer and metrics.
+the same weights, pipelined or not: the same admission, chunking and
+preemption decisions, and causal attention makes each query independent
+of how its prompt was chunked. Not ported yet: speculative decode, the
+prefix cache and in-flight dedup, sampled lanes (refused on the host),
+and the obs tracer and metrics.
 """
 from __future__ import annotations
 
@@ -79,8 +103,22 @@ class EngineStats:
     kv_pages_full: int = 0
     prefill_kv_pages_live: int = 0
     page_op_flushes: int = 0
-    # per round: wall seconds and tokens emitted; per request: seconds
-    # from run() start to its first token
+    # rounds run through the B=1 solo-lane step (exactly one live lane)
+    solo_rounds: int = 0
+    # pipelined loop: rounds retired one round late, drains of the
+    # pipeline before a synchronous round, and tokens computed past an EOS
+    # that retired during the lag (trimmed, never emitted)
+    pipelined_rounds: int = 0
+    pipeline_barriers: int = 0
+    lag_trimmed_tokens: int = 0
+    # the step set's graphs during this run: captures, their seconds,
+    # replays (all 0 off the card or with cuda_graphs=False)
+    graph_captures: int = 0
+    capture_s: float = 0.0
+    graph_replays: int = 0
+    # per round: wall seconds from its dispatch to its emission (a
+    # pipelined round's comes one round later) and tokens emitted; per
+    # request: seconds from run() start to its first token
     step_seconds: List[float] = dataclasses.field(default_factory=list)
     step_tokens: List[int] = dataclasses.field(default_factory=list)
     ttft_s: List[float] = dataclasses.field(default_factory=list)
@@ -88,6 +126,11 @@ class EngineStats:
     @property
     def tokens_per_s(self) -> float:
         return self.tokens_out / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def pipeline_overlap(self) -> float:
+        """Fraction of rounds retired through the pipeline."""
+        return self.pipelined_rounds / self.rounds if self.rounds else 0.0
 
 
 def _finished(req: Request, pos: int, max_len: int) -> bool:
@@ -123,6 +166,8 @@ class ServeEngine:
                  chunk_tokens: Optional[int] = None,
                  paged_attention: bool = True, weight_plan: bool = False,
                  sampling: Optional[SamplingParams] = None,
+                 step_set: Optional[serve_steps.PagedServeSteps] = None,
+                 pipelined: bool = False, cuda_graphs: bool = True,
                  device="cuda"):
         if cfg.is_encdec or cfg.n_vis_tokens:
             raise NotImplementedError(
@@ -149,7 +194,22 @@ class ServeEngine:
         self.paged_attention = paged_attention
         self.stats = EngineStats()
         self._default_sp = sampling or samplib.GREEDY
+        samplib.refuse_sampled(self._default_sp)
         self._slot_sp: List[SamplingParams] = [samplib.GREEDY] * slots
+        self._pipelined = bool(pipelined)
+        self._cuda_graphs = bool(cuda_graphs)
+        if step_set is not None and (
+                step_set.cfg != cfg or step_set.device != self.device
+                or not step_set.compatible_with(
+                    page=self.page, n_pages=self.n_pages, max_slots=slots,
+                    max_pages_per_seq=self.max_pages_per_seq,
+                    cache_dtype=cache_dtype, chunk=self.chunk,
+                    paged_attention=paged_attention)):
+            raise ValueError(
+                "step_set was built for a different engine geometry "
+                "(cfg/device/page/n_pages/slots/cache_dtype/chunk/"
+                "paged_attention must match)")
+        self._steps = step_set
         # the serving weight plan: streams dequantized once, at setup
         self._exec_params = (build_exec_weights(self.params) if weight_plan
                              else self.params)
@@ -157,6 +217,8 @@ class ServeEngine:
         self._arena = None
 
     def _ensure_pool(self) -> PagedKVPool:
+        """The pool and arena, made once per engine: the step set's graphs
+        read the arena by address, so it is never reallocated."""
         if self._pool is None:
             self._pool = PagedKVPool(
                 self.cfg, n_pages=self.n_pages, page=self.page,
@@ -164,7 +226,19 @@ class ServeEngine:
                 max_pages_per_seq=self.max_pages_per_seq,
                 cache_dtype=self.cache_dtype, device=self.device)
             self._arena = self._pool.init_arena()
+            if self._steps is None:
+                self._steps = serve_steps.build_paged_steps(
+                    self.cfg, page=self.page, n_pages=self.n_pages,
+                    max_slots=self.slots,
+                    max_pages_per_seq=self.max_pages_per_seq,
+                    cache_dtype=self.cache_dtype, chunk=self.chunk,
+                    paged_attention=self.paged_attention,
+                    device=self.device, cuda_graphs=self._cuda_graphs)
         return self._pool
+
+    @property
+    def step_set(self) -> Optional[serve_steps.PagedServeSteps]:
+        return self._steps
 
     def _flush_page_ops(self, pool: PagedKVPool) -> None:
         """Upload the block tables in one page-ops call when they changed;
@@ -172,7 +246,7 @@ class ServeEngine:
         if not pool.tables_dirty:
             return
         pool.check_tables()
-        serve_steps.apply_page_ops(self._arena, pool.device_tables())
+        self._steps.apply_page_ops(self._arena, pool.block_tables)
         pool.tables_dirty = False
         self.stats.page_op_flushes += 1
 
@@ -188,11 +262,16 @@ class ServeEngine:
             if len(r.prompt) > self.max_len:
                 raise ValueError(f"request {r.uid}: prompt length "
                                  f"{len(r.prompt)} > max_len={self.max_len}")
+            samplib.refuse_sampled(r.sampling if r.sampling is not None
+                                   else self._default_sp)
         pool = self._ensure_pool()
+        steps = self._steps
         for s in range(self.slots):
             if pool.slot_pages[s]:
                 pool.free_slot(s)
         pool.pages_peak = pool.used_count
+        _, cap0, cap_s0 = steps.capture_counters()
+        replays0 = steps.step.replays + steps.solo_step.replays
         sched = FifoScheduler(SchedulerConfig(
             page=self.page, max_prefill_tokens=self.max_prefill_tokens,
             max_len=self.max_len, chunk=self.chunk))
@@ -202,17 +281,18 @@ class ServeEngine:
         active: List[Optional[Request]] = [None] * self.slots
         pos = np.zeros(self.slots, np.int64)      # next write position
         next_tok = np.zeros(self.slots, np.int64)
-        temp = torch.zeros(self.slots, dtype=torch.float32)
+        temp = np.zeros(self.slots, np.float32)
         seen_first: set = set()
+        cuda = self.device.type == "cuda"
 
         def prefilling(s: int) -> bool:
             return (active[s] is not None
                     and pos[s] < len(active[s].prompt))
 
-        def first_token(req: Request) -> None:
+        def first_token(req: Request, now: float) -> None:
             if req.uid not in seen_first:
                 seen_first.add(req.uid)
-                self.stats.ttft_s.append(time.monotonic() - t0)
+                self.stats.ttft_s.append(now - t0)
 
         def record(s: int, tok: int, logp: float, req: Request) -> None:
             assert tok != samplib.DEAD_TOKEN, \
@@ -222,10 +302,16 @@ class ServeEngine:
                 req.out_logprobs.append(logp)
             self.stats.tokens_out += 1
 
-        def finish(s: int) -> None:
+        def finish(s: int, defer_rec=None) -> None:
             active[s].done = True
             active[s] = None
-            pool.free_slot(s)
+            if defer_rec is not None and s in defer_rec["act_dec"]:
+                # EOS during the lag: the round in flight computed one more
+                # token on this lane; its pages stay mapped until that
+                # round retires, then the overrun is trimmed
+                defer_rec["lag_free"].add(s)
+            else:
+                pool.free_slot(s)
             sched.on_finish(s)
 
         def preempt(victim: int) -> None:
@@ -265,7 +351,179 @@ class ServeEngine:
                     break
                 free_slots.pop(0)
 
+        # ---- dispatch / retire: every round is dispatched once and
+        # emitted once; the synchronous path gathers at once, the
+        # pipelined path one round later
+
+        def process_round(rec, nxt, logp_h, now=None, defer_rec=None):
+            """Emission, EOS and scheduling for one completed round;
+            returns the tokens emitted. ``defer_rec`` is the round still
+            in flight, whose lanes defer their page frees to its retire."""
+            plan, act_dec = rec["plan"], rec["act_dec"]
+            c_len = rec["c_len"]
+            now_t = time.monotonic() if now is None else now
+            emitted = 0
+            for s in rec["order"]:
+                req = active[s]
+                if req is None:
+                    continue
+                if s in plan:
+                    n = plan[s]
+                    pos[s] += n
+                    self.stats.prefill_chunks += 1
+                    self.stats.prefill_tokens += n
+                    self.stats.prefill_tokens_padded += c_len
+                    if int(pos[s]) < len(req.prompt):
+                        continue        # mid-prompt: more chunks due
+                    # the logit at the prompt's last token is the
+                    # request's first generated token
+                    self.stats.prefills += 1
+                    tok = int(nxt[s, n - 1])
+                    record(s, tok, float(logp_h[s, n - 1]), req)
+                    first_token(req, now_t)
+                    emitted += 1
+                    if _finished(req, len(req.prompt), self.max_len):
+                        finish(s)       # e.g. EOS at prefill
+                    else:
+                        next_tok[s] = tok
+                elif s in act_dec:
+                    tok = int(nxt[s, 0])
+                    pos[s] += 1
+                    next_tok[s] = tok
+                    record(s, tok, float(logp_h[s, 0]), req)
+                    emitted += 1
+                    if _finished(req, int(pos[s]), self.max_len):
+                        finish(s, defer_rec)
+            self.stats.step_seconds.append(now_t - rec["ts"])
+            self.stats.step_tokens.append(emitted)
+            return emitted
+
+        def dispatch(toks_in, start, n_new, solo_slot=None):
+            """The round's one step call; never waits for the device."""
+            params = self._exec_params
+            if solo_slot is not None:
+                s0 = solo_slot
+                tok_d, logp_d = steps.solo_step(
+                    params, toks_in, self._arena, start[s0:s0 + 1],
+                    n_new[s0:s0 + 1], temp[s0:s0 + 1], slot=s0)
+                self.stats.solo_rounds += 1
+            else:
+                tok_d, logp_d = steps.step(params, toks_in, self._arena,
+                                           start, n_new, temp)
+            return tok_d, logp_d
+
+        def readback(rec) -> None:
+            """Start the copy of the round's outputs to the host: into
+            pinned memory, behind an event, on the card (the step's
+            static outputs are rewritten by the next call at its width,
+            which the stream orders after this copy)."""
+            tok_d, logp_d = rec["tok_dev"], rec["logp_dev"]
+            if cuda:
+                rec["tok_host"] = torch.empty(tok_d.shape, dtype=tok_d.dtype,
+                                              pin_memory=True)
+                rec["logp_host"] = torch.empty(logp_d.shape,
+                                               dtype=logp_d.dtype,
+                                               pin_memory=True)
+                rec["tok_host"].copy_(tok_d, non_blocking=True)
+                rec["logp_host"].copy_(logp_d, non_blocking=True)
+                rec["ready"] = torch.cuda.Event()
+                rec["ready"].record()
+            else:
+                rec["tok_host"] = tok_d.clone()
+                rec["logp_host"] = logp_d.clone()
+                rec["ready"] = None
+
+        def gather(rec):
+            """The round's outputs as full-width host arrays (dead lanes
+            carry DEAD_TOKEN); waits for the readback."""
+            if rec["ready"] is not None:
+                rec["ready"].synchronize()
+            tok = rec["tok_host"].numpy()
+            logp = rec["logp_host"].numpy()
+            s0 = rec["solo_slot"]
+            if s0 is None:
+                return tok, logp
+            nxt = np.full((self.slots, rec["c_len"]), samplib.DEAD_TOKEN,
+                          np.int64)
+            logp_h = np.zeros((self.slots, rec["c_len"]), np.float32)
+            nxt[s0] = tok[0]
+            logp_h[s0] = logp[0]
+            return nxt, logp_h
+
+        def retire(rec, defer_rec=None) -> int:
+            """Emission for a pipelined round. Lanes whose EOS retired
+            during the lag trim their overrun token's pages and free their
+            slot here, once the round that computed past the EOS is
+            done."""
+            nxt, logp_h = gather(rec)
+            emitted = process_round(rec, nxt, logp_h, now=time.monotonic(),
+                                    defer_rec=defer_rec)
+            for s in sorted(rec["lag_free"]):
+                self.stats.lag_trimmed_tokens += int(rec["n_new"][s])
+                pool.trim(s, int(pos[s]))
+                pool.free_slot(s)
+            return emitted
+
+        inflight = None            # the dispatched round not yet retired
+
         while any(a is not None for a in active) or sched.pending:
+            if inflight is not None:
+                # ---- pipelined: grant pure-decode lanes against the
+                # round in flight, carry its tokens on the device into the
+                # next dispatch, then retire it
+                dec: List[int] = []
+                barrier = bool(sched.pending) and any(a is None
+                                                      for a in active)
+                if not barrier:
+                    order = sorted((s for s in range(self.slots)
+                                    if active[s] is not None),
+                                   key=lambda s: sched.admitted_at[s])
+                    for s in order:
+                        req = active[s]
+                        if not sched.grant_decode(
+                                len(req.out_tokens), req.max_new_tokens,
+                                int(pos[s]), self.max_len, lead=1):
+                            continue    # its last token retires now
+                        if s not in inflight["act_dec"]:
+                            barrier = True      # no carried token
+                            break
+                        if pool.ensure(s, int(pos[s]) + 2) is None:
+                            barrier = True      # needs a preemption
+                            break
+                        dec.append(s)
+                if barrier or not dec:
+                    # drain, then run the next round synchronously
+                    self.stats.pipeline_barriers += 1
+                    prev, inflight = inflight, None
+                    retire(prev)
+                    continue
+                start = np.zeros(self.slots, np.int32)
+                n_new = np.zeros(self.slots, np.int32)
+                for s in dec:
+                    start[s] = int(pos[s]) + 1  # the in-flight token's
+                    n_new[s] = 1                # position + 1
+                ts = time.monotonic()
+                self.stats.kv_pages_live += sum(
+                    pages_for(int(start[s]) + 1, self.page) for s in dec)
+                self.stats.kv_pages_full += (len(dec)
+                                             * self.max_pages_per_seq)
+                self._flush_page_ops(pool)
+                s0 = dec[0] if len(dec) == 1 else None
+                tok_in = serve_steps.carry_decode_tokens(
+                    inflight["tok_dev"], s0)
+                tok_d, logp_d = dispatch(tok_in, start, n_new, s0)
+                rec = {"order": dec, "plan": {}, "act_dec": dec,
+                       "n_new": n_new, "c_len": 1, "ts": ts,
+                       "tok_dev": tok_d, "logp_dev": logp_d,
+                       "solo_slot": s0, "lag_free": set()}
+                readback(rec)
+                self.stats.decode_steps += 1
+                self.stats.rounds += 1
+                self.stats.pipelined_rounds += 1
+                prev, inflight = inflight, rec
+                retire(prev, defer_rec=rec)
+                continue
+
             sched.start_round()
             admit()
             if not any(a is not None for a in active):
@@ -341,55 +599,39 @@ class ServeEngine:
                 self.stats.prefill_kv_pages_live += chunk_pages_streamed(
                     int(pos[s]), plan[s], page=self.page)
             self._flush_page_ops(pool)
-            dev = self.device
-            tok_d, logp_d = serve_steps.step(
-                self.cfg, self._exec_params,
-                torch.as_tensor(toks).to(dev), self._arena,
-                torch.as_tensor(start).to(dev),
-                torch.as_tensor(n_new).to(dev), temp,
-                paged_attention=self.paged_attention)
-            nxt = tok_d.cpu().numpy()
-            logp_h = logp_d.cpu().numpy()
+            live = np.flatnonzero(n_new > 0)
+            s0 = int(live[0]) if len(live) == 1 else None
+            tok_d, logp_d = dispatch(
+                toks if s0 is None else toks[s0:s0 + 1], start, n_new, s0)
+            rec = {"order": order, "plan": plan, "act_dec": decode_lanes,
+                   "n_new": n_new, "c_len": c_len, "ts": ts,
+                   "tok_dev": tok_d, "logp_dev": logp_d, "solo_slot": s0,
+                   "lag_free": set()}
+            readback(rec)
             if decode_lanes:
                 self.stats.decode_steps += 1
             self.stats.rounds += 1
+            # a pure-decode round with an idle queue enters the pipeline:
+            # it retires one round from now
+            if self._pipelined and decode_lanes and not plan \
+                    and not sched.pending:
+                self.stats.pipelined_rounds += 1
+                inflight = rec
+            else:
+                nxt, logp_h = gather(rec)
+                process_round(rec, nxt, logp_h)
 
-            emitted = 0
-            for s in order:
-                req = active[s]
-                if req is None:
-                    continue
-                if s in plan:
-                    n = plan[s]
-                    pos[s] += n
-                    self.stats.prefill_chunks += 1
-                    self.stats.prefill_tokens += n
-                    self.stats.prefill_tokens_padded += c_len
-                    if int(pos[s]) < len(req.prompt):
-                        continue        # mid-prompt: more chunks due
-                    # the logit at the prompt's last token is the
-                    # request's first generated token
-                    self.stats.prefills += 1
-                    tok = int(nxt[s, n - 1])
-                    record(s, tok, float(logp_h[s, n - 1]), req)
-                    first_token(req)
-                    emitted += 1
-                    if _finished(req, len(req.prompt), self.max_len):
-                        finish(s)       # e.g. EOS at prefill
-                    else:
-                        next_tok[s] = tok
-                elif s in decode_lanes:
-                    tok = int(nxt[s, 0])
-                    pos[s] += 1
-                    next_tok[s] = tok
-                    record(s, tok, float(logp_h[s, 0]), req)
-                    emitted += 1
-                    if _finished(req, int(pos[s]), self.max_len):
-                        finish(s)
-            self.stats.step_seconds.append(time.monotonic() - ts)
-            self.stats.step_tokens.append(emitted)
+        if inflight is not None:
+            # every lane finished or deferred its free during the lag
+            retire(inflight)
+            inflight = None
 
         self.stats.preemptions = sched.preemptions
         self.stats.pages_peak = max(self.stats.pages_peak, pool.pages_peak)
+        _, cap1, cap_s1 = steps.capture_counters()
+        self.stats.graph_captures = cap1 - cap0
+        self.stats.capture_s = cap_s1 - cap_s0
+        self.stats.graph_replays = (steps.step.replays
+                                    + steps.solo_step.replays - replays0)
         self.stats.wall_s = time.monotonic() - t0
         return requests

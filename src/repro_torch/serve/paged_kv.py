@@ -5,8 +5,9 @@ Every sequence draws fixed-size pages from a single ``[n_pages, page,
 kv_dim]`` arena per layer group, addressed through a per-sequence block
 table. Page 0 is the null page for inactive lanes and padding. Pages are
 reference counted; double frees and frees of still-referenced pages raise.
-Page sharing (the prefix cache's ``adopt``/``retain``/``cow``) and
-``trim`` are not ported yet.
+``trim`` rolls a slot back to fewer tokens (the pipelined engine's EOS
+lag). Page sharing (the prefix cache's ``adopt``/``retain``/``cow``) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.memsys.workload import pages_for  # noqa: F401
+from repro_torch.memsys.workload import pages_for
 from repro_torch.models import kvcache as KV
 from repro_torch.models.config import ModelConfig
 
@@ -113,6 +114,24 @@ class PagedKVPool:
             self.block_tables[slot, j] = pid
         self.pages_peak = max(self.pages_peak, self.used_count)
         return fresh
+
+    def trim(self, slot: int, n_tokens: int) -> int:
+        """Shrink the slot's allocation back to what ``n_tokens`` positions
+        need; returns how many pages were recycled.
+
+        The pipelined engine's EOS-lag rollback: a round dispatched before
+        an EOS retired allocated pages for one token past it, and those
+        tail pages hold only K/V that ``valid_len`` masks. They were
+        allocated fresh for positions past the live prefix; release still
+        goes through the refcount."""
+        keep = pages_for(n_tokens, self.page)
+        n = 0
+        while len(self.slot_pages[slot]) > keep:
+            pid = self.slot_pages[slot].pop()
+            self.block_tables[slot, len(self.slot_pages[slot])] = 0
+            self.tables_dirty = True
+            n += bool(self.release(pid))
+        return n
 
     def free_slot(self, slot: int) -> int:
         """Drop the slot's references; returns how many pages were

@@ -7,10 +7,11 @@ log-softmax at the selected token. Columns at or past ``n_new[b]`` (idle
 lanes, right padding) return :data:`DEAD_TOKEN` = -1, an id no vocab
 contains.
 
-Sampled lanes (``temperature > 0``) raise ``NotImplementedError`` in this
-port: the JAX head draws with threefry keys folded from (seed, uid,
-position), which torch cannot reproduce; a threefry port or a
-distribution-level test decides the matter later.
+Sampled lanes (``temperature > 0``) are not ported yet: the JAX head
+draws with threefry keys folded from (seed, uid, position). The refusal is
+made on the host (:func:`refuse_sampled`, called by the engine when it is
+built and when it seats a request), never inside the step, which reads
+nothing back from the device and so can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -43,15 +44,22 @@ class SamplingParams:
 GREEDY = SamplingParams()
 
 
+def refuse_sampled(sp: SamplingParams) -> None:
+    """Raise for a sampled policy (``temperature > 0``): not ported yet."""
+    if sp.temperature > 0:
+        raise NotImplementedError(
+            "sampled lanes (temperature > 0) are not ported yet: the JAX "
+            "head draws with threefry, which torch does not reproduce")
+
+
 def select_tokens(logits: torch.Tensor, temp: torch.Tensor,
                   n_new: torch.Tensor):
     """``logits [B, C, V]``, ``temp [B]``, ``n_new [B]`` -> ``(tokens
     [B, C] int32, logprobs [B, C] float32)`` with dead columns at
-    :data:`DEAD_TOKEN` / 0.0."""
-    if bool((temp > 0).any()):
-        raise NotImplementedError(
-            "sampled lanes (temperature > 0) are not ported yet: the JAX "
-            "head draws with threefry, which torch does not reproduce")
+    :data:`DEAD_TOKEN` / 0.0. Every lane is greedy: ``temp`` is the lane
+    input sampled lanes will read, and callers refuse ``temp > 0`` on the
+    host (:func:`refuse_sampled`)."""
+    del temp
     tok = torch.argmax(logits, dim=-1)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     logp = torch.gather(logp, -1, tok[..., None])[..., 0]

@@ -81,6 +81,16 @@ class FifoScheduler:
         self._round_budget -= n
         return n
 
+    def grant_decode(self, n_emitted: int, max_new: int, pos: int,
+                     max_len: int, lead: int = 0) -> bool:
+        """May a decode lane take one more token, ``lead`` tokens ahead of
+        its retired state? The pipelined engine grants round N+1 while
+        round N's token is in flight (``lead=1``): budget and capacity
+        finishes are known in advance, so only an EOS landing in the lag
+        computes one extra token (trimmed with ``PagedKVPool.trim``).
+        ``lead=0`` is the synchronous termination test."""
+        return n_emitted + lead < max_new and pos + lead < max_len
+
     def next_admission(self, free_pages: int):
         """Pop the queue head if the pool can hold its first chunk now
         (else None)."""

@@ -1,6 +1,4 @@
-"""The paged serving step and its page maintenance (counterpart of the
-unified ragged step of ``repro.serve.steps``). Plain functions: PyTorch
-runs eagerly, so there is no jit to build or cache.
+"""The paged serving step set (counterpart of ``repro.serve.steps``).
 
   ``step(cfg, params, tokens [B, C], arena, start [B], n_new [B], temp
   [B]) -> (tokens [B, C] int32, logprobs [B, C] float32)``
@@ -11,16 +9,44 @@ prompt, an idle lane ``n_new = 0`` (its writes route to the null page and
 its output columns are dead). K/V scatter into the arena (in place) and
 the ragged attention read happen in the one call; token selection
 (``serve.sampling.select_tokens``) runs on the card, so only ``[B, C]``
-ids and logprobs leave it.
+ids and logprobs leave it. ``solo_step`` is the same step at batch width 1
+for lane ``slot`` of the arena; ``apply_page_ops`` is a round's page
+maintenance (the block-table upload into every group; the JAX version
+also copies pages for the prefix cache's copy-on-write, which the port
+does not have yet).
 
-``apply_page_ops`` is a round's page maintenance in one call: the
-block-table upload into every group (the JAX version also copies pages
-for the prefix cache's copy-on-write, which the port does not have yet).
+These are plain functions. ``build_paged_steps`` wraps them into the step
+set one engine runs, :class:`PagedServeSteps`, the counterpart of the JAX
+package's per-width jit: its ``step`` and ``solo_step`` hold one
+``torch.cuda.CUDAGraph`` per token width ``C`` in ``{1} + width_ladder
+(chunk)`` (the declared surface), captured at the first use of ``C`` into
+one memory pool that all widths share. A replay copies the round's inputs
+into the width's static buffers (one upload from pinned memory), replays
+and returns the static outputs, valid until the next call at that width.
+The graphs read the parameters and the arena they were captured with, by
+address: a call with another parameter tree or arena drops them and
+captures anew, so no graph ever replays against freed memory; the arena
+is only ever written in place. On a CPU tensor (``device="cpu"``) the same
+wrapper runs the body eagerly on its static buffers, and on the card
+``cuda_graphs=False`` does so too (a switch to compare against, not a
+fallback: a failed capture raises).
+
+Kernel launch tallies (``kernels.build.launches``, ``kernels.ops.
+path_counts``) are Python counters that a replay does not move: each
+graph records the tallies of its capture and adds them on every replay.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward
 from repro_torch.serve.sampling import select_tokens
@@ -65,6 +91,25 @@ def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
     return select_tokens(logits, temp, n_new)
 
 
+def solo_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+              arena: dict, slot: torch.Tensor, start: torch.Tensor,
+              n_new: torch.Tensor, temp: torch.Tensor, *,
+              use_kernels: bool = True, paged_attention: bool = True):
+    """The step at batch width 1 on lane ``slot`` (a one-element tensor)
+    of the arena: ``tokens [1, C]``, ``start``, ``n_new``, ``temp`` [1].
+    Lane ``slot``'s block-table row is selected on the device into a
+    ``[G, 1, P]`` view; the page leaves are the arena's own, so K/V land
+    in the global pages directly (counterpart of ``_solo_step_body``)."""
+    view = {}
+    for key, grp in arena.items():
+        attn = dict(grp["attn"])
+        attn["block_tbl"] = torch.index_select(attn["block_tbl"], 1,
+                                               slot.to(torch.int64))
+        view[key] = {"attn": attn}
+    return step(cfg, params, tokens, view, start, n_new, temp,
+                use_kernels=use_kernels, paged_attention=paged_attention)
+
+
 def apply_page_ops(arena: dict, tables: torch.Tensor) -> dict:
     """One round's page maintenance, in place: ``tables [S, P]`` is
     written into every group's ``block_tbl``."""
@@ -72,3 +117,320 @@ def apply_page_ops(arena: dict, tables: torch.Tensor) -> dict:
         tbl = grp["attn"]["block_tbl"]
         tbl.copy_(tables.to(torch.int32)[None].expand_as(tbl))
     return arena
+
+
+def carry_decode_tokens(prev_tok: torch.Tensor, slot: Optional[int] = None
+                        ) -> torch.Tensor:
+    """The previous C = 1 round's selected tokens on the device, as the
+    next dispatch's token input (counterpart of the JAX function): the
+    step set copies them into its static input from device to device, so
+    pipelined decode tokens never pass through the host. ``slot=None``
+    keeps the batch ``[B, 1]`` (dead lanes carry ``DEAD_TOKEN`` and are
+    masked by ``n_new = 0``); ``slot`` takes lane ``slot``'s row for a
+    ``solo_step`` dispatch, and a ``[1, 1]`` solo output passes through.
+    The result has the shape of the host tokens of the same width, so the
+    carry adds no width."""
+    if slot is None or prev_tok.shape[0] == 1:
+        return prev_tok
+    return prev_tok[slot:slot + 1]
+
+
+def _tallies() -> Dict[str, int]:
+    """The launch and qmm path counters, flattened."""
+    out = {f"launch/{k}": v for k, v in kbuild.launches.items()}
+    out.update({f"path/{k}": v for k, v in kops.path_counts.items()})
+    return out
+
+
+def _add_tallies(delta: Dict[str, int], sign: int = 1) -> None:
+    for key, n in delta.items():
+        kind, name = key.split("/", 1)
+        table = kbuild.launches if kind == "launch" else kops.path_counts
+        table[name] += sign * n
+
+
+class _Upload:
+    """An int32 device buffer filled from the host without blocking it:
+    through pinned memory on the card, double-buffered, so a staging
+    buffer is rewritten only once the copy that read it has run."""
+
+    def __init__(self, shape, device: torch.device):
+        self.dev = torch.zeros(shape, dtype=torch.int32, device=device)
+        self.cuda = device.type == "cuda"
+        self._stage = [torch.zeros(shape, dtype=torch.int32,
+                                   pin_memory=self.cuda)
+                       for _ in range(2 if self.cuda else 1)]
+        self._done = [None] * len(self._stage)
+        self._next = 0
+
+    def host(self) -> torch.Tensor:
+        """The staging buffer to fill for the next :meth:`send`."""
+        event = self._done[self._next]
+        if event is not None and not event.query():
+            event.synchronize()
+        return self._stage[self._next]
+
+    def send(self) -> torch.Tensor:
+        """Copy the filled staging buffer up, on the current stream."""
+        i = self._next
+        self._next = (i + 1) % len(self._stage)
+        self.dev.copy_(self._stage[i], non_blocking=True)
+        if self.cuda:
+            self._done[i] = torch.cuda.Event()
+            self._done[i].record()
+        return self.dev
+
+
+class _Width:
+    """One token width's static buffers (and, on the card, its graph).
+    The inputs are views of one packed int32 buffer, so a round's host
+    inputs go up in one copy: tokens [B*C] | start [B] | n_new [B] | temp
+    [B] (fp32 bits) | slot [1]."""
+
+    def __init__(self, lanes: int, c: int, device: torch.device):
+        self.upload = _Upload((lanes * c + 3 * lanes + 1,), device)
+        self.packed = self.upload.dev
+        self.tokens = self.packed[:lanes * c].view(lanes, c)
+        o = lanes * c
+        self.start = self.packed[o:o + lanes]
+        self.n_new = self.packed[o + lanes:o + 2 * lanes]
+        self.temp = self.packed[o + 2 * lanes:o + 3 * lanes].view(
+            torch.float32)
+        self.slot = self.packed[o + 3 * lanes:]
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tally: Dict[str, int] = {}
+        self.tok: Optional[torch.Tensor] = None
+        self.logp: Optional[torch.Tensor] = None
+
+
+class GraphedStep:
+    """``step`` or ``solo_step`` of a step set: one CUDA graph per declared
+    token width on the card, the same static buffers run eagerly on the
+    CPU or with ``cuda_graphs=False`` (see the module docstring).
+
+    ``fn(params, tokens, arena, start, n_new, temp, slot=0)``: host inputs
+    are numpy arrays or CPU tensors; ``tokens`` may also be a tensor on
+    the device (``carry_decode_tokens``). Counters: ``calls``,
+    ``creations`` (widths given buffers, at most ``len(widths)`` per
+    binding), ``captures``, ``replays``, ``capture_seconds``,
+    ``pool_bytes`` (memory the captures added to the shared pool)."""
+
+    def __init__(self, name: str, body: Callable, *, lanes: int,
+                 widths: Tuple[int, ...], device: torch.device,
+                 cuda_graphs: bool, pool=None,
+                 stream: Optional["torch.cuda.Stream"] = None):
+        self.name = name
+        self.body = body
+        self.lanes = lanes
+        self.widths = tuple(widths)
+        self.device = device
+        self.graphed = device.type == "cuda" and cuda_graphs
+        self._pool = pool
+        self._stream = stream
+        self._widths: Dict[int, _Width] = {}
+        self._bound: Optional[tuple] = None
+        self.calls = self.creations = self.captures = self.replays = 0
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+
+    def _bind(self, params, arena) -> None:
+        """Take (params, arena) as the trees the graphs read; graphs of
+        any earlier binding are dropped before anything is captured."""
+        if self._bound is not None and self._bound[0] is params \
+                and self._bound[1] is arena:
+            return
+        self._widths.clear()
+        self._bound = (params, arena)
+
+    def _width(self, c: int) -> _Width:
+        w = self._widths.get(c)
+        if w is None:
+            if c not in self.widths:
+                raise ValueError(f"{self.name}: width {c} is outside the "
+                                 f"declared surface {self.widths}")
+            w = _Width(self.lanes, c, self.device)
+            self._widths[c] = w
+            self.creations += 1
+        return w
+
+    def _stage(self, w: _Width, tokens, start, n_new, temp, slot) -> None:
+        host = w.upload.host()
+        lanes, c = w.tokens.shape
+        o = lanes * c
+        on_device = isinstance(tokens, torch.Tensor) \
+            and tokens.device.type != "cpu"
+        if not on_device:
+            host[:o].view(lanes, c).copy_(torch.as_tensor(tokens))
+        host[o:o + lanes].copy_(torch.as_tensor(start))
+        host[o + lanes:o + 2 * lanes].copy_(torch.as_tensor(n_new))
+        host[o + 2 * lanes:o + 3 * lanes].view(torch.float32).copy_(
+            torch.as_tensor(temp))
+        host[o + 3 * lanes] = int(slot)
+        w.upload.send()
+        if on_device:
+            w.tokens.copy_(tokens)
+
+    def _run(self, params, arena, w: _Width, **inputs):
+        with torch.no_grad():
+            return self.body(params, inputs.get("tokens", w.tokens), arena,
+                             inputs.get("start", w.start),
+                             inputs.get("n_new", w.n_new),
+                             inputs.get("temp", w.temp),
+                             inputs.get("slot", w.slot))
+
+    def _capture(self, params, arena, w: _Width) -> None:
+        """Warm the width up on the capture stream with every lane idle
+        (its only writes land on the null page: the kernel library loads,
+        the decode qmm's tickets and each kernel's shared-memory opt-in
+        happen outside the capture), then capture it."""
+        dev = self.device
+        lanes, c = w.tokens.shape
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
+            self._run(params, arena, w,
+                      tokens=torch.zeros((lanes, c), dtype=torch.int32,
+                                         device=dev),
+                      start=zeros, n_new=zeros,
+                      temp=torch.zeros(lanes, device=dev),
+                      slot=torch.zeros(1, dtype=torch.int32, device=dev))
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _tallies()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            tok, logp = self._run(params, arena, w)
+        self.capture_seconds += time.perf_counter() - t0
+        self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+        after = _tallies()
+        w.tally = {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+        _add_tallies(w.tally, -1)         # the capture launched nothing
+        w.graph, w.tok, w.logp = graph, tok, logp
+        self.captures += 1
+
+    def __call__(self, params, tokens, arena, start, n_new, temp, slot=0):
+        self.calls += 1
+        self._bind(params, arena)
+        w = self._width(int(tokens.shape[1]))
+        self._stage(w, tokens, start, n_new, temp, slot)
+        if not self.graphed:
+            tok, logp = self._run(params, arena, w)
+            if w.tok is None:
+                w.tok, w.logp = torch.empty_like(tok), torch.empty_like(logp)
+            w.tok.copy_(tok)
+            w.logp.copy_(logp)
+            return w.tok, w.logp
+        if w.graph is None:
+            self._capture(params, arena, w)
+        w.graph.replay()
+        _add_tallies(w.tally)
+        self.replays += 1
+        return w.tok, w.logp
+
+
+class PageOps:
+    """``apply_page_ops`` of a step set: the host block tables go up
+    without blocking the host (as the step inputs do), then into every
+    group's ``block_tbl``."""
+
+    def __init__(self, max_slots: int, max_pages_per_seq: int,
+                 device: torch.device):
+        self.upload = _Upload((max_slots, max_pages_per_seq), device)
+
+    def __call__(self, arena: dict, tables) -> dict:
+        self.upload.host().copy_(torch.as_tensor(np.asarray(tables,
+                                                            np.int32)))
+        return apply_page_ops(arena, self.upload.send())
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedServeSteps:
+    """The step callables one paged engine runs, and the geometry they
+    were built for (the engine checks it with :meth:`compatible_with`).
+
+      step(params, tokens [B, C], arena, start [B], n_new [B], temp [B])
+          -> (tok [B, C], logp [B, C])   one graph per C on the card
+      solo_step(params, tokens [1, C], arena, start [1], n_new [1],
+                temp [1], slot) -> (tok [1, C], logp [1, C])
+      apply_page_ops(arena, tables [B, P]) -> arena
+
+    The arena is updated in place; outputs are the width's static
+    buffers, valid until the next call at that width."""
+    cfg: ModelConfig
+    page: int
+    n_pages: int                     # usable pages (arena holds +1 null)
+    max_slots: int
+    max_pages_per_seq: int
+    cache_dtype: object
+    chunk: int                       # prefill chunk width (top rung)
+    paged_attention: bool
+    device: torch.device
+    cuda_graphs: bool
+    step: GraphedStep
+    solo_step: GraphedStep
+    apply_page_ops: PageOps
+
+    def compatible_with(self, *, page, n_pages, max_slots,
+                        max_pages_per_seq, cache_dtype, chunk,
+                        paged_attention) -> bool:
+        return (self.page == page and self.n_pages == n_pages
+                and self.max_slots == max_slots
+                and self.max_pages_per_seq == max_pages_per_seq
+                and self.cache_dtype == cache_dtype
+                and self.chunk == chunk
+                and self.paged_attention == paged_attention)
+
+    def capture_counters(self) -> Tuple[int, int, float]:
+        """(calls, captures, capture seconds) over ``step`` and
+        ``solo_step``: the counterpart of the JAX set's ``jit_counters``
+        (the engine takes their differences around a run)."""
+        fns = (self.step, self.solo_step)
+        return (sum(f.calls for f in fns), sum(f.captures for f in fns),
+                sum(f.capture_seconds for f in fns))
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device memory the captures added to the shared graph pool."""
+        return self.step.pool_bytes + self.solo_step.pool_bytes
+
+
+def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
+                      max_slots: int, max_pages_per_seq: int,
+                      cache_dtype, chunk: Optional[int] = None,
+                      paged_attention: bool = True, device="cuda",
+                      cuda_graphs: bool = True) -> PagedServeSteps:
+    """The step set of one engine geometry. ``step`` and ``solo_step``
+    each declare ``len(width_ladder(chunk)) + 1`` widths, the compile
+    surface the JAX ``build_paged_steps`` declares per callable; on the
+    card their graphs share one memory pool and one capture stream."""
+    dev = resolve_device(device)
+    if chunk is None:
+        chunk = default_chunk(max_pages_per_seq, page)
+    widths = (1,) + width_ladder(chunk)
+    pool = stream = None
+    if dev.type == "cuda" and cuda_graphs:
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream(dev)
+    kw = dict(paged_attention=paged_attention)
+
+    def step_body(params, tokens, arena, start, n_new, temp, slot):
+        return step(cfg, params, tokens, arena, start, n_new, temp, **kw)
+
+    def solo_body(params, tokens, arena, start, n_new, temp, slot):
+        return solo_step(cfg, params, tokens, arena, slot, start, n_new,
+                         temp, **kw)
+
+    common = dict(widths=widths, device=dev, cuda_graphs=cuda_graphs,
+                  pool=pool, stream=stream)
+    return PagedServeSteps(
+        cfg=cfg, page=page, n_pages=n_pages, max_slots=max_slots,
+        max_pages_per_seq=max_pages_per_seq, cache_dtype=cache_dtype,
+        chunk=chunk, paged_attention=paged_attention, device=dev,
+        cuda_graphs=cuda_graphs,
+        step=GraphedStep("step", step_body, lanes=max_slots, **common),
+        solo_step=GraphedStep("solo_step", solo_body, lanes=1, **common),
+        apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev))

@@ -7,8 +7,12 @@ JAX it runs alone:
 
 Tolerances: qmm fp32 max abs error <= 1e-4 * max|y| (the same fp32
 products summed in another order), bf16 <= 1e-2 * max|y| (one bf16 ulp is
-2^-8 of the value); attention fp32 atol 1e-5 / rtol 1e-4, rows at or past
-kv_len exactly 0; unpack3b bit-exact."""
+2^-8 of the value); attention atol 1e-5 / rtol 1e-4 on the fp32 outputs,
+for fp32, int8 and bf16 pages alike (bf16 q and pages are widened exactly
+by both versions, and the kernel keeps fp32 accuracy), rows at or past
+kv_len exactly 0; unpack3b bit-exact. The serving step set's CUDA graphs
+against the same steps run eagerly: tokens identical, logprobs and K/V
+pages within 1e-5."""
 import sys
 from pathlib import Path
 
@@ -269,10 +273,10 @@ def test_qmm_wrappers_refuse_what_the_kernels_do_not_take(gen):
         kqmm.qmm_decode(torch.randn((256, 8), device="cuda").T, qt)
 
 
-def _attn_case(lanes, *, n_kv, g, hd, page, quantized, gen):
+def _attn_case(lanes, *, n_kv, g, hd, page, quantized, gen, bf16=False):
     return _from_chip_smoke("make_attn_case")(
         lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quantized,
-        gen=gen)
+        gen=gen, bf16=bf16)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
@@ -299,13 +303,13 @@ def test_attention_kernel_matches_plain(gen, lanes, n_kv, g, window, cap,
 
 
 def _attn_check(lanes, *, n_kv, g, quantized, gen, window=None, cap=None,
-                page=16, hd=64):
+                page=16, hd=64, bf16=False):
     """Kernel vs plain on one ragged case; returns the kernel's o. Rows at
     or past kv_len must be exactly 0 (m = -1e30, l = 0), two calls
     bit-identical."""
     q, cache, qs, kl, n_new, _ = _attn_case(
         lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quantized,
-        gen=gen)
+        gen=gen, bf16=bf16)
     kw = dict(n_kv=n_kv, head_dim=hd, window=window, attn_softcap=cap)
     build.reset_launches()
     o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
@@ -361,12 +365,63 @@ def test_attention_long_context_decode_mixed_lengths(gen, quantized):
     _attn_check(lanes, n_kv=8, g=2, quantized=quantized, gen=gen)
 
 
-def test_attention_wrapper_refuses_bf16_queries(gen):
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+@pytest.mark.parametrize("kv", [1, 17, 4096])
+def test_attention_bf16_queries_and_pages(gen, kv, path, g):
+    """bf16 q over bf16 pages on both paths, at kv_len 1, page + 1 and
+    4096 (several spans), beside an idle lane."""
+    if path == "decode":
+        lanes = ((kv - 1, 1), (0, 0), (kv // 2, 1))
+    else:
+        n = min(16, kv)
+        lanes = ((kv - n, n), (0, 0), (40, 16))
+    _attn_check(lanes, n_kv=4, g=g, quantized=False, gen=gen, bf16=True)
+
+
+@pytest.mark.parametrize("q_bf16", [False, True], ids=["fp32q", "bf16q"])
+@pytest.mark.parametrize("lanes", [((69, 1), (5, 1)), ((0, 40), (16, 3))],
+                         ids=["decode", "chunk"])
+def test_attention_mixed_dtypes_and_public_dtype(gen, lanes, q_bf16):
+    """q and the pages in different dtypes (bf16 q over fp32 pages, fp32 q
+    over bf16 pages); the public wrapper returns o in q's dtype."""
+    from repro_torch.kernels.paged_attention import ragged_paged_attention
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        lanes, n_kv=2, g=2, hd=64, page=16, quantized=False, gen=gen)
+    if q_bf16:
+        q = q.bfloat16()
+    else:
+        cache = dict(cache, k_pages=cache["k_pages"].bfloat16(),
+                     v_pages=cache["v_pages"].bfloat16())
+    kw = dict(n_kv=2, head_dim=64)
+    o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    o_r, m_r, l_r = ragged_paged_attention_ref(q, cache, qs, kl, **kw)
+    assert o.dtype == torch.float32
+    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
+    for got, want in ((o, o_r), (m, m_r), (l, l_r)):
+        torch.testing.assert_close(got[valid], want[valid], atol=1e-5,
+                                   rtol=1e-4)
+    pub = ragged_paged_attention(q, cache, qs, kl, **kw)
+    assert pub.dtype == q.dtype
+    assert torch.equal(pub, o.to(q.dtype))
+
+
+def test_attention_wrapper_refuses_fp16_queries_and_pages(gen):
+    """What the kernel does not take: fp16 q, fp16 pages, int8 pages
+    without their scales."""
     q, cache, qs, kl, _, _ = _attn_case(((0, 4),), n_kv=2, g=1, hd=64,
                                         page=16, quantized=False, gen=gen)
+    kw = dict(n_kv=2, head_dim=64)
     with pytest.raises(TypeError):
-        ragged_paged_attention_call(q.bfloat16(), cache, qs, kl, n_kv=2,
-                                    head_dim=64)
+        ragged_paged_attention_call(q.half(), cache, qs, kl, **kw)
+    half = dict(cache, k_pages=cache["k_pages"].half(),
+                v_pages=cache["v_pages"].half())
+    with pytest.raises(TypeError):
+        ragged_paged_attention_call(q, half, qs, kl, **kw)
+    codes = dict(cache, k_pages=cache["k_pages"].to(torch.int8),
+                 v_pages=cache["v_pages"].to(torch.int8))
+    with pytest.raises(TypeError):
+        ragged_paged_attention_call(q, codes, qs, kl, **kw)
 
 
 def test_int8_pages_dequantize_like_the_plain_read(gen):
@@ -414,3 +469,139 @@ def test_unpack3b_never_takes_the_plain_version_and_refuses_bad_streams(
         kunpack.unpack3b_call(packed, 8)          # 5 bytes are not 3
     with pytest.raises(ValueError):
         kunpack.unpack3b_call(packed[:0], 0)
+
+
+# ---------------------------------------------------------------------------
+# the serving step set: one CUDA graph per token width
+# ---------------------------------------------------------------------------
+def _graph_model():
+    """Two layers whose every projection the qmm kernels take (K, N
+    multiples of 128), hd 64 (both attention paths), GQA 2."""
+    from repro_torch.core.serving_quant import quantize_for_serving
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import init_params
+    cfg = ModelConfig(name="g", family="dense", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=512, vocab=1024)
+    params = quantize_for_serving(init_params(cfg, 0, device="cuda"),
+                                  QMCConfig(rho=0.3, granularity="subtile"),
+                                  min_dim=64)
+    return cfg, params
+
+
+def _step_set(cfg, graphs):
+    from repro_torch.serve import steps as serve_steps
+    from repro_torch.serve.paged_kv import PagedKVPool
+    pool = PagedKVPool(cfg, n_pages=16, page=16, max_slots=4,
+                       max_pages_per_seq=4, device="cuda")
+    arena = pool.init_arena()
+    for s in range(3):
+        pool.ensure(s, 60)
+    sset = serve_steps.build_paged_steps(
+        cfg, page=16, n_pages=16, max_slots=4, max_pages_per_seq=4,
+        cache_dtype=torch.float32, chunk=64, device="cuda",
+        cuda_graphs=graphs)
+    sset.apply_page_ops(arena, pool.block_tables)
+    return sset, arena
+
+
+def test_graphed_step_matches_eager_step(gen):
+    """A prefill rung (C = 16) and two C = 1 decode rounds, then a solo
+    round, through graphs and eagerly from the same arena: identical
+    tokens; the replays count their launches; the decode qmm's tickets
+    are zero afterwards."""
+    import numpy as np
+    cfg, params = _graph_model()
+    rng = np.random.default_rng(0)
+    rounds = [(rng.integers(2, 1024, (4, 16)), [0, 0, 0, 0],
+               [16, 9, 16, 0]),
+              (rng.integers(2, 1024, (4, 1)), [16, 9, 16, 0], [1, 1, 1, 0]),
+              (rng.integers(2, 1024, (4, 1)), [17, 10, 17, 0],
+               [1, 1, 0, 0])]
+    runs = {}
+    for graphs in (False, True):
+        sset, arena = _step_set(cfg, graphs)
+        outs = []
+        for i, (toks, start, n_new) in enumerate(rounds):
+            # a width's first graphed call also runs its warm-up
+            first_use = graphs and i < 2
+            build.reset_launches()
+            kops.reset_path_counts()
+            tok, logp = sset.step(params, toks.astype(np.int32), arena,
+                                  np.array(start, np.int32),
+                                  np.array(n_new, np.int32),
+                                  np.zeros(4, np.float32))
+            outs.append((tok.clone(), logp.clone()))
+            torch.cuda.synchronize()
+            assert build.launches["ragged_paged_attention"] == \
+                (4 if first_use else 2)
+            assert build.launches["qmm_decode"] > 0 \
+                or build.launches["qmm_colstrip"] > 0
+            assert kops.path_counts["ref"] == 0
+        tok, logp = sset.solo_step(params, np.array([[7]], np.int32), arena,
+                                   np.array([18], np.int32),
+                                   np.array([1], np.int32),
+                                   np.zeros(1, np.float32), slot=0)
+        outs.append((tok.clone(), logp.clone()))
+        torch.cuda.synchronize()
+        runs[graphs] = (outs, arena, sset)
+    (eager, a_e, s_e), (graphed, a_g, s_g) = runs[False], runs[True]
+    assert s_e.capture_counters()[1] == 0
+    assert s_g.step.captures == 2 and s_g.solo_step.captures == 1
+    assert s_g.step.replays == 3 and s_g.pool_bytes > 0
+    for (te, le), (tg, lg) in zip(eager, graphed):
+        assert torch.equal(te, tg)
+        torch.testing.assert_close(lg, le, atol=1e-5, rtol=1e-5)
+    for key in a_e:
+        for name in ("k_pages", "v_pages"):    # page 0, the null page,
+            torch.testing.assert_close(          # holds idle lanes' writes
+                a_g[key]["attn"][name][:, 1:],
+                a_e[key]["attn"][name][:, 1:], atol=1e-5, rtol=1e-5)
+    assert _decode_counters_zero()
+
+
+def test_eager_step_reads_nothing_back_from_the_device(gen):
+    """The step a graph captures, run eagerly under the sync debugger:
+    no read of the device from the host anywhere in it."""
+    import numpy as np
+    cfg, params = _graph_model()
+    sset, arena = _step_set(cfg, False)
+    z = np.zeros(4, np.int32)
+    sset.step(params, np.zeros((4, 1), np.int32), arena, z, z,
+              np.zeros(4, np.float32))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sset.step(params, np.ones((4, 16), np.int32), arena, z,
+                  np.array([16, 3, 0, 1], np.int32), np.zeros(4, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_engine_graphed_and_pipelined_tokens_match_eager(gen):
+    """Seven requests through three slots: eager, graphed, graphed and
+    pipelined give identical tokens; captures stay within the declared
+    surface."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _graph_model()
+
+    def reqs():
+        rng = np.random.default_rng(4)
+        return [Request(uid=i, prompt=rng.integers(2, 1024, int(n)).astype(
+            np.int32), max_new_tokens=int(m))
+            for i, (n, m) in enumerate(zip(rng.integers(3, 60, 7),
+                                           rng.integers(2, 12, 7)))]
+
+    outs = []
+    for kw in (dict(cuda_graphs=False), dict(cuda_graphs=True),
+               dict(cuda_graphs=True, pipelined=True)):
+        eng = ServeEngine(cfg, params, slots=3, max_len=64, page_size=16,
+                          device="cuda", **kw)
+        outs.append([r.out_tokens for r in eng.run(reqs())])
+        sset = eng.step_set
+        for fn in (sset.step, sset.solo_step):
+            assert fn.captures <= len(fn.widths)
+        if kw["cuda_graphs"]:
+            assert eng.stats.graph_replays == eng.stats.rounds
+    assert outs[0] == outs[1] == outs[2]

@@ -6,7 +6,12 @@ and fp32 and int8 KV.
 
 Tolerance: logits of live columns to atol/rtol 1e-4 (fp32 both sides;
 sums in other orders through 2 layers and a 512-way head); the fp32
-arenas' live pages to 1e-5."""
+arenas' live pages to 1e-5.
+
+The same ragged steps (dense weights, fp32 KV, the paged-attention
+route), and the cache-less forward, run on reduced qwen2.5-1.5b (qkv bias,
+GQA), llama-3.2-3b and gemma2-2b (``attn_local`` windows, both softcaps,
+tanh-gelu, scaled and tied embeddings), to the same tolerances."""
 import dataclasses
 
 import jax
@@ -52,23 +57,23 @@ def _tables():
     return ids[:SLOTS * MPPS].reshape(SLOTS, MPPS).astype(np.int32)
 
 
-def _arenas(quant):
-    cfg = dataclasses.replace(jax_reduced("stablelm-1.6b"),
-                              kv_cache_quant=quant)
+def _arenas(quant, arch="stablelm-1.6b"):
+    cfg = dataclasses.replace(jax_reduced(arch), kv_cache_quant=quant)
     arena = jax_kv.paged_init_cache(cfg, N_PAGES, PAGE, SLOTS, MPPS,
                                     jnp.float32)
     tbl = jnp.broadcast_to(jnp.asarray(_tables())[None],
                            (cfg.n_groups, SLOTS, MPPS))
-    arena["b0"]["attn"]["block_tbl"] = tbl
+    for grp in arena.values():
+        grp["attn"]["block_tbl"] = tbl
     port = arena_from_numpy(jax_tree_to_numpy(arena), device="cpu")
     return cfg, arena, port
 
 
-def _run_steps(weights, wkind, quant, paged_attention):
+def _run_steps(weights, wkind, quant, paged_attention,
+               arch="stablelm-1.6b"):
     jparams, pparams = weights[wkind]
-    jcfg, jarena, parena = _arenas(quant)
-    pcfg = dataclasses.replace(reduced_config("stablelm-1.6b"),
-                               kv_cache_quant=quant)
+    jcfg, jarena, parena = _arenas(quant, arch)
+    pcfg = dataclasses.replace(reduced_config(arch), kv_cache_quant=quant)
     rng = np.random.default_rng(1)
     for start, n_new, c in STEPS:
         toks = rng.integers(0, jcfg.vocab, size=(SLOTS, c)).astype(np.int32)
@@ -87,12 +92,14 @@ def _run_steps(weights, wkind, quant, paged_attention):
                                    np.asarray(want)[live], **TOL)
     if not quant:
         tbl = _tables()
-        for name in ("k_pages", "v_pages"):
-            j = np.asarray(jarena["b0"]["attn"][name])
-            p = parena["b0"]["attn"][name].numpy()
-            live_pages = np.unique(tbl[:, :2])
-            np.testing.assert_allclose(p[:, live_pages], j[:, live_pages],
-                                       atol=1e-5, rtol=1e-5)
+        for key in jarena:
+            for name in ("k_pages", "v_pages"):
+                j = np.asarray(jarena[key]["attn"][name])
+                p = parena[key]["attn"][name].numpy()
+                live_pages = np.unique(tbl[:, :2])
+                np.testing.assert_allclose(p[:, live_pages],
+                                           j[:, live_pages], atol=1e-5,
+                                           rtol=1e-5)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32kv", "int8kv"])
@@ -105,6 +112,26 @@ def test_ragged_steps_match_jax(weights, wkind, quant):
 def test_gather_route_matches_jax(weights):
     """paged_attention=False: full-width gather + attend on both sides."""
     _run_steps(weights, "qmc", False, paged_attention=False)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-1.5b", "llama-3.2-3b",
+                                  "gemma2-2b"])
+def test_reduced_arch_logits_match_jax(arch):
+    """Dense weights of each arch crossed over from JAX: the cache-less
+    forward, then the two ragged steps through the paged-attention route
+    (the kernel's plain version here)."""
+    cfg = jax_reduced(arch)
+    dense_j = jax_init(cfg, jax.random.PRNGKey(0))
+    dense_p = params_from_numpy(jax_tree_to_numpy(dense_j), device="cpu")
+    toks = np.random.default_rng(3).integers(
+        0, cfg.vocab, size=(2, 24)).astype(np.int32)
+    want = jax_forward(cfg, dense_j, jnp.asarray(toks))
+    if isinstance(want, tuple):
+        want = want[0]
+    got = forward(reduced_config(arch), dense_p,
+                  torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    _run_steps({"dense": (dense_j, dense_p)}, "dense", False, True, arch)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["fp32kv", "int8kv"])
