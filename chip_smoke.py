@@ -31,6 +31,21 @@ Phases (each prints its own lines; any failure exits nonzero):
                 widths. One eager step runs under the CUDA sync debugger,
                 and torch.profiler reads the device's idle share over a
                 steady decode window of (a) and (b);
+  4x. serve-x — the same width and engine settings: sampled lanes (half
+                the serve phase's requests at temperature 0.8, top_k 50,
+                top_p 0.95, one at top_k 1) graphed twice, alone through
+                the solo step and eagerly, identical draws, top_k 1 equal
+                to the greedy run (a), one sampled step under the sync
+                debugger, the graph pool's bytes beside (b)'s; the prefix
+                cache (a 128-token shared prefix and an identical
+                page-aligned pair) against the uncached engine, whose
+                in-flight dedup shares the pair: identical tokens, hits,
+                dedup and COW, fewer prefilled tokens, a second run on the
+                persisted cache; speculative decode (k = 4, repeated
+                phrases) graphed and graphed+pipelined equal to plain
+                greedy; every run launches each serving kernel and never
+                qmm's "ref" path; the sampling head's time at C = 1 and
+                256 and its threefry bits against the CPU's;
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -92,7 +107,9 @@ from repro_torch.models.model import forward, init_params  # noqa: E402
 from repro_torch.serve import steps as serve_steps  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_kv import PagedKVPool  # noqa: E402
-from repro_torch.serve.sampling import DEAD_TOKEN  # noqa: E402
+from repro_torch.serve import sampling as samplib  # noqa: E402
+from repro_torch.serve.sampling import (DEAD_TOKEN,  # noqa: E402
+                                        SamplingParams)
 
 QMM_SHAPES = [(2048, 2048), (2048, 5632), (5632, 2048), (2048, 100352)]
 SERVE_KERNELS = ("qmm_decode", "qmm_colstrip", "ragged_paged_attention")
@@ -550,23 +567,35 @@ def serve(cfg, qparams, seed: int, label: str, **kw):
     return out, [r.out_tokens for r in reqs], eng
 
 
-def check_no_host_sync(eng):
-    """One eager step of the step set at C = 1 under
+def check_no_host_sync(eng, samp=None):
+    """One eager step of the step set under
     ``torch.cuda.set_sync_debug_mode("error")``: nothing in the step may
     read the device from the host (what stream capture forbids). Every
-    lane idle, so it writes only the null page."""
+    lane idle, so it writes only the null page; with ``samp`` (a lane
+    table with sampled lanes seated, the table's block rows all null),
+    lane 0 runs one token through the sampled head, its K/V on the null
+    page too."""
     sset = eng.step_set
     z = np.zeros(sset.max_slots, np.int32)
+    n_new = z.copy()
+    if samp is None:
+        samp = samplib.lane_inputs(sset.max_slots)
+    else:
+        n_new[0] = 1
+        require(not eng._pool.block_tables.any(), "check_no_host_sync: "
+                "a slot still maps pages")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         sset.step(eng._exec_params, np.zeros((sset.max_slots, 1), np.int32),
-                  eng._arena, z, z, np.zeros(sset.max_slots, np.float32))
+                  eng._arena, z, n_new, samp)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print("[serve] one eager step under set_sync_debug_mode('error'): no "
-          "read of the device from the host")
+    print(f"[serve{'' if n_new[0] == 0 else '-x'}] one eager step "
+          f"{'' if n_new[0] == 0 else 'with sampled lanes seated '}under "
+          f"set_sync_debug_mode('error'): no read of the device from the "
+          f"host")
 
 
 def decode_requests(cfg, seed: int):
@@ -624,7 +653,7 @@ def idle_share(eng, cfg, seed: int, label: str):
         sset = eng.step_set
         z = np.zeros(sset.max_slots, np.int32)
         args = (eng._exec_params, np.zeros((sset.max_slots, 1), np.int32),
-                eng._arena, z, z + 0, np.zeros(sset.max_slots, np.float32))
+                eng._arena, z, z + 0, samplib.lane_inputs(sset.max_slots))
         sset.step(*args)
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
@@ -677,7 +706,343 @@ def serve_phase(cfg, qparams, seed: int):
                 f"the eager run's")
     print("[serve] identical tokens in the eager, graphed and "
           "graphed+pipelined runs")
-    return dict(runs=out, idle=idle)
+    return dict(runs=out, idle=idle), ref
+
+
+# ---------------------------------------------------------------------------
+# phase 4x: sampled lanes, the prefix cache with dedup, speculative decode
+# ---------------------------------------------------------------------------
+HOT = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def counted_run(eng, reqs, cfg, label):
+    """One run with the launch counts set to 0 just before it and read
+    just after: every serving kernel launched, qmm's "ref" path never,
+    every token a vocab id, captures within the step set's surface."""
+    build.reset_launches()
+    kops.reset_path_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    paths = dict(kops.path_counts)
+    for k in SERVE_KERNELS:
+        require(launches[k] > 0, f"{label}: kernel {k} never launched")
+    require(paths["ref"] == 0, f"{label}: qmm took the plain 'ref' path "
+            f"{paths['ref']} times")
+    for r in reqs:
+        require(r.done and r.out_tokens and DEAD_TOKEN not in r.out_tokens
+                and all(0 <= t < cfg.vocab for t in r.out_tokens),
+                f"{label}: request {r.uid} emitted an impossible token")
+    sset = eng.step_set
+    for fn in (sset.step, sset.solo_step):
+        require(fn.captures <= fn.surface, f"{label}: {fn.name} captured "
+                f"{fn.captures} graphs past its surface of {fn.surface}")
+    s = eng.stats
+    ttft = float(np.percentile(s.ttft_s, 50)) * 1e3
+    print(f"[serve-x] {label}: {s.tokens_out} tokens, {s.rounds} rounds, "
+          f"{s.wall_s:.3f}s, {s.tokens_per_s:.1f} tok/s, TTFT p50 "
+          f"{ttft:.1f} ms, graphs captured {s.graph_captures} (step "
+          f"{sset.step.captures}, solo {sset.solo_step.captures}), replays "
+          f"{s.graph_replays}; launches {launches}; qmm paths {paths}")
+    return dict(tokens=[r.out_tokens for r in reqs], tokens_out=s.tokens_out,
+                rounds=s.rounds, wall_s=s.wall_s,
+                tokens_per_s=s.tokens_per_s, ttft_p50_ms=ttft,
+                graph_captures=s.graph_captures,
+                graph_replays=s.graph_replays, launches=launches,
+                qmm_paths=paths)
+
+
+def sampled_requests(cfg, seed: int):
+    """The serve phase's 8 requests: uids 0, 2, 4, 6 sample (HOT, a seed
+    each), uid 1 samples with top_k 1 (greedy at any temperature), the
+    rest are greedy."""
+    reqs = make_requests(cfg, 8, seed)
+    for r in reqs:
+        if r.uid % 2 == 0:
+            r.sampling = SamplingParams(seed=1000 + r.uid, **HOT)
+        elif r.uid == 1:
+            r.sampling = SamplingParams(temperature=0.8, top_k=1, seed=1001)
+    return reqs
+
+
+def sampled_lanes(cfg, qparams, seed: int, greedy_tokens, pool_b: int):
+    """Sampled lanes graphed (twice), alone through the solo step, and
+    eagerly: identical streams; top_k 1 equals the greedy run (a)."""
+    eng = serve_engine(cfg, qparams, cuda_graphs=True)
+    first = counted_run(eng, sampled_requests(cfg, seed), cfg,
+                        "sampled graphed, run 1")
+    second = counted_run(eng, sampled_requests(cfg, seed), cfg,
+                         "sampled graphed, run 2")
+    require(second["tokens"] == first["tokens"], "sampled: two graphed "
+            "runs drew different tokens")
+    require(second["graph_captures"] == 0 and second["graph_replays"] > 0,
+            "sampled: the second graphed run captured graphs")
+    pool_bytes = eng.step_set.pool_bytes
+    # a sampled request whose prompt takes a rung of M % 128 == 0 alone
+    alone = next(r for r in sampled_requests(cfg, seed)
+                 if r.uid % 2 == 0 and len(r.prompt) > 64)
+    solo = counted_run(eng, [alone], cfg, f"sampled graphed, uid "
+                       f"{alone.uid} alone")
+    require(eng.stats.solo_rounds == eng.stats.rounds,
+            "sampled: a lone request ran a batched round")
+    require(solo["tokens"][0] == first["tokens"][alone.uid],
+            f"sampled: uid {alone.uid} alone drew other tokens than "
+            f"batched")
+    del eng
+    torch.cuda.empty_cache()
+    eager = serve_engine(cfg, qparams, cuda_graphs=False)
+    plain = counted_run(eager, sampled_requests(cfg, seed), cfg,
+                        "sampled eager")
+    require(plain["tokens"] == first["tokens"], "sampled: eager tokens "
+            "differ from the graphed run's")
+    table = samplib.lane_inputs(eager.slots)
+    for lane, r in enumerate(sampled_requests(cfg, seed)[:eager.slots]):
+        samplib.set_lane(table, lane, r.sampling, r.uid)
+    check_no_host_sync(eager, table)
+    del eager
+    torch.cuda.empty_cache()
+    require(first["tokens"][1] == greedy_tokens[1],
+            "sampled: the top_k 1 request differs from its greedy tokens")
+    differ = [u for u in (0, 2, 4, 6)
+              if first["tokens"][u] != greedy_tokens[u]]
+    require(bool(differ), "sampled: every sampled request drew its greedy "
+            "tokens")
+    print(f"[serve-x] sampled: identical tokens graphed twice, eagerly and "
+          f"(uid {alone.uid}) alone; top_k 1 = greedy; sampled uids "
+          f"{differ} differ from greedy; graph pool {pool_bytes} bytes "
+          f"with sampled lanes, {pool_b} greedy (b)")
+    return dict(graphed=first, graphed_again=second, solo=solo,
+                eager=plain, pool_bytes=pool_bytes, pool_bytes_b=pool_b,
+                differ_from_greedy=differ)
+
+
+def prefix_requests(cfg, seed: int, extra: bool = False):
+    """A pair of identical page-aligned 160-token prompts first (the
+    second admission aliases the first's pages and COWs the last), then 8
+    requests of one shared 128-token prefix (8 full pages) and a 16-64
+    token suffix each. ``extra`` appends one more request of the shared
+    prefix and a new 64-token suffix: on a cache that holds every page of
+    the others, its suffix is the only prefill of 32 tokens or more, the
+    rounds that keep the column-strip qmm (M = 4 x C, C >= 32) on the
+    path."""
+    rng = np.random.default_rng(seed + 2)
+    pair = rng.integers(2, cfg.vocab, 160).astype(np.int32)
+    shared = rng.integers(2, cfg.vocab, 128)
+    reqs = [Request(uid=i, prompt=pair.copy(), max_new_tokens=24)
+            for i in range(2)]
+    for i in range(8):
+        suffix = rng.integers(2, cfg.vocab, int(rng.integers(16, 65)))
+        reqs.append(Request(uid=2 + i, prompt=np.concatenate(
+            [shared, suffix]).astype(np.int32), max_new_tokens=24))
+    if extra:
+        suffix = np.random.default_rng(seed + 5).integers(2, cfg.vocab, 64)
+        reqs.append(Request(uid=10, prompt=np.concatenate(
+            [shared, suffix]).astype(np.int32), max_new_tokens=24))
+    return reqs
+
+
+def prefix_cache_runs(cfg, qparams, seed: int):
+    """prefix_cache=False (in-flight dedup shares the pair) against
+    prefix_cache=True, twice on one engine (the second run, the same
+    requests and the extra one, hits the persisted index on every
+    admission): identical greedy tokens throughout."""
+    eng = serve_engine(cfg, qparams, cuda_graphs=True)
+    counted_run(eng, prefix_requests(cfg, seed), cfg,
+                "prefix_cache=False, warm-up (captures)")
+    off = counted_run(eng, prefix_requests(cfg, seed), cfg,
+                      "prefix_cache=False")
+    s_off = eng.stats
+    require(s_off.dedup_hits >= 1 and s_off.cow_copies >= 1,
+            f"prefix: the uncached run deduplicated {s_off.dedup_hits} "
+            f"admissions with {s_off.cow_copies} COW copies")
+    off.update(dedup_hits=s_off.dedup_hits, cow_copies=s_off.cow_copies,
+               prefill_tokens=s_off.prefill_tokens,
+               prompt_tokens=s_off.prompt_tokens)
+    del eng
+    torch.cuda.empty_cache()
+    eng = serve_engine(cfg, qparams, cuda_graphs=True, prefix_cache=True)
+    # capture the widths both measured runs take, then empty the index:
+    # run 1 starts from a cold cache on warm graphs
+    for extra in (False, True):
+        eng.run(prefix_requests(cfg, seed, extra))
+    eng.prefix_cache.clear()
+    require(len(eng.prefix_cache) == 0 and eng._pool.free_count
+            == eng._pool.n_pages, "prefix: the index kept pages after clear")
+    runs = {}
+    for label, extra in (("prefix_cache=True, run 1", False),
+                         ("prefix_cache=True, run 2", True)):
+        reqs = prefix_requests(cfg, seed, extra)
+        r = counted_run(eng, reqs, cfg, label)
+        s = eng.stats
+        require(r["tokens"][:len(off["tokens"])] == off["tokens"],
+                f"prefix: {label} tokens differ from the uncached run's")
+        require(s.cache_hit_tokens > 0 and s.cow_copies >= 1,
+                f"prefix: {label} adopted {s.cache_hit_tokens} tokens with "
+                f"{s.cow_copies} COW copies")
+        require(s.prefill_tokens < off["prefill_tokens"],
+                f"prefix: {label} prefilled {s.prefill_tokens} tokens, "
+                f"the uncached run {off['prefill_tokens']}")
+        r.update(requests=len(reqs), cache_hits=s.cache_hits,
+                 hit_tokens=s.cache_hit_tokens, dedup_hits=s.dedup_hits,
+                 cow_copies=s.cow_copies, evictions=s.cache_evictions,
+                 hit_rate=s.hit_rate, prefill_tokens=s.prefill_tokens,
+                 prefill_token_reduction=s.prefill_token_reduction)
+        runs[label] = r
+        print(f"[serve-x] {label}: {s.cache_hits} hits of {len(reqs)} "
+              f"admissions, hit rate {s.hit_rate:.4f}, prefill tokens "
+              f"{s.prefill_tokens} of {s.prompt_tokens} (reduction "
+              f"{s.prefill_token_reduction:.4f}), {s.cow_copies} COW, "
+              f"{s.dedup_hits} dedup, {s.cache_evictions} evictions; "
+              f"TTFT p50 {r['ttft_p50_ms']:.1f} ms, "
+              f"{r['tokens_per_s']:.1f} tok/s")
+    again = runs["prefix_cache=True, run 2"]
+    require(again["cache_hits"] == again["requests"],
+            f"prefix: the second run hit {again['cache_hits']} of "
+            f"{again['requests']} admissions on the persisted cache")
+    eng.prefix_cache.check_invariants()
+    del eng
+    torch.cuda.empty_cache()
+    print(f"[serve-x] prefix_cache=False: {off['dedup_hits']} dedup, "
+          f"{off['cow_copies']} COW, prefill tokens {off['prefill_tokens']} "
+          f"of {off['prompt_tokens']}; TTFT p50 {off['ttft_p50_ms']:.1f} ms, "
+          f"{off['tokens_per_s']:.1f} tok/s; identical tokens cached and "
+          f"not")
+    return dict(uncached=off, **runs)
+
+
+def phrase_requests(cfg, seed: int):
+    """8 prompts, each a 16-token phrase repeated 4-8 times."""
+    rng = np.random.default_rng(seed + 3)
+    return [Request(uid=i, prompt=np.tile(
+        rng.integers(2, cfg.vocab, 16), int(rng.integers(4, 9))).astype(
+            np.int32), max_new_tokens=32) for i in range(8)]
+
+
+def speculative_runs(cfg, qparams, seed: int, k: int = 4):
+    """Plain greedy against speculative_k=k, graphed and graphed +
+    pipelined (each engine warmed by one run first): identical tokens."""
+    out = {}
+    for label, kw in (("greedy graphed", dict()),
+                      (f"speculative k={k} graphed",
+                       dict(speculative_k=k)),
+                      (f"speculative k={k} graphed+pipelined",
+                       dict(speculative_k=k, pipelined=True))):
+        eng = serve_engine(cfg, qparams, cuda_graphs=True, **kw)
+        counted_run(eng, phrase_requests(cfg, seed), cfg,
+                    f"{label}, warm-up (captures)")
+        r = counted_run(eng, phrase_requests(cfg, seed), cfg, label)
+        s = eng.stats
+        for fn in (eng.step_set.step, eng.step_set.solo_step):
+            require(fn.captures <= len(fn.widths), f"{label}: {fn.name} "
+                    f"captured {fn.captures} greedy graphs past its "
+                    f"{len(fn.widths)} widths")
+        r.update(spec_rounds=s.spec_rounds, draft=s.spec_draft_tokens,
+                 accepted=s.spec_accepted_tokens,
+                 acceptance=s.spec_acceptance_rate,
+                 pipelined_rounds=s.pipelined_rounds)
+        if kw:
+            require(r["tokens"] == out["greedy graphed"]["tokens"],
+                    f"{label}: tokens differ from plain greedy's")
+            require(s.spec_rounds > 0 and s.spec_draft_tokens > 0,
+                    f"{label}: {s.spec_rounds} verify rounds, "
+                    f"{s.spec_draft_tokens} draft tokens")
+            print(f"[serve-x] {label}: {s.spec_rounds} verify rounds, "
+                  f"{s.spec_accepted_tokens}/{s.spec_draft_tokens} drafts "
+                  f"accepted (rate {s.spec_acceptance_rate:.4f}), "
+                  f"{r['tokens_per_s']:.1f} tok/s against "
+                  f"{out['greedy graphed']['tokens_per_s']:.1f} plain")
+        out[label] = r
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def head_times(cfg, seed: int):
+    """The sampling head alone at the step's widths C = 1 and 256 (B = 4,
+    the full vocab), two lanes sampled and two greedy, with and without
+    the sampled branch: captured in a CUDA graph as the step set runs it
+    (the graph's replay timed), and eagerly (the host enqueues each of
+    its kernels, so the eager time is mostly the host's)."""
+    timer = Timer(runs=10, warmup=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4)
+    table = samplib.lane_inputs(4)
+    for lane in (0, 2):
+        samplib.set_lane(table, lane, SamplingParams(seed=lane, **HOT),
+                         lane)
+    samp = {k: torch.from_numpy(v.view(np.int32) if k == "key" else v
+                                ).cuda() for k, v in table.items()}
+    out = {}
+    for c in (1, 256):
+        logits = torch.randn((4, c, cfg.vocab), generator=gen,
+                             device="cuda") * 3
+        pos = (torch.arange(c, dtype=torch.int32, device="cuda")[None]
+               + torch.tensor([[5], [60], [0], [200]], dtype=torch.int32,
+                              device="cuda"))
+        n_new = torch.full((4,), c, dtype=torch.int32, device="cuda")
+
+        def head(sampled):
+            return samplib.select_tokens(
+                logits, samp["temp"], samp["top_k"], samp["top_p"],
+                samp["key"], pos, n_new, sampled=sampled)
+        row = {}
+        for sampled in (True, False):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                eager_tok, _ = head(sampled)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                graph_tok, _ = head(sampled)
+            graph.replay()
+            torch.cuda.synchronize()
+            require(torch.equal(graph_tok, eager_tok), f"sampling head "
+                    f"C={c}: the graph's tokens differ from eager ones")
+            key = "sampled" if sampled else "greedy"
+            row[f"{key}_graph_ms"] = timer(graph.replay)
+            row[f"{key}_eager_ms"] = timer(lambda: head(sampled))
+            del graph, graph_tok, eager_tok
+        out[f"C={c}"] = row
+        print(f"[serve-x] sampling head B=4 C={c} V={cfg.vocab}: with the "
+              f"sampled branch {row['sampled_graph_ms']:.4f} ms graphed "
+              f"({row['sampled_eager_ms']:.4f} eager), greedy-only "
+              f"{row['greedy_graph_ms']:.4f} ms graphed "
+              f"({row['greedy_eager_ms']:.4f} eager)")
+        if c == 1:
+            # the card's draw against the CPU's on the same inputs: the
+            # threefry bits bit-exact (required); the tokens reported
+            keys = samp["key"][[0, 2]]
+            bits = samplib.random_bits(keys, cfg.vocab)
+            require(torch.equal(bits.cpu(), samplib.random_bits(
+                keys.cpu(), cfg.vocab)), "threefry bits on the card differ "
+                "from the CPU's")
+            tok, _ = head(True)
+            want, _ = samplib.select_tokens(
+                logits.cpu(), *(t.cpu() for t in (
+                    samp["temp"], samp["top_k"], samp["top_p"], samp["key"],
+                    pos, n_new)))
+            row["tokens_equal_cpu"] = bool(torch.equal(tok.cpu(), want))
+            print(f"[serve-x] threefry bits of a {cfg.vocab}-token draw: "
+                  f"the card's equal the CPU's; head tokens equal the "
+                  f"CPU's: {row['tokens_equal_cpu']}")
+        del logits
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_x_phase(cfg, qparams, seed: int, greedy_tokens, pool_b: int):
+    """Sampled lanes, the prefix cache with dedup and COW, speculative
+    decode, and the head's own time, at the serve phase's width."""
+    out = dict(sampled=sampled_lanes(cfg, qparams, seed, greedy_tokens,
+                                     pool_b),
+               prefix=prefix_cache_runs(cfg, qparams, seed),
+               speculative=speculative_runs(cfg, qparams, seed),
+               head=head_times(cfg, seed))
+    print("[serve-x] every run launched "
+          f"{', '.join(SERVE_KERNELS)} and never the qmm 'ref' path")
+    return out
 
 
 def whole_step(cfg, qparams, seed: int):
@@ -969,7 +1334,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     print(f"[serve] stablelm-1.6b full width: init + QMC PTQ on the card in "
           f"{time.monotonic() - t0:.1f}s")
-    served = serve_phase(cfg, qparams, args.seed)
+    served, greedy_tokens = serve_phase(cfg, qparams, args.seed)
+    extended = serve_x_phase(cfg, qparams, args.seed, greedy_tokens,
+                             served["runs"]["b graphed"]["pool_bytes"])
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -996,7 +1363,7 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
-        serve=served, step=stepped,
+        serve=served, serve_x=extended, step=stepped,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

@@ -102,7 +102,7 @@ def _check(q, cache, n_kv, head_dim) -> int:
     if kp.ndim != 3 or kp.shape[-1] != n_kv * hd or kp.shape != vp.shape:
         raise ValueError("k/v pages must be [n_pages, page, KV*hd]")
     quantized = "k_scale_pages" in cache
-    tensors = [kp, vp, cache["block_tbl"]]
+    tensors = [kp, vp]
     if quantized and kp.dtype != torch.int8:
         raise TypeError("k/v pages with scales must be int8")
     if kp.dtype not in _PAGE_KIND or (not quantized
@@ -123,8 +123,12 @@ def _check(q, cache, n_kv, head_dim) -> int:
     for t in tensors:
         if t.device != q.device or not t.is_contiguous() \
                 or t.data_ptr() % 16:
-            raise ValueError(f"arena leaves must be contiguous and 16-byte "
+            raise ValueError(f"arena pages must be contiguous and 16-byte "
                              f"aligned on {q.device}")
+    # the kernels read the table one int32 at a time: a group's row of a
+    # [G, B, P] table starts at any multiple of 4 bytes
+    if tbl.device != q.device or not tbl.is_contiguous():
+        raise ValueError(f"block_tbl must be contiguous on {q.device}")
     page = kp.shape[1]
     if STAGE_KEYS % page:
         raise ValueError(f"page size {page} must divide {STAGE_KEYS}")

@@ -7,9 +7,18 @@ device, batched requests through the paged engine.
 Takes the JAX CLI's flags (``python -m repro.launch.serve``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch version of
 every kernel). ``--pipelined`` runs the pipelined round loop; on the card
-every step width is a captured CUDA graph. Flags of features not ported
-yet (sampling, speculative decode, the prefix cache, meshes, tracing and
-profiling) are refused with an error instead of being ignored.
+every step width is a captured CUDA graph. ``--temperature``,
+``--top-k``, ``--top-p`` (with ``--seed`` and ``--logprobs``) set the
+sampling policy of every request, ``--prefix-cache`` shares prompt-prefix
+KV pages copy-on-write and ``--speculative K`` turns on self-speculative
+decode, all with the JAX CLI's meanings:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --temperature 0.8 --prefix-cache --speculative 4
+
+The mesh, tracing, metrics, profiling and cost-report flags are refused
+with an error instead of being ignored: the port has no mesh, tracer,
+metrics registry, profiler hook or cost report.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from repro_torch.models.model import init_params
 from repro_torch.serve import steps as serve_steps
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged_kv import pages_for
+from repro_torch.serve.sampling import SamplingParams
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -40,14 +50,25 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", choices=["fp16", "qmc"], default="qmc")
     ap.add_argument("--rho", type=float, default=0.3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--top-k", type=int, default=0)
-    ap.add_argument("--top-p", type=float, default=1.0)
-    ap.add_argument("--logprobs", action="store_true")
-    ap.add_argument("--speculative", type=int, default=0, metavar="K")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample from the k highest-logit tokens "
+                         "(0 = off)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling: smallest token set with "
+                         "cumulative mass >= p (1.0 = off)")
+    ap.add_argument("--logprobs", action="store_true",
+                    help="record each selected token's model logprob in "
+                         "Request.out_logprobs")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="self-speculative decode: up to K prompt-lookup "
+                         "draft tokens verified per greedy decode lane "
+                         "per round (0 = off)")
     ap.add_argument("--pipelined", action=argparse.BooleanOptionalAction,
                     default=False)
-    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV pages copy-on-write")
     ap.add_argument("--paged-attention",
                     action=argparse.BooleanOptionalAction, default=True,
                     help="attend through the ragged paged-attention kernel "
@@ -71,11 +92,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(ap, args) -> None:
     unported = {
-        "--temperature": args.temperature > 0,
-        "--top-k": args.top_k != 0,
-        "--top-p": args.top_p != 1.0,
-        "--speculative": args.speculative != 0,
-        "--prefix-cache": args.prefix_cache,
         "--data-shards": args.data_shards != 1,
         "--model-shards": args.model_shards != 1,
         "--trace-out": args.trace_out is not None,
@@ -117,9 +133,14 @@ def main(argv=None):
     mpps = pages_for(max_len, args.page_size)
     chunk = (args.chunk_tokens if args.chunked_prefill
              else serve_steps.default_chunk(mpps, args.page_size))
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, seed=args.seed,
+                        logprobs=args.logprobs)
     eng = ServeEngine(cfg, params, slots=args.slots, max_len=max_len,
                       page_size=args.page_size, chunk_tokens=chunk,
+                      prefix_cache=args.prefix_cache,
                       paged_attention=args.paged_attention,
+                      sampling=sp, speculative_k=args.speculative,
                       pipelined=args.pipelined, device=args.device)
     eng.run(reqs)
     s = eng.stats
@@ -138,6 +159,25 @@ def main(argv=None):
     if args.paged_attention and s.kv_pages_full:
         print(f"[serve] paged-attention kernel: {s.kv_pages_live} live "
               f"pages streamed vs {s.kv_pages_full} full-width")
+    if args.prefix_cache:
+        print(f"[serve] prefix cache: {s.cache_hits} hits, "
+              f"hit_rate={s.hit_rate:.2f}, prefill-token reduction="
+              f"{s.prefill_token_reduction:.2f}, {s.cow_copies} COW copies")
+    if s.dedup_hits:
+        print(f"[serve] in-flight dedup: {s.dedup_hits} admissions "
+              f"aliased a live identical prompt")
+    if args.temperature > 0:
+        print(f"[serve] sampling: temperature={args.temperature} "
+              f"top_k={args.top_k} top_p={args.top_p} seed={args.seed}")
+    if args.speculative > 0:
+        print(f"[serve] speculative k={args.speculative}: "
+              f"{s.spec_rounds} verify rounds, "
+              f"{s.spec_accepted_tokens}/{s.spec_draft_tokens} drafts "
+              f"accepted (rate={s.spec_acceptance_rate:.2f})")
+    if args.logprobs and reqs and reqs[0].out_logprobs:
+        lp = reqs[0].out_logprobs[:5]
+        print(f"[serve] req 0 logprobs: "
+              f"{[round(x, 3) for x in lp]}...")
     for r in reqs[:3]:
         print(f"  req {r.uid}: {r.out_tokens[:10]}...")
     return eng

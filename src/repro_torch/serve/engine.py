@@ -1,5 +1,7 @@
 """Paged continuous-batching engine (counterpart of
-``repro.serve.engine.ServeEngine``: its synchronous and pipelined loops).
+``repro.serve.engine.ServeEngine``: its synchronous and pipelined loops,
+sampled lanes, the prefix cache with in-flight dedup, and self-speculative
+decode).
 
 Every round, all active slots run in ONE ragged step against a shared
 paged KV arena: decode lanes carry one token each, prefilling lanes a
@@ -7,14 +9,14 @@ chunk of their prompt, both in the same call (``serve/steps.py``), with
 FIFO admission, a per-round chunk budget and recompute-style preemption
 (``serve/scheduler.py``). Each round runs at the smallest width of the
 pow2 ladder (``steps.width_ladder``) that covers its widest grant, C = 1
-for pure decode, and uploads changed block tables in one page-ops flush
-before the step. A round with exactly one live lane runs the batch-1
-``solo_step`` (``EngineStats.solo_rounds``).
+for pure decode, after one page-ops flush (the round's copy-on-write page
+copies and the changed block tables). A round with exactly one live lane
+runs the batch-1 ``solo_step`` (``EngineStats.solo_rounds``).
 
 The steps come from a step set (``steps.build_paged_steps``, or
 ``step_set=``, checked against this engine's geometry): on the card each
-token width is one captured CUDA graph (``cuda_graphs=True``, the
-default; ``False`` runs the same steps eagerly, to compare against).
+token width is a captured CUDA graph (``cuda_graphs=True``, the default;
+``False`` runs the same steps eagerly, to compare against).
 
 Weights may be dense or QMC streams. With ``weight_plan=False`` (the
 default) stream leaves go through the qmm kernels; ``weight_plan=True``
@@ -23,11 +25,34 @@ weights. ``paged_attention=True`` (the default) attends through the
 ragged paged-attention kernel. On ``device="cpu"`` every kernel wrapper
 runs its plain PyTorch version.
 
+Token selection runs inside the step (``serve/sampling.py``): per-request
+:class:`~repro_torch.serve.sampling.SamplingParams` ride on
+``Request.sampling`` (engine default via ``sampling=``), greedy by
+default; sampled lanes draw the JAX package's threefry stream, keyed by
+(seed, uid, position).
+
+``prefix_cache=True`` keeps finished prompts' full KV pages in a radix
+index (``serve/prefix_cache.py``): an admission whose prompt shares a
+cached page-aligned prefix adopts those pages copy-on-write and prefills
+only the uncached suffix. The pool, arena and index persist across
+``run()`` calls. The scheduler also runs **in-flight dedup**: identical
+prompts admitted while an earlier copy occupies a slot alias that slot's
+full prompt pages instead of prefilling them again.
+
+``speculative_k > 0`` turns on self-speculative greedy decode: each greedy
+decode lane may propose up to k prompt-lookup draft tokens a round
+(``serve/speculative.py``), verified in ONE step at the smallest ladder
+rung covering ``1 + k``; draft tokens draw on the round's prefill budget
+(``FifoScheduler.grant_verify``), and pages of rejected positions go back
+through ``PagedKVPool.trim``. Sampled lanes always decode one token.
+
 The pipelined loop (``pipelined=True``), with the JAX engine's contract:
 
   * **What overlaps.** Only pure-decode rounds with an idle admission
-    queue. The next round's tokens are the previous step's output on the
-    device (``steps.carry_decode_tokens``), and each dispatch starts a
+    queue and no verify lane (an engine with ``speculative_k > 0`` never
+    overlaps: drafting needs the retired history). The next round's
+    tokens are the previous step's output on the device
+    (``steps.carry_decode_tokens``), and each dispatch starts a
     non-blocking copy of its outputs to pinned host memory and records an
     event; the round is retired (emission, EOS checks, scheduling) one
     round later, while the next one runs.
@@ -41,18 +66,17 @@ The pipelined loop (``pipelined=True``), with the JAX engine's contract:
     (``EngineStats.lag_trimmed_tokens``) and the slot is freed once the
     overrun round retires.
 
-Under greedy decoding the engine is token-identical to the JAX engine on
-the same weights, pipelined or not: the same admission, chunking and
-preemption decisions, and causal attention makes each query independent
-of how its prompt was chunked. Not ported yet: speculative decode, the
-prefix cache and in-flight dedup, sampled lanes (refused on the host),
-and the obs tracer and metrics.
+The engine is token-identical to the JAX engine on the same weights, on
+greedy, sampled and speculative lanes, cached or not, pipelined or not:
+the same admission, chunking, caching and preemption decisions, and
+causal attention makes each query independent of how its prompt was
+chunked.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -63,8 +87,10 @@ from repro_torch.core.serving_quant import build_exec_weights
 from repro_torch.memsys.workload import chunk_pages_streamed, pages_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve import sampling as samplib
+from repro_torch.serve import speculative
 from repro_torch.serve import steps as serve_steps
 from repro_torch.serve.paged_kv import PagedKVPool, PoolExhausted
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.scheduler import (FifoScheduler, SchedulerConfig,
                                          bucket_len)
@@ -78,7 +104,10 @@ class Request:
     eos_id: Optional[int] = None
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # token-selection policy; None -> the engine default
     sampling: Optional[SamplingParams] = None
+    # selected-token model logprobs, parallel to out_tokens, when the
+    # effective SamplingParams has logprobs=True (cleared on preemption)
     out_logprobs: List[float] = dataclasses.field(default_factory=list)
 
 
@@ -93,16 +122,30 @@ class EngineStats:
     preemptions: int = 0
     pages_peak: int = 0
     tokens_discarded: int = 0        # emitted then erased by preemption
-    prompt_tokens: int = 0
-    prefill_tokens: int = 0
-    prefill_tokens_padded: int = 0
+    prompt_tokens: int = 0           # prompt tokens across admissions
+    prefill_tokens: int = 0          # tokens actually prefilled (suffixes)
+    prefill_tokens_padded: int = 0   # same, after chunk-width padding
+    # prefix cache and in-flight dedup (all zero when both are off)
+    cache_hits: int = 0              # admissions served partly from cache
+    cache_hit_tokens: int = 0        # prompt tokens adopted (cache+dedup)
+    dedup_hits: int = 0              # admissions aliasing an in-flight
+    #                                  identical prompt's live slot pages
+    cow_copies: int = 0              # shared pages privatized on write
+    cache_evictions: int = 0         # cached pages evicted under pressure
+    # page ops: adoptions and block-table uploads (PagedKVPool counters),
+    # COW page copies queued, page-ops calls, and the ops they carried
+    # (copies + the table upload)
+    adopt_calls: int = 0
+    page_copy_calls: int = 0
+    device_tables_rebuilds: int = 0
+    page_op_flushes: int = 0
+    page_ops_batched: int = 0
     # K/V pages the paged-attention kernel streams (decode lanes; prefill
     # chunks per q block, memsys.workload.chunk_pages_streamed) vs the
     # full block-table width the gather route reads
     kv_pages_live: int = 0
     kv_pages_full: int = 0
     prefill_kv_pages_live: int = 0
-    page_op_flushes: int = 0
     # rounds run through the B=1 solo-lane step (exactly one live lane)
     solo_rounds: int = 0
     # pipelined loop: rounds retired one round late, drains of the
@@ -111,6 +154,11 @@ class EngineStats:
     pipelined_rounds: int = 0
     pipeline_barriers: int = 0
     lag_trimmed_tokens: int = 0
+    # self-speculative decode: rounds that carried a verify lane, draft
+    # tokens proposed, and draft tokens the model accepted
+    spec_rounds: int = 0
+    spec_draft_tokens: int = 0
+    spec_accepted_tokens: int = 0
     # the step set's graphs during this run: captures, their seconds,
     # replays (all 0 off the card or with cuda_graphs=False)
     graph_captures: int = 0
@@ -131,6 +179,24 @@ class EngineStats:
     def pipeline_overlap(self) -> float:
         """Fraction of rounds retired through the pipeline."""
         return self.pipelined_rounds / self.rounds if self.rounds else 0.0
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens the model accepted."""
+        return (self.spec_accepted_tokens / self.spec_draft_tokens
+                if self.spec_draft_tokens else 0.0)
+
+    @property
+    def hit_rate(self) -> float:
+        """Fraction of admitted prompt tokens served from cached pages."""
+        return (self.cache_hit_tokens / self.prompt_tokens
+                if self.prompt_tokens else 0.0)
+
+    @property
+    def prefill_token_reduction(self) -> float:
+        """1 - (tokens prefilled / tokens a cache-less engine prefills)."""
+        return (1.0 - self.prefill_tokens / self.prompt_tokens
+                if self.prompt_tokens else 0.0)
 
 
 def _finished(req: Request, pos: int, max_len: int) -> bool:
@@ -164,15 +230,30 @@ class ServeEngine:
                  page_size: int = 16, n_pages: Optional[int] = None,
                  max_prefill_tokens: Optional[int] = None,
                  chunk_tokens: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 inflight_dedup: Optional[bool] = None,
                  paged_attention: bool = True, weight_plan: bool = False,
                  sampling: Optional[SamplingParams] = None,
+                 speculative_k: int = 0,
                  step_set: Optional[serve_steps.PagedServeSteps] = None,
                  pipelined: bool = False, cuda_graphs: bool = True,
                  device="cuda"):
         if cfg.is_encdec or cfg.n_vis_tokens:
             raise NotImplementedError(
                 "the paged engine covers decoder-only models")
-        if not all(k.startswith("attn") for k in cfg.pattern):
+        attn_only = all(k.startswith("attn") for k in cfg.pattern)
+        if (prefix_cache or inflight_dedup) and not attn_only:
+            raise NotImplementedError(
+                "prefix caching / in-flight dedup share attention KV "
+                "pages; SSM/conv state is not page-addressable — disable "
+                f"them for hybrid/mamba stacks (pattern={cfg.pattern})")
+        if speculative_k > 0 and not attn_only:
+            raise NotImplementedError(
+                "self-speculative decode rolls rejected positions back "
+                "via valid_len masking + page trim; SSM/conv state has "
+                "no per-position rollback — attention-only stacks only "
+                f"(pattern={cfg.pattern})")
+        if not attn_only:
             raise NotImplementedError(
                 f"only attention stacks are ported (pattern={cfg.pattern})")
         self.device = resolve_device(device)
@@ -193,11 +274,17 @@ class ServeEngine:
         self._widths = serve_steps.width_ladder(self.chunk)
         self.paged_attention = paged_attention
         self.stats = EngineStats()
+        # token selection: the engine default (per-request sampling
+        # overrides), the per-lane table the step's sampling inputs are
+        # staged from, and the draft length of a verify round (0 = off)
         self._default_sp = sampling or samplib.GREEDY
-        samplib.refuse_sampled(self._default_sp)
+        self._samp = samplib.lane_inputs(slots)
         self._slot_sp: List[SamplingParams] = [samplib.GREEDY] * slots
+        self._spec_k = int(speculative_k)
         self._pipelined = bool(pipelined)
         self._cuda_graphs = bool(cuda_graphs)
+        self._dedup = True if inflight_dedup is None else bool(
+            inflight_dedup)
         if step_set is not None and (
                 step_set.cfg != cfg or step_set.device != self.device
                 or not step_set.compatible_with(
@@ -213,8 +300,13 @@ class ServeEngine:
         # the serving weight plan: streams dequantized once, at setup
         self._exec_params = (build_exec_weights(self.params) if weight_plan
                              else self.params)
+        # COW page copies queued by seat(), flushed once per round
+        self._pending_copies: List = []
+        # pool + arena (+ prefix index) persist across run() calls
+        self._use_prefix = bool(prefix_cache)
         self._pool: Optional[PagedKVPool] = None
         self._arena = None
+        self.prefix_cache: Optional[PrefixCache] = None
 
     def _ensure_pool(self) -> PagedKVPool:
         """The pool and arena, made once per engine: the step set's graphs
@@ -234,6 +326,8 @@ class ServeEngine:
                     cache_dtype=self.cache_dtype, chunk=self.chunk,
                     paged_attention=self.paged_attention,
                     device=self.device, cuda_graphs=self._cuda_graphs)
+            if self._use_prefix:
+                self.prefix_cache = PrefixCache(self._pool)
         return self._pool
 
     @property
@@ -241,47 +335,75 @@ class ServeEngine:
         return self._steps
 
     def _flush_page_ops(self, pool: PagedKVPool) -> None:
-        """Upload the block tables in one page-ops call when they changed;
-        pure decode rounds with clean tables skip it."""
-        if not pool.tables_dirty:
+        """The round's queued page copies and changed block tables in one
+        page-ops call (more than ``slots`` copies drain in extra calls);
+        a round with nothing queued and clean tables skips it."""
+        copies = self._pending_copies
+        if not (copies or pool.tables_dirty):
             return
         pool.check_tables()
-        self._steps.apply_page_ops(self._arena, pool.block_tables)
+        n_ops = len(copies) + 1
+        first = True
+        while first or copies:
+            batch, copies[:] = copies[:self.slots], copies[self.slots:]
+            self._steps.apply_page_ops(self._arena, pool.block_tables,
+                                       batch)
+            self.stats.page_op_flushes += 1
+            first = False
+        pool.tables_rebuilds += 1
         pool.tables_dirty = False
-        self.stats.page_op_flushes += 1
+        self.stats.page_ops_batched += n_ops
+
+    def _alloc(self, slot: int, n_tokens: int) -> Optional[List[int]]:
+        """pool.ensure with LRU eviction of unpinned cached pages as the
+        fallback; None only when eviction cannot help either."""
+        while True:
+            fresh = self._pool.ensure(slot, n_tokens)
+            if fresh is not None:
+                return fresh
+            if self.prefix_cache is None or not self.prefix_cache.evict(1):
+                return None
+            self.stats.cache_evictions += 1
 
     def run(self, requests: List[Request]) -> List[Request]:
         """Process all requests to completion; returns them with outputs.
 
-        A generated ``eos_id`` is emitted and generation stops right
-        after; a preempted request starts over from its first token.
-        Stats describe this run only."""
+        A generated ``eos_id`` is emitted and generation stops right after
+        (speculative acceptance truncates at the first EOS); a preempted
+        request starts over from its first token. With ``logprobs=True``
+        the selected tokens' model logprobs land in
+        ``request.out_logprobs``. Stats describe this run only; the prefix
+        cache and its pages persist across calls."""
         self.stats = EngineStats()
         t0 = time.monotonic()
         for r in requests:
             if len(r.prompt) > self.max_len:
                 raise ValueError(f"request {r.uid}: prompt length "
                                  f"{len(r.prompt)} > max_len={self.max_len}")
-            samplib.refuse_sampled(r.sampling if r.sampling is not None
-                                   else self._default_sp)
         pool = self._ensure_pool()
         steps = self._steps
+        # release slot pages an aborted run may have left mapped (cached
+        # pages survive) and re-base the pool's counters
         for s in range(self.slots):
             if pool.slot_pages[s]:
                 pool.free_slot(s)
         pool.pages_peak = pool.used_count
+        self._pending_copies.clear()
+        cow0, adopt0 = pool.cow_copies, pool.adopt_calls
+        tbl0 = pool.tables_rebuilds
         _, cap0, cap_s0 = steps.capture_counters()
         replays0 = steps.step.replays + steps.solo_step.replays
+        cache = self.prefix_cache
         sched = FifoScheduler(SchedulerConfig(
             page=self.page, max_prefill_tokens=self.max_prefill_tokens,
-            max_len=self.max_len, chunk=self.chunk))
+            max_len=self.max_len, chunk=self.chunk), prefix_cache=cache,
+            pool=pool if self._dedup else None)
         for r in requests:
             sched.enqueue(r)
 
         active: List[Optional[Request]] = [None] * self.slots
         pos = np.zeros(self.slots, np.int64)      # next write position
         next_tok = np.zeros(self.slots, np.int64)
-        temp = np.zeros(self.slots, np.float32)
         seen_first: set = set()
         cuda = self.device.type == "cuda"
 
@@ -302,6 +424,13 @@ class ServeEngine:
                 req.out_logprobs.append(logp)
             self.stats.tokens_out += 1
 
+        def publish(req: Request, s: int) -> None:
+            """Index the slot's full prompt pages (prefill KV reuse)."""
+            if cache is not None:
+                n_full = len(req.prompt) // self.page
+                if n_full:
+                    cache.insert(req.prompt, pool.slot_pages[s][:n_full])
+
         def finish(s: int, defer_rec=None) -> None:
             active[s].done = True
             active[s] = None
@@ -316,7 +445,9 @@ class ServeEngine:
 
         def preempt(victim: int) -> None:
             req = active[victim]
-            # recompute-style eviction: drop generated state, requeue
+            # recompute-style eviction: drop generated state, requeue; a
+            # lane preempted mid-prompt releases exactly the pages its
+            # chunks wrote (plus its adopted references)
             self.stats.tokens_out -= len(req.out_tokens)
             self.stats.tokens_discarded += len(req.out_tokens)
             req.out_tokens = []
@@ -326,28 +457,69 @@ class ServeEngine:
             sched.on_preempt(victim)
             sched.requeue_front(req)
 
-        def seat(req: Request, s: int) -> bool:
-            if pool.ensure(s, min(len(req.prompt), self.chunk)) is None:
+        def seat(adm, s: int) -> bool:
+            """Seat an admission: adopt cached pages, allocate the first
+            chunk's pages, COW the shared page a mid-page restart writes
+            into (the copy is queued for the round's page-ops flush). No
+            step runs here. False when pages ran out."""
+            req = adm.req
+            L = len(req.prompt)
+            start = adm.suffix_start
+            if adm.cached_pages:
+                pool.adopt(s, adm.cached_pages)
+            if self._alloc(s, min(L, start + self.chunk)) is None:
                 pool.free_slot(s)
                 return False
+            cow = pool.cow(s, start) if adm.cached_pages else None
+            while cow is False:
+                if cache is None or not cache.evict(1):
+                    pool.free_slot(s)
+                    return False
+                self.stats.cache_evictions += 1
+                cow = pool.cow(s, start)
+            if cow is not None:
+                self._pending_copies.append(cow)
+                self.stats.page_copy_calls += 1
             active[s] = req
-            pos[s] = 0
+            pos[s] = start
             sp = req.sampling if req.sampling is not None \
                 else self._default_sp
             self._slot_sp[s] = sp
-            temp[s] = sp.temperature
+            samplib.set_lane(self._samp, s, sp, req.uid)
             sched.on_admit(s)
-            self.stats.prompt_tokens += len(req.prompt)
+            sched.note_progress(s, start)
+            if adm.cached_pages:
+                if adm.dedup:
+                    self.stats.dedup_hits += 1
+                else:
+                    self.stats.cache_hits += 1
+                self.stats.cache_hit_tokens += start
+            else:
+                sched.note_prefill(req, s)
+                if cache is not None:
+                    sched.miss_open(s)
+            self.stats.prompt_tokens += L
             return True
 
         def admit() -> None:
             free_slots = [s for s in range(self.slots) if active[s] is None]
             while free_slots:
-                req = sched.next_admission(pool.free_count)
-                if req is None:
+                capacity = pool.free_count + (cache.evictable_pages()
+                                              if cache else 0)
+                adm = sched.next_admission(capacity)
+                if adm is None:
                     break
-                if not seat(req, free_slots[0]):
-                    sched.requeue_front(req)
+                s = free_slots[0]
+                ok = seat(adm, s)
+                if not ok and adm.cached_pages:
+                    # the hit pinned its matched pages, which may be the
+                    # very pages the capacity check promised as evictable:
+                    # degrade to an uncached admission that can evict them
+                    adm.cached_pages, adm.cached_len = [], 0
+                    adm.dedup = False
+                    ok = seat(adm, s)
+                if not ok:          # promised pages vanished; retry later
+                    sched.requeue_front(adm.req)
                     break
                 free_slots.pop(0)
 
@@ -359,7 +531,8 @@ class ServeEngine:
             """Emission, EOS and scheduling for one completed round;
             returns the tokens emitted. ``defer_rec`` is the round still
             in flight, whose lanes defer their page frees to its retire."""
-            plan, act_dec = rec["plan"], rec["act_dec"]
+            plan, verify = rec["plan"], rec["verify"]
+            act_dec, n_new = rec["act_dec"], rec["n_new"]
             c_len = rec["c_len"]
             now_t = time.monotonic() if now is None else now
             emitted = 0
@@ -370,6 +543,7 @@ class ServeEngine:
                 if s in plan:
                     n = plan[s]
                     pos[s] += n
+                    sched.note_progress(s, int(pos[s]))
                     self.stats.prefill_chunks += 1
                     self.stats.prefill_tokens += n
                     self.stats.prefill_tokens_padded += c_len
@@ -378,6 +552,8 @@ class ServeEngine:
                     # the logit at the prompt's last token is the
                     # request's first generated token
                     self.stats.prefills += 1
+                    publish(req, s)
+                    sched.miss_closed(s)
                     tok = int(nxt[s, n - 1])
                     record(s, tok, float(logp_h[s, n - 1]), req)
                     first_token(req, now_t)
@@ -387,13 +563,35 @@ class ServeEngine:
                     else:
                         next_tok[s] = tok
                 elif s in act_dec:
-                    tok = int(nxt[s, 0])
-                    pos[s] += 1
-                    next_tok[s] = tok
-                    record(s, tok, float(logp_h[s, 0]), req)
-                    emitted += 1
-                    if _finished(req, int(pos[s]), self.max_len):
-                        finish(s, defer_rec)
+                    # plain decode is a verify round with an empty draft:
+                    # accept_greedy keeps the verified draft prefix and
+                    # the model's correction token
+                    n = int(n_new[s])
+                    draft = verify.get(s)
+                    if draft is not None:
+                        n_acc = speculative.accept_greedy(draft, nxt[s, :n])
+                        self.stats.spec_draft_tokens += len(draft)
+                        self.stats.spec_accepted_tokens += n_acc - 1
+                    else:
+                        n_acc = 1
+                    fin = False
+                    for j in range(n_acc):
+                        tok = int(nxt[s, j])
+                        pos[s] += 1
+                        next_tok[s] = tok
+                        record(s, tok, float(logp_h[s, j]), req)
+                        emitted += 1
+                        if _finished(req, int(pos[s]), self.max_len):
+                            # accepted tokens past EOS (or the budget) are
+                            # discarded
+                            finish(s, defer_rec)
+                            fin = True
+                            break
+                    if draft is not None and not fin and n_acc < n:
+                        # speculative rollback: the pages of rejected
+                        # positions go back; their K/V stays masked by
+                        # valid_len until real tokens overwrite it
+                        pool.trim(s, int(pos[s]))
             self.stats.step_seconds.append(now_t - rec["ts"])
             self.stats.step_tokens.append(emitted)
             return emitted
@@ -405,11 +603,13 @@ class ServeEngine:
                 s0 = solo_slot
                 tok_d, logp_d = steps.solo_step(
                     params, toks_in, self._arena, start[s0:s0 + 1],
-                    n_new[s0:s0 + 1], temp[s0:s0 + 1], slot=s0)
+                    n_new[s0:s0 + 1],
+                    {k: v[s0:s0 + 1] for k, v in self._samp.items()},
+                    slot=s0)
                 self.stats.solo_rounds += 1
             else:
                 tok_d, logp_d = steps.step(params, toks_in, self._arena,
-                                           start, n_new, temp)
+                                           start, n_new, self._samp)
             return tok_d, logp_d
 
         def readback(rec) -> None:
@@ -487,7 +687,7 @@ class ServeEngine:
                         if s not in inflight["act_dec"]:
                             barrier = True      # no carried token
                             break
-                        if pool.ensure(s, int(pos[s]) + 2) is None:
+                        if self._alloc(s, int(pos[s]) + 2) is None:
                             barrier = True      # needs a preemption
                             break
                         dec.append(s)
@@ -512,9 +712,9 @@ class ServeEngine:
                 tok_in = serve_steps.carry_decode_tokens(
                     inflight["tok_dev"], s0)
                 tok_d, logp_d = dispatch(tok_in, start, n_new, s0)
-                rec = {"order": dec, "plan": {}, "act_dec": dec,
-                       "n_new": n_new, "c_len": 1, "ts": ts,
-                       "tok_dev": tok_d, "logp_dev": logp_d,
+                rec = {"order": dec, "plan": {}, "verify": {},
+                       "act_dec": dec, "n_new": n_new, "c_len": 1,
+                       "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
                        "solo_slot": s0, "lag_free": set()}
                 readback(rec)
                 self.stats.decode_steps += 1
@@ -534,8 +734,9 @@ class ServeEngine:
                 break
             # plan the round: chunk grants for prefilling lanes, one token
             # per decode lane; every planned lane must own the pages it
-            # writes — on exhaustion preempt the youngest younger slot, or
-            # self if none is younger (oldest-first order ensures progress)
+            # writes — on exhaustion first evict unpinned cached pages,
+            # then preempt the youngest younger slot, or self if none is
+            # younger (oldest-first order ensures progress)
             plan = {}                       # slot -> chunk tokens
             order = sorted((s for s in range(self.slots)
                             if active[s] is not None),
@@ -553,7 +754,7 @@ class ServeEngine:
                         need = int(pos[s]) + n
                     else:
                         need = int(pos[s]) + 1
-                    if pool.ensure(s, need) is not None:
+                    if self._alloc(s, need) is not None:
                         break
                     victim = sched.choose_victim(s)
                     if victim is not None:
@@ -569,10 +770,42 @@ class ServeEngine:
                     preempt(s)      # yield to older slots; retry later
             decode_lanes = [s for s in order if active[s] is not None
                             and not prefilling(s)]
+            # self-speculative decode: draft up to k tokens per greedy
+            # decode lane (prompt lookup over its own history) for one
+            # verify step on a ladder rung. Drafts are optional work: they
+            # draw on the round budget after prefill grants and take pages
+            # WITHOUT preemption; any shortfall decodes one token as usual
+            verify: Dict[int, np.ndarray] = {}
+            if decode_lanes and self._spec_k > 0:
+                for s in decode_lanes:
+                    req = active[s]
+                    if self._slot_sp[s].temperature > 0:
+                        continue        # greedy acceptance only
+                    want = min(self._spec_k, self.chunk - 1,
+                               self.max_len - int(pos[s]) - 1,
+                               req.max_new_tokens - len(req.out_tokens) - 1)
+                    if want <= 0:
+                        continue
+                    hist = np.concatenate(
+                        [np.asarray(req.prompt, np.int64),
+                         np.asarray(req.out_tokens, np.int64)])
+                    draft = speculative.propose(hist, want)
+                    if draft.size == 0:
+                        continue
+                    granted = sched.grant_verify(len(draft))
+                    if granted == 0:
+                        continue
+                    draft = draft[:granted]
+                    if self._alloc(s, int(pos[s]) + 1 + len(draft)) is None:
+                        continue
+                    verify[s] = draft
             if not plan and not decode_lanes:
                 continue            # everything preempted/idled; re-admit
 
-            max_n = max(plan.values(), default=1)
+            # the smallest width covering the widest grant: a prefill
+            # chunk or a verify (1 + draft); pure decode stays at C = 1
+            max_n = max([max(plan.values(), default=0)]
+                        + [1 + len(d) for d in verify.values()])
             c_len = 1 if max_n <= 1 else min(
                 [w for w in self._widths if w >= max_n] or [self.chunk])
             toks = np.zeros((self.slots, c_len), np.int32)
@@ -588,11 +821,19 @@ class ServeEngine:
                     p0 = int(pos[s])
                     toks[s, :n] = active[s].prompt[p0:p0 + n]
                 elif not prefilling(s):
+                    d = verify.get(s)
                     toks[s, 0] = next_tok[s]
-                    n_new[s] = 1
+                    if d is None:
+                        n_new[s] = 1
+                    else:
+                        n_new[s] = 1 + len(d)
+                        toks[s, 1:1 + len(d)] = d
             ts = time.monotonic()
+            if verify:
+                self.stats.spec_rounds += 1
             self.stats.kv_pages_live += sum(
-                pages_for(int(pos[s]) + 1, self.page) for s in decode_lanes)
+                pages_for(int(pos[s]) + int(n_new[s]), self.page)
+                for s in decode_lanes)
             self.stats.kv_pages_full += (len(decode_lanes)
                                          * self.max_pages_per_seq)
             for s in plan:
@@ -603,17 +844,19 @@ class ServeEngine:
             s0 = int(live[0]) if len(live) == 1 else None
             tok_d, logp_d = dispatch(
                 toks if s0 is None else toks[s0:s0 + 1], start, n_new, s0)
-            rec = {"order": order, "plan": plan, "act_dec": decode_lanes,
-                   "n_new": n_new, "c_len": c_len, "ts": ts,
-                   "tok_dev": tok_d, "logp_dev": logp_d, "solo_slot": s0,
-                   "lag_free": set()}
+            rec = {"order": order, "plan": plan, "verify": verify,
+                   "act_dec": decode_lanes, "n_new": n_new, "c_len": c_len,
+                   "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
+                   "solo_slot": s0, "lag_free": set()}
             readback(rec)
             if decode_lanes:
                 self.stats.decode_steps += 1
             self.stats.rounds += 1
-            # a pure-decode round with an idle queue enters the pipeline:
-            # it retires one round from now
+            # a pure-decode round with an idle queue enters the pipeline
+            # (never a verify round, nor any round of a speculative
+            # engine): it retires one round from now
             if self._pipelined and decode_lanes and not plan \
+                    and not verify and self._spec_k == 0 \
                     and not sched.pending:
                 self.stats.pipelined_rounds += 1
                 inflight = rec
@@ -628,6 +871,9 @@ class ServeEngine:
 
         self.stats.preemptions = sched.preemptions
         self.stats.pages_peak = max(self.stats.pages_peak, pool.pages_peak)
+        self.stats.cow_copies = pool.cow_copies - cow0
+        self.stats.adopt_calls = pool.adopt_calls - adopt0
+        self.stats.device_tables_rebuilds = pool.tables_rebuilds - tbl0
         _, cap1, cap_s1 = steps.capture_counters()
         self.stats.graph_captures = cap1 - cap0
         self.stats.capture_s = cap_s1 - cap_s0

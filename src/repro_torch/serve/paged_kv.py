@@ -4,10 +4,15 @@
 Every sequence draws fixed-size pages from a single ``[n_pages, page,
 kv_dim]`` arena per layer group, addressed through a per-sequence block
 table. Page 0 is the null page for inactive lanes and padding. Pages are
-reference counted; double frees and frees of still-referenced pages raise.
-``trim`` rolls a slot back to fewer tokens (the pipelined engine's EOS
-lag). Page sharing (the prefix cache's ``adopt``/``retain``/``cow``) is
-not ported yet.
+reference counted so the prefix cache (``serve/prefix_cache.py``) can
+alias one physical page into many block tables: a page's refcount is the
+number of slot mappings plus one if the prefix-cache index holds it. A
+shared page (refcount > 1) is never written: the first divergent write
+goes through :meth:`PagedKVPool.cow`, which hands the slot a private copy
+and decrements the shared count (the device copy is the engine's, in its
+round's page-ops flush). Double frees and frees of still-referenced pages
+raise. ``trim`` rolls a slot back to fewer tokens (a rejected speculative
+draft, the pipelined engine's EOS lag).
 """
 from __future__ import annotations
 
@@ -57,6 +62,12 @@ class PagedKVPool:
         self.block_tables = np.zeros((max_slots, max_pages_per_seq),
                                      np.int32)
         self.pages_peak = 0
+        self.cow_copies = 0
+        # page-op counters over the pool's life (the engine takes their
+        # differences per run): page adoptions (block-table rewrites for
+        # cached or deduplicated pages) and block-table uploads
+        self.adopt_calls = 0
+        self.tables_rebuilds = 0
         # set on every block-table mutation, cleared once the tables are
         # uploaded (pure decode rounds skip the upload)
         self.tables_dirty = True
@@ -68,6 +79,19 @@ class PagedKVPool:
     @property
     def used_count(self) -> int:
         return self.n_pages - len(self.free)
+
+    @property
+    def pinned_count(self) -> int:
+        """Pages mapped by at least one live slot (never evictable)."""
+        return len({p for pages in self.slot_pages for p in pages})
+
+    @property
+    def cached_only_count(self) -> int:
+        """Pages held only by the prefix-cache index (evictable)."""
+        return self.used_count - self.pinned_count
+
+    def can_fit(self, n_tokens: int) -> bool:
+        return pages_for(n_tokens, self.page) <= len(self.free)
 
     def _pop_free(self) -> int:
         pid = self.free.popleft()
@@ -93,6 +117,13 @@ class PagedKVPool:
             return True
         return False
 
+    def retain(self, pid: int) -> None:
+        """Add a reference (the prefix cache publishing a page)."""
+        if pid in self._free_set or self.ref[pid] <= 0:
+            raise PageAccountingError(
+                f"retain of unallocated page {pid}")
+        self.ref[pid] += 1
+
     def ensure(self, slot: int, n_tokens: int) -> Optional[List[int]]:
         """Grow slot's allocation to cover n_tokens positions. Returns the
         newly allocated page ids, or None if the free list cannot satisfy
@@ -115,15 +146,59 @@ class PagedKVPool:
         self.pages_peak = max(self.pages_peak, self.used_count)
         return fresh
 
+    def adopt(self, slot: int, page_ids: List[int]) -> None:
+        """Map already-live (cache-held) pages into an empty slot's table.
+        The slot shares them read-only: each gains a reference, and a
+        later write into one must go through :meth:`cow` first."""
+        if self.slot_pages[slot]:
+            raise PageAccountingError(
+                f"adopt into non-empty slot {slot}")
+        self.adopt_calls += 1
+        self.tables_dirty = True
+        for j, pid in enumerate(page_ids):
+            if pid == 0:
+                raise PageAccountingError(
+                    "adopt of the reserved null page 0 (would alias every "
+                    "inactive lane's scratch page into a live table)")
+            self.retain(pid)
+            self.slot_pages[slot].append(pid)
+            self.block_tables[slot, j] = pid
+        self.pages_peak = max(self.pages_peak, self.used_count)
+
+    def cow(self, slot: int, token_pos: int):
+        """Make the page holding ``token_pos`` private to ``slot``.
+
+        Returns None when the page is already private (refcount 1),
+        ``(src, dst)`` when a fresh page ``dst`` was mapped in place of the
+        shared ``src`` (the caller copies the device page), or False when
+        the free list is empty (the caller evicts or preempts and
+        retries). The shared page's refcount drops; it is never written."""
+        j = token_pos // self.page
+        pid = self.slot_pages[slot][j]
+        if self.ref[pid] == 1:
+            return None
+        if not self.free:
+            return False
+        dst = self._pop_free()
+        self.tables_dirty = True
+        self.slot_pages[slot][j] = dst
+        self.block_tables[slot, j] = dst
+        self.ref[pid] -= 1          # the shared copy stays live elsewhere
+        self.cow_copies += 1
+        self.pages_peak = max(self.pages_peak, self.used_count)
+        return pid, dst
+
     def trim(self, slot: int, n_tokens: int) -> int:
         """Shrink the slot's allocation back to what ``n_tokens`` positions
         need; returns how many pages were recycled.
 
-        The pipelined engine's EOS-lag rollback: a round dispatched before
-        an EOS retired allocated pages for one token past it, and those
-        tail pages hold only K/V that ``valid_len`` masks. They were
-        allocated fresh for positions past the live prefix; release still
-        goes through the refcount."""
+        The speculative rollback and the pipelined engine's EOS-lag
+        rollback, the same move: a verify step allocated pages out to the
+        full draft (a pipelined round, for one token past an EOS that
+        retired during the lag), and the tail pages hold only K/V that
+        ``valid_len`` masks. They were allocated fresh for positions past
+        the live prefix, so they are never shared; release still goes
+        through the refcount."""
         keep = pages_for(n_tokens, self.page)
         n = 0
         while len(self.slot_pages[slot]) > keep:
@@ -135,7 +210,7 @@ class PagedKVPool:
 
     def free_slot(self, slot: int) -> int:
         """Drop the slot's references; returns how many pages were
-        recycled."""
+        recycled (pages the prefix cache still holds stay allocated)."""
         n = 0
         for pid in self.slot_pages[slot]:
             n += bool(self.release(pid))

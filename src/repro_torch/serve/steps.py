@@ -1,28 +1,34 @@
 """The paged serving step set (counterpart of ``repro.serve.steps``).
 
-  ``step(cfg, params, tokens [B, C], arena, start [B], n_new [B], temp
-  [B]) -> (tokens [B, C] int32, logprobs [B, C] float32)``
+  ``step(cfg, params, tokens [B, C], arena, start [B], n_new [B], samp)
+  -> (tokens [B, C] int32, logprobs [B, C] float32)``
 
 Lane ``b`` runs ``n_new[b]`` new tokens at absolute positions ``start[b]
-+ t``: a decode lane carries one token, a prefill lane a chunk of its
-prompt, an idle lane ``n_new = 0`` (its writes route to the null page and
-its output columns are dead). K/V scatter into the arena (in place) and
-the ragged attention read happen in the one call; token selection
-(``serve.sampling.select_tokens``) runs on the card, so only ``[B, C]``
-ids and logprobs leave it. ``solo_step`` is the same step at batch width 1
-for lane ``slot`` of the arena; ``apply_page_ops`` is a round's page
-maintenance (the block-table upload into every group; the JAX version
-also copies pages for the prefix cache's copy-on-write, which the port
-does not have yet).
++ t``: a decode lane carries one token (or ``1 + k`` on a speculative
+verify round), a prefill lane a chunk of its prompt, an idle lane ``n_new
+= 0`` (its writes route to the null page and its output columns are
+dead). K/V scatter into the arena (in place) and the ragged attention
+read happen in the one call; token selection
+(``serve.sampling.select_tokens``, with the lane params ``samp`` =
+``{"temp", "top_k", "top_p", "key"}``) runs on the card, so only ``[B,
+C]`` ids and logprobs leave it. ``solo_step`` is the same step at batch
+width 1 for lane ``slot`` of the arena; ``apply_page_ops`` is a round's
+page maintenance: the copy-on-write page copies of the prefix cache, then
+the block-table upload into every group, both in place.
 
 These are plain functions. ``build_paged_steps`` wraps them into the step
 set one engine runs, :class:`PagedServeSteps`, the counterpart of the JAX
-package's per-width jit: its ``step`` and ``solo_step`` hold one
+package's per-width jit: its ``step`` and ``solo_step`` hold up to two
 ``torch.cuda.CUDAGraph`` per token width ``C`` in ``{1} + width_ladder
-(chunk)`` (the declared surface), captured at the first use of ``C`` into
-one memory pool that all widths share. A replay copies the round's inputs
-into the width's static buffers (one upload from pinned memory), replays
-and returns the static outputs, valid until the next call at that width.
+(chunk)`` (the declared widths), captured at the first use of ``C`` into
+one memory pool that all widths share: one whose head runs the sampled
+branch, taken when a live lane samples, and one whose head is greedy
+only, taken otherwise (the host knows each lane's temperature, so the
+choice reads nothing from the device; an all-greedy round gives the same
+tokens either way, and never pays for the sampled branch). A replay
+copies the round's inputs into the width's static buffers (one upload
+from pinned memory), replays and returns the static outputs, valid until
+the next call at that width.
 The graphs read the parameters and the arena they were captured with, by
 address: a call with another parameter tree or arena drops them and
 captures anew, so no graph ever replays against freed memory; the arena
@@ -78,9 +84,13 @@ def default_n_pages(slots: int, max_pages_per_seq: int) -> int:
 
 
 def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
-         start: torch.Tensor, n_new: torch.Tensor, temp: torch.Tensor, *,
+         start: torch.Tensor, n_new: torch.Tensor,
+         samp: Dict[str, torch.Tensor], *, sampled: bool = True,
          use_kernels: bool = True, paged_attention: bool = True):
-    """The ONE serving step: ragged chunked prefill + batched decode."""
+    """The ONE serving step: ragged chunked prefill + batched decode.
+    ``samp`` holds the lane params ``temp``, ``top_k``, ``top_p`` [B] and
+    ``key`` [B, 2] (int32 holding uint32 bits); ``sampled=False`` promises
+    that no lane samples (``select_tokens``)."""
     c = tokens.shape[1]
     positions = start[:, None] + torch.arange(
         c, dtype=start.dtype, device=start.device)[None, :]
@@ -88,15 +98,18 @@ def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
     logits = forward(cfg, params, tokens, positions=positions, cache=arena,
                      valid_len=valid, use_kernels=use_kernels,
                      paged_attention=paged_attention)
-    return select_tokens(logits, temp, n_new)
+    return select_tokens(logits, samp["temp"], samp["top_k"], samp["top_p"],
+                         samp["key"], positions, n_new, sampled=sampled)
 
 
 def solo_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
               arena: dict, slot: torch.Tensor, start: torch.Tensor,
-              n_new: torch.Tensor, temp: torch.Tensor, *,
-              use_kernels: bool = True, paged_attention: bool = True):
+              n_new: torch.Tensor, samp: Dict[str, torch.Tensor], *,
+              sampled: bool = True, use_kernels: bool = True,
+              paged_attention: bool = True):
     """The step at batch width 1 on lane ``slot`` (a one-element tensor)
-    of the arena: ``tokens [1, C]``, ``start``, ``n_new``, ``temp`` [1].
+    of the arena: ``tokens [1, C]``, ``start``, ``n_new`` [1] and ``samp``
+    of one lane.
     Lane ``slot``'s block-table row is selected on the device into a
     ``[G, 1, P]`` view; the page leaves are the arena's own, so K/V land
     in the global pages directly (counterpart of ``_solo_step_body``)."""
@@ -106,15 +119,30 @@ def solo_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
         attn["block_tbl"] = torch.index_select(attn["block_tbl"], 1,
                                                slot.to(torch.int64))
         view[key] = {"attn": attn}
-    return step(cfg, params, tokens, view, start, n_new, temp,
-                use_kernels=use_kernels, paged_attention=paged_attention)
+    return step(cfg, params, tokens, view, start, n_new, samp,
+                sampled=sampled, use_kernels=use_kernels,
+                paged_attention=paged_attention)
 
 
-def apply_page_ops(arena: dict, tables: torch.Tensor) -> dict:
-    """One round's page maintenance, in place: ``tables [S, P]`` is
-    written into every group's ``block_tbl``."""
+def apply_page_ops(arena: dict, tables: torch.Tensor,
+                   copy_src: Optional[torch.Tensor] = None,
+                   copy_dst: Optional[torch.Tensor] = None) -> dict:
+    """One round's page maintenance, in place (counterpart of
+    ``_apply_page_ops_body``): page ``copy_dst[i]`` of every page leaf
+    becomes a copy of page ``copy_src[i]`` (the device half of
+    ``PagedKVPool.cow``; unused entries are padded with 0 -> 0 null-page
+    self-copies, as the JAX engine pads them), then ``tables [S, P]`` is
+    written into every group's ``block_tbl``. In place because the step
+    set's graphs read the arena by address."""
     for grp in arena.values():
-        tbl = grp["attn"]["block_tbl"]
+        attn = grp["attn"]
+        if copy_src is not None:
+            src = copy_src.to(torch.int64)
+            dst = copy_dst.to(torch.int64)
+            for name, leaf in attn.items():
+                if name.endswith("_pages"):
+                    leaf.index_copy_(1, dst, leaf.index_select(1, src))
+        tbl = attn["block_tbl"]
         tbl.copy_(tables.to(torch.int32)[None].expand_as(tbl))
     return arena
 
@@ -181,39 +209,68 @@ class _Upload:
         return self.dev
 
 
+class _Graph:
+    """One captured graph of a width: the graph, the launch tallies of its
+    capture, and its static outputs."""
+
+    def __init__(self, graph, tally: Dict[str, int], tok: torch.Tensor,
+                 logp: torch.Tensor):
+        self.graph, self.tally, self.tok, self.logp = graph, tally, tok, logp
+
+
 class _Width:
-    """One token width's static buffers (and, on the card, its graph).
-    The inputs are views of one packed int32 buffer, so a round's host
-    inputs go up in one copy: tokens [B*C] | start [B] | n_new [B] | temp
-    [B] (fp32 bits) | slot [1]."""
+    """One token width's static buffers (and, on the card, its graphs,
+    keyed by whether the head runs the sampled branch). The inputs are
+    views of one packed int32 buffer, so a round's host inputs go up in
+    one copy: tokens [B*C] | start [B] | n_new [B] | temp [B] (fp32 bits)
+    | top_k [B] | top_p [B] (fp32 bits) | key [B, 2] (uint32 bits) | slot
+    [1]."""
 
     def __init__(self, lanes: int, c: int, device: torch.device):
-        self.upload = _Upload((lanes * c + 3 * lanes + 1,), device)
+        self.upload = _Upload((lanes * c + 7 * lanes + 1,), device)
         self.packed = self.upload.dev
         self.tokens = self.packed[:lanes * c].view(lanes, c)
         o = lanes * c
-        self.start = self.packed[o:o + lanes]
-        self.n_new = self.packed[o + lanes:o + 2 * lanes]
-        self.temp = self.packed[o + 2 * lanes:o + 3 * lanes].view(
-            torch.float32)
-        self.slot = self.packed[o + 3 * lanes:]
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.tally: Dict[str, int] = {}
+        lane = [self.packed[o + i * lanes:o + (i + 1) * lanes]
+                for i in range(5)]
+        self.start, self.n_new = lane[0], lane[1]
+        self.samp = {"temp": lane[2].view(torch.float32), "top_k": lane[3],
+                     "top_p": lane[4].view(torch.float32),
+                     "key": self.packed[o + 5 * lanes:o + 7 * lanes].view(
+                         lanes, 2)}
+        self.slot = self.packed[o + 7 * lanes:]
+        self.graphs: Dict[bool, _Graph] = {}
         self.tok: Optional[torch.Tensor] = None
         self.logp: Optional[torch.Tensor] = None
 
 
-class GraphedStep:
-    """``step`` or ``solo_step`` of a step set: one CUDA graph per declared
-    token width on the card, the same static buffers run eagerly on the
-    CPU or with ``cuda_graphs=False`` (see the module docstring).
+def _host_i32(x) -> torch.Tensor:
+    """A host array as int32 bits (float32 and uint32 arrays are
+    reinterpreted, not converted)."""
+    a = np.asarray(x)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32).view(np.int32)
+    elif a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
+                            ).reshape(-1)
 
-    ``fn(params, tokens, arena, start, n_new, temp, slot=0)``: host inputs
-    are numpy arrays or CPU tensors; ``tokens`` may also be a tensor on
-    the device (``carry_decode_tokens``). Counters: ``calls``,
-    ``creations`` (widths given buffers, at most ``len(widths)`` per
-    binding), ``captures``, ``replays``, ``capture_seconds``,
-    ``pool_bytes`` (memory the captures added to the shared pool)."""
+
+class GraphedStep:
+    """``step`` or ``solo_step`` of a step set: on the card, one CUDA graph
+    per declared token width and head (greedy only, or with the sampled
+    branch), the same static buffers run eagerly on the CPU or with
+    ``cuda_graphs=False`` (see the module docstring).
+
+    ``fn(params, tokens, arena, start, n_new, samp, slot=0)``: host inputs
+    are numpy arrays or CPU tensors, ``samp`` a
+    ``sampling.lane_inputs`` table of this width's lanes; ``tokens`` may
+    also be a tensor on the device (``carry_decode_tokens``). The head
+    runs its sampled branch when a live lane (``n_new > 0``) has ``temp >
+    0``. Counters: ``calls``, ``creations`` (widths given buffers, at most
+    ``len(widths)`` per binding), ``captures`` (at most ``surface`` = two
+    heads per width), ``replays``, ``capture_seconds``, ``pool_bytes``
+    (memory the captures added to the shared pool)."""
 
     def __init__(self, name: str, body: Callable, *, lanes: int,
                  widths: Tuple[int, ...], device: torch.device,
@@ -223,6 +280,7 @@ class GraphedStep:
         self.body = body
         self.lanes = lanes
         self.widths = tuple(widths)
+        self.surface = 2 * len(self.widths)
         self.device = device
         self.graphed = device.type == "cuda" and cuda_graphs
         self._pool = pool
@@ -253,46 +311,47 @@ class GraphedStep:
             self.creations += 1
         return w
 
-    def _stage(self, w: _Width, tokens, start, n_new, temp, slot) -> None:
+    def _stage(self, w: _Width, tokens, start, n_new, samp, slot) -> None:
         host = w.upload.host()
         lanes, c = w.tokens.shape
         o = lanes * c
         on_device = isinstance(tokens, torch.Tensor) \
             and tokens.device.type != "cpu"
         if not on_device:
-            host[:o].view(lanes, c).copy_(torch.as_tensor(tokens))
-        host[o:o + lanes].copy_(torch.as_tensor(start))
-        host[o + lanes:o + 2 * lanes].copy_(torch.as_tensor(n_new))
-        host[o + 2 * lanes:o + 3 * lanes].view(torch.float32).copy_(
-            torch.as_tensor(temp))
-        host[o + 3 * lanes] = int(slot)
+            host[:o].copy_(_host_i32(tokens))
+        for i, x in enumerate((start, n_new, samp["temp"], samp["top_k"],
+                               samp["top_p"])):
+            host[o + i * lanes:o + (i + 1) * lanes].copy_(_host_i32(x))
+        host[o + 5 * lanes:o + 7 * lanes].copy_(_host_i32(samp["key"]))
+        host[o + 7 * lanes] = int(slot)
         w.upload.send()
         if on_device:
             w.tokens.copy_(tokens)
 
-    def _run(self, params, arena, w: _Width, **inputs):
+    def _run(self, params, arena, w: _Width, sampled: bool, **inputs):
         with torch.no_grad():
             return self.body(params, inputs.get("tokens", w.tokens), arena,
                              inputs.get("start", w.start),
                              inputs.get("n_new", w.n_new),
-                             inputs.get("temp", w.temp),
-                             inputs.get("slot", w.slot))
+                             inputs.get("samp", w.samp),
+                             inputs.get("slot", w.slot), sampled)
 
-    def _capture(self, params, arena, w: _Width) -> None:
-        """Warm the width up on the capture stream with every lane idle
-        (its only writes land on the null page: the kernel library loads,
-        the decode qmm's tickets and each kernel's shared-memory opt-in
-        happen outside the capture), then capture it."""
+    def _capture(self, params, arena, w: _Width, sampled: bool) -> _Graph:
+        """Warm the width's head up on the capture stream with every lane
+        idle (its only writes land on the null page: the kernel library
+        loads, the decode qmm's tickets and each kernel's shared-memory
+        opt-in happen outside the capture), then capture it."""
         dev = self.device
         lanes, c = w.tokens.shape
         self._stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self._stream):
             zeros = torch.zeros(lanes, dtype=torch.int32, device=dev)
-            self._run(params, arena, w,
+            self._run(params, arena, w, sampled,
                       tokens=torch.zeros((lanes, c), dtype=torch.int32,
                                          device=dev),
                       start=zeros, n_new=zeros,
-                      temp=torch.zeros(lanes, device=dev),
+                      samp={k: torch.zeros_like(v)
+                            for k, v in w.samp.items()},
                       slot=torch.zeros(1, dtype=torch.int32, device=dev))
         torch.cuda.current_stream(dev).wait_stream(self._stream)
         torch.cuda.synchronize(dev)
@@ -302,49 +361,72 @@ class GraphedStep:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            tok, logp = self._run(params, arena, w)
+            tok, logp = self._run(params, arena, w, sampled)
         self.capture_seconds += time.perf_counter() - t0
         self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         after = _tallies()
-        w.tally = {k: after[k] - before[k] for k in after
-                   if after[k] != before[k]}
-        _add_tallies(w.tally, -1)         # the capture launched nothing
-        w.graph, w.tok, w.logp = graph, tok, logp
+        tally = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        _add_tallies(tally, -1)           # the capture launched nothing
         self.captures += 1
+        return _Graph(graph, tally, tok, logp)
 
-    def __call__(self, params, tokens, arena, start, n_new, temp, slot=0):
+    def __call__(self, params, tokens, arena, start, n_new, samp, slot=0):
         self.calls += 1
         self._bind(params, arena)
         w = self._width(int(tokens.shape[1]))
-        self._stage(w, tokens, start, n_new, temp, slot)
+        sampled = bool(np.any((np.asarray(samp["temp"]) > 0)
+                              & (np.asarray(n_new) > 0)))
+        self._stage(w, tokens, start, n_new, samp, slot)
         if not self.graphed:
-            tok, logp = self._run(params, arena, w)
+            tok, logp = self._run(params, arena, w, sampled)
             if w.tok is None:
                 w.tok, w.logp = torch.empty_like(tok), torch.empty_like(logp)
             w.tok.copy_(tok)
             w.logp.copy_(logp)
             return w.tok, w.logp
-        if w.graph is None:
-            self._capture(params, arena, w)
-        w.graph.replay()
-        _add_tallies(w.tally)
+        g = w.graphs.get(sampled)
+        if g is None:
+            g = w.graphs[sampled] = self._capture(params, arena, w, sampled)
+        g.graph.replay()
+        _add_tallies(g.tally)
         self.replays += 1
-        return w.tok, w.logp
+        return g.tok, g.logp
 
 
 class PageOps:
-    """``apply_page_ops`` of a step set: the host block tables go up
-    without blocking the host (as the step inputs do), then into every
-    group's ``block_tbl``."""
+    """``apply_page_ops`` of a step set: the host block tables and the
+    round's page copies go up in one copy without blocking the host (as
+    the step inputs do), then the copies run and the tables are written
+    into every group's ``block_tbl``. At most ``max_slots`` copies a call
+    (the JAX engine's batch; the engine drains more in extra calls); a
+    call with none runs no copy."""
 
     def __init__(self, max_slots: int, max_pages_per_seq: int,
                  device: torch.device):
-        self.upload = _Upload((max_slots, max_pages_per_seq), device)
+        self.slots = max_slots
+        self.n_tbl = max_slots * max_pages_per_seq
+        self.shape = (max_slots, max_pages_per_seq)
+        self.upload = _Upload((self.n_tbl + 2 * max_slots,), device)
 
-    def __call__(self, arena: dict, tables) -> dict:
-        self.upload.host().copy_(torch.as_tensor(np.asarray(tables,
-                                                            np.int32)))
-        return apply_page_ops(arena, self.upload.send())
+    def __call__(self, arena: dict, tables, copies=()) -> dict:
+        copies = list(copies)
+        if len(copies) > self.slots:
+            raise ValueError(f"{len(copies)} page copies in one call; at "
+                             f"most {self.slots}")
+        host = self.upload.host()
+        host[:self.n_tbl].copy_(_host_i32(tables))
+        pairs = np.zeros((2, self.slots), np.int32)
+        for i, (src, dst) in enumerate(copies):
+            pairs[:, i] = src, dst
+        host[self.n_tbl:].copy_(torch.from_numpy(pairs.reshape(-1)))
+        dev = self.upload.send()
+        tables_dev = dev[:self.n_tbl].view(self.shape)
+        if not copies:
+            return apply_page_ops(arena, tables_dev)
+        return apply_page_ops(arena, tables_dev,
+                              dev[self.n_tbl:self.n_tbl + self.slots],
+                              dev[self.n_tbl + self.slots:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,11 +434,12 @@ class PagedServeSteps:
     """The step callables one paged engine runs, and the geometry they
     were built for (the engine checks it with :meth:`compatible_with`).
 
-      step(params, tokens [B, C], arena, start [B], n_new [B], temp [B])
-          -> (tok [B, C], logp [B, C])   one graph per C on the card
+      step(params, tokens [B, C], arena, start [B], n_new [B], samp)
+          -> (tok [B, C], logp [B, C])   graphs per C on the card
       solo_step(params, tokens [1, C], arena, start [1], n_new [1],
-                temp [1], slot) -> (tok [1, C], logp [1, C])
-      apply_page_ops(arena, tables [B, P]) -> arena
+                samp (one lane), slot) -> (tok [1, C], logp [1, C])
+      apply_page_ops(arena, tables [B, P], copies=[(src, dst), ...])
+          -> arena
 
     The arena is updated in place; outputs are the width's static
     buffers, valid until the next call at that width."""
@@ -405,8 +488,9 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
                       cuda_graphs: bool = True) -> PagedServeSteps:
     """The step set of one engine geometry. ``step`` and ``solo_step``
     each declare ``len(width_ladder(chunk)) + 1`` widths, the compile
-    surface the JAX ``build_paged_steps`` declares per callable; on the
-    card their graphs share one memory pool and one capture stream."""
+    surface the JAX ``build_paged_steps`` declares per callable (with
+    two heads per width on the card); their graphs share one memory pool
+    and one capture stream."""
     dev = resolve_device(device)
     if chunk is None:
         chunk = default_chunk(max_pages_per_seq, page)
@@ -417,12 +501,13 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
         stream = torch.cuda.Stream(dev)
     kw = dict(paged_attention=paged_attention)
 
-    def step_body(params, tokens, arena, start, n_new, temp, slot):
-        return step(cfg, params, tokens, arena, start, n_new, temp, **kw)
+    def step_body(params, tokens, arena, start, n_new, samp, slot, sampled):
+        return step(cfg, params, tokens, arena, start, n_new, samp,
+                    sampled=sampled, **kw)
 
-    def solo_body(params, tokens, arena, start, n_new, temp, slot):
+    def solo_body(params, tokens, arena, start, n_new, samp, slot, sampled):
         return solo_step(cfg, params, tokens, arena, slot, start, n_new,
-                         temp, **kw)
+                         samp, sampled=sampled, **kw)
 
     common = dict(widths=widths, device=dev, cuda_graphs=cuda_graphs,
                   pool=pool, stream=stream)

@@ -21,6 +21,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
+             "serve.scheduler", "serve.engine"):
+    assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 leaked = sorted(m for m in sys.modules

@@ -12,7 +12,10 @@ for fp32, int8 and bf16 pages alike (bf16 q and pages are widened exactly
 by both versions, and the kernel keeps fp32 accuracy), rows at or past
 kv_len exactly 0; unpack3b bit-exact. The serving step set's CUDA graphs
 against the same steps run eagerly: tokens identical, logprobs and K/V
-pages within 1e-5."""
+pages within 1e-5. The sampling head on the card against the CPU's:
+threefry bits and uniforms bit-exact, gumbel values within 2e-6 (two
+``log`` implementations), tokens identical where no float boundary is
+within 1e-4 (checked)."""
 import sys
 from pathlib import Path
 
@@ -35,6 +38,7 @@ from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
                                      ragged_paged_attention_ref,
                                      unpack3b_ref)
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
+from repro_torch.serve import sampling as samplib  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -529,7 +533,7 @@ def test_graphed_step_matches_eager_step(gen):
             tok, logp = sset.step(params, toks.astype(np.int32), arena,
                                   np.array(start, np.int32),
                                   np.array(n_new, np.int32),
-                                  np.zeros(4, np.float32))
+                                  samplib.lane_inputs(4))
             outs.append((tok.clone(), logp.clone()))
             torch.cuda.synchronize()
             assert build.launches["ragged_paged_attention"] == \
@@ -540,7 +544,7 @@ def test_graphed_step_matches_eager_step(gen):
         tok, logp = sset.solo_step(params, np.array([[7]], np.int32), arena,
                                    np.array([18], np.int32),
                                    np.array([1], np.int32),
-                                   np.zeros(1, np.float32), slot=0)
+                                   samplib.lane_inputs(1), slot=0)
         outs.append((tok.clone(), logp.clone()))
         torch.cuda.synchronize()
         runs[graphs] = (outs, arena, sset)
@@ -560,19 +564,26 @@ def test_graphed_step_matches_eager_step(gen):
 
 
 def test_eager_step_reads_nothing_back_from_the_device(gen):
-    """The step a graph captures, run eagerly under the sync debugger:
-    no read of the device from the host anywhere in it."""
+    """The step a graph captures, run eagerly under the sync debugger,
+    with the greedy head and with a sampled lane seated: no read of the
+    device from the host anywhere in it."""
     import numpy as np
     cfg, params = _graph_model()
     sset, arena = _step_set(cfg, False)
     z = np.zeros(4, np.int32)
-    sset.step(params, np.zeros((4, 1), np.int32), arena, z, z,
-              np.zeros(4, np.float32))
+    hot = samplib.lane_inputs(4)
+    samplib.set_lane(hot, 1, samplib.SamplingParams(
+        temperature=0.8, top_k=50, top_p=0.9, seed=1), uid=3)
+    sset.step(params, np.zeros((4, 1), np.int32), arena, z, z, hot)
+    sset.step(params, np.ones((4, 16), np.int32), arena, z,
+              np.array([16, 3, 0, 1], np.int32), hot)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         sset.step(params, np.ones((4, 16), np.int32), arena, z,
-                  np.array([16, 3, 0, 1], np.int32), np.zeros(4, np.float32))
+                  np.array([16, 3, 0, 1], np.int32), samplib.lane_inputs(4))
+        sset.step(params, np.ones((4, 16), np.int32), arena, z,
+                  np.array([16, 3, 0, 1], np.int32), hot)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -605,3 +616,197 @@ def test_engine_graphed_and_pipelined_tokens_match_eager(gen):
         if kw["cuda_graphs"]:
             assert eng.stats.graph_replays == eng.stats.rounds
     assert outs[0] == outs[1] == outs[2]
+
+
+# ---------------------------------------------------------------------------
+# sampled lanes, the prefix cache and speculative decode on the card
+# ---------------------------------------------------------------------------
+def _keys(n, seed=3):
+    import numpy as np
+    return np.stack([samplib.request_key(seed, u) for u in range(n)]
+                    ).view(np.int32)
+
+
+def test_threefry_bits_on_the_card_equal_the_cpu(gen):
+    keys = torch.from_numpy(_keys(5))
+    for n in (1, 1001, 100352):
+        cpu = samplib.random_bits(keys, n)
+        card = samplib.random_bits(keys.cuda(), n)
+        assert torch.equal(card.cpu(), cpu)
+        assert torch.equal(samplib.uniform_from_bits(card).cpu(),
+                           samplib.uniform_from_bits(cpu))
+        torch.testing.assert_close(samplib.gumbel_from_bits(card).cpu(),
+                                   samplib.gumbel_from_bits(cpu),
+                                   atol=2e-6, rtol=1e-6)
+    pos = torch.arange(0, 4096, 37, dtype=torch.int32)
+    k = keys[0]
+    z = torch.zeros_like(pos)
+    cpu = samplib.threefry2x32(k[0], k[1], z, pos)
+    card = samplib.threefry2x32(k[0].cuda(), k[1].cuda(), z.cuda(),
+                                pos.cuda())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+def test_select_tokens_on_the_card_equals_the_cpu(gen):
+    """Mixed lanes (greedy, temperature, top-k, top-p, both) over a
+    4096-token vocab: the card's tokens are the CPU's. Both float
+    boundaries (each row's top-p cumulative mass against p, the winning
+    masked+gumbel score against the runner-up) are checked to be more
+    than 1e-5 away on these logits, past where two devices' sums may
+    round apart (~1e-6)."""
+    b, c, v = 5, 8, 4096
+    lg = torch.randn((b, c, v), generator=gen, device="cuda") * 3
+    temp = torch.tensor([0.0, 0.7, 1.3, 0.9, 0.5])
+    top_k = torch.tensor([0, 0, 50, 0, 8], dtype=torch.int32)
+    top_p = torch.tensor([1.0, 1.0, 1.0, 0.8, 0.6])
+    key = torch.from_numpy(_keys(b))
+    pos = (torch.arange(b, dtype=torch.int32)[:, None] * 19
+           + torch.arange(c, dtype=torch.int32)[None])
+    n_new = torch.tensor([c, 3, c, c, 1], dtype=torch.int32)
+    args = (temp, top_k, top_p, key, pos, n_new)
+    want_t, want_l = samplib.select_tokens(lg.cpu(), *args)
+    got_t, got_l = samplib.select_tokens(lg, *[a.cuda() for a in args])
+    # the margins, in float64 from the CPU's logits and gumbel draws
+    s = (lg.cpu() / temp.clamp_min(1e-6)[:, None, None]).double()
+    desc = torch.sort(s, -1, descending=True).values
+    cum = torch.cumsum(torch.softmax(desc, -1), -1)
+    hot = top_p < 1
+    assert float((cum[hot] - top_p[hot, None, None]).abs().min()) > 1e-5
+    kth = desc.gather(-1, (top_k.clamp(1, v) - 1).long()[:, None, None]
+                      .expand(b, c, 1))
+    n_keep = (cum < top_p[:, None, None]).sum(-1, keepdim=True)
+    pth = desc.gather(-1, n_keep.clamp_max(v - 1))
+    keep = (((s >= kth) | (top_k <= 0)[:, None, None])
+            & ((s >= pth) | ~hot[:, None, None]))
+    kc = torch.stack(samplib.threefry2x32(
+        key[:, None, 0].expand(b, c).reshape(-1),
+        key[:, None, 1].expand(b, c).reshape(-1),
+        torch.zeros(b * c, dtype=torch.int32), pos.reshape(-1)), -1)
+    g = samplib.gumbel_from_bits(samplib.random_bits(kc, v)).view(b, c, v)
+    score = torch.where(keep, s + g.double(), -torch.inf).sort(-1).values
+    gap = (score[..., -1] - score[..., -2])[temp > 0]
+    assert float(gap[torch.isfinite(gap)].min()) > 1e-5
+    assert torch.equal(got_t.cpu(), want_t)
+    torch.testing.assert_close(got_l.cpu(), want_l, atol=1e-5, rtol=1e-5)
+
+
+def test_graphed_sampled_steps_match_eager(gen):
+    """Sampled lanes through the step set's graphs and eagerly, from the
+    same arena: identical tokens; the graphed set holds a greedy and a
+    sampled graph for the width that ran both."""
+    import numpy as np
+    cfg, params = _graph_model()
+    samp = samplib.lane_inputs(4)
+    for s, sp in ((0, samplib.SamplingParams(temperature=0.8, top_k=50,
+                                             top_p=0.95, seed=5)),
+                  (2, samplib.SamplingParams(temperature=1.2, seed=6))):
+        samplib.set_lane(samp, s, sp, uid=s + 10)
+    rng = np.random.default_rng(1)
+    rounds = [(rng.integers(2, 1024, (4, 16)), [0, 0, 0, 0],
+               [16, 9, 16, 0], samp),
+              (rng.integers(2, 1024, (4, 1)), [16, 9, 16, 0], [1, 1, 1, 0],
+               samp),
+              (rng.integers(2, 1024, (4, 1)), [17, 10, 17, 0], [0, 1, 0, 0],
+               samp),
+              (rng.integers(2, 1024, (4, 1)), [17, 11, 17, 0], [1, 1, 1, 0],
+               samplib.lane_inputs(4))]
+    runs = {}
+    for graphs in (False, True):
+        sset, arena = _step_set(cfg, graphs)
+        outs = []
+        for toks, start, n_new, sp in rounds:
+            tok, logp = sset.step(params, toks.astype(np.int32), arena,
+                                  np.array(start, np.int32),
+                                  np.array(n_new, np.int32), sp)
+            outs.append((tok.clone(), logp.clone()))
+        torch.cuda.synchronize()
+        runs[graphs] = (outs, sset)
+    (eager, _), (graphed, s_g) = runs[False], runs[True]
+    assert s_g.step.captures == 3 <= s_g.step.surface
+    for (te, le), (tg, lg) in zip(eager, graphed):
+        assert torch.equal(te, tg)
+        torch.testing.assert_close(lg, le, atol=1e-5, rtol=1e-5)
+
+
+def test_page_copy_is_in_place(gen):
+    """apply_page_ops copies pages into the arena's own tensors: every
+    leaf keeps its address, the destination pages hold the sources'
+    contents, and the rest is untouched."""
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve import steps as serve_steps
+    from repro_torch.serve.paged_kv import PagedKVPool
+    for quant in (False, True):
+        cfg = ModelConfig(name="g", family="dense", n_layers=2, d_model=256,
+                          n_heads=4, n_kv_heads=2, d_ff=512, vocab=1024,
+                          kv_cache_quant=quant)
+        pool = PagedKVPool(cfg, n_pages=12, page=16, max_slots=4,
+                           max_pages_per_seq=3, device="cuda")
+        arena = pool.init_arena()
+        for grp in arena.values():
+            for name, leaf in grp["attn"].items():
+                if name.endswith("_pages"):
+                    leaf.copy_(torch.randint(-100, 100, leaf.shape,
+                                             generator=gen, device="cuda"))
+        ptrs = {(k, n): t.data_ptr() for k, g in arena.items()
+                for n, t in g["attn"].items()}
+        before = {(k, n): t.clone() for k, g in arena.items()
+                  for n, t in g["attn"].items()}
+        ops = serve_steps.build_paged_steps(
+            cfg, page=16, n_pages=12, max_slots=4, max_pages_per_seq=3,
+            cache_dtype=torch.float32, device="cuda").apply_page_ops
+        pool.ensure(0, 40)
+        ops(arena, pool.block_tables, [(2, 7), (3, 9)])
+        torch.cuda.synchronize()
+        for (k, n), t in ((kn, arena[kn[0]]["attn"][kn[1]]) for kn in ptrs):
+            assert t.data_ptr() == ptrs[(k, n)]
+            if not n.endswith("_pages"):
+                continue
+            want = before[(k, n)].clone()
+            want[:, 7], want[:, 9] = want[:, 2], want[:, 3]
+            assert torch.equal(t, want)
+        assert torch.equal(arena["b0"]["attn"]["block_tbl"][0].cpu(),
+                           torch.from_numpy(pool.block_tables))
+
+
+def test_engine_cache_and_speculative_graphed_eager_pipelined_match(gen):
+    """Prefix cache (shared prefix, an identical page-aligned pair that
+    dedups and COWs) and speculative decode (k = 4 over repeating
+    prompts), each eager, graphed, graphed and pipelined: identical
+    tokens, equal to the uncached / non-speculative run."""
+    import numpy as np
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _graph_model()
+    rng = np.random.default_rng(8)
+    shared = rng.integers(2, 1024, 32)
+    pair = rng.integers(2, 1024, 48)
+    phrase = rng.integers(2, 1024, 8)
+
+    def cached():
+        r = np.random.default_rng(9)
+        return [Request(uid=i, prompt=np.concatenate(
+            [shared, r.integers(2, 1024, int(r.integers(3, 20)))]).astype(
+                np.int32), max_new_tokens=6) for i in range(5)] + [
+            Request(uid=5 + i, prompt=pair.astype(np.int32),
+                    max_new_tokens=6) for i in range(2)]
+
+    def repeating():
+        return [Request(uid=i, prompt=np.tile(np.roll(phrase, i), 4).astype(
+            np.int32), max_new_tokens=12) for i in range(3)]
+
+    for make, feat in ((cached, dict(prefix_cache=True)),
+                       (repeating, dict(speculative_k=4))):
+        base = ServeEngine(cfg, params, slots=3, max_len=96, page_size=16,
+                           device="cuda").run(make())
+        want = [r.out_tokens for r in base]
+        for kw in (dict(cuda_graphs=False), dict(cuda_graphs=True),
+                   dict(cuda_graphs=True, pipelined=True)):
+            eng = ServeEngine(cfg, params, slots=3, max_len=96, page_size=16,
+                              device="cuda", **feat, **kw)
+            assert [r.out_tokens for r in eng.run(make())] == want, kw
+            if "prefix_cache" in feat:
+                assert eng.stats.cache_hit_tokens > 0
+                assert eng.stats.cow_copies >= 1
+            else:
+                assert eng.stats.spec_rounds > 0
+            for fn in (eng.step_set.step, eng.step_set.solo_step):
+                assert fn.captures <= len(fn.widths)

@@ -3,7 +3,9 @@ CPU, against its own synchronous loop and against the JAX package's
 ``ServeEngine(pipelined=True, weight_plan=False)`` on the same weights
 (``tests/conftest.py:SERVE_BASE``, crossed over through the numpy bridge).
 
-Greedy tokens must be identical in all three, at 1, 4 and 8 slots, and
+Tokens must be identical in all three, at 1, 4 and 8 slots, on the lanes
+of ``tests/test_pipeline.py``: greedy, sampled (temperature, top-k and
+top-p) and speculative (k = 3, whose rounds never overlap), and
 ``rounds``, ``solo_rounds``, ``pipelined_rounds``, ``pipeline_barriers``
 and ``lag_trimmed_tokens`` equal to the JAX engine's. The EOS-in-lag cases
 of ``tests/test_pipeline.py`` are matched: one lane overruns its EOS by
@@ -16,13 +18,16 @@ from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.bridge import params_from_numpy
 from repro_torch.models.config import ModelConfig
+from repro.serve.sampling import SamplingParams as JaxSamplingParams
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.sampling import SamplingParams
 from test_torch_bridge import jax_tree_to_numpy
 
 PAGE = 8
 MAX_LEN = 48
 STATS = ("rounds", "solo_rounds", "pipelined_rounds", "pipeline_barriers",
-         "lag_trimmed_tokens", "tokens_out", "decode_steps")
+         "lag_trimmed_tokens", "tokens_out", "decode_steps", "spec_rounds",
+         "spec_draft_tokens", "spec_accepted_tokens")
 
 
 @pytest.fixture(scope="module")
@@ -33,10 +38,10 @@ def weights(serve_cfg, serve_params):
         jax_tree_to_numpy(serve_params), device="cpu"))
 
 
-def _reqs(cls, n=6, max_new=6, seed=3, eos_id=None):
+def _reqs(cls, n=6, max_new=6, seed=3, eos_id=None, sampling=None):
     rng = np.random.default_rng(seed)
     return [cls(uid=i, prompt=rng.integers(2, 64, int(u)).astype(np.int32),
-                max_new_tokens=max_new, eos_id=eos_id)
+                max_new_tokens=max_new, eos_id=eos_id, sampling=sampling)
             for i, u in enumerate(rng.integers(4, 14, size=n))]
 
 
@@ -59,14 +64,14 @@ def _pool_at_rest(eng):
     assert not any(pool.slot_pages)
 
 
-def _three_ways(weights, slots, make):
+def _three_ways(weights, slots, make, **kw):
     """Port sync, port pipelined and JAX pipelined on the same requests;
     returns the two pipelined engines after the token checks."""
-    sync = _port(weights, slots)
+    sync = _port(weights, slots, **kw)
     out_s = sync.run(make(Request))
-    pipe = _port(weights, slots, pipelined=True)
+    pipe = _port(weights, slots, pipelined=True, **kw)
     out_p = pipe.run(make(Request))
-    jeng = _jax(weights, slots, pipelined=True)
+    jeng = _jax(weights, slots, pipelined=True, **kw)
     out_j = jeng.run(make(JaxRequest))
     toks = [r.out_tokens for r in out_s]
     assert [r.out_tokens for r in out_p] == toks
@@ -87,6 +92,27 @@ def test_pipelined_tokens_match_sync_and_jax(weights, slots):
     assert 0 < pipe.stats.pipeline_overlap <= 1
     if slots == 1:
         assert pipe.stats.solo_rounds == pipe.stats.rounds
+
+
+SAMPLED = dict(temperature=0.8, top_k=8, top_p=0.9, seed=11)
+
+
+@pytest.mark.parametrize("slots", [1, 4, 8])
+@pytest.mark.parametrize("lane", ["sampled", "speculative"])
+def test_pipelined_lanes_match_sync_and_jax(weights, lane, slots):
+    """The other lanes of ``tests/test_pipeline.py``: sampled lanes overlap
+    like greedy ones; an engine with speculative decode never overlaps."""
+    if lane == "sampled":
+        def make(cls):
+            sp = (SamplingParams if cls is Request
+                  else JaxSamplingParams)(**SAMPLED)
+            return _reqs(cls, sampling=sp)
+        pipe, _ = _three_ways(weights, slots, make)
+        assert pipe.stats.pipelined_rounds > 0
+    else:
+        pipe, _ = _three_ways(weights, slots, lambda cls: _reqs(cls),
+                              speculative_k=3)
+        assert pipe.stats.pipelined_rounds == 0
 
 
 def _probe_eos(weights, max_new=8):

@@ -30,6 +30,7 @@ from repro_torch.models.kvcache import paged_init_cache
 from repro_torch.serve import steps as serve_steps
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged_kv import PagedKVPool
+from repro_torch.serve import sampling as samplib
 from repro_torch.serve.sampling import DEAD_TOKEN, SamplingParams
 from test_torch_bridge import jax_tree_to_numpy
 
@@ -69,7 +70,14 @@ def _inputs(c, seed):
     toks = rng.integers(2, 64, size=(SLOTS, c)).astype(np.int32)
     start = np.array([3, 0, 0, 17], np.int32)
     n_new = np.array([c, max(1, c // 2), 0, 1], np.int32)
-    return toks, start, n_new, np.zeros(SLOTS, np.float32)
+    return toks, start, n_new, samplib.lane_inputs(SLOTS)
+
+
+def _dev(samp):
+    """A lane_inputs table as the plain step's tensors (key as int32
+    bits)."""
+    return {k: torch.from_numpy(v.view(np.int32) if k == "key" else v)
+            for k, v in samp.items()}
 
 
 def _step_set(cfg, lanes=SLOTS):
@@ -87,12 +95,11 @@ def test_static_step_equals_plain_step_at_every_width(port):
     _, arena = _pool(cfg, SLOTS)
     plain_arena = _clone(arena)
     for i, c in enumerate(widths):
-        toks, start, n_new, temp = _inputs(c, i)
-        tok, logp = sset.step(params, toks, arena, start, n_new, temp)
+        toks, start, n_new, samp = _inputs(c, i)
+        tok, logp = sset.step(params, toks, arena, start, n_new, samp)
         want_tok, want_logp = serve_steps.step(
             cfg, params, torch.from_numpy(toks), plain_arena,
-            torch.from_numpy(start), torch.from_numpy(n_new),
-            torch.from_numpy(temp))
+            torch.from_numpy(start), torch.from_numpy(n_new), _dev(samp))
         assert torch.equal(tok, want_tok) and torch.equal(logp, want_logp)
         assert (tok[2] == DEAD_TOKEN).all()
         for key in arena:
@@ -112,18 +119,19 @@ def test_solo_step_equals_its_lane_of_the_batched_step(port, c):
     cfg, params = port
     sset = _step_set(cfg)
     _, arena = _pool(cfg, SLOTS)
-    toks, _, _, temp = _inputs(c, 7)
+    toks, _, _, samp = _inputs(c, 7)
     start = np.array([5, 0, 11, 30], np.int32)
     n_new = np.full(SLOTS, c, np.int32)
     batched = _clone(arena)
     want_tok, want_logp = sset.step(params, toks, batched, start, n_new,
-                                    temp)
+                                    samp)
     want_tok, want_logp = want_tok.clone(), want_logp.clone()
     solo = _clone(arena)            # lane s writes only lane s's pages
     for s in range(SLOTS):
         tok, logp = sset.solo_step(params, toks[s:s + 1], solo,
                                    start[s:s + 1], n_new[s:s + 1],
-                                   temp[s:s + 1], slot=s)
+                                   {k: v[s:s + 1] for k, v in samp.items()},
+                                   slot=s)
         assert torch.equal(tok[0], want_tok[s])
         torch.testing.assert_close(logp[0], want_logp[s], atol=1e-6,
                                    rtol=1e-6)
@@ -176,19 +184,27 @@ def test_carry_decode_tokens():
     assert serve_steps.carry_decode_tokens(solo, 1) is solo
 
 
-def test_sampled_lanes_are_refused_on_the_host(port):
+def test_sampled_lanes_run_and_draw_the_jax_stream(port, serve_cfg,
+                                                    serve_params):
+    """The engine and request the port used to refuse now run: an
+    engine-default sampled policy and a per-request one draw the JAX
+    engine's threefry stream, token for token."""
     cfg, params = port
-    hot = SamplingParams(temperature=0.7)
-    with pytest.raises(NotImplementedError, match="sampled lanes"):
-        ServeEngine(cfg, params, slots=2, max_len=48, page_size=PAGE,
-                    sampling=hot, device="cpu")
+    hot = SamplingParams(temperature=0.7, seed=4)
+    prompt = np.arange(2, 9, dtype=np.int32)
+    want = JaxRequest(uid=0, prompt=prompt, sampling=hot)
+    JaxEngine(serve_cfg, serve_params, slots=2, max_len=48, page_size=PAGE,
+              weight_plan=False).run([want])
     eng = ServeEngine(cfg, params, slots=2, max_len=48, page_size=PAGE,
                       device="cpu")
-    req = Request(uid=0, prompt=np.arange(2, 9, dtype=np.int32),
-                  sampling=hot)
-    with pytest.raises(NotImplementedError, match="sampled lanes"):
-        eng.run([req])
-    assert eng.stats.rounds == 0 and not req.out_tokens
+    req = Request(uid=0, prompt=prompt, sampling=hot)
+    eng.run([req])
+    assert eng.stats.rounds > 0 and req.out_tokens == want.out_tokens
+    default = ServeEngine(cfg, params, slots=2, max_len=48, page_size=PAGE,
+                          sampling=hot, device="cpu")
+    req = Request(uid=0, prompt=prompt)
+    default.run([req])
+    assert req.out_tokens == want.out_tokens
 
 
 def test_paged_init_cache_defaults_to_bf16_as_the_reference(port,
