@@ -46,6 +46,21 @@ Phases (each prints its own lines; any failure exits nonzero):
                 greedy; every run launches each serving kernel and never
                 qmm's "ref" path; the sampling head's time at C = 1 and
                 256 and its threefry bits against the CPU's;
+  4o. obs     — observability on the serve phase's settings: (i) the
+                graphed engine with an enabled tracer and a registry, (ii)
+                the same pipelined: tokens identical to the untraced run,
+                phase spans well formed, one req/first_token per request,
+                serve_rounds_total equal to the rounds, the phase
+                breakdown at p50 with host and device seconds against
+                wall, and the host ms of one step call and of its graph's
+                replay call beside the replay's device ms; (iii) a cost-captured run: one attributed step
+                dispatch per round, the per-width table (calls, ms per
+                call, FLOPs, bytes, H100 roofline ms, drift) and one step
+                under the sync debugger with the tracer and capture on;
+                (iv) three alternated pairs of tracing-off/on runs, tok/s
+                and the median ratio; (v) the serving CLI at full width
+                with --trace-out, --metrics-out, --cost-report and
+                --profile into build/obs, with the files' sizes;
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -67,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -101,9 +117,13 @@ from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
                                      ragged_paged_attention_ref,
                                      unpack3b_ref)
 from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
 from repro_torch.models.model import forward, init_params  # noqa: E402
+from repro_torch.obs import costs as obs_costs  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import steps as serve_steps  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.paged_kv import PagedKVPool  # noqa: E402
@@ -121,12 +141,6 @@ UNPACK_SIZES = [65_536, 8_074_240, 143_864_832, 65_544, 65_541]
 PTQ_METHODS = [("fp16", "fp16", False), ("rtn4", "rtn4", False),
                ("mx4", "mx4", False), ("qmc", "qmc", False),
                ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False)]
-# (memory bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32
-# tensor-core FLOP/s), NVIDIA data sheets; the first name fragment found in
-# the card's name wins
-PEAKS = [("H100 PCIe", 2.0e12, 51e12, 378e12),
-         ("H100 NVL", 3.9e12, 60e12, 417.5e12),
-         ("H100", 3.35e12, 67e12, 495e12)]
 TOL_QMM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|y|
 ATT_ATOL, ATT_RTOL = 1e-5, 1e-4
 
@@ -137,12 +151,14 @@ def require(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str):
-    for frag, bw, fl, tc in PEAKS:
-        if frag in name:
-            return bw, fl, tc, frag
-    print(f"[device] {name!r} is not in the peak table; bounds use the "
-          f"H100 SXM figures")
-    return (*PEAKS[-1][1:], "H100")
+    """(memory bytes/s, fp32 FLOP/s, TF32 FLOP/s, row name) of the card,
+    from the port's table (``repro_torch/launch/roofline.py:PEAKS``, NVIDIA
+    H100 datasheet)."""
+    bw, fl, tc, frag, matched = rl.peaks(name)
+    if not matched:
+        print(f"[device] {name!r} is not in the peak table; bounds use the "
+              f"H100 SXM figures")
+    return bw, fl, tc, frag
 
 
 class Timer:
@@ -225,13 +241,9 @@ def qmm_row(timer, name, kernel, x, qt, w_dense, m, label, peak):
     plain_ms = timer(lambda: qmm_ref(x, qt))
     xd = x.to(torch.float32)
     lib_ms = timer(lambda: torch.matmul(xd, w_dense))
-    xb = x.element_size()
-    code_bytes = k * n + qt.stream_pos.numel() * 4 + qt.is_out.numel() \
-        + 2 * n * 4
-    nbytes = m * k * xb + code_bytes + m * n * xb
-    flops = 2.0 * m * k * n
+    nbytes, flops = rl.qmm_work(m, k, n, x.element_size(), qt.subtile)
     b32_ms, _ = bound(nbytes, flops, bw, fl)
-    products = 2 if dtype == torch.float32 else 1
+    products = rl.tensor_core_products(str(dtype).replace("torch.", ""))
     b_ms, b_by = bound(nbytes, flops * products, bw, tc)
     row = dict(kernel=name, shape=label, dtype=str(dtype).replace(
         "torch.", ""), max_abs_err=err, tol=tol, ms=ms, host_ms=host_ms,
@@ -372,24 +384,20 @@ def make_attn_case(lanes, *, n_kv, g, hd, page, quantized, gen,
 
 
 def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
-    """Bytes each input/output moves once, and the QK + PV FLOPs of the
-    live (unmasked) score entries of this data."""
+    """Bytes each input/output moves once (the live pages of this data),
+    and the QK + PV FLOPs of its live (unmasked) score entries."""
     b, s, h, _ = q.shape
-    kv_el = cache["k_pages"].element_size()
-    nbytes = q.numel() * (q.element_size() + 4) + 2 * b * s * h * 4
-    #        q read, o written in fp32, m and l
-    nbytes += 2 * sum(live) * page * n_kv * hd * kv_el
-    if "k_scale_pages" in cache:
-        nbytes += 2 * sum(live) * page * n_kv * 2
-    nbytes += cache["block_tbl"].numel() * 4 + 2 * b * 4
-    flops = 0
+    keys = 0
     for qs, nn in zip(q_start.tolist(), n_new.tolist()):
         for t in range(nn):
             vis = qs + t + 1
-            if window:
-                vis = min(vis, window)
-            flops += 4 * hd * h * vis
-    return nbytes, flops
+            keys += min(vis, window) if window else vis
+    return rl.attention_work(
+        lanes=b, s=s, n_heads=h, n_kv=n_kv, hd=hd, page=page,
+        pages=sum(live), keys=keys, tbl_entries=cache["block_tbl"].numel(),
+        q_itemsize=q.element_size(),
+        kv_itemsize=cache["k_pages"].element_size(),
+        kv_scaled="k_scale_pages" in cache)
 
 
 def check_attention(timer, peak, gen, rows):
@@ -1101,6 +1109,278 @@ def whole_step(cfg, qparams, seed: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 4o: observability of the serving path
+# ---------------------------------------------------------------------------
+def check_spans(events, label: str) -> None:
+    """Round phase spans do not overlap, and those that imply a completed
+    round (host prep, device step, dispatch, emit) sit inside a
+    ``round`` span; a pipelined retire lands in the next round's window
+    or in a drain, as in the JAX engine."""
+    phases = sorted((e for e in events if e["ph"] == "X"
+                     and e["name"].startswith("round/")),
+                    key=lambda e: e["ts"])
+    rounds = [e for e in events if e["ph"] == "X" and e["name"] == "round"]
+    require(phases and rounds, f"{label}: no phase or round spans")
+    for a, b in zip(phases, phases[1:]):
+        require(a["ts"] + a["dur"] <= b["ts"] + 1.0,
+                f"{label}: {a['name']} overlaps {b['name']}")
+    for e in phases:
+        if e["name"] in ("round/host_prep", "round/device_step",
+                         "round/dispatch", "round/emit"):
+            require(any(r["ts"] - 1.0 <= e["ts"] and e["ts"] + e["dur"]
+                        <= r["ts"] + r["dur"] + 1.0 for r in rounds),
+                    f"{label}: {e['name']} outside any round")
+
+
+def phase_breakdown(events, stats, label: str) -> dict:
+    """Per-phase ms at p50 over the rounds that ran it, and the run's
+    host and device seconds against its wall."""
+    durs = {}
+    for e in events:
+        if e["ph"] == "X" and e["name"].startswith("round"):
+            durs.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    p50 = {k: float(np.median(v)) for k, v in durs.items()}
+    host, dev = stats.host_seconds(), stats.device_seconds()
+    print(f"[obs] {label}: phase ms p50 " + ", ".join(
+        f"{k.split('/')[-1]} {v:.3f} (x{len(durs[k])})"
+        for k, v in sorted(p50.items())))
+    print(f"[obs] {label}: host {host * 1e3:.2f} ms + device "
+          f"{dev * 1e3:.2f} ms of {stats.wall_s * 1e3:.2f} ms wall over "
+          f"{stats.rounds} rounds (host share {host / stats.wall_s:.4f}, "
+          f"device share {dev / stats.wall_s:.4f})")
+    return dict(phase_ms_p50=p50, phase_counts={k: len(v) for k, v in
+                                               durs.items()},
+                host_s=host, device_s=dev, wall_s=stats.wall_s,
+                rounds=stats.rounds, tokens_per_s=stats.tokens_per_s)
+
+
+def launch_split(eng, runs: int = 20) -> dict:
+    """What ``round/device_step`` holds besides the device's work and the
+    readback wait: the host ms of one C = 1 step call (staging upload and
+    graph launch) and of the greedy graph's ``replay()`` call alone, each
+    made with the device idle, and the replay's device ms (CUDA events);
+    medians over ``runs``. Every lane idle (their writes land on the null
+    page)."""
+    sset = eng.step_set
+    z = np.zeros(sset.max_slots, np.int32)
+    args = (eng._exec_params, np.zeros((sset.max_slots, 1), np.int32),
+            eng._arena, z, z, samplib.lane_inputs(sset.max_slots))
+    sset.step(*args)
+    graph = sset.step._widths[1].graphs[False].graph
+    call, replay, dev = [], [], []
+    for _ in range(runs):
+        for fn, times in ((lambda: sset.step(*args), call),
+                          (graph.replay, replay)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+    out = dict(step_call_host_ms=float(np.median(call)),
+               replay_call_host_ms=float(np.median(replay)),
+               replay_device_ms=float(np.median(dev)))
+    print(f"[obs] C=1 step with the device idle: step call host "
+          f"{out['step_call_host_ms']:.3f} ms, graph replay() call host "
+          f"{out['replay_call_host_ms']:.3f} ms, replay device "
+          f"{out['replay_device_ms']:.3f} ms (medians of {runs})")
+    return out
+
+
+def traced_run(cfg, qparams, seed: int, ref_tokens, label: str,
+               split: bool = False, **kw):
+    """(i)/(ii): the graphed engine with an enabled tracer and a registry
+    of its own, warmed by a first run (captures), then measured with the
+    launch counts set to 0 just before: tokens equal the untraced run's,
+    spans well formed, one ``req/first_token`` per request, the registry's
+    rounds equal to the run's, every serving kernel launched."""
+    trc, reg = obs_trace.Tracer(), obs_metrics.Registry()
+    eng = serve_engine(cfg, qparams, cuda_graphs=True, tracer=trc,
+                       metrics=reg, **kw)
+    eng.run(make_requests(cfg, 8, seed))
+    torch.cuda.synchronize()
+    trc.clear()
+    reg.reset()
+    reqs = make_requests(cfg, 8, seed)
+    build.reset_launches()
+    kops.reset_path_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = dict(build.launches)
+    s = eng.stats
+    require([r.out_tokens for r in reqs] == ref_tokens,
+            f"{label}: traced tokens differ from the untraced run's")
+    for k in SERVE_KERNELS:
+        require(launches[k] > 0, f"{label}: kernel {k} never launched")
+    require(kops.path_counts["ref"] == 0, f"{label}: qmm took 'ref'")
+    check_spans(trc.events, label)
+    firsts = sorted(e["args"]["uid"] for e in trc.events
+                    if e["name"] == "req/first_token")
+    require(firsts == sorted(r.uid for r in reqs),
+            f"{label}: req/first_token per request {firsts}")
+    require(reg.counter("serve_rounds_total").value() == s.rounds,
+            f"{label}: serve_rounds_total differs from the run's rounds")
+    out = phase_breakdown(trc.events, s, label)
+    out.update(events=len(trc.events), launches=launches,
+               pipelined_rounds=s.pipelined_rounds)
+    if split:
+        out["launch"] = launch_split(eng)
+    return out
+
+
+def cost_run(cfg, qparams, seed: int, ref_tokens):
+    """(iii): cost capture on, the process tracer on: one attributed
+    step/solo_step dispatch per round, a drift for every width, identical
+    tokens; then one step under the sync debugger with both on."""
+    prev_c = obs_costs.enable_capture(True)
+    trc = obs_trace.Tracer()
+    prev_t = obs_trace.set_tracer(trc)
+    try:
+        eng = serve_engine(cfg, qparams, cuda_graphs=True,
+                           metrics=obs_metrics.Registry())
+        eng.run(make_requests(cfg, 8, seed))
+        torch.cuda.synchronize()
+        reqs = make_requests(cfg, 8, seed)
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        s = eng.stats
+        require([r.out_tokens for r in reqs] == ref_tokens,
+                "cost: tokens differ from the untraced run's")
+        rep = eng.last_cost_report
+        rows = [r for r in rep.fns if r.fn in ("step", "solo_step")]
+        require(sum(r.calls for r in rows) == s.rounds,
+                f"cost: {sum(r.calls for r in rows)} attributed step "
+                f"dispatches for {s.rounds} rounds")
+        require(all(r.captured and r.drift > 0 for r in rows),
+                "cost: a step width without a count or a drift")
+        table = []
+        for r in sorted(rows, key=lambda r: (r.fn, int(r.key[1:]))):
+            t = r.roofline()
+            row = dict(fn=r.label, calls=r.calls,
+                       wall_ms_per_call=r.wall_s / r.calls * 1e3,
+                       flops=r.flops_per_call, bytes=r.bytes_per_call,
+                       roofline_ms=t.roofline_time * 1e3,
+                       bound_by=t.bottleneck, drift=r.drift)
+            table.append(row)
+            print(f"[obs] cost {r.label:14s} calls {r.calls:3d} wall "
+                  f"{row['wall_ms_per_call']:8.3f} ms/call, "
+                  f"{r.flops_per_call:.4e} FLOPs, {r.bytes_per_call:.4e} "
+                  f"bytes, roofline {row['roofline_ms']:.4f} ms "
+                  f"({t.bottleneck}), drift {r.drift:.2f}")
+        n_cost = sum(e["name"].startswith("cost/") for e in trc.events)
+        print(f"[obs] cost: {s.rounds} rounds, one attributed dispatch "
+              f"each; {n_cost} cost/<fn> samples on the process tracer; "
+              f"modeled "
+              f"{rep.modeled['bytes_per_token'] / 1e6:.3f} MB/token "
+              f"({rep.modeled['method']})")
+        check_no_host_sync(eng)
+        print("[obs] cost: the sync check above ran with the process "
+              "tracer and cost capture on")
+        out = dict(rows=table, rounds=s.rounds, wall_s=s.wall_s,
+                   tokens_per_s=s.tokens_per_s, modeled=rep.modeled)
+    finally:
+        obs_costs.enable_capture(prev_c)
+        obs_trace.set_tracer(prev_t)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def tracing_overhead(cfg, qparams, seed: int, pairs: int = 3):
+    """(iv): graphed runs with tracing off and on, alternated in pairs
+    (off-on, on-off, ...), both engines warm; tok/s of each and the
+    median on/off ratio (no gate: runs of one tree spread)."""
+    trc = obs_trace.Tracer()
+    engines = {"off": serve_engine(cfg, qparams, cuda_graphs=True,
+                                   metrics=obs_metrics.Registry()),
+               "on": serve_engine(cfg, qparams, cuda_graphs=True,
+                                  tracer=trc,
+                                  metrics=obs_metrics.Registry())}
+    for eng in engines.values():
+        eng.run(make_requests(cfg, 8, seed))
+    torch.cuda.synchronize()
+    tps = {"off": [], "on": []}
+    for i in range(pairs):
+        for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+            trc.clear()
+            engines[mode].run(make_requests(cfg, 8, seed))
+            torch.cuda.synchronize()
+            tps[mode].append(engines[mode].stats.tokens_per_s)
+    ratios = [b / a for a, b in zip(tps["off"], tps["on"])]
+    print(f"[obs] tracing off tok/s {[round(x, 1) for x in tps['off']]}, "
+          f"on {[round(x, 1) for x in tps['on']]}; on/off per pair "
+          f"{[round(x, 4) for x in ratios]}, median "
+          f"{float(np.median(ratios)):.4f}")
+    del engines
+    torch.cuda.empty_cache()
+    return dict(off=tps["off"], on=tps["on"], ratios=ratios,
+                median_ratio=float(np.median(ratios)))
+
+
+def cli_run():
+    """(v): the CLI at full width with the four observability flags, into
+    ``build/obs`` (git-ignored), with a registry of its own."""
+    from repro_torch.launch import serve as serve_cli
+    out = ROOT / "build" / "obs"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    files = {"trace": out / "trace.json", "metrics": out / "metrics.json",
+             "profile": out / "profile"}
+    prev = obs_metrics.set_registry(obs_metrics.Registry())
+    try:
+        eng = serve_cli.main([
+            "--no-reduced", "--weights", "qmc", "--paged-attention",
+            "--trace-out", str(files["trace"]),
+            "--metrics-out", str(files["metrics"]), "--cost-report",
+            "--profile", str(files["profile"])])
+    finally:
+        obs_metrics.set_registry(prev)
+    trace = json.loads(files["trace"].read_text())["traceEvents"]
+    metrics = json.loads(files["metrics"].read_text())
+    prof = sorted(files["profile"].glob("*.json"))
+    require(prof and any(e["name"] == "round" for e in trace)
+            and metrics["serve_rounds_total"]["series"][0]["value"]
+            == eng.stats.rounds and eng.last_cost_report is not None,
+            "cli: a file is missing or does not match the run")
+    sizes = {str(p.relative_to(ROOT)): p.stat().st_size
+             for p in [files["trace"], files["metrics"], *prof]}
+    print(f"[obs] cli --no-reduced --weights qmc --paged-attention "
+          f"--trace-out --metrics-out --cost-report --profile: "
+          f"{eng.stats.rounds} rounds, {len(trace)} trace events; bytes "
+          + ", ".join(f"{k} {v}" for k, v in sizes.items()))
+    del eng
+    torch.cuda.empty_cache()
+    return dict(sizes=sizes, trace_events=len(trace))
+
+
+def obs_phase(cfg, qparams, seed: int, ref_tokens, idle):
+    """(i) traced graphed, (ii) traced graphed+pipelined, (iii) cost
+    capture, (iv) tracing off/on pairs, (v) the CLI; the host share of
+    (i) beside the [idle] phase's profiler idle share of (b)."""
+    out = dict(graphed=traced_run(cfg, qparams, seed, ref_tokens,
+                                  "(i) graphed", split=True),
+               pipelined=traced_run(cfg, qparams, seed, ref_tokens,
+                                    "(ii) graphed+pipelined",
+                                    pipelined=True))
+    torch.cuda.empty_cache()
+    out["cost"] = cost_run(cfg, qparams, seed, ref_tokens)
+    out["overhead"] = tracing_overhead(cfg, qparams, seed)
+    out["cli"] = cli_run()
+    g, b = out["graphed"], idle["b graphed"]
+    print(f"[obs] (i) host share {g['host_s'] / g['wall_s']:.4f} of the "
+          f"8-request run; [idle] (b) decode window: profiler idle share "
+          f"{b['idle_share']:.4f}, without the profiler "
+          f"{b['plain_idle_share']:.4f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the PTQ entry point at full width
 # ---------------------------------------------------------------------------
 def check_unpack3b(timer, peak, gen, rows):
@@ -1337,6 +1617,8 @@ def main(argv=None) -> int:
     served, greedy_tokens = serve_phase(cfg, qparams, args.seed)
     extended = serve_x_phase(cfg, qparams, args.seed, greedy_tokens,
                              served["runs"]["b graphed"]["pool_bytes"])
+    observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
+                         served["idle"])
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -1363,7 +1645,7 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
-        serve=served, serve_x=extended, step=stepped,
+        serve=served, serve_x=extended, obs=observed, step=stepped,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

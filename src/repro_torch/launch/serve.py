@@ -16,13 +16,26 @@ decode, all with the JAX CLI's meanings:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --temperature 0.8 --prefix-cache --speculative 4
 
-The mesh, tracing, metrics, profiling and cost-report flags are refused
-with an error instead of being ignored: the port has no mesh, tracer,
-metrics registry, profiler hook or cost report.
+Observability, with the JAX CLI's meanings: ``--trace-out t.json``
+writes a Perfetto-loadable Chrome trace of the run (round phase spans,
+request lifecycle, scheduler, cache and graph-capture instants; see
+``repro_torch.obs.trace``), ``--metrics-out m.json`` a snapshot of the
+``serve_*`` metrics registry (``repro_torch.obs.metrics``),
+``--cost-report`` turns on cost capture (``repro_torch.obs.costs``; every
+step call becomes synchronous) and prints the per-width roofline table,
+and ``--profile DIR`` wraps the run in ``torch.profiler`` (CPU and, on
+the card, CUDA activity) and writes its Chrome trace under ``DIR``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --trace-out t.json --metrics-out m.json --cost-report --profile p/
+
+The mesh flags (``--data-shards``, ``--model-shards``) are refused with
+an error instead of being ignored: the port has no mesh yet.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -32,6 +45,9 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.qconfig import QMCConfig
 from repro_torch.core.serving_quant import quantize_for_serving
 from repro_torch.models.model import init_params
+from repro_torch.obs import costs as obs_costs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import steps as serve_steps
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.paged_kv import pages_for
@@ -80,10 +96,22 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-shards", type=int, default=1)
     ap.add_argument("--model-shards", type=int, default=1)
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--trace-out", metavar="PATH")
-    ap.add_argument("--metrics-out", metavar="PATH")
-    ap.add_argument("--profile", metavar="DIR")
-    ap.add_argument("--cost-report", action="store_true")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(load in Perfetto / chrome://tracing): per-round "
+                         "phase spans plus request-lifecycle and "
+                         "scheduler/cache instants")
+    ap.add_argument("--metrics-out", metavar="PATH",
+                    help="write a JSON snapshot of the serve_* metrics "
+                         "registry after the run")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="wrap the run in torch.profiler and write its "
+                         "Chrome trace under DIR")
+    ap.add_argument("--cost-report", action="store_true",
+                    help="count each step width's FLOPs/bytes and print "
+                         "the per-width roofline attribution table + "
+                         "modeled memory-system cost after the run "
+                         "(obs/costs.py; makes step calls synchronous)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (kernels on the card) or cpu (plain "
                          "PyTorch versions)")
@@ -94,10 +122,6 @@ def _refuse_unported(ap, args) -> None:
     unported = {
         "--data-shards": args.data_shards != 1,
         "--model-shards": args.model_shards != 1,
-        "--trace-out": args.trace_out is not None,
-        "--metrics-out": args.metrics_out is not None,
-        "--profile": args.profile is not None,
-        "--cost-report": args.cost_report,
     }
     bad = [flag for flag, on in unported.items() if on]
     if bad:
@@ -108,6 +132,34 @@ def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
     _refuse_unported(ap, args)
+    if args.cost_report:
+        obs_costs.enable_capture()
+    try:
+        return _serve(args)
+    finally:
+        if args.cost_report:
+            obs_costs.enable_capture(False)
+
+
+def _profiled_run(eng, reqs, out_dir: str) -> str:
+    """``eng.run(reqs)`` under ``torch.profiler`` (CPU activity, and CUDA
+    activity on the card); returns the Chrome trace written under
+    ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        eng.run(reqs)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
+def _serve(args):
     cfg = reduced_config(args.arch) if args.reduced else get_config(
         args.arch)
     params = init_params(cfg, args.seed, device=args.device)
@@ -136,18 +188,44 @@ def main(argv=None):
     sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                         top_p=args.top_p, seed=args.seed,
                         logprobs=args.logprobs)
-    eng = ServeEngine(cfg, params, slots=args.slots, max_len=max_len,
-                      page_size=args.page_size, chunk_tokens=chunk,
-                      prefix_cache=args.prefix_cache,
-                      paged_attention=args.paged_attention,
-                      sampling=sp, speculative_k=args.speculative,
-                      pipelined=args.pipelined, device=args.device)
-    eng.run(reqs)
+    tracer = None
+    if args.trace_out:
+        # the process default, so the deep call sites (scheduler, prefix
+        # cache, step set) record into the same trace
+        tracer = obs_trace.Tracer(enabled=True)
+        prev_tracer = obs_trace.set_tracer(tracer)
+    try:
+        eng = ServeEngine(cfg, params, slots=args.slots, max_len=max_len,
+                          page_size=args.page_size, chunk_tokens=chunk,
+                          prefix_cache=args.prefix_cache,
+                          paged_attention=args.paged_attention,
+                          sampling=sp, speculative_k=args.speculative,
+                          pipelined=args.pipelined, device=args.device,
+                          tracer=tracer)
+        if args.profile:
+            path = _profiled_run(eng, reqs, args.profile)
+            print(f"[serve] torch.profiler trace -> {path}")
+        else:
+            eng.run(reqs)
+    finally:
+        if tracer is not None:
+            obs_trace.set_tracer(prev_tracer)
     s = eng.stats
+    if tracer is not None:
+        n_ev = tracer.export(args.trace_out)
+        print(f"[serve] trace: {n_ev} events -> {args.trace_out}")
+    if args.metrics_out:
+        obs_metrics.get_registry().write_json(args.metrics_out)
+        print(f"[serve] metrics snapshot -> {args.metrics_out}")
     print(f"[serve] {s.prefills} prefills ({s.prefill_chunks} chunks of "
           f"<= {chunk} tokens), {s.decode_steps} decode steps, "
           f"{s.tokens_out} tokens in {s.wall_s:.2f}s "
           f"({s.tokens_per_s:.1f} tok/s) on {eng.device}")
+    if s.phase_seconds:
+        print(f"[serve] phases: host={s.host_seconds():.3f}s "
+              f"device={s.device_seconds():.3f}s over {s.rounds} rounds "
+              f"({s.graph_captures} graph captures, "
+              f"{s.capture_s:.2f}s)")
     if args.pipelined:
         print(f"[serve] pipelined: {s.pipelined_rounds}/{s.rounds} "
               f"rounds overlapped ({s.pipeline_overlap:.0%}), "
@@ -178,6 +256,10 @@ def main(argv=None):
         lp = reqs[0].out_logprobs[:5]
         print(f"[serve] req 0 logprobs: "
               f"{[round(x, 3) for x in lp]}...")
+    if args.cost_report and eng.last_cost_report is not None:
+        print("[serve] cost attribution (measured vs H100 roofline, "
+              "obs/costs.py):")
+        print(eng.last_cost_report.table())
     for r in reqs[:3]:
         print(f"  req {r.uid}: {r.out_tokens[:10]}...")
     return eng

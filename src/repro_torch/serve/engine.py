@@ -71,6 +71,21 @@ greedy, sampled and speculative lanes, cached or not, pipelined or not:
 the same admission, chunking, caching and preemption decisions, and
 causal attention makes each query independent of how its prompt was
 chunked.
+
+Observability (``repro_torch.obs``, the JAX engine's contract): every
+round records its phases (``round/admit``, ``round/grant``,
+``round/host_prep``, ``round/device_step``, ``round/emit``, and
+``round/dispatch`` / ``round/retire`` when pipelined) into
+``EngineStats.phase_seconds`` and the ``serve_phase_seconds`` histogram
+even with tracing off, and, on an enabled tracer, as spans inside one
+``round`` span, with the request lifecycle instants and the
+``pool/pages`` / ``sched/queue`` counter tracks; the run's totals go to
+the ``serve_*`` metrics (``obs/metrics.py``). On the card
+``round/device_step`` closes after the readback event has been waited
+on, so device time never shows as host time; in the pipelined loop that
+wait is ``round/retire``'s. With ``obs.costs`` capture on, the run also
+leaves a :class:`~repro_torch.obs.costs.CostReport` in
+``last_cost_report``.
 """
 from __future__ import annotations
 
@@ -86,6 +101,9 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.core.serving_quant import build_exec_weights
 from repro_torch.memsys.workload import chunk_pages_streamed, pages_for
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import costs as obs_costs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import sampling as samplib
 from repro_torch.serve import speculative
 from repro_torch.serve import steps as serve_steps
@@ -146,6 +164,7 @@ class EngineStats:
     kv_pages_live: int = 0
     kv_pages_full: int = 0
     prefill_kv_pages_live: int = 0
+    prefill_kv_pages_written: int = 0    # page-rounded chunk writes
     # rounds run through the B=1 solo-lane step (exactly one live lane)
     solo_rounds: int = 0
     # pipelined loop: rounds retired one round late, drains of the
@@ -170,10 +189,55 @@ class EngineStats:
     step_seconds: List[float] = dataclasses.field(default_factory=list)
     step_tokens: List[int] = dataclasses.field(default_factory=list)
     ttft_s: List[float] = dataclasses.field(default_factory=list)
+    # cumulative wall seconds per round phase (span names per the
+    # obs/trace.py contract), recorded with tracing off too
+    phase_seconds: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    # per request (uid): the time.monotonic() of each emission; a
+    # preempted request's discarded emissions are dropped with its tokens
+    emit_times: Dict[int, List[float]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def tokens_per_s(self) -> float:
         return self.tokens_out / self.wall_s if self.wall_s else 0.0
+
+    @property
+    def page_op_round_trips_saved(self) -> int:
+        """Page-ops calls the batching avoided (one call per op)."""
+        return max(0, self.page_ops_batched - self.page_op_flushes)
+
+    def per_token_latencies(self) -> List[float]:
+        return [s / t for s, t in zip(self.step_seconds, self.step_tokens)
+                if t]
+
+    def itl_s(self) -> List[float]:
+        """Per-request inter-token latencies: the gaps between a request's
+        consecutive emissions (unlike ``per_token_latencies``, which
+        spreads a round over all its tokens, prefill chunks included)."""
+        gaps: List[float] = []
+        for times in self.emit_times.values():
+            gaps.extend(b - a for a, b in zip(times, times[1:]))
+        return gaps
+
+    _DEVICE_PHASES = ("round/device_step", "round/dispatch",
+                      "round/retire")
+
+    def host_seconds(self) -> float:
+        """Wall seconds in the host-side round phases: admission, grants,
+        host input prep and page ops, emission. The step call, the
+        pipelined dispatch and the pipelined retire (the readback wait,
+        with the emission bookkeeping inside it charged to the device
+        side, as the JAX engine does) are device time."""
+        return sum(v for k, v in self.phase_seconds.items()
+                   if k not in self._DEVICE_PHASES)
+
+    def device_seconds(self) -> float:
+        """Wall seconds in the step call and the readback wait (the
+        synchronous step, the pipelined dispatch and retire), graph
+        captures on a new width included (``capture_s`` bounds them)."""
+        return sum(self.phase_seconds.get(k, 0.0)
+                   for k in self._DEVICE_PHASES)
 
     @property
     def pipeline_overlap(self) -> float:
@@ -207,6 +271,32 @@ def _finished(req: Request, pos: int, max_len: int) -> bool:
             or pos >= max_len)
 
 
+class _PhaseSpan:
+    """Times one round phase: accumulates into ``EngineStats.
+    phase_seconds``, observes the ``serve_phase_seconds{phase}``
+    histogram, and (when tracing is on) records the span on the tracer.
+    A plain class, so a phase costs two ``perf_counter`` calls with
+    tracing off."""
+
+    __slots__ = ("name", "tracer", "hist", "stats", "t0")
+
+    def __init__(self, name, tracer, hist, stats):
+        self.name, self.tracer, self.hist = name, tracer, hist
+        self.stats = stats
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        ph = self.stats.phase_seconds
+        ph[self.name] = ph.get(self.name, 0.0) + dt
+        self.hist.observe(dt, phase=self.name)
+        self.tracer.complete(self.name, self.t0, dt)
+        return False
+
+
 def tree_to(tree, device):
     """Move a parameter tree (dicts, tensors, QTensors, per-group QTensor
     lists) to ``device``."""
@@ -223,7 +313,9 @@ class ServeEngine:
     """Continuous batching over a paged KV pool (see the module
     docstring). ``slots`` bounds concurrent sequences; ``max_len`` is each
     sequence's capacity (prompt + generated); ``n_pages`` sizes the pool
-    (default: every slot at full length)."""
+    (default: every slot at full length). ``tracer`` and ``metrics`` plug
+    the engine into ``repro_torch.obs`` (default: the process instances;
+    the default tracer is disabled)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  max_len: int = 256, cache_dtype=torch.float32,
@@ -237,7 +329,9 @@ class ServeEngine:
                  speculative_k: int = 0,
                  step_set: Optional[serve_steps.PagedServeSteps] = None,
                  pipelined: bool = False, cuda_graphs: bool = True,
-                 device="cuda"):
+                 device="cuda",
+                 tracer: Optional[obs_trace.Tracer] = None,
+                 metrics: Optional[obs_metrics.Registry] = None):
         if cfg.is_encdec or cfg.n_vis_tokens:
             raise NotImplementedError(
                 "the paged engine covers decoder-only models")
@@ -274,6 +368,8 @@ class ServeEngine:
         self._widths = serve_steps.width_ladder(self.chunk)
         self.paged_attention = paged_attention
         self.stats = EngineStats()
+        self._tracer = tracer          # None -> process default at run()
+        self._metrics = metrics
         # token selection: the engine default (per-request sampling
         # overrides), the per-lane table the step's sampling inputs are
         # staged from, and the draft length of a verify round (0 = off)
@@ -307,6 +403,8 @@ class ServeEngine:
         self._pool: Optional[PagedKVPool] = None
         self._arena = None
         self.prefix_cache: Optional[PrefixCache] = None
+        # the last run's cost attribution, when obs.costs capture is on
+        self.last_cost_report: Optional[obs_costs.CostReport] = None
 
     def _ensure_pool(self) -> PagedKVPool:
         """The pool and arena, made once per engine: the step set's graphs
@@ -327,7 +425,8 @@ class ServeEngine:
                     paged_attention=self.paged_attention,
                     device=self.device, cuda_graphs=self._cuda_graphs)
             if self._use_prefix:
-                self.prefix_cache = PrefixCache(self._pool)
+                self.prefix_cache = PrefixCache(self._pool,
+                                                tracer=self._tracer)
         return self._pool
 
     @property
@@ -382,6 +481,19 @@ class ServeEngine:
                                  f"{len(r.prompt)} > max_len={self.max_len}")
         pool = self._ensure_pool()
         steps = self._steps
+        # observability: the explicit tracer/registry or the process
+        # defaults (the default tracer is disabled: every span site is
+        # then one branch)
+        trc = obs_trace.active(self._tracer)
+        reg = self._metrics if self._metrics is not None \
+            else obs_metrics.get_registry()
+        phase_hist = reg.histogram(
+            "serve_phase_seconds", "per-round phase wall time",
+            labels=("phase",))
+
+        def phase(name: str) -> _PhaseSpan:
+            return _PhaseSpan(name, trc, phase_hist, self.stats)
+
         # release slot pages an aborted run may have left mapped (cached
         # pages survive) and re-base the pool's counters
         for s in range(self.slots):
@@ -393,11 +505,14 @@ class ServeEngine:
         tbl0 = pool.tables_rebuilds
         _, cap0, cap_s0 = steps.capture_counters()
         replays0 = steps.step.replays + steps.solo_step.replays
+        cost0 = obs_costs.snapshot(steps) \
+            if obs_costs.capture_enabled() else None
+        admissions = {"miss": 0, "hit": 0, "dedup": 0}
         cache = self.prefix_cache
         sched = FifoScheduler(SchedulerConfig(
             page=self.page, max_prefill_tokens=self.max_prefill_tokens,
             max_len=self.max_len, chunk=self.chunk), prefix_cache=cache,
-            pool=pool if self._dedup else None)
+            pool=pool if self._dedup else None, tracer=trc)
         for r in requests:
             sched.enqueue(r)
 
@@ -411,11 +526,6 @@ class ServeEngine:
             return (active[s] is not None
                     and pos[s] < len(active[s].prompt))
 
-        def first_token(req: Request, now: float) -> None:
-            if req.uid not in seen_first:
-                seen_first.add(req.uid)
-                self.stats.ttft_s.append(now - t0)
-
         def record(s: int, tok: int, logp: float, req: Request) -> None:
             assert tok != samplib.DEAD_TOKEN, \
                 f"emit read a dead lane (slot {s})"
@@ -423,6 +533,15 @@ class ServeEngine:
             if self._slot_sp[s].logprobs:
                 req.out_logprobs.append(logp)
             self.stats.tokens_out += 1
+
+        def emit(s: int, req: Request, now: float) -> None:
+            """An emission's timestamp; the request's first token (once
+            across preemption) also stamps its TTFT."""
+            self.stats.emit_times.setdefault(req.uid, []).append(now)
+            if req.uid not in seen_first:
+                seen_first.add(req.uid)
+                self.stats.ttft_s.append(now - t0)
+                trc.instant("req/first_token", uid=req.uid, slot=s)
 
         def publish(req: Request, s: int) -> None:
             """Index the slot's full prompt pages (prefill KV reuse)."""
@@ -432,7 +551,8 @@ class ServeEngine:
                     cache.insert(req.prompt, pool.slot_pages[s][:n_full])
 
         def finish(s: int, defer_rec=None) -> None:
-            active[s].done = True
+            req = active[s]
+            req.done = True
             active[s] = None
             if defer_rec is not None and s in defer_rec["act_dec"]:
                 # EOS during the lag: the round in flight computed one more
@@ -442,14 +562,20 @@ class ServeEngine:
             else:
                 pool.free_slot(s)
             sched.on_finish(s)
+            trc.instant("req/finished", uid=req.uid, slot=s,
+                        tokens=len(req.out_tokens))
 
         def preempt(victim: int) -> None:
             req = active[victim]
             # recompute-style eviction: drop generated state, requeue; a
             # lane preempted mid-prompt releases exactly the pages its
             # chunks wrote (plus its adopted references)
+            trc.instant("req/preempted", uid=req.uid, slot=victim,
+                        discarded=len(req.out_tokens))
             self.stats.tokens_out -= len(req.out_tokens)
             self.stats.tokens_discarded += len(req.out_tokens)
+            # discarded emissions contribute no inter-token gaps
+            self.stats.emit_times.pop(req.uid, None)
             req.out_tokens = []
             req.out_logprobs = []
             active[victim] = None
@@ -491,14 +617,19 @@ class ServeEngine:
             if adm.cached_pages:
                 if adm.dedup:
                     self.stats.dedup_hits += 1
+                    admissions["dedup"] += 1
                 else:
                     self.stats.cache_hits += 1
+                    admissions["hit"] += 1
                 self.stats.cache_hit_tokens += start
             else:
+                admissions["miss"] += 1
                 sched.note_prefill(req, s)
                 if cache is not None:
                     sched.miss_open(s)
             self.stats.prompt_tokens += L
+            trc.instant("req/admitted", uid=req.uid, slot=s,
+                        cached_tokens=start, dedup=adm.dedup)
             return True
 
         def admit() -> None:
@@ -529,8 +660,10 @@ class ServeEngine:
 
         def process_round(rec, nxt, logp_h, now=None, defer_rec=None):
             """Emission, EOS and scheduling for one completed round;
-            returns the tokens emitted. ``defer_rec`` is the round still
-            in flight, whose lanes defer their page frees to its retire."""
+            returns the tokens emitted. ``now`` stamps every emission of
+            the round (a retire passes its readback-complete time);
+            ``defer_rec`` is the round still in flight, whose lanes defer
+            their page frees to its retire."""
             plan, verify = rec["plan"], rec["verify"]
             act_dec, n_new = rec["act_dec"], rec["n_new"]
             c_len = rec["c_len"]
@@ -547,6 +680,8 @@ class ServeEngine:
                     self.stats.prefill_chunks += 1
                     self.stats.prefill_tokens += n
                     self.stats.prefill_tokens_padded += c_len
+                    trc.instant("req/chunk_done", uid=req.uid, slot=s,
+                                pos=int(pos[s]))
                     if int(pos[s]) < len(req.prompt):
                         continue        # mid-prompt: more chunks due
                     # the logit at the prompt's last token is the
@@ -556,12 +691,20 @@ class ServeEngine:
                     sched.miss_closed(s)
                     tok = int(nxt[s, n - 1])
                     record(s, tok, float(logp_h[s, n - 1]), req)
-                    first_token(req, now_t)
                     emitted += 1
                     if _finished(req, len(req.prompt), self.max_len):
-                        finish(s)       # e.g. EOS at prefill
+                        # e.g. EOS at prefill: never enters a decode
+                        # round, so its events carry slot -1
+                        req.done = True
+                        active[s] = None
+                        pool.free_slot(s)
+                        sched.on_finish(s)
+                        emit(-1, req, now_t)
+                        trc.instant("req/finished", uid=req.uid, slot=-1,
+                                    tokens=len(req.out_tokens))
                     else:
                         next_tok[s] = tok
+                        emit(s, req, now_t)
                 elif s in act_dec:
                     # plain decode is a verify round with an empty draft:
                     # accept_greedy keeps the verified draft prefix and
@@ -581,6 +724,7 @@ class ServeEngine:
                         next_tok[s] = tok
                         record(s, tok, float(logp_h[s, j]), req)
                         emitted += 1
+                        emit(s, req, now_t)
                         if _finished(req, int(pos[s]), self.max_len):
                             # accepted tokens past EOS (or the budget) are
                             # discarded
@@ -651,81 +795,101 @@ class ServeEngine:
             return nxt, logp_h
 
         def retire(rec, defer_rec=None) -> int:
-            """Emission for a pipelined round. Lanes whose EOS retired
-            during the lag trim their overrun token's pages and free their
-            slot here, once the round that computed past the EOS is
-            done."""
-            nxt, logp_h = gather(rec)
-            emitted = process_round(rec, nxt, logp_h, now=time.monotonic(),
-                                    defer_rec=defer_rec)
-            for s in sorted(rec["lag_free"]):
-                self.stats.lag_trimmed_tokens += int(rec["n_new"][s])
-                pool.trim(s, int(pos[s]))
-                pool.free_slot(s)
+            """The readback wait and emission of a pipelined round. Lanes
+            whose EOS retired during the lag trim their overrun token's
+            pages and free their slot here, once the round that computed
+            past the EOS is done."""
+            with phase("round/retire"):
+                nxt, logp_h = gather(rec)
+                emitted = process_round(rec, nxt, logp_h,
+                                        now=time.monotonic(),
+                                        defer_rec=defer_rec)
+                for s in sorted(rec["lag_free"]):
+                    self.stats.lag_trimmed_tokens += int(rec["n_new"][s])
+                    pool.trim(s, int(pos[s]))
+                    pool.free_slot(s)
             return emitted
+
+        def round_done(r_t0: float, lanes: int, prefill_lanes: int,
+                       decode_lanes: int, emitted: int) -> None:
+            """The round's pool and queue counter samples and its
+            ``round`` span."""
+            trc.counter("pool/pages", live=pool.used_count,
+                        free=pool.free_count)
+            trc.counter("sched/queue", prefill_pending=sched.pending)
+            trc.complete("round", r_t0, time.perf_counter() - r_t0,
+                         lanes=lanes, prefill_lanes=prefill_lanes,
+                         decode_lanes=decode_lanes, emitted=emitted)
 
         inflight = None            # the dispatched round not yet retired
 
         while any(a is not None for a in active) or sched.pending:
+            r_t0 = time.perf_counter()
             if inflight is not None:
                 # ---- pipelined: grant pure-decode lanes against the
                 # round in flight, carry its tokens on the device into the
                 # next dispatch, then retire it
                 dec: List[int] = []
+                order: List[int] = []
                 barrier = bool(sched.pending) and any(a is None
                                                       for a in active)
                 if not barrier:
-                    order = sorted((s for s in range(self.slots)
-                                    if active[s] is not None),
-                                   key=lambda s: sched.admitted_at[s])
-                    for s in order:
-                        req = active[s]
-                        if not sched.grant_decode(
-                                len(req.out_tokens), req.max_new_tokens,
-                                int(pos[s]), self.max_len, lead=1):
-                            continue    # its last token retires now
-                        if s not in inflight["act_dec"]:
-                            barrier = True      # no carried token
-                            break
-                        if self._alloc(s, int(pos[s]) + 2) is None:
-                            barrier = True      # needs a preemption
-                            break
-                        dec.append(s)
+                    with phase("round/grant"):
+                        order = sorted((s for s in range(self.slots)
+                                        if active[s] is not None),
+                                       key=lambda s: sched.admitted_at[s])
+                        for s in order:
+                            req = active[s]
+                            if not sched.grant_decode(
+                                    len(req.out_tokens), req.max_new_tokens,
+                                    int(pos[s]), self.max_len, lead=1):
+                                continue    # its last token retires now
+                            if s not in inflight["act_dec"]:
+                                barrier = True      # no carried token
+                                break
+                            if self._alloc(s, int(pos[s]) + 2) is None:
+                                barrier = True      # needs a preemption
+                                break
+                            dec.append(s)
                 if barrier or not dec:
                     # drain, then run the next round synchronously
                     self.stats.pipeline_barriers += 1
                     prev, inflight = inflight, None
                     retire(prev)
                     continue
-                start = np.zeros(self.slots, np.int32)
-                n_new = np.zeros(self.slots, np.int32)
-                for s in dec:
-                    start[s] = int(pos[s]) + 1  # the in-flight token's
-                    n_new[s] = 1                # position + 1
-                ts = time.monotonic()
-                self.stats.kv_pages_live += sum(
-                    pages_for(int(start[s]) + 1, self.page) for s in dec)
-                self.stats.kv_pages_full += (len(dec)
-                                             * self.max_pages_per_seq)
-                self._flush_page_ops(pool)
-                s0 = dec[0] if len(dec) == 1 else None
-                tok_in = serve_steps.carry_decode_tokens(
-                    inflight["tok_dev"], s0)
-                tok_d, logp_d = dispatch(tok_in, start, n_new, s0)
-                rec = {"order": dec, "plan": {}, "verify": {},
-                       "act_dec": dec, "n_new": n_new, "c_len": 1,
-                       "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
-                       "solo_slot": s0, "lag_free": set()}
-                readback(rec)
+                with phase("round/host_prep"):
+                    start = np.zeros(self.slots, np.int32)
+                    n_new = np.zeros(self.slots, np.int32)
+                    for s in dec:
+                        start[s] = int(pos[s]) + 1  # the in-flight token's
+                        n_new[s] = 1                # position + 1
+                    ts = time.monotonic()
+                    self.stats.kv_pages_live += sum(
+                        pages_for(int(start[s]) + 1, self.page) for s in dec)
+                    self.stats.kv_pages_full += (len(dec)
+                                                 * self.max_pages_per_seq)
+                    self._flush_page_ops(pool)
+                    s0 = dec[0] if len(dec) == 1 else None
+                with phase("round/dispatch"):
+                    tok_in = serve_steps.carry_decode_tokens(
+                        inflight["tok_dev"], s0)
+                    tok_d, logp_d = dispatch(tok_in, start, n_new, s0)
+                    rec = {"order": dec, "plan": {}, "verify": {},
+                           "act_dec": dec, "n_new": n_new, "c_len": 1,
+                           "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
+                           "solo_slot": s0, "lag_free": set()}
+                    readback(rec)
                 self.stats.decode_steps += 1
                 self.stats.rounds += 1
                 self.stats.pipelined_rounds += 1
                 prev, inflight = inflight, rec
-                retire(prev, defer_rec=rec)
+                emitted = retire(prev, defer_rec=rec)
+                round_done(r_t0, len(order), 0, len(dec), emitted)
                 continue
 
-            sched.start_round()
-            admit()
+            with phase("round/admit"):
+                sched.start_round()
+                admit()
             if not any(a is not None for a in active):
                 if sched.pending:
                     raise PoolExhausted(
@@ -738,131 +902,150 @@ class ServeEngine:
             # then preempt the youngest younger slot, or self if none is
             # younger (oldest-first order ensures progress)
             plan = {}                       # slot -> chunk tokens
-            order = sorted((s for s in range(self.slots)
-                            if active[s] is not None),
-                           key=lambda s: sched.admitted_at[s])
-            for s in order:
-                while active[s] is not None:
-                    if prefilling(s):
-                        n = plan.get(s)
-                        if n is None:
-                            n = sched.grant_chunk(
-                                len(active[s].prompt) - int(pos[s]))
-                            if n == 0:
-                                break       # budget spent: idle a round
-                            plan[s] = n
-                        need = int(pos[s]) + n
-                    else:
-                        need = int(pos[s]) + 1
-                    if self._alloc(s, need) is not None:
-                        break
-                    victim = sched.choose_victim(s)
-                    if victim is not None:
-                        plan.pop(victim, None)
-                        preempt(victim)
-                        continue
-                    if not any(active[t] is not None
-                               for t in range(self.slots) if t != s):
-                        raise PoolExhausted(
-                            f"sequence in slot {s} needs {need} tokens of "
-                            f"KV but the pool holds {self.n_pages} pages")
-                    plan.pop(s, None)
-                    preempt(s)      # yield to older slots; retry later
-            decode_lanes = [s for s in order if active[s] is not None
-                            and not prefilling(s)]
-            # self-speculative decode: draft up to k tokens per greedy
-            # decode lane (prompt lookup over its own history) for one
-            # verify step on a ladder rung. Drafts are optional work: they
-            # draw on the round budget after prefill grants and take pages
-            # WITHOUT preemption; any shortfall decodes one token as usual
-            verify: Dict[int, np.ndarray] = {}
-            if decode_lanes and self._spec_k > 0:
-                for s in decode_lanes:
-                    req = active[s]
-                    if self._slot_sp[s].temperature > 0:
-                        continue        # greedy acceptance only
-                    want = min(self._spec_k, self.chunk - 1,
-                               self.max_len - int(pos[s]) - 1,
-                               req.max_new_tokens - len(req.out_tokens) - 1)
-                    if want <= 0:
-                        continue
-                    hist = np.concatenate(
-                        [np.asarray(req.prompt, np.int64),
-                         np.asarray(req.out_tokens, np.int64)])
-                    draft = speculative.propose(hist, want)
-                    if draft.size == 0:
-                        continue
-                    granted = sched.grant_verify(len(draft))
-                    if granted == 0:
-                        continue
-                    draft = draft[:granted]
-                    if self._alloc(s, int(pos[s]) + 1 + len(draft)) is None:
-                        continue
-                    verify[s] = draft
+            with phase("round/grant"):
+                order = sorted((s for s in range(self.slots)
+                                if active[s] is not None),
+                               key=lambda s: sched.admitted_at[s])
+                for s in order:
+                    while active[s] is not None:
+                        if prefilling(s):
+                            n = plan.get(s)
+                            if n is None:
+                                n = sched.grant_chunk(
+                                    len(active[s].prompt) - int(pos[s]))
+                                if n == 0:
+                                    break   # budget spent: idle a round
+                                plan[s] = n
+                            need = int(pos[s]) + n
+                        else:
+                            need = int(pos[s]) + 1
+                        if self._alloc(s, need) is not None:
+                            break
+                        victim = sched.choose_victim(s)
+                        if victim is not None:
+                            plan.pop(victim, None)
+                            preempt(victim)
+                            continue
+                        if not any(active[t] is not None
+                                   for t in range(self.slots) if t != s):
+                            raise PoolExhausted(
+                                f"sequence in slot {s} needs {need} tokens "
+                                f"of KV but the pool holds {self.n_pages} "
+                                f"pages")
+                        plan.pop(s, None)
+                        preempt(s)  # yield to older slots; retry later
+                decode_lanes = [s for s in order if active[s] is not None
+                                and not prefilling(s)]
+                # self-speculative decode: draft up to k tokens per greedy
+                # decode lane (prompt lookup over its own history) for one
+                # verify step on a ladder rung. Drafts are optional work:
+                # they draw on the round budget after prefill grants and
+                # take pages WITHOUT preemption; any shortfall decodes one
+                # token as usual
+                verify: Dict[int, np.ndarray] = {}
+                if decode_lanes and self._spec_k > 0:
+                    for s in decode_lanes:
+                        req = active[s]
+                        if self._slot_sp[s].temperature > 0:
+                            continue        # greedy acceptance only
+                        want = min(self._spec_k, self.chunk - 1,
+                                   self.max_len - int(pos[s]) - 1,
+                                   req.max_new_tokens
+                                   - len(req.out_tokens) - 1)
+                        if want <= 0:
+                            continue
+                        hist = np.concatenate(
+                            [np.asarray(req.prompt, np.int64),
+                             np.asarray(req.out_tokens, np.int64)])
+                        draft = speculative.propose(hist, want)
+                        if draft.size == 0:
+                            continue
+                        granted = sched.grant_verify(len(draft))
+                        if granted == 0:
+                            continue
+                        draft = draft[:granted]
+                        if self._alloc(
+                                s, int(pos[s]) + 1 + len(draft)) is None:
+                            continue
+                        verify[s] = draft
             if not plan and not decode_lanes:
                 continue            # everything preempted/idled; re-admit
 
-            # the smallest width covering the widest grant: a prefill
-            # chunk or a verify (1 + draft); pure decode stays at C = 1
-            max_n = max([max(plan.values(), default=0)]
-                        + [1 + len(d) for d in verify.values()])
-            c_len = 1 if max_n <= 1 else min(
-                [w for w in self._widths if w >= max_n] or [self.chunk])
-            toks = np.zeros((self.slots, c_len), np.int32)
-            start = np.zeros(self.slots, np.int32)
-            n_new = np.zeros(self.slots, np.int32)
-            for s in range(self.slots):
-                if active[s] is None:
-                    continue
-                start[s] = pos[s]
-                if s in plan:
-                    n = plan[s]
-                    n_new[s] = n
-                    p0 = int(pos[s])
-                    toks[s, :n] = active[s].prompt[p0:p0 + n]
-                elif not prefilling(s):
-                    d = verify.get(s)
-                    toks[s, 0] = next_tok[s]
-                    if d is None:
-                        n_new[s] = 1
-                    else:
-                        n_new[s] = 1 + len(d)
-                        toks[s, 1:1 + len(d)] = d
-            ts = time.monotonic()
-            if verify:
-                self.stats.spec_rounds += 1
-            self.stats.kv_pages_live += sum(
-                pages_for(int(pos[s]) + int(n_new[s]), self.page)
-                for s in decode_lanes)
-            self.stats.kv_pages_full += (len(decode_lanes)
-                                         * self.max_pages_per_seq)
-            for s in plan:
-                self.stats.prefill_kv_pages_live += chunk_pages_streamed(
-                    int(pos[s]), plan[s], page=self.page)
-            self._flush_page_ops(pool)
-            live = np.flatnonzero(n_new > 0)
-            s0 = int(live[0]) if len(live) == 1 else None
-            tok_d, logp_d = dispatch(
-                toks if s0 is None else toks[s0:s0 + 1], start, n_new, s0)
-            rec = {"order": order, "plan": plan, "verify": verify,
-                   "act_dec": decode_lanes, "n_new": n_new, "c_len": c_len,
-                   "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
-                   "solo_slot": s0, "lag_free": set()}
-            readback(rec)
-            if decode_lanes:
-                self.stats.decode_steps += 1
-            self.stats.rounds += 1
+            with phase("round/host_prep"):
+                # the smallest width covering the widest grant: a prefill
+                # chunk or a verify (1 + draft); pure decode stays at C = 1
+                max_n = max([max(plan.values(), default=0)]
+                            + [1 + len(d) for d in verify.values()])
+                c_len = 1 if max_n <= 1 else min(
+                    [w for w in self._widths if w >= max_n] or [self.chunk])
+                toks = np.zeros((self.slots, c_len), np.int32)
+                start = np.zeros(self.slots, np.int32)
+                n_new = np.zeros(self.slots, np.int32)
+                for s in range(self.slots):
+                    if active[s] is None:
+                        continue
+                    start[s] = pos[s]
+                    if s in plan:
+                        n = plan[s]
+                        n_new[s] = n
+                        p0 = int(pos[s])
+                        toks[s, :n] = active[s].prompt[p0:p0 + n]
+                    elif not prefilling(s):
+                        d = verify.get(s)
+                        toks[s, 0] = next_tok[s]
+                        if d is None:
+                            n_new[s] = 1
+                        else:
+                            n_new[s] = 1 + len(d)
+                            toks[s, 1:1 + len(d)] = d
+                ts = time.monotonic()
+                if verify:
+                    self.stats.spec_rounds += 1
+                self.stats.kv_pages_live += sum(
+                    pages_for(int(pos[s]) + int(n_new[s]), self.page)
+                    for s in decode_lanes)
+                self.stats.kv_pages_full += (len(decode_lanes)
+                                             * self.max_pages_per_seq)
+                for s in plan:
+                    self.stats.prefill_kv_pages_live += chunk_pages_streamed(
+                        int(pos[s]), plan[s], page=self.page)
+                    self.stats.prefill_kv_pages_written += (
+                        pages_for(int(pos[s]) + plan[s], self.page)
+                        - int(pos[s]) // self.page)
+                self._flush_page_ops(pool)
+                live = np.flatnonzero(n_new > 0)
+                s0 = int(live[0]) if len(live) == 1 else None
             # a pure-decode round with an idle queue enters the pipeline
             # (never a verify round, nor any round of a speculative
             # engine): it retires one round from now
-            if self._pipelined and decode_lanes and not plan \
-                    and not verify and self._spec_k == 0 \
-                    and not sched.pending:
+            overlap = (self._pipelined and bool(decode_lanes) and not plan
+                       and not verify and self._spec_k == 0
+                       and not sched.pending)
+            with phase("round/dispatch" if overlap
+                       else "round/device_step"):
+                tok_d, logp_d = dispatch(
+                    toks if s0 is None else toks[s0:s0 + 1], start, n_new,
+                    s0)
+                rec = {"order": order, "plan": plan, "verify": verify,
+                       "act_dec": decode_lanes, "n_new": n_new,
+                       "c_len": c_len, "ts": ts, "tok_dev": tok_d,
+                       "logp_dev": logp_d, "solo_slot": s0,
+                       "lag_free": set()}
+                readback(rec)
+                if not overlap:
+                    nxt, logp_h = gather(rec)   # ends after the readback
+            if decode_lanes:
+                self.stats.decode_steps += 1
+            self.stats.rounds += 1
+            if overlap:
                 self.stats.pipelined_rounds += 1
                 inflight = rec
+                emitted = 0         # emitted at its retire, next round
             else:
-                nxt, logp_h = gather(rec)
-                process_round(rec, nxt, logp_h)
+                with phase("round/emit"):
+                    emitted = process_round(rec, nxt, logp_h)
+            round_done(r_t0, len(order), len(plan), len(decode_lanes),
+                       emitted)
 
         if inflight is not None:
             # every lane finished or deferred its free during the lag
@@ -880,4 +1063,73 @@ class ServeEngine:
         self.stats.graph_replays = (steps.step.replays
                                     + steps.solo_step.replays - replays0)
         self.stats.wall_s = time.monotonic() - t0
+        self._flush_metrics(reg, admissions)
+        if cost0 is not None:
+            report = obs_costs.attribute(
+                steps, self.stats, cfg=self.cfg, params=self.params,
+                page=self.page, kv_dtype_bits=self.cache_dtype.itemsize * 8,
+                baseline=cost0)
+            self.last_cost_report = report
+            obs_costs.flush_metrics(reg, report)
         return requests
+
+    def _flush_metrics(self, reg: obs_metrics.Registry,
+                       admissions: Dict[str, int]) -> None:
+        """Fold the finished run's EngineStats into the registry (names
+        per the ``obs/metrics.py`` contract)."""
+        s = self.stats
+        reg.counter("serve_rounds_total",
+                    "engine rounds that ran a step").inc(s.rounds)
+        tok = reg.counter("serve_tokens_total", "tokens emitted/discarded",
+                          labels=("kind",))
+        tok.inc(s.tokens_out, kind="emitted")
+        tok.inc(s.tokens_discarded, kind="discarded")
+        adm = reg.counter("serve_admissions_total",
+                          "request admissions by prefix-cache outcome",
+                          labels=("kind",))
+        for kind, n in admissions.items():
+            adm.inc(n, kind=kind)
+        reg.counter("serve_preemptions_total",
+                    "recompute-style slot evictions").inc(s.preemptions)
+        ops = reg.counter("serve_page_ops_total",
+                          "host<->device page-op round trips",
+                          labels=("op",))
+        ops.inc(s.adopt_calls, op="adopt")
+        ops.inc(s.page_copy_calls, op="page_copy")
+        ops.inc(s.device_tables_rebuilds, op="tables_rebuild")
+        ops.inc(s.cow_copies, op="cow")
+        ops.inc(s.cache_evictions, op="cache_evict")
+        ops.inc(s.page_op_flushes, op="fused_flush")
+        reg.counter(
+            "serve_page_op_round_trips_saved_total",
+            "device dispatches avoided by fused page-op batching"
+        ).inc(s.page_op_round_trips_saved)
+        reg.counter("serve_solo_rounds_total",
+                    "rounds run through the B=1 solo-lane step"
+                    ).inc(s.solo_rounds)
+        pipe = reg.counter("serve_pipeline_rounds_total",
+                           "pipelined-loop events by kind",
+                           labels=("kind",))
+        pipe.inc(s.pipelined_rounds, kind="overlapped")
+        pipe.inc(s.pipeline_barriers, kind="barrier")
+        reg.counter("serve_pipeline_trimmed_tokens_total",
+                    "tokens computed past an EOS during the pipeline "
+                    "lag, trimmed and never emitted"
+                    ).inc(s.lag_trimmed_tokens)
+        reg.gauge("serve_pipeline_overlap_fraction",
+                  "fraction of this run's rounds retired through the "
+                  "pipeline").set(s.pipeline_overlap)
+        reg.counter("serve_speculative_rounds_total",
+                    "rounds that carried a speculative verify lane"
+                    ).inc(s.spec_rounds)
+        spec = reg.counter("serve_speculative_tokens_total",
+                           "speculative draft tokens by outcome",
+                           labels=("kind",))
+        spec.inc(s.spec_draft_tokens, kind="drafted")
+        spec.inc(s.spec_accepted_tokens, kind="accepted")
+        pool = self._pool
+        if pool is not None:
+            reg.gauge("serve_pages_used",
+                      "arena pages allocated").set(pool.used_count)
+            reg.gauge("serve_pages_peak",
+                      "peak arena pages this run").set(s.pages_peak)

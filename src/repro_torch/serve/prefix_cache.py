@@ -53,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.paged_kv import PagedKVPool
 
 
@@ -93,9 +94,10 @@ class PrefixCache:
 
     Host-side only; see the module docstring for lifetime rules.
 
-    ``tracer`` is a hook with no effect yet: the JAX index sends
-    ``cache/published`` and ``cache/evicted`` instants to it, and the
-    port's tracer is still to come."""
+    ``tracer`` (else the process default, ``obs.trace``) receives
+    ``cache/published`` and ``cache/evicted`` instants — each marks a
+    host-side index mutation whose pages a slot must later adopt or
+    re-prefill, i.e. a page-op round trip in the making."""
 
     def __init__(self, pool: PagedKVPool, tracer=None):
         self.pool = pool
@@ -186,6 +188,9 @@ class PrefixCache:
         self.stats.published_pages += new
         if new:
             self.version += 1
+            obs_trace.active(self._tracer).instant(
+                "cache/published", pages=new,
+                cached_total=len(self._nodes))
         return new
 
     # ---- eviction ------------------------------------------------------
@@ -210,6 +215,10 @@ class PrefixCache:
                 self._remove(node)
                 freed += 1
         self.stats.evicted_pages += freed
+        if freed:
+            obs_trace.active(self._tracer).instant(
+                "cache/evicted", pages=freed,
+                cached_total=len(self._nodes))
         return freed
 
     def _remove(self, node: _Node) -> None:

@@ -28,6 +28,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 
 from repro_torch.memsys.workload import pages_for
+from repro_torch.obs import trace as obs_trace
 
 
 def bucket_len(n: int, page: int) -> int:
@@ -96,10 +97,12 @@ class FifoScheduler:
     engine's per-chunk progress feed. Entries drop when the leader
     finishes or is preempted; the radix index takes over afterwards.
 
-    ``tracer`` is a hook with no effect yet: the JAX scheduler sends its
-    ``sched/admit``, ``sched/preempt``, ``sched/dedup_wait`` and
-    ``sched/miss_wait`` instants to it, and the port's tracer is still
-    to come."""
+    ``tracer`` (else the process default, ``obs.trace``) receives
+    ``sched/admit`` / ``sched/preempt`` instants and the two admission
+    stall events — ``sched/dedup_wait`` (head waiting for an in-flight
+    identical prompt) and ``sched/miss_wait`` (head serialized behind
+    the one open prefix-cache miss) — so queueing decisions are visible
+    on the trace timeline, not just in aggregate counters."""
 
     def __init__(self, cfg: SchedulerConfig, prefix_cache=None, pool=None,
                  tracer=None):
@@ -213,6 +216,8 @@ class FifoScheduler:
                 self._match_memo = (key, (adm.cached_pages,
                                           adm.cached_len))
         if self._match_pending(adm):
+            obs_trace.active(self._tracer).instant(
+                "sched/dedup_wait", uid=getattr(req, "uid", None))
             return None               # wait for the in-flight leader
         if (self.prefix_cache is not None and not adm.cached_pages
                 and self._open_miss):
@@ -223,6 +228,8 @@ class FifoScheduler:
             # leader finishes instead of re-prefilling the same pages in
             # parallel. Hits admit freely; pre-chunking prefill was
             # fully serial anyway, so this never loses to the old path.
+            obs_trace.active(self._tracer).instant(
+                "sched/miss_wait", uid=getattr(req, "uid", None))
             return None
         L = len(req.prompt)
         start = adm.suffix_start
@@ -308,6 +315,8 @@ class FifoScheduler:
 
     def on_admit(self, slot: int) -> None:
         self.admitted_at[slot] = self._admit_seq
+        obs_trace.active(self._tracer).instant(
+            "sched/admit", slot=slot, stamp=self._admit_seq)
         self._admit_seq += 1
 
     def on_finish(self, slot: int) -> None:
@@ -339,6 +348,7 @@ class FifoScheduler:
 
     def on_preempt(self, slot: int) -> None:
         self.preemptions += 1
+        obs_trace.active(self._tracer).instant("sched/preempt", slot=slot)
         self.admitted_at.pop(slot, None)
         self._drop_pending(slot)
         self.miss_closed(slot)

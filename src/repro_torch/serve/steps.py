@@ -40,10 +40,27 @@ fallback: a failed capture raises).
 Kernel launch tallies (``kernels.build.launches``, ``kernels.ops.
 path_counts``) are Python counters that a replay does not move: each
 graph records the tallies of its capture and adds them on every replay.
+
+Observability (the counterpart of the JAX package's ``TracedJit``): a
+graph captured for a new (width, head) pair on the card, or a width's
+buffers created on the CPU or with ``cuda_graphs=False``, is the port's
+compile. It fires a ``jit/compile`` instant (fn, width, seconds) on the
+process tracer and increments ``serve_jit_compiles_total{fn}`` on the
+process registry; growth past the declared ``surface`` also fires
+``jit/unexpected_retrace`` and ``serve_jit_retraces_unexpected_total
+{fn}`` (it never raises). With ``obs.costs`` capture on, every ``step``,
+``solo_step`` and ``apply_page_ops`` call lands in ``calls_by_key``,
+``seconds_by_key`` and ``cost_by_key`` (keyed ``C<width>``, and
+``call`` for the page ops, which have no count): the timed window closes
+with ``torch.cuda.synchronize()`` after the replay, the warm-up and
+capture of a call that captures are left out of it (``capture_seconds``
+holds the capture), and each call adds to the ``cost/<fn>`` counter track
+of the process tracer. None of it runs inside a capture.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -55,6 +72,9 @@ from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import forward
+from repro_torch.obs import costs as obs_costs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.sampling import select_tokens
 from repro_torch.serve.scheduler import bucket_len
 
@@ -177,6 +197,38 @@ def _add_tallies(delta: Dict[str, int], sign: int = 1) -> None:
         table[name] += sign * n
 
 
+class _CostTables:
+    """The ``obs.costs`` capture tables of one step-set callable: per call
+    key, the calls, their synchronous wall seconds and the counted work
+    of one call; each recorded call adds to the cumulative ``cost/<name>``
+    counter track of the process tracer (rows with no count emit none)."""
+
+    def _init_cost_tables(self, name: str, device: torch.device) -> None:
+        self.name = name
+        self.device = device
+        self.cost_by_key: Dict[str, dict] = {}
+        self.calls_by_key: Dict[str, int] = {}
+        self.seconds_by_key: Dict[str, float] = {}
+        self._cum_flops = self._cum_bytes = 0.0
+
+    def _record(self, key: str, t0: float, excluded_s: float = 0.0) -> None:
+        """Close a capture-mode call's timed window (opened at ``t0``):
+        wait for the device, then charge the wall since ``t0``, less
+        ``excluded_s``, to ``key``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0 - excluded_s
+        self.calls_by_key[key] = self.calls_by_key.get(key, 0) + 1
+        self.seconds_by_key[key] = self.seconds_by_key.get(key, 0.0) + dt
+        cost = self.cost_by_key[key]
+        self._cum_flops += cost["flops"]
+        self._cum_bytes += cost["bytes"]
+        if self._cum_flops or self._cum_bytes:
+            obs_trace.get_tracer().counter(
+                f"cost/{self.name}", flops=self._cum_flops,
+                bytes=self._cum_bytes)
+
+
 class _Upload:
     """An int32 device buffer filled from the host without blocking it:
     through pinned memory on the card, double-buffered, so a staging
@@ -256,7 +308,7 @@ def _host_i32(x) -> torch.Tensor:
                             ).reshape(-1)
 
 
-class GraphedStep:
+class GraphedStep(_CostTables):
     """``step`` or ``solo_step`` of a step set: on the card, one CUDA graph
     per declared token width and head (greedy only, or with the sampled
     branch), the same static buffers run eagerly on the CPU or with
@@ -268,26 +320,31 @@ class GraphedStep:
     also be a tensor on the device (``carry_decode_tokens``). The head
     runs its sampled branch when a live lane (``n_new > 0``) has ``temp >
     0``. Counters: ``calls``, ``creations`` (widths given buffers, at most
-    ``len(widths)`` per binding), ``captures`` (at most ``surface`` = two
-    heads per width), ``replays``, ``capture_seconds``, ``pool_bytes``
-    (memory the captures added to the shared pool)."""
+    ``len(widths)`` per binding), ``captures`` (at most two heads per
+    width), ``compiles`` (captures when graphed, else creations; the
+    ``jit/compile`` events) against ``surface`` (two heads per width
+    graphed, one buffer set per width eager), ``replays``,
+    ``capture_seconds``, ``pool_bytes`` (memory the captures added to the
+    shared pool). ``work(params, arena, lanes=, c=)`` counts one call's
+    work for ``cost_by_key`` (``obs.costs.step_work``)."""
 
     def __init__(self, name: str, body: Callable, *, lanes: int,
                  widths: Tuple[int, ...], device: torch.device,
-                 cuda_graphs: bool, pool=None,
+                 cuda_graphs: bool, work: Callable, pool=None,
                  stream: Optional["torch.cuda.Stream"] = None):
-        self.name = name
+        self._init_cost_tables(name, device)
         self.body = body
+        self.work = work
         self.lanes = lanes
         self.widths = tuple(widths)
-        self.surface = 2 * len(self.widths)
-        self.device = device
         self.graphed = device.type == "cuda" and cuda_graphs
+        self.surface = (2 if self.graphed else 1) * len(self.widths)
         self._pool = pool
         self._stream = stream
         self._widths: Dict[int, _Width] = {}
         self._bound: Optional[tuple] = None
         self.calls = self.creations = self.captures = self.replays = 0
+        self.compiles = 0
         self.capture_seconds = 0.0
         self.pool_bytes = 0
 
@@ -306,10 +363,30 @@ class GraphedStep:
             if c not in self.widths:
                 raise ValueError(f"{self.name}: width {c} is outside the "
                                  f"declared surface {self.widths}")
+            t0 = time.perf_counter()
             w = _Width(self.lanes, c, self.device)
             self._widths[c] = w
             self.creations += 1
+            if not self.graphed:
+                self._grew(c, time.perf_counter() - t0)
         return w
+
+    def _grew(self, c: int, seconds: float) -> None:
+        """One compile (see the module docstring): the ``jit/compile``
+        instant and counter, and the retrace ones past the surface."""
+        self.compiles += 1
+        trc = obs_trace.get_tracer()
+        trc.instant("jit/compile", fn=self.name, width=c, seconds=seconds)
+        reg = obs_metrics.get_registry()
+        reg.counter("serve_jit_compiles_total",
+                    "step-set graph captures / width creations",
+                    labels=("fn",)).inc(fn=self.name)
+        if self.compiles > self.surface:
+            trc.instant("jit/unexpected_retrace", fn=self.name,
+                        compiles=self.compiles, expected=self.surface)
+            reg.counter("serve_jit_retraces_unexpected_total",
+                        "compiles beyond a step's declared surface",
+                        labels=("fn",)).inc(fn=self.name)
 
     def _stage(self, w: _Width, tokens, start, n_new, samp, slot) -> None:
         host = w.upload.host()
@@ -372,44 +449,64 @@ class GraphedStep:
         return _Graph(graph, tally, tok, logp)
 
     def __call__(self, params, tokens, arena, start, n_new, samp, slot=0):
+        capture = obs_costs.capture_enabled()
+        t0 = time.perf_counter()
         self.calls += 1
         self._bind(params, arena)
-        w = self._width(int(tokens.shape[1]))
+        c = int(tokens.shape[1])
+        w = self._width(c)
+        key = f"C{c}"
+        if capture and key not in self.cost_by_key:
+            self.cost_by_key[key] = self.work(params, arena,
+                                              lanes=self.lanes, c=c)
         sampled = bool(np.any((np.asarray(samp["temp"]) > 0)
                               & (np.asarray(n_new) > 0)))
         self._stage(w, tokens, start, n_new, samp, slot)
+        captured_s = 0.0
         if not self.graphed:
             tok, logp = self._run(params, arena, w, sampled)
             if w.tok is None:
                 w.tok, w.logp = torch.empty_like(tok), torch.empty_like(logp)
             w.tok.copy_(tok)
             w.logp.copy_(logp)
-            return w.tok, w.logp
-        g = w.graphs.get(sampled)
-        if g is None:
-            g = w.graphs[sampled] = self._capture(params, arena, w, sampled)
-        g.graph.replay()
-        _add_tallies(g.tally)
-        self.replays += 1
-        return g.tok, g.logp
+            out = w.tok, w.logp
+        else:
+            g = w.graphs.get(sampled)
+            if g is None:
+                tc = time.perf_counter()
+                g = w.graphs[sampled] = self._capture(params, arena, w,
+                                                      sampled)
+                captured_s = time.perf_counter() - tc
+                self._grew(c, captured_s)
+            g.graph.replay()
+            _add_tallies(g.tally)
+            self.replays += 1
+            out = g.tok, g.logp
+        if capture:
+            self._record(key, t0, captured_s)
+        return out
 
 
-class PageOps:
+class PageOps(_CostTables):
     """``apply_page_ops`` of a step set: the host block tables and the
     round's page copies go up in one copy without blocking the host (as
     the step inputs do), then the copies run and the tables are written
     into every group's ``block_tbl``. At most ``max_slots`` copies a call
     (the JAX engine's batch; the engine drains more in extra calls); a
-    call with none runs no copy."""
+    call with none runs no copy. Under ``obs.costs`` capture its calls
+    land in the ``call`` row, with no count."""
 
     def __init__(self, max_slots: int, max_pages_per_seq: int,
                  device: torch.device):
+        self._init_cost_tables("apply_page_ops", device)
         self.slots = max_slots
         self.n_tbl = max_slots * max_pages_per_seq
         self.shape = (max_slots, max_pages_per_seq)
         self.upload = _Upload((self.n_tbl + 2 * max_slots,), device)
 
     def __call__(self, arena: dict, tables, copies=()) -> dict:
+        capture = obs_costs.capture_enabled()
+        t0 = time.perf_counter()
         copies = list(copies)
         if len(copies) > self.slots:
             raise ValueError(f"{len(copies)} page copies in one call; at "
@@ -423,10 +520,15 @@ class PageOps:
         dev = self.upload.send()
         tables_dev = dev[:self.n_tbl].view(self.shape)
         if not copies:
-            return apply_page_ops(arena, tables_dev)
-        return apply_page_ops(arena, tables_dev,
-                              dev[self.n_tbl:self.n_tbl + self.slots],
-                              dev[self.n_tbl + self.slots:])
+            apply_page_ops(arena, tables_dev)
+        else:
+            apply_page_ops(arena, tables_dev,
+                           dev[self.n_tbl:self.n_tbl + self.slots],
+                           dev[self.n_tbl + self.slots:])
+        if capture:
+            self.cost_by_key.setdefault("call", {"flops": 0.0, "bytes": 0.0})
+            self._record("call", t0)
+        return arena
 
 
 @dataclasses.dataclass(frozen=True)
@@ -510,6 +612,7 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
                          samp, sampled=sampled, **kw)
 
     common = dict(widths=widths, device=dev, cuda_graphs=cuda_graphs,
+                  work=functools.partial(obs_costs.step_work, cfg),
                   pool=pool, stream=stream)
     return PagedServeSteps(
         cfg=cfg, page=page, n_pages=n_pages, max_slots=max_slots,

@@ -810,3 +810,132 @@ def test_engine_cache_and_speculative_graphed_eager_pipelined_match(gen):
                 assert eng.stats.spec_rounds > 0
             for fn in (eng.step_set.step, eng.step_set.solo_step):
                 assert fn.captures <= len(fn.widths)
+
+
+# ---------------------------------------------------------------------------
+# observability on the card: spans, readback, cost capture
+# ---------------------------------------------------------------------------
+def _obs_requests():
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(4)
+    return [Request(uid=i, prompt=rng.integers(2, 1024, int(n)).astype(
+        np.int32), max_new_tokens=int(m))
+        for i, (n, m) in enumerate(zip(rng.integers(3, 60, 7),
+                                       rng.integers(2, 12, 7)))]
+
+
+def test_traced_graphed_engine_matches_untraced(gen):
+    """A graphed engine with an enabled tracer and its own registry gives
+    the untraced engine's tokens; the trace holds one ``round`` span and
+    one ``req/first_token`` per request, and the registry the run's
+    rounds."""
+    from repro_torch.obs.metrics import Registry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = _graph_model()
+    plain = ServeEngine(cfg, params, slots=3, max_len=64, page_size=16,
+                        device="cuda").run(_obs_requests())
+    for pipelined in (False, True):
+        trc, reg = Tracer(), Registry()
+        eng = ServeEngine(cfg, params, slots=3, max_len=64, page_size=16,
+                          device="cuda", pipelined=pipelined, tracer=trc,
+                          metrics=reg)
+        out = eng.run(_obs_requests())
+        assert [r.out_tokens for r in out] == [r.out_tokens for r in plain]
+        names = [e["name"] for e in trc.events]
+        assert names.count("round") == eng.stats.rounds
+        assert sorted(e["args"]["uid"] for e in trc.events
+                      if e["name"] == "req/first_token") == list(range(7))
+        assert reg.counter("serve_rounds_total").value() == eng.stats.rounds
+
+
+def test_device_step_span_covers_the_readback(gen, monkeypatch):
+    """On the card ``round/device_step`` closes after the readback event:
+    the spans' sum is at least the CUDA-event time of the graph replays
+    they launched (a span closed at the enqueue would hold ~0.1 ms a
+    round)."""
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = _graph_model()
+    trc = Tracer()
+    eng = ServeEngine(cfg, params, slots=3, max_len=64, page_size=16,
+                      device="cuda", tracer=trc)
+    eng.run(_obs_requests())                       # captures every width
+    trc.clear()
+    timed = []
+    replay = torch.cuda.CUDAGraph.replay
+
+    def timed_replay(self):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        replay(self)
+        b.record()
+        timed.append((a, b))
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", timed_replay)
+    eng.run(_obs_requests())
+    torch.cuda.synchronize()
+    assert len(timed) == eng.stats.rounds == eng.stats.graph_replays
+    replay_ms = sum(a.elapsed_time(b) for a, b in timed)
+    span_ms = sum(e["dur"] for e in trc.events
+                  if e["name"] == "round/device_step") / 1e3
+    assert span_ms >= replay_ms > 0, (span_ms, replay_ms)
+
+
+def test_cost_captured_run_attributes_one_dispatch_per_round(gen):
+    from repro_torch.obs import costs as obs_costs
+    from repro_torch.obs.metrics import Registry
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = _graph_model()
+    prev = obs_costs.enable_capture()
+    try:
+        for pipelined in (False, True):
+            eng = ServeEngine(cfg, params, slots=3, max_len=64,
+                              page_size=16, device="cuda",
+                              pipelined=pipelined, metrics=Registry())
+            eng.run(_obs_requests())
+            eng.run(_obs_requests())               # warm: no capture
+            assert eng.stats.graph_captures == 0
+            rows = [r for r in eng.last_cost_report.fns
+                    if r.fn in ("step", "solo_step")]
+            assert sum(r.calls for r in rows) == eng.stats.rounds
+            assert all(r.captured and r.drift > 1 for r in rows)
+    finally:
+        obs_costs.enable_capture(prev)
+
+
+@pytest.mark.parametrize("capture", [False, True], ids=["trace",
+                                                        "trace+cost"])
+def test_step_reads_nothing_back_with_the_tracer_on(gen, capture):
+    """The graphed step (replay) and the eager step under the sync
+    debugger with the process tracer on, and with cost capture on (whose
+    timed window closes with ``torch.cuda.synchronize()``)."""
+    import numpy as np
+    from repro_torch.obs import costs as obs_costs
+    from repro_torch.obs import trace as obs_trace
+    cfg, params = _graph_model()
+    trc = obs_trace.Tracer()
+    prev_t = obs_trace.set_tracer(trc)
+    prev_c = obs_costs.enable_capture(capture)
+    try:
+        for graphs in (False, True):
+            sset, arena = _step_set(cfg, graphs)
+            z = np.zeros(4, np.int32)
+            args = (params, np.zeros((4, 1), np.int32), arena, z,
+                    np.array([1, 1, 0, 0], np.int32), samplib.lane_inputs(4))
+            sset.step(*args)                       # capture / create
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sset.step(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    finally:
+        obs_trace.set_tracer(prev_t)
+        obs_costs.enable_capture(prev_c)
+    assert [e for e in trc.events if e["name"] == "jit/compile"]
+    assert bool([e for e in trc.events if e["name"] == "cost/step"]) \
+        == capture

@@ -1,7 +1,7 @@
 """The port's serving CLI on the CPU: the sampling, prefix-cache and
 speculative flags run through to the engine with the JAX CLI's meanings;
-the sharding, tracing, metrics, profiling and cost-report flags are
-refused."""
+the sharding flags are refused (the tracing, metrics, profiling and
+cost-report flags run: ``tests/test_torch_obs.py``)."""
 import pytest
 
 from repro_torch.launch import serve as serve_cli
@@ -28,9 +28,7 @@ def test_cli_runs_sampled_cached_speculative(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--data-shards", "2"], ["--model-shards", "2"],
-    ["--trace-out", "t.json"], ["--metrics-out", "m.json"],
-    ["--profile", "prof"], ["--cost-report"]])
+    ["--data-shards", "2"], ["--model-shards", "2"]])
 def test_cli_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         serve_cli.main(SMALL + flag)
