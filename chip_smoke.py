@@ -9,7 +9,9 @@ Phases (each prints its own lines; any failure exits nonzero):
   2. build    — nvcc builds the kernels from ``src/repro_torch/csrc``;
   3. kernels  — each kernel against its plain PyTorch version on the card,
                 at the main path's shapes (attention also over bf16 q and
-                bf16 pages), with its time, the plain
+                bf16 pages, and at hymba-1.5b's: G = 5, window 1024,
+                decode at kv_len 2048 and a 128-token chunk past position
+                1024), with its time, the plain
                 version's, a library call's (yardstick only; the
                 kernel/library ratio is what compares across cards) and
                 its bound; the decode-width qmm also at M=64 (eight M
@@ -61,6 +63,24 @@ Phases (each prints its own lines; any failure exits nonzero):
                 and the median ratio; (v) the serving CLI at full width
                 with --trace-out, --metrics-out, --cost-report and
                 --profile into build/obs, with the files' sizes;
+  4h. hybrid  — hybrid and SSM stacks at full width, random weights from
+                the seed, QMC PTQ with rho 0.3 on the card, the serve
+                phase's 8 requests and engine settings: hymba-1.5b (32
+                layers, d 1600, 25/5 heads, window 1024, d_state 128)
+                eager, graphed and graphed+pipelined, and mamba2-370m (48
+                layers, d 1024, attention-free) eager and graphed, each
+                run once to capture and once measured; tokens identical
+                across the runs of an arch; attention launched in every
+                hymba run and the decode and column-strip qmm in every
+                mamba2 run, on replay too; qmm's "ref" path exactly the
+                calls qmm_plan sends there (hymba's 1600 x 5504 w_up /
+                w_gate: K = 1600 does not tile); one eager step under the
+                sync debugger; torch.profiler's busy time by kernel over a
+                decode window of (b); the decode round by part (the "ref"
+                qmm, the dense projections, the Mamba2 mixers), each part
+                one timed CUDA graph; one whole step through the kernels
+                against the plain versions (logits within 1e-3 x
+                max|logits|);
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -143,6 +163,8 @@ PTQ_METHODS = [("fp16", "fp16", False), ("rtn4", "rtn4", False),
                ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False)]
 TOL_QMM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|y|
 ATT_ATOL, ATT_RTOL = 1e-5, 1e-4
+HYMBA_DECODE = "hymba decode kv_len<=2048 G=5 win 1024"
+HYMBA_CHUNK = "hymba chunk S=128 pos>1024 G=5 win 1024"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -384,17 +406,21 @@ def make_attn_case(lanes, *, n_kv, g, hd, page, quantized, gen,
 
 
 def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
-    """Bytes each input/output moves once (the live pages of this data),
-    and the QK + PV FLOPs of its live (unmasked) score entries."""
+    """Bytes each input/output moves once (the pages this data's queries
+    see: all live pages, or under a window those it reaches), and the QK +
+    PV FLOPs of its live (unmasked) score entries."""
     b, s, h, _ = q.shape
-    keys = 0
+    keys = pages = 0
     for qs, nn in zip(q_start.tolist(), n_new.tolist()):
         for t in range(nn):
             vis = qs + t + 1
             keys += min(vis, window) if window else vis
+        if nn:
+            lo = max(0, qs - window + 1) if window else 0
+            pages += (qs + nn - 1) // page - lo // page + 1
     return rl.attention_work(
         lanes=b, s=s, n_heads=h, n_kv=n_kv, hd=hd, page=page,
-        pages=sum(live), keys=keys, tbl_entries=cache["block_tbl"].numel(),
+        pages=pages, keys=keys, tbl_entries=cache["block_tbl"].numel(),
         q_itemsize=q.element_size(),
         kv_itemsize=cache["k_pages"].element_size(),
         kv_scaled="k_scale_pages" in cache)
@@ -403,8 +429,10 @@ def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
 def check_attention(timer, peak, gen, rows):
     """The attention kernel at the serve phase's shapes (hd 64, 32 KV
     heads, 4 lanes, page 16) over fp32, int8 and bf16 pages (bf16 q with
-    bf16 pages, the arena of a bf16 model), against its plain version on
-    the same inputs."""
+    bf16 pages, the arena of a bf16 model), and at hymba-1.5b's (5 KV
+    heads of 25 query heads, G = 5, its 1024-token window, kv_len up to
+    2048) over fp32 and bf16 pages, against its plain version on the same
+    inputs."""
     bw, fl, _ = peak
     hd, page, b = 64, 16, 4
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
@@ -425,6 +453,13 @@ def check_attention(timer, peak, gen, rows):
              ("chunk S=128", chunk, 32, 1, "bfloat16", None, None),
              ("chunk S=128 window+softcap G=2", chunk, 16, 2, "float32", 32,
               50.0)]
+    # hymba-1.5b: a decode round at kv_len 2048 and a 128-token chunk past
+    # position 1024, both over its sliding window
+    hymba_decode = [(2047, 1), (1800, 1), (1030, 1), (0, 0)]
+    hymba_chunk = [(1100, 128), (1500, 100), (2047, 1), (0, 0)]
+    for dt in ("float32", "bfloat16"):
+        cases += [(HYMBA_DECODE, hymba_decode, 5, 5, dt, 1024, None),
+                  (HYMBA_CHUNK, hymba_chunk, 5, 5, dt, 1024, None)]
     for label, lanes, n_kv, g, dt, window, cap in cases:
         q, cache, qs, kl, n_new, live = make_attn_case(
             lanes, n_kv=n_kv, g=g, hd=hd, page=page,
@@ -462,7 +497,10 @@ def check_attention(timer, peak, gen, rows):
         pq = qs[:, None] + torch.arange(s, device="cuda")[None, :]
         pk = torch.arange(t, device="cuda")
         mask = ((pk[None, None, :] <= pq[..., None])
-                & (pk[None, None, :] < kl[:, None, None]))[:, None]
+                & (pk[None, None, :] < kl[:, None, None]))
+        if window is not None:
+            mask = mask & (pq[..., None] - pk[None, None, :] < window)
+        mask = mask[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_ms = timer(lambda: sdpa(qh, kh, vh, attn_mask=mask))
         nbytes, flops = attn_cost(q, cache, qs, n_new, live, n_kv=n_kv,
@@ -472,7 +510,7 @@ def check_attention(timer, peak, gen, rows):
                          dtype=dt, max_abs_err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernels] attention {label:31s} {dt:8s} err={err:.2e} "
+        print(f"[kernels] attention {label:38s} {dt:8s} err={err:.2e} "
               f"ms={ms:.4f} host={host_ms:.4f} plain={plain_ms:.4f} "
               f"sdpa={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
               f"bound={b_ms:.4f} ({b_by})")
@@ -505,10 +543,14 @@ def serve_engine(cfg, qparams, **kw):
                        device="cuda", **kw)
 
 
-def serve(cfg, qparams, seed: int, label: str, **kw):
+def serve(cfg, qparams, seed: int, label: str, kernels=SERVE_KERNELS,
+          ref_per_call: int = 0, tag: str = "serve", **kw):
     """One serve configuration on 8 requests: a first run (the graphs are
     captured there), then the measured run of the same requests, with the
-    launch counts set to 0 just before it and read just after."""
+    launch counts set to 0 just before it and read just after. Each of
+    ``kernels`` must have launched; qmm's "ref" path must have run exactly
+    ``ref_per_call`` times a step call (the QTensor leaves ``qmm_plan``
+    sends there), so never on a model whose every stream tiles."""
     eng = serve_engine(cfg, qparams, **kw)
     eng.run(make_requests(cfg, 8, seed))
     torch.cuda.synchronize()
@@ -528,11 +570,14 @@ def serve(cfg, qparams, seed: int, label: str, **kw):
         require(DEAD_TOKEN not in r.out_tokens and all(
             0 <= t < cfg.vocab for t in r.out_tokens),
             f"{label}: request {r.uid} emitted an impossible token")
-    for k in SERVE_KERNELS:
+    for k in kernels:
         require(launches[k] > 0, f"{label}: kernel {k} never launched on "
                 f"the serving path")
-    require(paths["ref"] == 0, f"{label}: qmm took the plain 'ref' path "
-            f"{paths['ref']} times on the serving path")
+    ref_want = ref_per_call * s.rounds
+    require(paths["ref"] == ref_want, f"{label}: qmm took the plain 'ref' "
+            f"path {paths['ref']} times on the serving path, where "
+            f"qmm_plan sends {ref_per_call} calls a step x {s.rounds} "
+            f"rounds = {ref_want}")
     sset = eng.step_set
     surface = len(sset.step.widths)
     captures = first.graph_captures + s.graph_captures
@@ -546,20 +591,23 @@ def serve(cfg, qparams, seed: int, label: str, **kw):
                 f"graphs and replayed {s.graph_replays}")
     ttft = float(np.percentile(s.ttft_s, 50)) * 1e3
     round_ms = np.asarray(s.step_seconds) * 1e3
-    print(f"[serve] {label}: {s.tokens_out} tokens, {s.rounds} rounds "
+    print(f"[{tag}] {label}: {s.tokens_out} tokens, {s.rounds} rounds "
           f"({s.prefill_chunks} prefill chunks, {s.decode_steps} decode "
           f"rounds), {s.wall_s:.3f}s, {s.tokens_per_s:.1f} tok/s, round ms "
           f"p50 {np.median(round_ms):.2f} max {round_ms.max():.2f} (wall "
           f"per round {s.wall_s / s.rounds * 1e3:.2f}), TTFT "
           f"p50 {ttft:.1f} ms, preemptions {s.preemptions}")
-    print(f"[serve] {label}: graphs captured {captures} (of a surface of "
+    print(f"[{tag}] {label}: graphs captured {captures} (of a surface of "
           f"{surface} widths x 2 callables; {first.capture_s:.2f}s), "
           f"replays {s.graph_replays}, graph pool {sset.pool_bytes} bytes; "
           f"solo rounds {s.solo_rounds}, pipelined {s.pipelined_rounds}, "
           f"drains {s.pipeline_barriers}, lag-trimmed tokens "
           f"{s.lag_trimmed_tokens}; first run {first.tokens_per_s:.1f} "
           f"tok/s")
-    print(f"[serve] {label}: kernel launches {launches}; qmm paths {paths}")
+    print(f"[{tag}] {label}: kernel launches {launches}; qmm paths {paths}"
+          + (f" (ref = {ref_per_call} K % 128 != 0 leaf calls a step x "
+             f"{s.rounds} rounds, as qmm_plan predicts)" if ref_per_call
+             else ""))
     out = dict(tokens=s.tokens_out, rounds=s.rounds, wall_s=s.wall_s,
                tokens_per_s=s.tokens_per_s, ttft_p50_ms=ttft,
                round_ms_p50=float(np.median(round_ms)),
@@ -575,7 +623,7 @@ def serve(cfg, qparams, seed: int, label: str, **kw):
     return out, [r.out_tokens for r in reqs], eng
 
 
-def check_no_host_sync(eng, samp=None):
+def check_no_host_sync(eng, samp=None, tag="serve"):
     """One eager step of the step set under
     ``torch.cuda.set_sync_debug_mode("error")``: nothing in the step may
     read the device from the host (what stream capture forbids). Every
@@ -600,7 +648,7 @@ def check_no_host_sync(eng, samp=None):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"[serve{'' if n_new[0] == 0 else '-x'}] one eager step "
+    print(f"[{tag}{'' if n_new[0] == 0 else '-x'}] one eager step "
           f"{'' if n_new[0] == 0 else 'with sampled lanes seated '}under "
           f"set_sync_debug_mode('error'): no read of the device from the "
           f"host")
@@ -614,7 +662,8 @@ def decode_requests(cfg, seed: int):
         np.int32), max_new_tokens=48) for i in range(4)]
 
 
-def idle_share(eng, cfg, seed: int, label: str):
+def idle_share(eng, cfg, seed: int, label: str, top: int = 6,
+               tag: str = "idle"):
     """The device's idle share over a steady decode window of this engine
     (warm: a first run captures what it needs): ``torch.profiler`` with
     CPU and CUDA activity; busy = the union of the device activity
@@ -655,7 +704,7 @@ def idle_share(eng, cfg, seed: int, label: str):
         busy += cur1 - cur0
     source = "torch.profiler"
     if busy <= 0:
-        print(f"[idle] {label}: the profiler shows no device time; timing "
+        print(f"[{tag}] {label}: the profiler shows no device time; timing "
               f"the C = 1 step with CUDA events instead")
         source = "cuda events"
         sset = eng.step_set
@@ -676,17 +725,17 @@ def idle_share(eng, cfg, seed: int, label: str):
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             kern[e.key] = kern.get(e.key, 0.0) + e.self_device_time_total
-    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:top]
     share = 1.0 - busy / wall_us
     plain_share = 1.0 - busy / plain_wall_us
-    print(f"[idle] {label}: {s.rounds} rounds ({s.decode_steps} decode) in "
+    print(f"[{tag}] {label}: {s.rounds} rounds ({s.decode_steps} decode) in "
           f"{wall_us / 1e3:.2f} ms under the profiler, device busy "
           f"{busy / 1e3:.2f} ms ({source}), idle share {share:.4f}, round "
           f"ms p50 {np.median(s.step_seconds) * 1e3:.2f}; without the "
           f"profiler {plain_wall_us / 1e3:.2f} ms, round ms p50 "
           f"{plain_p50:.2f}, idle share {plain_share:.4f}")
     for name, us in top:
-        print(f"[idle] {label}:   {us / 1e3:9.3f} ms  {name[:90]}")
+        print(f"[{tag}] {label}:   {us / 1e3:9.3f} ms  {name[:90]}")
     return dict(rounds=s.rounds, wall_ms=wall_us / 1e3,
                 busy_ms=busy / 1e3, idle_share=share, source=source,
                 round_ms_p50=float(np.median(s.step_seconds) * 1e3),
@@ -1053,7 +1102,7 @@ def serve_x_phase(cfg, qparams, seed: int, greedy_tokens, pool_b: int):
     return out
 
 
-def whole_step(cfg, qparams, seed: int):
+def whole_step(cfg, qparams, seed: int, tag: str = "step"):
     """Full-width steps from one arena, each run twice: through the
     kernels and through the plain versions. A mixed ragged step (decode,
     40-token chunk, decode, idle lane; M = 256, the column-strip qmm) and
@@ -1085,7 +1134,8 @@ def whole_step(cfg, qparams, seed: int):
 
     toks0 = rng.integers(2, cfg.vocab, size=(slots, 128)).astype(np.int64)
     run(toks0, np.zeros(slots, np.int64), first, True, arena)
-    arena_plain = {k: {"attn": {n: t.clone() for n, t in v["attn"].items()}}
+    arena_plain = {k: {part: {n: t.clone() for n, t in leaves.items()}
+                       for part, leaves in v.items()}
                    for k, v in arena.items()}
     out = {}
     start = first
@@ -1100,7 +1150,7 @@ def whole_step(cfg, qparams, seed: int):
         scale = lp[live].abs().max().item()
         require(diff <= 1e-3 * scale, f"{label}: logits differ by "
                 f"{diff:.3e} > 1e-3 * max|logits| = {1e-3 * scale:.3e}")
-        print(f"[step] {label} (C={c}, n_new={n_new.tolist()}): "
+        print(f"[{tag}] {label} (C={c}, n_new={n_new.tolist()}): "
               f"max|logits diff| {diff:.3e} vs 1e-3 * max|logits| "
               f"{1e-3 * scale:.3e}")
         out[label] = dict(max_abs_diff=diff, max_abs_logit=scale)
@@ -1381,6 +1431,185 @@ def obs_phase(cfg, qparams, seed: int, ref_tokens, idle):
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: hybrid and SSM stacks at full width
+# ---------------------------------------------------------------------------
+def ssm_model(arch: str, seed: int):
+    """A hybrid or SSM arch at its published width: random weights from
+    the seed, QMC PTQ with rho 0.3 on the card."""
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    qparams = quantize_for_serving(params, QMCConfig(
+        rho=0.3, granularity="subtile"), min_dim=64)
+    del params
+    torch.cuda.synchronize()
+    print(f"[hybrid] {arch} full width ({cfg.n_layers} layers, pattern "
+          f"{cfg.pattern}, d {cfg.d_model}, heads {cfg.n_heads}/"
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, d_state "
+          f"{cfg.d_state}, window {cfg.window}): init + QMC PTQ on the card "
+          f"in {time.monotonic() - t0:.1f}s")
+    return cfg, qparams
+
+
+def qmm_plan_calls(qparams):
+    """Per step call, the QTensor matmuls ``kernels.ops.qmm_plan`` sends to
+    the plain "ref" path (K or N not a multiple of 128) and to a kernel,
+    with the shapes of each kind."""
+    calls = {"ref": 0, "kernel": 0}
+    shapes = {"ref": set(), "kernel": set()}
+    for qt in qtensors(qparams):
+        k, n = qt.shape
+        kind = ("ref" if kops.qmm_plan(8, k, n, qt.subtile)["path"] == "ref"
+                else "kernel")
+        calls[kind] += 1
+        shapes[kind].add(f"{k}x{n}")
+    return calls, {k: sorted(v) for k, v in shapes.items()}
+
+
+def graph_ms(fn, runs: int = 20) -> float:
+    """Device ms of ``fn`` captured into one CUDA graph (warm on a side
+    stream first), the median of ``runs`` timed replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del graph
+    return float(np.median(times))
+
+
+def decode_round_parts(cfg, qparams, lanes: int = 4) -> dict:
+    """A C = 1 round's work at ``lanes`` lanes, by part, each part the
+    calls of one round captured into a CUDA graph and timed: the QTensor
+    leaves on qmm's "ref" path (dequantize, then one matmul), the dense
+    projections and the head, the Mamba2 mixers whole (state rows of
+    spare tensors) and their two projections alone."""
+    from repro_torch.models.model import group_slice
+    from repro_torch.models.ssm import mamba_block
+    dev = qparams["embed"]["tok"].device
+    xs = {}
+
+    def x(k):
+        if k not in xs:
+            xs[k] = torch.randn((lanes, k), device=dev)
+        return xs[k]
+
+    qts, dense = [], []
+    for blk in qparams["blocks"].values():
+        for part in ("attn", "mamba", "ffn"):
+            for name, leaf in blk.get(part, {}).items():
+                if name in ("in_proj", "out_proj", "wq", "wk", "wv", "wo",
+                            "w_up", "w_gate", "w_down"):
+                    for g in range(cfg.n_groups):
+                        (qts if isinstance(leaf, list) else dense).append(
+                            leaf[g])
+    head = (qparams["embed"]["tok"].T if cfg.tie_embeddings
+            else qparams["lm_head"])
+    (qts if isinstance(head, QTensor) else dense).append(head)
+    ref = [q for q in qts
+           if kops.qmm_plan(lanes, *q.shape, q.subtile)["path"] == "ref"]
+    out = dict(ref_calls=len(ref), dense_calls=len(dense))
+    out["ref_ms"] = graph_ms(lambda: [kops.qmm(x(q.shape[0]), q)
+                                      for q in ref]) if ref else 0.0
+    out["dense_ms"] = graph_ms(lambda: [torch.matmul(x(w.shape[0]), w)
+                                        for w in dense])
+    mixers = [(group_slice(blk["mamba"], g))
+              for blk in qparams["blocks"].values() if "mamba" in blk
+              for g in range(cfg.n_groups)]
+    if mixers:
+        h = torch.randn((lanes, 1, cfg.d_model), device=dev)
+        cache = {"ssm": torch.zeros((lanes, cfg.ssm_nheads,
+                                     cfg.ssm_headdim, cfg.d_state),
+                                    device=dev),
+                 "conv": torch.zeros((lanes, cfg.d_conv - 1, cfg.conv_dim),
+                                     device=dev)}
+        valid = torch.ones(lanes, dtype=torch.int32, device=dev)
+        out["mixer_calls"] = len(mixers)
+        out["mixer_ms"] = graph_ms(lambda: [
+            mamba_block(p, h, cfg, cache=cache, valid_len=valid)
+            for p in mixers])
+        out["mixer_proj_ms"] = graph_ms(lambda: [
+            (torch.matmul(x(cfg.d_model), p["in_proj"]),
+             kops.qmm(x(cfg.d_inner), p["out_proj"])
+             if isinstance(p["out_proj"], QTensor)
+             else torch.matmul(x(cfg.d_inner), p["out_proj"]))
+            for p in mixers])
+    return out
+
+
+def hybrid_arch(arch: str, seed: int, runs, kernels, breakdown: bool):
+    """One hybrid or SSM arch at full width through the serve runs
+    ``runs`` (identical tokens), the sync-debugger step, the profiler over
+    a decode window of (b), the decode round by part, and one whole step
+    through the kernels against the plain versions."""
+    cfg, qparams = ssm_model(arch, seed)
+    calls, shapes = qmm_plan_calls(qparams)
+    n_g = cfg.n_groups
+    print(f"[hybrid] {arch}: QTensor matmuls a step call: {calls['ref']} on "
+          f"qmm's 'ref' path (K or N not a multiple of 128: "
+          f"{shapes['ref']}), {calls['kernel']} on a kernel "
+          f"({shapes['kernel']}); {n_g} groups")
+    out, toks = {}, {}
+    for label, kw in runs:
+        out[label], toks[label], eng = serve(
+            cfg, qparams, seed, f"{arch} {label}", kernels=kernels,
+            ref_per_call=calls["ref"], tag="hybrid", **kw)
+        if label.startswith("a"):
+            check_no_host_sync(eng, tag="hybrid")
+        if label.startswith("b"):
+            out["idle"] = idle_share(eng, cfg, seed, f"{arch} {label}",
+                                     top=12, tag="hybrid")
+        del eng
+        torch.cuda.empty_cache()
+    ref = toks[runs[0][0]]
+    for label, _ in runs[1:]:
+        require(toks[label] == ref, f"hybrid {arch}: {label} tokens differ "
+                f"from the eager run's")
+    print(f"[hybrid] {arch}: identical tokens in the "
+          + ", ".join(label for label, _ in runs) + " runs")
+    if breakdown:
+        parts = decode_round_parts(cfg, qparams)
+        busy = out["idle"]["busy_ms"] / out["idle"]["rounds"]
+        print(f"[hybrid] {arch} decode round by part (4 lanes, C = 1, each "
+              f"part one CUDA graph; ms): qmm 'ref' {parts['ref_calls']} "
+              f"calls {parts['ref_ms']:.3f}; dense fp32 projections and "
+              f"head {parts['dense_calls']} matmuls "
+              f"{parts['dense_ms']:.3f}; Mamba2 mixers "
+              f"{parts.get('mixer_calls', 0)} whole "
+              f"{parts.get('mixer_ms', 0.0):.3f}, their in/out "
+              f"projections {parts.get('mixer_proj_ms', 0.0):.3f}; "
+              f"profiler busy per round of (b)'s window {busy:.3f}")
+        out["parts"] = parts
+    out["step"] = whole_step(cfg, qparams, seed, tag="hybrid")
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(seed: int) -> dict:
+    """hymba-1.5b (a, b, c) and mamba2-370m (a, b) at full width."""
+    return {"hymba-1.5b": hybrid_arch(
+                "hymba-1.5b", seed, SERVE_RUNS,
+                ("ragged_paged_attention",), breakdown=True),
+            "mamba2-370m": hybrid_arch(
+                "mamba2-370m", seed, SERVE_RUNS[:2],
+                ("qmm_decode", "qmm_colstrip"), breakdown=True)}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the PTQ entry point at full width
 # ---------------------------------------------------------------------------
 def check_unpack3b(timer, peak, gen, rows):
@@ -1527,12 +1756,14 @@ def fig4_rows(arch: str = "hymba-1.5b", seq: int = 1024):
 
 
 # ---------------------------------------------------------------------------
-def summary(rows, launches, bw_name):
+def summary(rows, launches, bw_name, hymba_attn_launches: int):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
     lm_head's inlier stream); ``launches`` per kernel from the run of the
-    path it serves (the serving kernels: the graphed run (b))."""
+    path it serves (the serving kernels: the graphed run (b)). Then the
+    attention rows at hymba-1.5b's shapes (G = 5, window 1024; fp32 and
+    bf16 pages), with the launches of the hybrid phase's graphed run."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -1561,6 +1792,21 @@ def summary(rows, launches, bw_name):
                     "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"],
                     "shape": f"{shape} {dtype}", "peaks": bw_name})
+    src, rep = meta["ragged_paged_attention"]
+    for row in rows:
+        if row["shape"] in (HYMBA_DECODE, HYMBA_CHUNK):
+            out.append({"name": f"ragged_paged_attention "
+                                f"[{row['shape']} {row['dtype']}]",
+                        "route": "cuda", "source": src, "replaces": rep,
+                        "launches": hymba_attn_launches,
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "host_ms": row["host_ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"],
+                        "shape": f"{row['shape']} {row['dtype']}",
+                        "peaks": bw_name})
     return out
 
 
@@ -1619,6 +1865,7 @@ def main(argv=None) -> int:
                              served["runs"]["b graphed"]["pool_bytes"])
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
                          served["idle"])
+    hybrid = hybrid_phase(args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -1641,11 +1888,13 @@ def main(argv=None) -> int:
 
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
-    kernels = summary(rows, launches, peak_name)
+    kernels = summary(rows, launches, peak_name, hybrid["hymba-1.5b"][
+        "b graphed"]["launches"]["ragged_paged_attention"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
-        serve=served, serve_x=extended, obs=observed, step=stepped,
+        serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
+        step=stepped,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

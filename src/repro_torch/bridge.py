@@ -9,9 +9,12 @@ stack dims (a stacked one-shard ``ShardedQTensor``); it becomes one
 :class:`QTensor` or a per-group list of them. Dense leaves become
 tensors, group-stacked leaves keep their ``[G, ...]`` layout.
 
-``arena_from_numpy`` / ``arena_to_numpy`` move the paged arena. numpy has
-no bfloat16, so int8 scale leaves (``*_scale_pages``) travel as float32
-and are cast back to bfloat16 on the way in (exact: they were bf16).
+``arena_from_numpy`` / ``arena_to_numpy`` move the paged arena, with the
+dense SSM (``ssm``, always fp32) and conv rows of mamba and hybrid
+blocks. numpy has no bfloat16, so int8 scale leaves (``*_scale_pages``)
+travel as float32 and are cast back to bfloat16 on the way in (exact:
+they were bf16); so do the pages and ``conv`` rows of a bf16 arena, cast
+back to the ``cache_dtype`` the caller names.
 """
 from __future__ import annotations
 
@@ -69,8 +72,10 @@ def params_from_numpy(tree, device="cuda"):
     return walk(tree)
 
 
-def arena_from_numpy(tree, device="cuda"):
-    """The paged arena from nested dicts of numpy arrays (JAX layout)."""
+def arena_from_numpy(tree, device="cuda", cache_dtype=None):
+    """The paged arena from nested dicts of numpy arrays (JAX layout);
+    ``cache_dtype`` (e.g. ``torch.bfloat16``) is the dtype of the float
+    K/V pages and conv rows, when they travelled widened."""
     dev = resolve_device(device)
 
     def walk(node, name=""):
@@ -79,6 +84,9 @@ def arena_from_numpy(tree, device="cuda"):
         t = torch.tensor(np.asarray(node)).to(dev)
         if name.endswith("_scale_pages"):
             t = t.to(torch.bfloat16)
+        elif (cache_dtype is not None and t.is_floating_point()
+              and name in ("k_pages", "v_pages", "conv")):
+            t = t.to(cache_dtype)
         return t.contiguous()
     return walk(tree)
 

@@ -30,8 +30,8 @@ and an fp32 activation two (split hi + lo). The dense BF16 rate stands
 in the table for reference only: no kernel of the port issues bf16
 products.
 
-The work functions (``qmm_work``, ``matmul_work``, ``attention_work``)
-count each input read once and each output written once, and the
+The work functions (``qmm_work``, ``matmul_work``, ``attention_work``,
+``ssd_work``) count each input read once and each output written once, and the
 operations the function needs; ``chip_smoke.py``'s kernel bounds and
 ``obs/costs.py``'s per-width step count both call them, so the two
 cannot drift apart. HLO collective parsing, ``model_flops_for`` and
@@ -114,6 +114,29 @@ def attention_work(*, lanes: int, s: int, n_heads: int, n_kv: int,
         nbytes += 2 * pages * page * n_kv * 2
     nbytes += tbl_entries * 4 + 2 * lanes * 4
     return nbytes, 4.0 * hd * n_heads * keys
+
+
+def ssd_work(*, lanes: int, s: int, chunk: int, heads: int, headdim: int,
+             d_state: int, conv_rows: int, conv_dim: int,
+             conv_itemsize: int) -> Tuple[float, float]:
+    """(bytes, FLOPs) of one Mamba2 mixer's state update and scan over
+    ``lanes`` lanes of ``s`` tokens, between its two projections: each
+    lane's fp32 ``ssm`` state ``[heads, headdim, d_state]`` and its conv
+    rows ``[conv_rows, conv_dim]`` read and written once; at s = 1 the
+    recurrence (5 FLOPs per state element: decay, outer product, add, and
+    the read-out's multiply-add), above it the chunked scan at ``chunk``
+    (``models/ssm.py:chunk_for``), per chunk of L padded tokens and head
+    the scores (C B^T, 2 L^2 N), the masked product with x (2 L^2 P), the
+    incoming state's read-out and the state update (2 L N P each)."""
+    state = heads * headdim * d_state
+    nbytes = lanes * (2 * state * 4 + 2 * conv_rows * conv_dim
+                      * conv_itemsize)
+    if s == 1:
+        return nbytes, 5.0 * lanes * state
+    n_chunks = -(-s // chunk)
+    per_chunk = 2.0 * heads * chunk * (chunk * (d_state + headdim)
+                                       + 2 * d_state * headdim)
+    return nbytes, lanes * n_chunks * per_chunk
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,14 @@ the card, CUDA activity) and writes its Chrome trace under ``DIR``:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --trace-out t.json --metrics-out m.json --cost-report --profile p/
 
+Hybrid and SSM stacks serve through the same flags (``--arch hymba-1.5b``,
+``--arch mamba2-370m``; ``--reduced`` is the default, ``--no-reduced`` the
+full width); the features the engine refuses on them (``--prefix-cache``,
+``--speculative``) exit with the engine's message:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch hymba-1.5b
+
 The mesh flags (``--data-shards``, ``--model-shards``) are refused with
 an error instead of being ignored: the port has no mesh yet.
 """
@@ -136,6 +144,11 @@ def main(argv=None):
         obs_costs.enable_capture()
     try:
         return _serve(args)
+    except NotImplementedError as exc:
+        # a feature the engine refuses for this stack (the prefix cache or
+        # speculative decode on a hybrid / mamba stack): its message, no
+        # traceback
+        ap.error(str(exc))
     finally:
         if args.cost_report:
             obs_costs.enable_capture(False)
@@ -234,7 +247,8 @@ def _serve(args):
     if s.ttft_s:
         print(f"[serve] TTFT p50={np.percentile(s.ttft_s, 50) * 1e3:.1f}ms "
               f"p95={np.percentile(s.ttft_s, 95) * 1e3:.1f}ms")
-    if args.paged_attention and s.kv_pages_full:
+    if args.paged_attention and s.kv_pages_full \
+            and cfg.has_kind(("attn", "hybrid")):
         print(f"[serve] paged-attention kernel: {s.kv_pages_live} live "
               f"pages streamed vs {s.kv_pages_full} full-width")
     if args.prefix_cache:

@@ -1,8 +1,9 @@
-"""Block-level init/apply for the attention kinds with a dense FFN
-(counterpart of ``repro.models.blocks``).
+"""Block-level init/apply for the attention, mamba and parallel-hybrid
+kinds with a dense FFN (counterpart of ``repro.models.blocks``).
 
-A block = pre-norm attention mixer + residual, then (if the config has an
-FFN) pre-norm gated MLP + residual.
+A block = pre-norm mixer (attention, the Mamba2 SSD mixer, or both in
+parallel, fused as their mean) + residual, then (if the config has an
+FFN) pre-norm gated MLP + residual. MoE FFNs are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.models.attention import attn_block
 from repro_torch.models.layers import glu_mlp, rms_norm
+from repro_torch.models.ssm import mamba_block
 
 
 def _normal(gen, shape, std, device, dtype):
@@ -53,13 +55,47 @@ def init_mlp_params(gen, cfg, g: int, device, dtype=torch.float32) -> dict:
     return p
 
 
-def init_block(gen, kind: str, use_moe: bool, cfg, g: int, device,
-               dtype=torch.float32) -> dict:
-    if not kind.startswith("attn") or use_moe:
+def init_mamba_params(gen, cfg, g: int, device, dtype=torch.float32
+                      ) -> dict:
+    """Mamba2 mixer weights for ``g`` groups, stacked [g, ...], with the
+    reference's leaf names, layouts and scales: ``dt_bias`` is the inverse
+    softplus of a log-uniform dt in [1e-3, 1e-1]."""
+    d, di = cfg.d_model, cfg.d_inner
+    nh = cfg.ssm_nheads
+    in_dim = 2 * di + 2 * cfg.ssm_ngroups * cfg.d_state + nh
+    in_proj = _normal(gen, (g, d, in_dim), 1.0 / math.sqrt(d), device, dtype)
+    conv_w = _normal(gen, (g, cfg.conv_dim, cfg.d_conv),
+                     1.0 / math.sqrt(cfg.d_conv), device, dtype)
+    u = torch.rand((g, nh), generator=gen, device=device)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                   + math.log(0.001))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))      # inverse softplus
+    out_proj = _normal(gen, (g, di, d), 1.0 / math.sqrt(di * 2 * cfg.n_layers),
+                       device, dtype)
+    a_log = torch.log(torch.arange(1, nh + 1, dtype=torch.float32,
+                                   device=device))
+    return {"in_proj": in_proj, "conv_w": conv_w,
+            "a_log": a_log.expand(g, nh).clone(),
+            "d_skip": torch.ones((g, nh), device=device),
+            "dt_bias": dt_bias,
+            "norm_scale": torch.zeros((g, di), device=device),
+            "out_proj": out_proj}
+
+
+def _refuse_unported(kind: str, use_moe: bool) -> None:
+    if use_moe or not kind.startswith(("attn", "mamba", "hybrid")):
         raise NotImplementedError(
             f"block kind {kind!r} (moe={use_moe}) is not ported yet")
-    p = {"norm1": torch.zeros((g, cfg.d_model), device=device),
-         "attn": init_attn_params(gen, cfg, g, device, dtype)}
+
+
+def init_block(gen, kind: str, use_moe: bool, cfg, g: int, device,
+               dtype=torch.float32) -> dict:
+    _refuse_unported(kind, use_moe)
+    p = {"norm1": torch.zeros((g, cfg.d_model), device=device)}
+    if kind.startswith(("attn", "hybrid")):
+        p["attn"] = init_attn_params(gen, cfg, g, device, dtype)
+    if kind == "mamba" or kind.startswith("hybrid"):
+        p["mamba"] = init_mamba_params(gen, cfg, g, device, dtype)
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros((g, cfg.d_model), device=device)
         p["ffn"] = init_mlp_params(gen, cfg, g, device, dtype)
@@ -72,17 +108,27 @@ def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
                 use_kernels: bool = True,
                 paged_attention: bool = False) -> torch.Tensor:
     """One block, cache-less or over one group's paged cache (updated in
-    place)."""
-    if not kind.startswith("attn") or use_moe:
-        raise NotImplementedError(
-            f"block kind {kind!r} (moe={use_moe}) is not ported yet")
+    place). Attention takes ``valid_len`` as an absolute position bound;
+    the SSM mixer takes the count of valid columns in this window,
+    ``valid_len - positions[:, 0]``."""
+    _refuse_unported(kind, use_moe)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.window if kind.endswith("_local") else None
-    x = x + attn_block(p["attn"], h, cfg, positions=positions, window=window,
-                       cache=cache["attn"] if cache is not None else None,
-                       valid_len=valid_len,
-                       use_kernels=use_kernels,
-                       paged_attention=paged_attention)
+    mixes = []
+    if "attn" in p:
+        mixes.append(attn_block(
+            p["attn"], h, cfg, positions=positions, window=window,
+            cache=cache["attn"] if cache is not None else None,
+            valid_len=valid_len, use_kernels=use_kernels,
+            paged_attention=paged_attention))
+    if "mamba" in p:
+        ssm_valid = (valid_len - positions[:, 0]
+                     if valid_len is not None else None)
+        mixes.append(mamba_block(
+            p["mamba"], h, cfg,
+            cache=cache["mamba"] if cache is not None else None,
+            valid_len=ssm_valid, use_kernels=use_kernels))
+    x = x + (mixes[0] if len(mixes) == 1 else 0.5 * (mixes[0] + mixes[1]))
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         x = x + glu_mlp(h, p["ffn"], cfg.act, cfg.gated_mlp,

@@ -3,7 +3,10 @@ the paged half of ``repro.models.kvcache``).
 
 The arena is ``[n_pages, page, kv_dim]`` per layer group, addressed
 through per-sequence block tables; page 0 is the null page that inactive
-lanes and right padding write into and no live table maps.
+lanes and right padding write into and no live table maps. The SSM and
+conv state of mamba and hybrid blocks stays dense per slot beside it (it
+is O(1) in sequence length): ``ssm [G, slots, H, P, N]`` in fp32 and
+``conv [G, slots, K-1, conv_dim]`` in the cache dtype.
 """
 from __future__ import annotations
 
@@ -44,19 +47,43 @@ def paged_attn_cache(cfg, n_pages: int, page: int, max_slots: int,
     return c
 
 
+def _mamba_cache(cfg, batch: int, dtype, device, n_groups: int) -> dict:
+    """One block's dense per-slot SSM (always fp32) and conv state,
+    stacked over groups."""
+    g = n_groups
+    return {"ssm": torch.zeros((g, batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                                cfg.d_state), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((g, batch, cfg.d_conv - 1, cfg.conv_dim),
+                                dtype=dtype, device=device)}
+
+
+def paged_block_cache(cfg, kind: str, n_pages: int, page: int,
+                      max_slots: int, max_pages_per_seq: int, dtype,
+                      device, n_groups: int) -> dict:
+    """One block's cache by kind: attention K/V in the paged arena, SSM /
+    conv state dense per slot."""
+    c = {}
+    if kind.startswith(("attn", "hybrid")):
+        c["attn"] = paged_attn_cache(cfg, n_pages, page, max_slots,
+                                     max_pages_per_seq, dtype, device,
+                                     n_groups)
+    if kind == "mamba" or kind.startswith("hybrid"):
+        c["mamba"] = _mamba_cache(cfg, max_slots, dtype, device, n_groups)
+    if not c:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return c
+
+
 def paged_init_cache(cfg, n_pages: int, page: int, max_slots: int,
                      max_pages_per_seq: int, dtype=torch.bfloat16,
                      device="cuda") -> dict:
-    """Paged pool: ``{"b<i>": {"attn": {...}}}``, leaves with a leading
-    n_groups dim (the JAX layout). ``n_pages`` includes the null page.
-    Unquantized pages default to bf16, as the reference's do; the engines
-    name their dtype (fp32 by default)."""
-    out = {}
-    for i, kind in enumerate(cfg.pattern):
-        if not kind.startswith("attn"):
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (attention only)")
-        out[f"b{i}"] = {"attn": paged_attn_cache(
-            cfg, n_pages, page, max_slots, max_pages_per_seq, dtype,
-            device, cfg.n_groups)}
-    return out
+    """Paged pool: ``{"b<i>": {"attn": {...}, "mamba": {"ssm", "conv"}}}``
+    (the parts each block kind has), leaves with a leading n_groups dim
+    (the JAX layout). ``n_pages`` includes the null page. Unquantized
+    pages default to bf16, as the reference's do; the engines name their
+    dtype (fp32 by default)."""
+    return {f"b{i}": paged_block_cache(cfg, kind, n_pages, page, max_slots,
+                                       max_pages_per_seq, dtype, device,
+                                       cfg.n_groups)
+            for i, kind in enumerate(cfg.pattern)}

@@ -1,6 +1,6 @@
 """Top-level model API: ``init_params`` and ``forward``, cache-less or
-paged (counterpart of ``repro.models.model`` for decoder-only attention
-stacks).
+paged (counterpart of ``repro.models.model`` for decoder-only stacks of
+attention, Mamba2 and parallel-hybrid blocks with dense FFNs).
 
 Parameters are nested dicts in the JAX layout: block leaves are stacked
 over layer groups (``[G, ...]`` tensors, or per-group lists of
@@ -67,7 +67,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     PTQ path evaluates with. With ``cache`` (the paged arena) it is one
     paged step: K/V of ``tokens`` are written into the arena in place, and
     ``valid_len [B]`` bounds each lane's KV (writes at or past it land on
-    the null page). ``use_kernels=False`` runs the plain version of every
+    the null page); mamba and hybrid blocks update their lanes' SSM and
+    conv rows in place, a lane with no valid token leaving them as they
+    were. ``use_kernels=False`` runs the plain version of every
     kernel (the counterpart of JAX's ``use_pallas=False``);
     ``paged_attention`` selects the ragged paged-attention route over the
     full-width gather."""

@@ -56,6 +56,7 @@ from repro_torch.memsys.system import (MemSystemConfig, evaluate_conventional,
                                        evaluate_hetero)
 from repro_torch.memsys.workload import (act_bits_per_step, kv_bits_per_step,
                                          make_traffic)
+from repro_torch.models.ssm import chunk_for
 
 # ---------------------------------------------------------------------------
 # capture switch
@@ -78,6 +79,7 @@ def capture_enabled() -> bool:
 # the count: one step call's work at a padded shape
 # ---------------------------------------------------------------------------
 _PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
+                "mamba": ("in_proj", "out_proj"),
                 "ffn": ("w_up", "w_gate", "w_down")}
 
 
@@ -92,12 +94,17 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
       * each attention layer over the full ``[lanes, P]`` block table:
         q, every page of every lane's table row, the softmax over all
         ``P * page`` keys, o, m and l (a static count, as XLA's is);
+      * each Mamba2 mixer's state and scan (``launch/roofline.py:
+        ssd_work``): every lane's ``ssm`` and ``conv`` rows read and
+        written, the recurrence at C = 1, the chunked scan at the
+        width's chunk above it;
       * the lm_head (or the tied embedding) at M.
 
-    Norms, rotary, the K/V scatter, the residual adds, the softmax's
-    exponentials and the sampling head are not counted: a few operations
-    per element, against 2K per output element of a projection (at the
-    64-wide test model they are ~10% of XLA's count)."""
+    Norms, rotary, the K/V scatter, the conv taps, the residual adds,
+    the softmax's exponentials and the sampling head are not counted: a
+    few operations per element, against 2K per output element of a
+    projection (at the 64-wide test model they are ~10% of XLA's
+    count)."""
     act = params["embed"]["tok"].dtype
     xb = act.itemsize
     m = lanes * c
@@ -116,23 +123,35 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
         flops += f
 
     for key, blk in params["blocks"].items():
-        cache = arena[key]["attn"]
-        n_tbl = cache["block_tbl"].shape[-1]
-        page = cache["k_pages"].shape[-2]
+        grp = arena[key]
         for g in range(cfg.n_groups):
             for part, names in _PROJECTIONS.items():
                 for name in names:
                     if name in blk.get(part, {}):
                         matmul(blk[part][name][g])
-            b, f = rl.attention_work(
-                lanes=lanes, s=c, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                hd=cfg.head_dim, page=page, pages=lanes * n_tbl,
-                keys=lanes * c * n_tbl * page, tbl_entries=lanes * n_tbl,
-                q_itemsize=xb,
-                kv_itemsize=cache["k_pages"].element_size(),
-                kv_scaled="k_scale_pages" in cache)
-            nbytes += b
-            flops += f
+            works = []
+            if "attn" in grp:
+                cache = grp["attn"]
+                n_tbl = cache["block_tbl"].shape[-1]
+                page = cache["k_pages"].shape[-2]
+                works.append(rl.attention_work(
+                    lanes=lanes, s=c, n_heads=cfg.n_heads,
+                    n_kv=cfg.n_kv_heads, hd=cfg.head_dim, page=page,
+                    pages=lanes * n_tbl, keys=lanes * c * n_tbl * page,
+                    tbl_entries=lanes * n_tbl, q_itemsize=xb,
+                    kv_itemsize=cache["k_pages"].element_size(),
+                    kv_scaled="k_scale_pages" in cache))
+            if "mamba" in grp:
+                conv = grp["mamba"]["conv"]
+                works.append(rl.ssd_work(
+                    lanes=lanes, s=c, chunk=chunk_for(c),
+                    heads=cfg.ssm_nheads,
+                    headdim=cfg.ssm_headdim, d_state=cfg.d_state,
+                    conv_rows=conv.shape[-2], conv_dim=conv.shape[-1],
+                    conv_itemsize=conv.element_size()))
+            for b, f in works:
+                nbytes += b
+                flops += f
     if cfg.tie_embeddings:
         matmul(params["embed"]["tok"].T)
     else:

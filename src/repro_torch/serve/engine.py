@@ -13,6 +13,15 @@ for pure decode, after one page-ops flush (the round's copy-on-write page
 copies and the changed block tables). A round with exactly one live lane
 runs the batch-1 ``solo_step`` (``EngineStats.solo_rounds``).
 
+Mamba and hybrid stacks keep their SSM and conv state dense per slot
+beside the pages: seating a slot queues its state reset into the round's
+page-ops flush; decode lanes never share a round with a prefill chunk
+(the SSM mixer takes the recurrence at one token and the chunked scan
+above, which are not the same sums), so such a round idles them; and the
+prefix cache, in-flight dedup and speculative decode are refused (the
+state is neither page-addressable nor rolled back), as the JAX engine
+refuses them.
+
 The steps come from a step set (``steps.build_paged_steps``, or
 ``step_set=``, checked against this engine's geometry): on the card each
 token width is a captured CUDA graph (``cuda_graphs=True``, the default;
@@ -347,9 +356,6 @@ class ServeEngine:
                 "via valid_len masking + page trim; SSM/conv state has "
                 "no per-position rollback — attention-only stacks only "
                 f"(pattern={cfg.pattern})")
-        if not attn_only:
-            raise NotImplementedError(
-                f"only attention stacks are ported (pattern={cfg.pattern})")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tree_to(params, self.device)
@@ -379,8 +385,14 @@ class ServeEngine:
         self._spec_k = int(speculative_k)
         self._pipelined = bool(pipelined)
         self._cuda_graphs = bool(cuda_graphs)
-        self._dedup = True if inflight_dedup is None else bool(
-            inflight_dedup)
+        self._dedup = attn_only if inflight_dedup is None \
+            else bool(inflight_dedup)
+        # co-scheduling a 1-token decode into a C-wide step is exact for
+        # attention (queries are independent) but not for the SSM scan
+        # (s == 1 takes the O(1) recurrence, s > 1 the chunked SSD):
+        # hybrid and mamba stacks run chunk rounds and decode rounds
+        # apart, as the JAX engine does
+        self._co_schedule = attn_only
         if step_set is not None and (
                 step_set.cfg != cfg or step_set.device != self.device
                 or not step_set.compatible_with(
@@ -396,8 +408,10 @@ class ServeEngine:
         # the serving weight plan: streams dequantized once, at setup
         self._exec_params = (build_exec_weights(self.params) if weight_plan
                              else self.params)
-        # COW page copies queued by seat(), flushed once per round
+        # COW page copies and state resets queued by seat(), flushed
+        # once per round in one page-ops call
         self._pending_copies: List = []
+        self._pending_resets: List[int] = []
         # pool + arena (+ prefix index) persist across run() calls
         self._use_prefix = bool(prefix_cache)
         self._pool: Optional[PagedKVPool] = None
@@ -434,24 +448,26 @@ class ServeEngine:
         return self._steps
 
     def _flush_page_ops(self, pool: PagedKVPool) -> None:
-        """The round's queued page copies and changed block tables in one
-        page-ops call (more than ``slots`` copies drain in extra calls);
-        a round with nothing queued and clean tables skips it."""
-        copies = self._pending_copies
-        if not (copies or pool.tables_dirty):
+        """The round's queued page copies, state resets and changed block
+        tables in one page-ops call (more than ``slots`` copies drain in
+        extra calls; the resets ride with the first); a round with nothing
+        queued and clean tables skips it."""
+        copies, resets = self._pending_copies, self._pending_resets
+        if not (copies or resets or pool.tables_dirty):
             return
         pool.check_tables()
-        n_ops = len(copies) + 1
+        n_ops = len(copies) + len(resets) + 1
         first = True
         while first or copies:
             batch, copies[:] = copies[:self.slots], copies[self.slots:]
             self._steps.apply_page_ops(self._arena, pool.block_tables,
-                                       batch)
+                                       batch, resets if first else ())
             self.stats.page_op_flushes += 1
             first = False
         pool.tables_rebuilds += 1
         pool.tables_dirty = False
         self.stats.page_ops_batched += n_ops
+        resets.clear()
 
     def _alloc(self, slot: int, n_tokens: int) -> Optional[List[int]]:
         """pool.ensure with LRU eviction of unpinned cached pages as the
@@ -501,6 +517,7 @@ class ServeEngine:
                 pool.free_slot(s)
         pool.pages_peak = pool.used_count
         self._pending_copies.clear()
+        self._pending_resets.clear()
         cow0, adopt0 = pool.cow_copies, pool.adopt_calls
         tbl0 = pool.tables_rebuilds
         _, cap0, cap_s0 = steps.capture_counters()
@@ -606,6 +623,10 @@ class ServeEngine:
             if cow is not None:
                 self._pending_copies.append(cow)
                 self.stats.page_copy_calls += 1
+            if steps.reset_state is not None:
+                # the slot's SSM/conv rows start from zero, zeroed in the
+                # round's page-ops flush before its first chunk runs
+                self._pending_resets.append(s)
             active[s] = req
             pos[s] = start
             sp = req.sampling if req.sampling is not None \
@@ -936,6 +957,8 @@ class ServeEngine:
                         preempt(s)  # yield to older slots; retry later
                 decode_lanes = [s for s in order if active[s] is not None
                                 and not prefilling(s)]
+                run_decode = bool(decode_lanes) and (self._co_schedule
+                                                     or not plan)
                 # self-speculative decode: draft up to k tokens per greedy
                 # decode lane (prompt lookup over its own history) for one
                 # verify step on a ladder rung. Drafts are optional work:
@@ -943,7 +966,7 @@ class ServeEngine:
                 # take pages WITHOUT preemption; any shortfall decodes one
                 # token as usual
                 verify: Dict[int, np.ndarray] = {}
-                if decode_lanes and self._spec_k > 0:
+                if run_decode and self._spec_k > 0:
                     for s in decode_lanes:
                         req = active[s]
                         if self._slot_sp[s].temperature > 0:
@@ -968,7 +991,7 @@ class ServeEngine:
                                 s, int(pos[s]) + 1 + len(draft)) is None:
                             continue
                         verify[s] = draft
-            if not plan and not decode_lanes:
+            if not plan and not run_decode:
                 continue            # everything preempted/idled; re-admit
 
             with phase("round/host_prep"):
@@ -990,7 +1013,7 @@ class ServeEngine:
                         n_new[s] = n
                         p0 = int(pos[s])
                         toks[s, :n] = active[s].prompt[p0:p0 + n]
-                    elif not prefilling(s):
+                    elif not prefilling(s) and run_decode:
                         d = verify.get(s)
                         toks[s, 0] = next_tok[s]
                         if d is None:
@@ -999,12 +1022,13 @@ class ServeEngine:
                             n_new[s] = 1 + len(d)
                             toks[s, 1:1 + len(d)] = d
                 ts = time.monotonic()
+                act_dec = decode_lanes if run_decode else []
                 if verify:
                     self.stats.spec_rounds += 1
                 self.stats.kv_pages_live += sum(
                     pages_for(int(pos[s]) + int(n_new[s]), self.page)
-                    for s in decode_lanes)
-                self.stats.kv_pages_full += (len(decode_lanes)
+                    for s in act_dec)
+                self.stats.kv_pages_full += (len(act_dec)
                                              * self.max_pages_per_seq)
                 for s in plan:
                     self.stats.prefill_kv_pages_live += chunk_pages_streamed(
@@ -1018,7 +1042,7 @@ class ServeEngine:
             # a pure-decode round with an idle queue enters the pipeline
             # (never a verify round, nor any round of a speculative
             # engine): it retires one round from now
-            overlap = (self._pipelined and bool(decode_lanes) and not plan
+            overlap = (self._pipelined and run_decode and not plan
                        and not verify and self._spec_k == 0
                        and not sched.pending)
             with phase("round/dispatch" if overlap
@@ -1027,14 +1051,14 @@ class ServeEngine:
                     toks if s0 is None else toks[s0:s0 + 1], start, n_new,
                     s0)
                 rec = {"order": order, "plan": plan, "verify": verify,
-                       "act_dec": decode_lanes, "n_new": n_new,
+                       "act_dec": act_dec, "n_new": n_new,
                        "c_len": c_len, "ts": ts, "tok_dev": tok_d,
                        "logp_dev": logp_d, "solo_slot": s0,
                        "lag_free": set()}
                 readback(rec)
                 if not overlap:
                     nxt, logp_h = gather(rec)   # ends after the readback
-            if decode_lanes:
+            if act_dec:
                 self.stats.decode_steps += 1
             self.stats.rounds += 1
             if overlap:
@@ -1044,8 +1068,7 @@ class ServeEngine:
             else:
                 with phase("round/emit"):
                     emitted = process_round(rec, nxt, logp_h)
-            round_done(r_t0, len(order), len(plan), len(decode_lanes),
-                       emitted)
+            round_done(r_t0, len(order), len(plan), len(act_dec), emitted)
 
         if inflight is not None:
             # every lane finished or deferred its free during the lag

@@ -13,8 +13,11 @@ read happen in the one call; token selection
 ``{"temp", "top_k", "top_p", "key"}``) runs on the card, so only ``[B,
 C]`` ids and logprobs leave it. ``solo_step`` is the same step at batch
 width 1 for lane ``slot`` of the arena; ``apply_page_ops`` is a round's
-page maintenance: the copy-on-write page copies of the prefix cache, then
-the block-table upload into every group, both in place.
+page maintenance: the copy-on-write page copies of the prefix cache, the
+block-table upload into every group, and, on mamba and hybrid stacks, the
+zeroing of freshly seated slots' SSM and conv rows, all in place. The
+recurrent state of those stacks lives dense per slot beside the pages; an
+idle lane (``n_new = 0``) leaves it bit for bit as it was.
 
 These are plain functions. ``build_paged_steps`` wraps them into the step
 set one engine runs, :class:`PagedServeSteps`, the counterpart of the JAX
@@ -129,41 +132,75 @@ def solo_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
               paged_attention: bool = True):
     """The step at batch width 1 on lane ``slot`` (a one-element tensor)
     of the arena: ``tokens [1, C]``, ``start``, ``n_new`` [1] and ``samp``
-    of one lane.
+    of one lane (counterpart of ``_solo_step_body``).
     Lane ``slot``'s block-table row is selected on the device into a
     ``[G, 1, P]`` view; the page leaves are the arena's own, so K/V land
-    in the global pages directly (counterpart of ``_solo_step_body``)."""
+    in the global pages directly. Its SSM and conv rows are selected the
+    same way and written back in place after the step."""
+    idx = slot.to(torch.int64)
     view = {}
     for key, grp in arena.items():
-        attn = dict(grp["attn"])
-        attn["block_tbl"] = torch.index_select(attn["block_tbl"], 1,
-                                               slot.to(torch.int64))
-        view[key] = {"attn": attn}
-    return step(cfg, params, tokens, view, start, n_new, samp,
-                sampled=sampled, use_kernels=use_kernels,
-                paged_attention=paged_attention)
+        view[key] = {}
+        if "attn" in grp:
+            attn = dict(grp["attn"])
+            attn["block_tbl"] = torch.index_select(attn["block_tbl"], 1,
+                                                   idx)
+            view[key]["attn"] = attn
+        if "mamba" in grp:
+            view[key]["mamba"] = {
+                name: torch.index_select(leaf, 1, idx)
+                for name, leaf in grp["mamba"].items()}
+    out = step(cfg, params, tokens, view, start, n_new, samp,
+               sampled=sampled, use_kernels=use_kernels,
+               paged_attention=paged_attention)
+    for key, grp in arena.items():
+        if "mamba" in grp:
+            for name, leaf in grp["mamba"].items():
+                leaf.index_copy_(1, idx, view[key]["mamba"][name])
+    return out
 
 
 def apply_page_ops(arena: dict, tables: torch.Tensor,
                    copy_src: Optional[torch.Tensor] = None,
-                   copy_dst: Optional[torch.Tensor] = None) -> dict:
+                   copy_dst: Optional[torch.Tensor] = None,
+                   reset: Optional[torch.Tensor] = None) -> dict:
     """One round's page maintenance, in place (counterpart of
     ``_apply_page_ops_body``): page ``copy_dst[i]`` of every page leaf
     becomes a copy of page ``copy_src[i]`` (the device half of
     ``PagedKVPool.cow``; unused entries are padded with 0 -> 0 null-page
     self-copies, as the JAX engine pads them), then ``tables [S, P]`` is
-    written into every group's ``block_tbl``. In place because the step
-    set's graphs read the arena by address."""
+    written into every group's ``block_tbl``, and the SSM and conv rows of
+    the slots where ``reset [S]`` is nonzero (freshly seated) are zeroed.
+    Groups without attention have no pages or table. In place because the
+    step set's graphs read the arena by address."""
     for grp in arena.values():
-        attn = grp["attn"]
-        if copy_src is not None:
-            src = copy_src.to(torch.int64)
-            dst = copy_dst.to(torch.int64)
-            for name, leaf in attn.items():
-                if name.endswith("_pages"):
-                    leaf.index_copy_(1, dst, leaf.index_select(1, src))
-        tbl = attn["block_tbl"]
-        tbl.copy_(tables.to(torch.int32)[None].expand_as(tbl))
+        if "attn" in grp:
+            attn = grp["attn"]
+            if copy_src is not None:
+                src = copy_src.to(torch.int64)
+                dst = copy_dst.to(torch.int64)
+                for name, leaf in attn.items():
+                    if name.endswith("_pages"):
+                        leaf.index_copy_(1, dst, leaf.index_select(1, src))
+            tbl = attn["block_tbl"]
+            tbl.copy_(tables.to(torch.int32)[None].expand_as(tbl))
+        if "mamba" in grp and reset is not None:
+            for leaf in grp["mamba"].values():
+                mask = (reset != 0).view((1, -1) + (1,) * (leaf.dim() - 2))
+                leaf.masked_fill_(mask, 0)
+    return arena
+
+
+def reset_state(arena: dict, slot: int) -> dict:
+    """Zero lane ``slot``'s SSM and conv rows in every group, in place
+    (counterpart of ``_reset_state_body``): a freshly seated slot's
+    recurrent state starts from zero, whatever its previous occupant
+    left. The engine folds resets into ``apply_page_ops``; this is the
+    one-slot form the step set exposes, as JAX's does."""
+    for grp in arena.values():
+        if "mamba" in grp:
+            for leaf in grp["mamba"].values():
+                leaf[:, slot].zero_()
     return arena
 
 
@@ -488,13 +525,17 @@ class GraphedStep(_CostTables):
 
 
 class PageOps(_CostTables):
-    """``apply_page_ops`` of a step set: the host block tables and the
-    round's page copies go up in one copy without blocking the host (as
-    the step inputs do), then the copies run and the tables are written
-    into every group's ``block_tbl``. At most ``max_slots`` copies a call
-    (the JAX engine's batch; the engine drains more in extra calls); a
-    call with none runs no copy. Under ``obs.costs`` capture its calls
-    land in the ``call`` row, with no count."""
+    """``apply_page_ops`` of a step set: the host block tables, the
+    round's page copies and its state-reset slots go up in one copy
+    without blocking the host (through the double-buffered staging of
+    :class:`_Upload`, so a staging buffer is rewritten only after the
+    copy that read it has run), then the copies run, the tables are
+    written into every group's ``block_tbl`` and the reset slots' SSM and
+    conv rows are zeroed. At most ``max_slots`` copies a call (the JAX
+    engine's batch; the engine drains more in extra calls); a call with
+    none runs no copy, one with no reset zeroes nothing. Under
+    ``obs.costs`` capture its calls land in the ``call`` row, with no
+    count."""
 
     def __init__(self, max_slots: int, max_pages_per_seq: int,
                  device: torch.device):
@@ -502,9 +543,9 @@ class PageOps(_CostTables):
         self.slots = max_slots
         self.n_tbl = max_slots * max_pages_per_seq
         self.shape = (max_slots, max_pages_per_seq)
-        self.upload = _Upload((self.n_tbl + 2 * max_slots,), device)
+        self.upload = _Upload((self.n_tbl + 3 * max_slots,), device)
 
-    def __call__(self, arena: dict, tables, copies=()) -> dict:
+    def __call__(self, arena: dict, tables, copies=(), resets=()) -> dict:
         capture = obs_costs.capture_enabled()
         t0 = time.perf_counter()
         copies = list(copies)
@@ -513,18 +554,18 @@ class PageOps(_CostTables):
                              f"most {self.slots}")
         host = self.upload.host()
         host[:self.n_tbl].copy_(_host_i32(tables))
-        pairs = np.zeros((2, self.slots), np.int32)
+        lanes = np.zeros((3, self.slots), np.int32)   # src | dst | reset
         for i, (src, dst) in enumerate(copies):
-            pairs[:, i] = src, dst
-        host[self.n_tbl:].copy_(torch.from_numpy(pairs.reshape(-1)))
+            lanes[:2, i] = src, dst
+        for slot in resets:
+            lanes[2, slot] = 1
+        host[self.n_tbl:].copy_(torch.from_numpy(lanes.reshape(-1)))
         dev = self.upload.send()
-        tables_dev = dev[:self.n_tbl].view(self.shape)
-        if not copies:
-            apply_page_ops(arena, tables_dev)
-        else:
-            apply_page_ops(arena, tables_dev,
-                           dev[self.n_tbl:self.n_tbl + self.slots],
-                           dev[self.n_tbl + self.slots:])
+        o, n = self.n_tbl, self.slots
+        apply_page_ops(arena, dev[:o].view(self.shape),
+                       dev[o:o + n] if copies else None,
+                       dev[o + n:o + 2 * n] if copies else None,
+                       dev[o + 2 * n:] if len(resets) else None)
         if capture:
             self.cost_by_key.setdefault("call", {"flops": 0.0, "bytes": 0.0})
             self._record("call", t0)
@@ -540,8 +581,9 @@ class PagedServeSteps:
           -> (tok [B, C], logp [B, C])   graphs per C on the card
       solo_step(params, tokens [1, C], arena, start [1], n_new [1],
                 samp (one lane), slot) -> (tok [1, C], logp [1, C])
-      apply_page_ops(arena, tables [B, P], copies=[(src, dst), ...])
-          -> arena
+      apply_page_ops(arena, tables [B, P], copies=[(src, dst), ...],
+                     resets=[slot, ...]) -> arena
+      reset_state(arena, slot) -> arena   (None without SSM state)
 
     The arena is updated in place; outputs are the width's static
     buffers, valid until the next call at that width."""
@@ -558,6 +600,7 @@ class PagedServeSteps:
     step: GraphedStep
     solo_step: GraphedStep
     apply_page_ops: PageOps
+    reset_state: Optional[Callable] = None
 
     def compatible_with(self, *, page, n_pages, max_slots,
                         max_pages_per_seq, cache_dtype, chunk,
@@ -621,4 +664,7 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
         cuda_graphs=cuda_graphs,
         step=GraphedStep("step", step_body, lanes=max_slots, **common),
         solo_step=GraphedStep("solo_step", solo_body, lanes=1, **common),
-        apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev))
+        apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev),
+        reset_state=(reset_state if any(
+            k == "mamba" or k.startswith("hybrid") for k in cfg.pattern)
+            else None))

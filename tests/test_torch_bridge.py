@@ -167,3 +167,33 @@ def test_arena_round_trip(quant):
     back = arena_to_numpy(port)
     for name, leaf in flat["b0"]["attn"].items():
         np.testing.assert_array_equal(back["b0"]["attn"][name], leaf)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_arena_round_trip(dtype):
+    """A hybrid arena (paged K/V beside dense SSM and conv rows) and a
+    mamba one (no attention leaves): every leaf crosses over and back
+    unchanged; bf16 pages and conv rows travel as float32 and come back
+    bf16, the SSM state stays fp32."""
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    for arch in ("hymba-1.5b", "mamba2-370m"):
+        cfg = jax_reduced_config(arch)
+        arena = jax_kv.paged_init_cache(cfg, 5, 16, 2, 3, jdt)
+        arena = jax.tree_util.tree_map(
+            lambda l: jnp.asarray(rng.standard_normal(l.shape) * 3
+                                  ).astype(l.dtype), arena)
+        flat = jax_tree_to_numpy(arena)
+        port = arena_from_numpy(flat, device="cpu", cache_dtype=tdt)
+        for key, grp in port.items():
+            assert grp["mamba"]["ssm"].dtype == torch.float32
+            assert grp["mamba"]["conv"].dtype == tdt
+            assert ("attn" in grp) == (arch == "hymba-1.5b")
+            if "attn" in grp:
+                assert grp["attn"]["k_pages"].dtype == tdt
+        back = arena_to_numpy(port)
+        for key, grp in flat.items():
+            for part, leaves in grp.items():
+                for name, leaf in leaves.items():
+                    np.testing.assert_array_equal(back[key][part][name],
+                                                  leaf)

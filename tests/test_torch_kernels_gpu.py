@@ -15,7 +15,12 @@ against the same steps run eagerly: tokens identical, logprobs and K/V
 pages within 1e-5. The sampling head on the card against the CPU's:
 threefry bits and uniforms bit-exact, gumbel values within 2e-6 (two
 ``log`` implementations), tokens identical where no float boundary is
-within 1e-4 (checked)."""
+within 1e-4 (checked). Hybrid and SSM stacks: attention at hymba-1.5b's
+shapes (G = 5, window 1024) to the attention tolerances, a captured hybrid
+step against the eager one (tokens identical, logprobs and SSM / conv
+rows within 1e-5), slot reuse graphed and pipelined against a fresh
+engine (tokens identical), the decode qmm launched on replay on a mamba
+stack."""
 import sys
 from pathlib import Path
 
@@ -654,7 +659,17 @@ def test_select_tokens_on_the_card_equals_the_cpu(gen):
     masked+gumbel score against the runner-up) are checked to be more
     than 1e-5 away on these logits, past where two devices' sums may
     round apart (~1e-6)."""
-    b, c, v = 5, 8, 4096
+    _select_tokens_card_vs_cpu(gen, 4096)
+
+
+def test_select_tokens_at_an_odd_vocab_on_the_card(gen):
+    """The same at hymba-1.5b's vocab, 32001: an odd row length for the
+    head's sorts, cumulative sums and threefry counters."""
+    _select_tokens_card_vs_cpu(gen, 32001)
+
+
+def _select_tokens_card_vs_cpu(gen, v):
+    b, c = 5, 8
     lg = torch.randn((b, c, v), generator=gen, device="cuda") * 3
     temp = torch.tensor([0.0, 0.7, 1.3, 0.9, 0.5])
     top_k = torch.tensor([0, 0, 50, 0, 8], dtype=torch.int32)
@@ -939,3 +954,145 @@ def test_step_reads_nothing_back_with_the_tracer_on(gen, capture):
     assert [e for e in trc.events if e["name"] == "jit/compile"]
     assert bool([e for e in trc.events if e["name"] == "cost/step"]) \
         == capture
+
+
+# ---------------------------------------------------------------------------
+# hybrid and SSM stacks: attention at hymba-1.5b's shapes, the Mamba2 state
+# under CUDA graphs, slot reuse, the qmm on an SSM stack
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pages", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+def test_attention_hymba_shapes_g5_window(gen, path, pages):
+    """hymba-1.5b's attention: 5 KV heads of 25 query heads (G = 5, not a
+    power of two: a q block's rows cross m-tile boundaries), hd 64, the
+    1024-token window of its ``hybrid_local`` layers, kv_len up to 2048
+    (past the window) beside an idle lane, on both paths."""
+    if path == "decode":
+        lanes = ((2047, 1), (1500, 1), (0, 0), (1030, 1))
+    else:
+        lanes = ((1100, 128), (1500, 100), (0, 0), (2047, 1))
+    for window in (1024, None):
+        _attn_check(lanes, n_kv=5, g=5, quantized=pages == "int8", gen=gen,
+                    window=window, bf16=pages == "bf16")
+
+
+def _hybrid_model(pattern=("hybrid", "hybrid_local")):
+    """A hybrid (or mamba, ``pattern=("mamba",)``) stack whose QTensor
+    leaves the qmm kernels take: w_up / w_gate 256 x 512 and the mixer's
+    out_proj 512 x 256 (in_proj, 256 x 1072, stays dense)."""
+    from repro_torch.core.serving_quant import quantize_for_serving
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import init_params
+    attn = pattern != ("mamba",)
+    cfg = ModelConfig(name="h", family="hybrid" if attn else "ssm",
+                      n_layers=2, d_model=256, n_heads=4 if attn else 0,
+                      n_kv_heads=2 if attn else 0,
+                      head_dim=0 if attn else 1, d_ff=512 if attn else 0,
+                      vocab=1024, pattern=pattern, window=32, d_state=16,
+                      ssm_headdim=32)
+    params = quantize_for_serving(init_params(cfg, 0, device="cuda"),
+                                  QMCConfig(rho=0.3, granularity="subtile"),
+                                  min_dim=64)
+    return cfg, params
+
+
+def test_graphed_hybrid_step_matches_eager_step(gen):
+    """A chunk round (C = 16, one lane idle), two decode rounds and a solo
+    round of a hybrid stack, through graphs and eagerly from the same
+    arena: identical tokens, logprobs and the arena's SSM / conv rows
+    within 1e-5, the idle lane's rows still zero. A captured step that
+    rebound the state instead of writing it in place would replay against
+    the state of its capture and fail here."""
+    import numpy as np
+    cfg, params = _hybrid_model()
+    rng = np.random.default_rng(0)
+    rounds = [(rng.integers(2, 1024, (4, 16)), [0, 0, 0, 0],
+               [16, 9, 16, 0]),
+              (rng.integers(2, 1024, (4, 1)), [16, 9, 16, 0], [1, 1, 1, 0]),
+              (rng.integers(2, 1024, (4, 1)), [17, 10, 17, 0],
+               [1, 1, 0, 0])]
+    runs = {}
+    for graphs in (False, True):
+        sset, arena = _step_set(cfg, graphs)
+        ptrs = {k: g["mamba"]["ssm"].data_ptr() for k, g in arena.items()}
+        outs = []
+        for toks, start, n_new in rounds:
+            tok, logp = sset.step(params, toks.astype(np.int32), arena,
+                                  np.array(start, np.int32),
+                                  np.array(n_new, np.int32),
+                                  samplib.lane_inputs(4))
+            outs.append((tok.clone(), logp.clone()))
+        tok, logp = sset.solo_step(params, np.array([[7]], np.int32), arena,
+                                   np.array([18], np.int32),
+                                   np.array([1], np.int32),
+                                   samplib.lane_inputs(1), slot=0)
+        outs.append((tok.clone(), logp.clone()))
+        torch.cuda.synchronize()
+        assert ptrs == {k: g["mamba"]["ssm"].data_ptr()
+                        for k, g in arena.items()}
+        runs[graphs] = (outs, arena)
+    (eager, a_e), (graphed, a_g) = runs[False], runs[True]
+    for (te, le), (tg, lg) in zip(eager, graphed):
+        assert torch.equal(te, tg)
+        torch.testing.assert_close(lg, le, atol=1e-5, rtol=1e-5)
+    for key in a_e:
+        for name in ("ssm", "conv"):
+            got, want = a_g[key]["mamba"][name], a_e[key]["mamba"][name]
+            assert want[:, :3].abs().max() > 0          # the state moved
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            assert not got[:, 3].any()                  # idle lane 3
+
+
+def _hybrid_requests(n, seed=4):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(2, 1024, int(p)).astype(
+        np.int32), max_new_tokens=int(m))
+        for i, (p, m) in enumerate(zip(rng.integers(3, 60, n),
+                                       rng.integers(4, 12, n)))]
+
+
+def test_hybrid_reused_slot_graphed_pipelined_matches_fresh_engine(gen):
+    """Five requests through two slots, graphed and pipelined: every
+    request seated into a slot an earlier one used (its state reset rides
+    in the page-ops upload) gets the tokens a fresh engine gives it
+    alone, and the eager engine's."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg, params = _hybrid_model()
+    kw = dict(slots=2, max_len=96, page_size=16, device="cuda")
+    reqs = ServeEngine(cfg, params, cuda_graphs=True, pipelined=True,
+                       **kw).run(_hybrid_requests(5))
+    eager = ServeEngine(cfg, params, cuda_graphs=False,
+                        **kw).run(_hybrid_requests(5))
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in eager]
+    for r in reqs[2:]:
+        fresh = ServeEngine(cfg, params, cuda_graphs=True, pipelined=True,
+                            **kw)
+        alone = fresh.run([Request(uid=r.uid, prompt=r.prompt,
+                                   max_new_tokens=r.max_new_tokens)])
+        assert alone[0].out_tokens == r.out_tokens, r.uid
+
+
+def test_mamba_engine_launches_decode_qmm_on_replay(gen):
+    """An attention-free stack, graphed: the measured run (graphs captured
+    by a first run) replays every round and launches the decode-width
+    qmm on the mixer's out_proj, never its plain version; tokens equal
+    the eager engine's."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = _hybrid_model(("mamba",))
+    kw = dict(slots=3, max_len=96, page_size=16, device="cuda")
+    eng = ServeEngine(cfg, params, cuda_graphs=True, **kw)
+    eng.run(_hybrid_requests(6))
+    build.reset_launches()
+    kops.reset_path_counts()
+    got = eng.run(_hybrid_requests(6))
+    torch.cuda.synchronize()
+    assert eng.stats.graph_captures == 0
+    assert eng.stats.graph_replays == eng.stats.rounds > 0
+    assert build.launches["qmm_decode"] > 0
+    assert kops.path_counts["decode"] > 0 and kops.path_counts["ref"] == 0
+    assert build.launches["ragged_paged_attention"] == 0
+    eager = ServeEngine(cfg, params, cuda_graphs=False,
+                        **kw).run(_hybrid_requests(6))
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in eager]

@@ -7,7 +7,9 @@
     495 TFLOP/s TF32: two products per k step for an fp32 activation,
     one for bf16);
   * the per-width count (``step_work``) by hand on a QMC model whose
-    projections are part QTensor (M padded to 8) and part dense;
+    projections are part QTensor (M padded to 8) and part dense, on an
+    attention stack and on a hybrid one (the Mamba2 mixer's projections,
+    state traffic and scan);
   * the count's FLOPs against the JAX step's XLA ``cost_analysis()`` for
     the same weights at C = 1 and C = chunk: at one layer group the port
     counts 0.85-1.0 of XLA's (measured 0.888-0.897: the count leaves out
@@ -213,6 +215,56 @@ def test_step_work_by_hand(lanes, c):
     nbytes += (m * heads * hd * (4 + 4) + 2 * m * heads * 4
                + 2 * lanes * 4 * PAGE * 2 * hd * 4 + lanes * 4 * 4
                + 2 * lanes * 4)
+    w = obs_costs.step_work(cfg, q, arena, lanes=lanes, c=c)
+    assert w == {"flops": flops, "bytes": nbytes, "dtype": "float32"}
+
+
+@pytest.mark.parametrize("lanes,c", [(4, 1), (1, 16), (4, 32), (2, 300)])
+def test_step_work_by_hand_hybrid(lanes, c):
+    """A hybrid block (parallel attention and Mamba2 mixer): the mixer's
+    projections at M (``out_proj`` a QTensor, ``in_proj`` 128 x 552 dense:
+    552 does not tile by 128), its state read and written per lane, and
+    the scan: the recurrence at C = 1 (5 FLOPs per state element), the
+    chunked scan at the width's chunk above (C = 300: two 256 chunks)."""
+    cfg = ModelConfig(name="h", family="hybrid", pattern=("hybrid",),
+                      d_state=16, ssm_headdim=32, **HAND)
+    q = quantize_for_serving(init_params(cfg, 0, device="cpu"),
+                             QMCConfig(rho=0.3, granularity="subtile"),
+                             min_dim=64)
+    mix = q["blocks"]["b0"]["mamba"]
+    assert isinstance(mix["out_proj"][0], QTensor)       # 256 x 128
+    assert isinstance(mix["in_proj"], torch.Tensor)      # 128 x 552
+    arena = paged_init_cache(cfg, 9, PAGE, lanes, 4, dtype=torch.float32,
+                             device="cpu")
+    m = lanes * c
+    m8 = -(-m // 8) * 8
+    flops = nbytes = 0
+    for k, n, quant in [(128, 128, True), (128, 64, False),
+                        (128, 64, False), (128, 128, True),
+                        (128, 552, False), (256, 128, True),
+                        (128, 256, True), (128, 256, True),
+                        (256, 128, True), (128, 128, True)]:
+        if quant:
+            flops += 2 * m8 * k * n
+            nbytes += (k * n + (k // 8) * (n // 128) * (4 + 1) + 2 * n * 4
+                       + 4 * m8 * k + 4 * m8 * n)
+        else:
+            flops += 2 * m * k * n
+            nbytes += 4 * k * n + 4 * m * k + 4 * m * n
+    hd, heads, keys = 32, 4, lanes * c * 4 * PAGE
+    flops += 4 * hd * heads * keys
+    nbytes += (m * heads * hd * (4 + 4) + 2 * m * heads * 4
+               + 2 * lanes * 4 * PAGE * 2 * hd * 4 + lanes * 4 * 4
+               + 2 * lanes * 4)
+    # the mixer: 8 heads of 32 x 16 fp32 state, 3 conv rows of 256 + 2 * 16
+    state, conv = 8 * 32 * 16, 3 * 288
+    nbytes += lanes * (2 * state * 4 + 2 * conv * 4)
+    if c == 1:
+        flops += 5 * lanes * state
+    else:
+        chunk = 256 if c >= 256 else 1 << (c - 1).bit_length()
+        per_chunk = 2 * 8 * chunk * (chunk * (16 + 32) + 2 * 16 * 32)
+        flops += lanes * -(-c // chunk) * per_chunk
     w = obs_costs.step_work(cfg, q, arena, lanes=lanes, c=c)
     assert w == {"flops": flops, "bytes": nbytes, "dtype": "float32"}
 
