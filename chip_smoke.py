@@ -81,6 +81,35 @@ Phases (each prints its own lines; any failure exits nonzero):
                 one timed CUDA graph; one whole step through the kernels
                 against the plain versions (logits within 1e-3 x
                 max|logits|);
+  4m. moe     — dbrx-132b at its published widths (d 6144, 48/8 heads,
+                d_ff 10752, 16 experts top-4, vocab 100352), depth cut to 2
+                of 40 layers, random weights from the seed, QMC PTQ with
+                rho 0.3 on the card (the fp32 tree freed after it), the
+                serve phase's 8 requests and engine settings eager, graphed
+                and graphed+pipelined, each once to capture and once
+                measured: tokens identical, qmm_decode and attention
+                launched in every run (on replay too), qmm's "ref" path
+                never; one eager step under the sync debugger; the decode
+                window's busy time by torch.profiler, the round's MoE FFNs
+                (router, dispatch, the expert products, combine) as one
+                timed CUDA graph and the expert products alone as another,
+                beside the step's counted byte floor; one whole step
+                through the kernels against the plain versions (logits
+                within 1e-3 x max|logits|); the decode qmm at the expert
+                shapes is timed in phase 3;
+  4f. families — the contiguous-cache surface at full width: whisper-medium
+                (24 encoder + 24 decoder layers, 1500 frames) and
+                internvl2-2b (24 layers, 256 vision embeddings), random
+                weights, QMC PTQ rho 0.3, a batch of 2 with seeded frames or
+                vision embeddings: prefill and 16 greedy decode steps
+                through the kernels and through the plain versions, and
+                the decode logits against one full forward (both within
+                1e-3 x max|logits|); the encoder's time and the qmm route
+                its 3000-row projections take. Then LegacyServeEngine on
+                the serve phase's stablelm-1.6b weights and 8 requests
+                against the paged engine's tokens: where they part, the
+                legacy logits there must be a near tie (top-2 gap below
+                1e-3 x max|logits|);
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -101,6 +130,7 @@ exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -130,7 +160,7 @@ from repro_torch.core.serving_quant import quantize_for_serving  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    ragged_paged_attention_call)
+    q_block_for, ragged_paged_attention_call)
 from repro_torch.kernels.qmm import (empty_launch,  # noqa: E402
                                      qmm_colstrip, qmm_decode)
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
@@ -140,12 +170,14 @@ from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
-from repro_torch.models.model import forward, init_params  # noqa: E402
+from repro_torch.models.model import (decode_step, encode,  # noqa: E402
+                                      forward, init_params, prefill)
 from repro_torch.obs import costs as obs_costs  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve import steps as serve_steps  # noqa: E402
-from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import (LegacyServeEngine,  # noqa: E402
+                                      Request, ServeEngine)
 from repro_torch.serve.paged_kv import PagedKVPool  # noqa: E402
 from repro_torch.serve import sampling as samplib  # noqa: E402
 from repro_torch.serve.sampling import (DEAD_TOKEN,  # noqa: E402
@@ -165,6 +197,8 @@ TOL_QMM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|y|
 ATT_ATOL, ATT_RTOL = 1e-5, 1e-4
 HYMBA_DECODE = "hymba decode kv_len<=2048 G=5 win 1024"
 HYMBA_CHUNK = "hymba chunk S=128 pos>1024 G=5 win 1024"
+DBRX_DECODE = "dbrx decode hd 128 G=6"
+DBRX_CHUNK = "dbrx chunk S=128 hd 128 G=6"
 
 
 def require(cond: bool, msg: str) -> None:
@@ -431,10 +465,11 @@ def check_attention(timer, peak, gen, rows):
     heads, 4 lanes, page 16) over fp32, int8 and bf16 pages (bf16 q with
     bf16 pages, the arena of a bf16 model), and at hymba-1.5b's (5 KV
     heads of 25 query heads, G = 5, its 1024-token window, kv_len up to
-    2048) over fp32 and bf16 pages, against its plain version on the same
-    inputs."""
+    2048) over fp32 and bf16 pages, and at dbrx-132b's (hd 128, 8 KV heads
+    of 48, G = 6) over fp32 pages, where a chunk runs q blocks of 8 tokens
+    (``q_block_for``), against its plain version on the same inputs."""
     bw, fl, _ = peak
-    hd, page, b = 64, 16, 4
+    page, b = 16, 4
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
     # StableLM-2-1.6B's published context is 4096 tokens
     long_ctx = [(4095, 1), (3000, 1), (1500, 1), (511, 1)]
@@ -460,11 +495,23 @@ def check_attention(timer, peak, gen, rows):
     for dt in ("float32", "bfloat16"):
         cases += [(HYMBA_DECODE, hymba_decode, 5, 5, dt, 1024, None),
                   (HYMBA_CHUNK, hymba_chunk, 5, 5, dt, 1024, None)]
-    for label, lanes, n_kv, g, dt, window, cap in cases:
+    cases = [c + (64,) for c in cases]
+    # dbrx-132b at the [moe] phase's shapes (max_len 256): a decode round
+    # and a mixed chunk step over fp32 pages
+    cases += [(DBRX_DECODE, [(200, 1), (150, 1), (31, 1), (0, 0)], 8, 6,
+               "float32", None, None, 128),
+              (DBRX_CHUNK, chunk, 8, 6, "float32", None, None, 128)]
+    for label, lanes, n_kv, g, dt, window, cap, hd in cases:
         q, cache, qs, kl, n_new, live = make_attn_case(
             lanes, n_kv=n_kv, g=g, hd=hd, page=page,
             quantized=dt == "int8", bf16=dt == "bfloat16", gen=gen)
         kw = dict(n_kv=n_kv, head_dim=hd, window=window, attn_softcap=cap)
+        q_blk = min(q_block_for(g, hd, cache["k_pages"].dtype,
+                                cache["block_tbl"].shape[1], page),
+                    q.shape[1])
+        if label == DBRX_CHUNK:
+            require(q_blk == 8, f"attention {label}: q block {q_blk}, "
+                    f"expected the halved 8")
         o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
         o_r, m_r, l_r = ragged_paged_attention_ref(q, cache, qs, kl, **kw)
         torch.cuda.synchronize()
@@ -509,8 +556,10 @@ def check_attention(timer, peak, gen, rows):
         rows.append(dict(kernel="ragged_paged_attention", shape=label,
                          dtype=dt, max_abs_err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"[kernels] attention {label:38s} {dt:8s} err={err:.2e} "
+                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         q_block=q_blk))
+        print(f"[kernels] attention {label:38s} {dt:8s} q_blk={q_blk} "
+              f"err={err:.2e} "
               f"ms={ms:.4f} host={host_ms:.4f} plain={plain_ms:.4f} "
               f"sdpa={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
               f"bound={b_ms:.4f} ({b_by})")
@@ -1610,6 +1659,295 @@ def hybrid_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4m: a mixture-of-experts stack at full width
+# ---------------------------------------------------------------------------
+MOE_LAYERS = 2          # of dbrx-132b's 40: its codes alone fill ~7 GB
+EXPERT_SHAPES = [(6144, 10752), (10752, 6144)]
+
+
+def check_expert_qmm(timer, peak, gen, rows):
+    """The decode-width qmm at dbrx-132b's expert shapes (w_up / w_gate
+    6144 x 10752, w_down 10752 x 6144) and the rows a 4-lane decode round
+    gives each expert: capacity 4, padded to 8."""
+    for k, n in EXPERT_SHAPES:
+        qt = quantize_qtensor(make_weight(k, n, gen), QMCConfig(
+            rho=0.3, granularity="subtile"))
+        w_dense = dequantize_qtensor(qt, torch.float32)
+        x = torch.zeros((8, k), device="cuda")
+        x[:4] = torch.randn((4, k), generator=gen, device="cuda")
+        rows.append(qmm_row(timer, "qmm_decode", qmm_decode, x, qt, w_dense,
+                            4, f"M=4 K={k} N={n} dbrx expert", peak))
+        del qt, w_dense
+
+
+def moe_model(seed: int):
+    """dbrx-132b at its published widths, depth cut to ``MOE_LAYERS``:
+    random weights from the seed, QMC PTQ with rho 0.3 on the card, the
+    fp32 tree freed after it."""
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=MOE_LAYERS)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    fp32_gb = torch.cuda.memory_allocated() / 1e9
+    qparams = quantize_for_serving(params, QMCConfig(
+        rho=0.3, granularity="subtile"), min_dim=64)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    codes = sum(qt.nbytes_container() for qt in qtensors(qparams))
+    print(f"[moe] dbrx-132b full width (d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, "
+          f"{cfg.n_experts} experts top-{cfg.topk}, vocab {cfg.vocab}, rope "
+          f"theta {cfg.rope_theta:g}, capacity factor "
+          f"{cfg.capacity_factor}); depth cut to {MOE_LAYERS} of 40 layers; "
+          f"init + QMC PTQ on the card in {time.monotonic() - t0:.1f}s; "
+          f"{fp32_gb:.1f} GB allocated with the fp32 tree, QTensor codes "
+          f"and metadata {codes / 1e9:.2f} GB")
+    return cfg, qparams
+
+
+def moe_round_parts(cfg, qparams, arena, lanes: int = 4) -> dict:
+    """A C = 1 round's MoE FFNs at ``lanes`` lanes (router, dispatch, the
+    experts' products, combine) as one CUDA graph, the experts' products
+    alone as another, and the step's counted bytes over the card's memory
+    rate (the round's floor)."""
+    from repro_torch.models.model import group_slice
+    from repro_torch.models.moe import capacity, moe_block
+    dev = qparams["embed"]["tok"].device
+    h = torch.randn((lanes, 1, cfg.d_model), device=dev)
+    ffns = [group_slice(blk["ffn"], g) for blk in qparams["blocks"].values()
+            for g in range(cfg.n_groups)]
+    cap = capacity(lanes, cfg)
+    bufs = {}
+
+    def x(k):
+        if k not in bufs:
+            bufs[k] = torch.randn((cap, k), device=dev)
+        return bufs[k]
+    products = [w for p in ffns for name in ("w_gate", "w_up", "w_down")
+                for w in p[name]]
+    out = dict(layers=len(ffns), cap=cap, products=len(products),
+               pad_m=kops.qmm_plan(cap, cfg.d_model, cfg.d_ff,
+                                   (8, 128))["pad_m"])
+    out["moe_ms"] = graph_ms(lambda: [moe_block(p, h, cfg) for p in ffns])
+    out["experts_ms"] = graph_ms(lambda: [kops.qmm(x(w.shape[0]), w)
+                                          for w in products])
+    work = obs_costs.step_work(cfg, qparams, arena, lanes=lanes, c=1)
+    out["step_bytes"] = work["bytes"]
+    out["floor_ms"] = work["bytes"] / rl.HBM_BW * 1e3
+    return out
+
+
+def moe_phase(seed: int, kernel_rows) -> dict:
+    """dbrx-132b (2 layers) through the serve runs (a), (b), (c): tokens
+    identical, qmm_decode and attention launched in every run (on replay
+    too), qmm's "ref" path never; one eager step under the sync debugger;
+    the decode window's busy time and the round's MoE part; one whole
+    step through the kernels against the plain versions."""
+    cfg, qparams = moe_model(seed)
+    out, toks = {}, {}
+    kernels = ("qmm_decode", "ragged_paged_attention")
+    for label, kw in SERVE_RUNS:
+        out[label], toks[label], eng = serve(
+            cfg, qparams, seed, f"dbrx-132b {label}", kernels=kernels,
+            tag="moe", **kw)
+        if label.startswith("a"):
+            check_no_host_sync(eng, tag="moe")
+        if label.startswith("b"):
+            out["idle"] = idle_share(eng, cfg, seed, f"dbrx-132b {label}",
+                                     top=8, tag="moe")
+            parts = moe_round_parts(cfg, qparams, eng._arena)
+            busy = out["idle"]["busy_ms"] / out["idle"]["rounds"]
+            print(f"[moe] decode round (4 lanes, C = 1; ms): profiler busy "
+                  f"per round of (b)'s window {busy:.3f}; the "
+                  f"{parts['layers']} MoE FFNs whole (router, dispatch, "
+                  f"{parts['products']} expert products at capacity "
+                  f"{parts['cap']} padded to {parts['pad_m']}, combine) as one CUDA graph "
+                  f"{parts['moe_ms']:.3f}, the expert products alone "
+                  f"{parts['experts_ms']:.3f}; the step's counted bytes "
+                  f"{parts['step_bytes'] / 1e9:.3f} GB, floor "
+                  f"{parts['floor_ms']:.3f} at {rl.HBM_BW / 1e12:.2f} TB/s")
+            out["parts"] = dict(parts, busy_ms_per_round=busy)
+        del eng
+        torch.cuda.empty_cache()
+    ref = toks[SERVE_RUNS[0][0]]
+    for label, _ in SERVE_RUNS[1:]:
+        require(toks[label] == ref, f"moe: {label} tokens differ from the "
+                f"eager run's")
+    print("[moe] identical tokens in the eager, graphed and "
+          "graphed+pipelined runs")
+    out["step"] = whole_step(cfg, qparams, seed, tag="moe")
+    out["expert_rows"] = [r for r in kernel_rows
+                          if r["shape"].endswith("dbrx expert")]
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the contiguous-cache surface (encoder-decoder, VLM, legacy)
+# ---------------------------------------------------------------------------
+FAMILY_PROMPT, FAMILY_STEPS = 16, 16
+
+
+def family_run(cfg, qparams, toks, extra, use_kernels, feed=None):
+    """``prefill`` over the prompt, then ``FAMILY_STEPS`` greedy
+    ``decode_step`` calls (fed ``feed``'s tokens when given, so a second
+    run follows the first one's positions); returns the logits of every
+    call [B, 1 + steps, V] and the tokens fed."""
+    b = toks.shape[0]
+    n_vis = cfg.n_vis_tokens if "vis_embeds" in extra else 0
+    max_len = n_vis + FAMILY_PROMPT + FAMILY_STEPS + 1
+    lg, cache = prefill(cfg, qparams, toks, max_len=max_len,
+                        cache_dtype=torch.float32, use_kernels=use_kernels,
+                        **extra)
+    logits, fed = [lg], []
+    for i in range(FAMILY_STEPS):
+        nxt = (feed[:, i] if feed is not None
+               else torch.argmax(logits[-1], dim=-1))
+        fed.append(nxt)
+        lg, cache = decode_step(cfg, qparams, nxt.reshape(b, 1), cache,
+                                n_vis + FAMILY_PROMPT + i,
+                                use_kernels=use_kernels)
+        logits.append(lg)
+    return torch.stack(logits, dim=1), torch.stack(fed, dim=1)
+
+
+def family_arch(arch: str, seed: int) -> dict:
+    """One family at its published width: kernels against plain versions
+    over prefill and 16 decode steps, decode against one full forward, and
+    the encoder's time and qmm route."""
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    qparams = quantize_for_serving(params, QMCConfig(
+        rho=0.3, granularity="subtile"), min_dim=64)
+    del params
+    torch.cuda.synchronize()
+    print(f"[families] {arch} full width ({cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers over {cfg.enc_seq} "
+             f"frames" if cfg.is_encdec else "")
+          + (f", {cfg.n_vis_tokens} vision embeddings" if cfg.n_vis_tokens
+             else "")
+          + f", d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, vocab "
+          f"{cfg.vocab}): init + QMC PTQ on the card in "
+          f"{time.monotonic() - t0:.1f}s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    b = 2
+    toks = torch.randint(2, cfg.vocab, (b, FAMILY_PROMPT), generator=gen,
+                         device="cuda")
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = 0.1 * torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                            generator=gen, device="cuda")
+    if cfg.n_vis_tokens:
+        extra["vis_embeds"] = 0.1 * torch.randn(
+            (b, cfg.n_vis_tokens, cfg.d_model), generator=gen,
+            device="cuda")
+    build.reset_launches()
+    kops.reset_path_counts()
+    lk, fed = family_run(cfg, qparams, toks, extra, True)
+    torch.cuda.synchronize()
+    launches, paths = dict(build.launches), dict(kops.path_counts)
+    require(launches["qmm_decode"] > 0, f"{arch}: the decode qmm never "
+            f"launched")
+    lp, _ = family_run(cfg, qparams, toks, extra, False, feed=fed)
+    torch.cuda.synchronize()
+    diff = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    require(bool(torch.isfinite(lk).all()), f"{arch}: non-finite logits")
+    require(diff <= 1e-3 * scale, f"{arch}: prefill + decode logits "
+            f"through the kernels differ from the plain versions by "
+            f"{diff:.3e} > 1e-3 * max|logits| = {1e-3 * scale:.3e}")
+    full = forward(cfg, qparams, torch.cat([toks, fed], dim=1), **extra)
+    at = full[:, FAMILY_PROMPT - 1:FAMILY_PROMPT + FAMILY_STEPS]
+    f_diff = (lk - at).abs().max().item()
+    require(f_diff <= 1e-3 * scale, f"{arch}: decode logits differ from "
+            f"the full forward's by {f_diff:.3e} > 1e-3 * max|logits| = "
+            f"{1e-3 * scale:.3e}")
+    print(f"[families] {arch}: prefill + {FAMILY_STEPS} greedy decode "
+          f"steps, batch {b}: kernels vs plain max|logits diff| {diff:.3e}, "
+          f"decode vs one full forward {f_diff:.3e} (1e-3 * max|logits| "
+          f"{1e-3 * scale:.3e}); kernel launches {launches}; qmm paths "
+          f"{paths}")
+    out = dict(max_abs_diff=diff, forward_diff=f_diff, max_abs_logit=scale,
+               launches=launches, qmm_paths=paths)
+    if cfg.is_encdec:
+        rows = b * cfg.enc_seq
+        route = kops.qmm_plan(rows, cfg.d_model, cfg.d_model,
+                              (8, 128))["path"]
+        kops.reset_path_counts()
+        encode(cfg, qparams, extra["frames"])
+        torch.cuda.synchronize()
+        enc_paths = dict(kops.path_counts)
+        timer = Timer(runs=5, warmup=1)
+        enc_ms = timer(lambda: encode(cfg, qparams, extra["frames"]))
+        del timer
+        print(f"[families] {arch} encoder: {cfg.n_enc_layers} layers over "
+              f"{b} x {cfg.enc_seq} frames in {enc_ms:.2f} ms; its "
+              f"projections at M = {rows} take qmm's {route!r} route "
+              f"(padded M {kops.qmm_plan(rows, cfg.d_model, cfg.d_model, (8, 128))['pad_m']}"
+              f", not a multiple of 128); qmm paths of one encode "
+              f"{enc_paths}")
+        out.update(encoder_ms=enc_ms, encoder_route=route,
+                   encoder_paths=enc_paths)
+    del qparams, full, lk, lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def legacy_vs_paged(cfg, qparams, seed: int, paged_tokens) -> dict:
+    """``LegacyServeEngine`` on the serve phase's weights and 8 requests
+    against the paged engine's tokens: attention through the plain
+    ``attend`` over per-slot caches against the ragged kernel. Where a
+    request's tokens part, the legacy logits at that position must be a
+    near tie: a top-2 gap below 1e-3 * max|logits|."""
+    eng = LegacyServeEngine(cfg, qparams, slots=4, max_len=256,
+                            device="cuda")
+    reqs = make_requests(cfg, 8, seed)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    s = eng.stats
+    parted = []
+    for r, want in zip(reqs, paged_tokens):
+        if r.out_tokens == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.out_tokens, want))
+                 if a != b)
+        seq = np.concatenate([r.prompt, r.out_tokens[:j]]).astype(np.int64)
+        lg, _ = prefill(cfg, qparams, torch.as_tensor(seq[None],
+                                                      device="cuda"),
+                        max_len=len(seq), cache_dtype=torch.float32)
+        top = torch.topk(lg[0], 2).values
+        gap = (top[0] - top[1]).item()
+        scale = lg.abs().max().item()
+        print(f"[families] legacy vs paged: request {r.uid} parts at output "
+              f"position {j} ({r.out_tokens[j]} vs {want[j]}); top-2 logit "
+              f"gap there {gap:.3e} vs 1e-3 * max|logits| {1e-3 * scale:.3e}")
+        require(gap < 1e-3 * scale, f"legacy vs paged: request {r.uid} "
+                f"parts at position {j} with a top-2 gap of {gap:.3e}")
+        parted.append(dict(uid=r.uid, position=j, gap=gap, scale=scale))
+    same = sum(r.out_tokens == w for r, w in zip(reqs, paged_tokens))
+    print(f"[families] LegacyServeEngine stablelm-1.6b: {s.prefills} "
+          f"prefills, {s.decode_steps} decode calls, {s.tokens_out} tokens "
+          f"in {s.wall_s:.2f}s ({s.tokens_per_s:.1f} tok/s); {same} of "
+          f"{len(reqs)} requests token-identical to the paged engine's")
+    return dict(prefills=s.prefills, decode_steps=s.decode_steps,
+                tokens=s.tokens_out, wall_s=s.wall_s,
+                tokens_per_s=s.tokens_per_s, identical=same, parted=parted)
+
+
+def families_phase(cfg, qparams, seed: int, paged_tokens) -> dict:
+    """whisper-medium and internvl2-2b at full width on the contiguous
+    surface, then the legacy engine against the paged one on
+    stablelm-1.6b."""
+    return {"whisper-medium": family_arch("whisper-medium", seed),
+            "internvl2-2b": family_arch("internvl2-2b", seed),
+            "legacy": legacy_vs_paged(cfg, qparams, seed, paged_tokens)}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the PTQ entry point at full width
 # ---------------------------------------------------------------------------
 def check_unpack3b(timer, peak, gen, rows):
@@ -1756,14 +2094,17 @@ def fig4_rows(arch: str = "hymba-1.5b", seq: int = 1024):
 
 
 # ---------------------------------------------------------------------------
-def summary(rows, launches, bw_name, hymba_attn_launches: int):
+def summary(rows, launches, bw_name, hymba_attn_launches: int,
+            moe_qmm_launches: int, moe_attn_launches: int):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
     lm_head's inlier stream); ``launches`` per kernel from the run of the
     path it serves (the serving kernels: the graphed run (b)). Then the
     attention rows at hymba-1.5b's shapes (G = 5, window 1024; fp32 and
-    bf16 pages), with the launches of the hybrid phase's graphed run."""
+    bf16 pages), with the launches of the hybrid phase's graphed run, and
+    the attention rows and the decode qmm rows at dbrx-132b's shapes, with
+    the launches of the MoE phase's graphed run."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -1793,12 +2134,31 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int):
                     "library_ms": row["library_ms"],
                     "shape": f"{shape} {dtype}", "peaks": bw_name})
     src, rep = meta["ragged_paged_attention"]
+    attn_launches = {HYMBA_DECODE: hymba_attn_launches,
+                     HYMBA_CHUNK: hymba_attn_launches,
+                     DBRX_DECODE: moe_attn_launches,
+                     DBRX_CHUNK: moe_attn_launches}
     for row in rows:
-        if row["shape"] in (HYMBA_DECODE, HYMBA_CHUNK):
+        if row["shape"] in attn_launches:
             out.append({"name": f"ragged_paged_attention "
                                 f"[{row['shape']} {row['dtype']}]",
                         "route": "cuda", "source": src, "replaces": rep,
-                        "launches": hymba_attn_launches,
+                        "launches": attn_launches[row["shape"]],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "host_ms": row["host_ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"],
+                        "shape": f"{row['shape']} {row['dtype']}",
+                        "peaks": bw_name})
+    src, rep = meta["qmm_decode"]
+    for row in rows:
+        if row["shape"].endswith("dbrx expert"):
+            out.append({"name": f"qmm_decode [{row['shape']} "
+                                f"{row['dtype']}]",
+                        "route": "cuda", "source": src, "replaces": rep,
+                        "launches": moe_qmm_launches,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "host_ms": row["host_ms"],
                         "plain_ms": row["plain_ms"],
@@ -1849,6 +2209,7 @@ def main(argv=None) -> int:
     check_patterns(timer, peak, gen, rows)
     empty = check_empty_launch(timer)
     check_attention(timer, peak, gen, rows)
+    check_expert_qmm(timer, peak, gen, rows)
     del timer
 
     cfg = get_config("stablelm-1.6b")
@@ -1866,6 +2227,8 @@ def main(argv=None) -> int:
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
                          served["idle"])
     hybrid = hybrid_phase(args.seed)
+    moe = moe_phase(args.seed, rows)
+    families = families_phase(cfg, qparams, args.seed, greedy_tokens)
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -1889,12 +2252,14 @@ def main(argv=None) -> int:
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
     kernels = summary(rows, launches, peak_name, hybrid["hymba-1.5b"][
-        "b graphed"]["launches"]["ragged_paged_attention"])
+        "b graphed"]["launches"]["ragged_paged_attention"],
+        moe["b graphed"]["launches"]["qmm_decode"],
+        moe["b graphed"]["launches"]["ragged_paged_attention"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
-        step=stepped,
+        moe=moe, families=families, step=stepped,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

@@ -4,10 +4,14 @@ JAX package's parameter trees through here).
 ``params_from_numpy(tree, device)`` takes a parameter tree of nested
 dicts of numpy arrays. A QTensor leaf arrives as a dict of its six fields
 (``in_codes`` already widened to int8) plus ``shape``, ``bits_in``,
-``bits_out`` and ``subtile``, with any leading ``[G]`` or ``[G, 1]``
-stack dims (a stacked one-shard ``ShardedQTensor``); it becomes one
-:class:`QTensor` or a per-group list of them. Dense leaves become
-tensors, group-stacked leaves keep their ``[G, ...]`` layout.
+``bits_out`` and ``subtile``, with any leading stack dims: ``[G]`` (a
+per-group stack) becomes a per-group list of :class:`QTensor`. Two
+leading dims are ambiguous — a one-shard ``ShardedQTensor`` stacked over
+groups is ``[G, 1, ...]``, an MoE expert stack ``[G, E, ...]``, and E
+may be 1 — so such a leaf must carry ``"stack"``: ``"shards"`` (the
+shard dim is dropped: a per-group list) or ``"experts"`` (a ``[G][E]``
+nested list); an unmarked one is refused. Dense leaves become tensors,
+group-stacked leaves keep their ``[G, ...]`` layout.
 
 ``arena_from_numpy`` / ``arena_to_numpy`` move the paged arena, with the
 dense SSM (``ssm``, always fp32) and conv rows of mamba and hybrid
@@ -42,21 +46,31 @@ def _qtensor(fields: dict, device) -> QTensor:
                    subtile=tuple(int(v) for v in fields["subtile"]))
 
 
+def _unstack(fields: dict, device):
+    """A QTensor, or a (nested) list of them over the leading dims."""
+    if np.ndim(fields["in_codes"]) == 3:         # [k, r, c]
+        return _qtensor(fields, device)
+    return [_unstack(dict(fields, **{f: np.asarray(fields[f])[i]
+                                     for f in _QT_FIELDS}), device)
+            for i in range(np.shape(fields["in_codes"])[0])]
+
+
 def _qtensor_leaf(fields: dict, device):
     extra = np.ndim(fields["in_codes"]) - 3      # [k, r, c] is rank 3
-    if extra == 0:
-        return _qtensor(fields, device)
-    if extra == 2:                               # [G, 1, ...]: one shard
-        if np.shape(fields["in_codes"])[1] != 1:
-            raise ValueError("only one-shard stacks are ported")
-        fields = dict(fields, **{f: np.asarray(fields[f])[:, 0]
-                                 for f in _QT_FIELDS})
-    elif extra != 1:
+    if extra == 2:
+        stack = fields.get("stack")
+        if stack == "shards":                    # [G, 1, ...]: one shard
+            if np.shape(fields["in_codes"])[1] != 1:
+                raise ValueError("only one-shard stacks are ported")
+            fields = dict(fields, **{f: np.asarray(fields[f])[:, 0]
+                                     for f in _QT_FIELDS})
+        elif stack != "experts":                 # [G, E, ...]
+            raise ValueError(
+                "a QTensor with two stack dims must say whether they are "
+                "[G, shards] or [G, experts] (\"stack\")")
+    elif extra > 2:
         raise ValueError(f"unexpected QTensor stack rank {extra}")
-    g = np.shape(fields["in_codes"])[0]
-    return [_qtensor(dict(fields, **{f: np.asarray(fields[f])[i]
-                                     for f in _QT_FIELDS}), device)
-            for i in range(g)]
+    return _unstack(fields, device)
 
 
 def params_from_numpy(tree, device="cuda"):

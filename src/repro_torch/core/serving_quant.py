@@ -7,13 +7,17 @@ a parameter tree into the deployment format, as
   * stacked projections ``[G, din, dout]`` -> a per-group list of
     :class:`QTensor` (the JAX walk stacks the fields of a one-shard
     ``ShardedQTensor`` instead);
+  * MoE expert stacks ``[G, E, din, dout]`` -> a ``[G][E]`` nested list
+    of QTensors (the JAX walk stacks a plain QTensor's fields over
+    ``[G, E]``);
   * unstacked 2-D projections (``lm_head``) -> one QTensor;
   * everything else (norms, embeddings, biases, small or non-tileable
     leaves) stays dense.
 
 ``build_exec_weights(params)`` is the serving **weight plan**: every
 stream leaf dequantized once into a dense fp32 tensor of its logical shape,
-so the step multiplies dense weights. The port's engine keeps it as a
+so the step multiplies dense weights (a ``[G][E]`` expert list becomes
+one ``[G, E, din, dout]`` tensor, multiplied by ``torch.bmm``). The port's engine keeps it as a
 switch (``weight_plan``), off by default: the streams go through the qmm
 kernels.
 """
@@ -33,15 +37,15 @@ def _tileable(din: int, dout: int, cfg: QMCConfig) -> bool:
 
 
 def _convert_leaf(leaf: torch.Tensor, cfg: QMCConfig):
-    if leaf.ndim == 4:
-        raise NotImplementedError(
-            "MoE expert stacks are not ported yet (dense FFNs only)")
     din, dout = leaf.shape[-2:]
     if not _tileable(din, dout, cfg):
         return leaf
-    if leaf.ndim == 3:
-        return [quantize_qtensor(leaf[g], cfg) for g in range(leaf.shape[0])]
-    return quantize_qtensor(leaf, cfg)
+
+    def convert(w):
+        if w.ndim == 2:
+            return quantize_qtensor(w, cfg)
+        return [convert(w[i]) for i in range(w.shape[0])]
+    return convert(leaf)
 
 
 def quantize_for_serving(params, qmc: QMCConfig, min_dim: int = 128):
@@ -58,19 +62,21 @@ def quantize_for_serving(params, qmc: QMCConfig, min_dim: int = 128):
 
 
 def is_stream_leaf(leaf) -> bool:
+    """A QTensor, or a (nested) per-group / per-expert list of them."""
     return isinstance(leaf, QTensor) or (
-        isinstance(leaf, list) and leaf and isinstance(leaf[0], QTensor))
+        isinstance(leaf, list) and bool(leaf) and is_stream_leaf(leaf[0]))
 
 
 def build_exec_weights(params, dtype=torch.float32):
     """Lower every stream leaf to a dense ``dtype`` tensor (stacked [G]
-    lists become one [G, din, dout] tensor); dense leaves pass through."""
+    lists become one [G, din, dout] tensor, [G][E] lists one [G, E, din,
+    dout]); dense leaves pass through."""
     def lower(tree):
         if isinstance(tree, dict):
             return {k: lower(v) for k, v in tree.items()}
         if isinstance(tree, QTensor):
             return dequantize_qtensor(tree, dtype)
         if is_stream_leaf(tree):
-            return torch.stack([dequantize_qtensor(q, dtype) for q in tree])
+            return torch.stack([lower(q) for q in tree])
         return tree
     return lower(params)

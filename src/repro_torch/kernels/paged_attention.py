@@ -10,11 +10,14 @@ the same call. Lane ``b``'s queries sit at ``q_start[b] + t`` and attend
 the pages of ``block_tbl[b]`` causally, bounded by ``kv_len[b]``; query
 rows at or past ``kv_len`` emit exactly 0.
 
-The kernel walks each (lane, KV head, q block of ``Q_BLOCK`` tokens)'s
-causally live pages only (``live_pages``). ``Q_BLOCK`` is mirrored by the
-host-side stream account (``memsys.workload.chunk_pages_streamed`` and the
-engine's ``prefill_kv_pages_live`` counter), which must stay page-for-page
-with the kernel's loop bound. The live pages are cut into spans of
+The kernel walks each (lane, KV head, q block)'s causally live pages only
+(``live_pages``). A q block is ``Q_BLOCK`` tokens, halved by ``q_block_for``
+where its rows and page ring outgrow a block's shared memory (hd 128 at
+G = 6 over fp32 pages, dbrx-132b: 8 tokens). The same ``q_block_for``
+sets the block of the host-side stream account
+(``memsys.workload.chunk_pages_streamed``, the engine's
+``prefill_kv_pages_live`` counter), which stays page-for-page with the
+kernel's loop bound. The live pages are cut into spans of
 ``span_pages`` pages, one block each (split-KV); ``span_plan`` lists the
 page ranges the span blocks walk, and the kernel's second pass merges the
 spans of a row in span order.
@@ -46,6 +49,7 @@ _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
 _DECODE_HD = (32, 64, 128, 256)   # decode path: hd / 32 dims per lane
 _CHUNK_HD = (32, 64, 128)         # chunk path: hd / 8 mma n tiles
 _MAX_G = 8                # decode rows (G) / chunk 16-row m tiles
+_TILES = STAGE_KEYS // 16  # 16-key warp work items per ring stage
 # the kernel's page kinds (csrc/paged_attention.cuh: Kind)
 _PAGE_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 
@@ -71,12 +75,63 @@ def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132
     return max(unit, -(-per // unit) * unit)
 
 
-def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int
-              ) -> list:
+def smem_bytes(rows: int, q_blk: int, hd: int, kind: int,
+               n_span_pages: int) -> int:
+    """Dynamic shared memory of one span block over ``rows = q_blk * G``
+    query rows (``csrc/paged_attention.cu:smem_bytes`` and the ``Layout``
+    of ``paged_attention.cuh``, which the card test holds it to): the
+    span's table, the page ring (three stages while two blocks fit an SM,
+    else two) or the warps' final states over it, and a chunk's q rows as
+    fp32 hi + lo."""
+    chunk = q_blk > 1
+    if chunk:
+        mt = -(-rows // 16)
+        rows_pad = mt * 16
+        groups = (_TILES // mt if mt <= _TILES and _TILES % mt == 0
+                  else 1)
+    else:
+        rows_pad = next(r for r in (1, 2, 4, 8) if rows <= r or r == 8)
+        groups = _TILES
+    rb = hd * {0: 4, 1: 1, 2: 2}[kind]
+    k_row = rb + (32 if kind == 0 else 16)
+    stage = STAGE_KEYS * (k_row + rb + 16) + (8 * STAGE_KEYS if kind == 1
+                                              else 0)
+    tbl = -(-n_span_pages * 4 // 16) * 16
+    q = 2 * rows_pad * (hd + 8) * 4 if chunk else 0
+    scratch = groups * rows_pad * (hd + 2) * 4
+    for stages in (3, 2):
+        total = tbl + max(stages * stage, scratch) + q
+        if stages == 2 or total <= 113 * 1024:
+            return total
+
+
+def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
+                page: int) -> int:
+    """Tokens per q block of a chunk call over ``[., n_tbl]`` tables:
+    ``Q_BLOCK``, halved while a block's rows and page ring at the widest
+    span such a table can give outgrow a block's shared memory. A call of
+    width ``s`` runs ``min(q_block_for(...), s)``; the engine's stream
+    account counts with the same block (pages the kernel does not take
+    keep ``Q_BLOCK``)."""
+    kind = _PAGE_KIND.get(page_dtype)
+    if kind is None:
+        return Q_BLOCK
+    unit = max(1, STAGE_KEYS // page)
+    widest = max(unit, -(-max(n_tbl, 1) // unit) * unit)
+    blk = Q_BLOCK
+    while blk > 2 and smem_bytes(blk * g, blk, hd, kind,
+                                 widest) > _SMEM_LIMIT:
+        blk //= 2
+    return blk
+
+
+def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int,
+              q_block: int = Q_BLOCK) -> list:
     """The page ranges ``[p0, p1)`` the span blocks of each (lane, q block)
-    walk, per lane and q block, for queries of width ``s`` (what the
-    kernel computes on the card from the same rule)."""
-    q_blk = min(Q_BLOCK, s)
+    walk, per lane and q block, for queries of width ``s`` in blocks of
+    ``min(q_block, s)`` tokens (what the kernel computes on the card from
+    the same rule)."""
+    q_blk = min(q_block, s)
     out = []
     for qs, kl in zip(q_start, kv_len):
         lane = []
@@ -88,8 +143,9 @@ def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int
     return out
 
 
-def _check(q, cache, n_kv, head_dim) -> int:
-    """Raise on what the kernel does not take; return the page kind."""
+def _check(q, cache, n_kv, head_dim) -> Tuple[int, int]:
+    """Raise on what the kernel does not take; return the page kind and
+    the call's q block."""
     if q.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or q.ndim != 4:
@@ -136,7 +192,8 @@ def _check(q, cache, n_kv, head_dim) -> int:
         raise ValueError("int8 pages need hd % 16 == 0 and an even number "
                          "of scales (16-byte rows, 4-byte scale words)")
     g = h // n_kv
-    q_blk = min(Q_BLOCK, q.shape[1])
+    q_blk = min(q_block_for(g, hd, kp.dtype, tbl.shape[1], page),
+                q.shape[1])
     if q_blk == 1 and (hd not in _DECODE_HD or g > _MAX_G):
         raise ValueError(f"decode path takes hd in {_DECODE_HD} and G <= "
                          f"{_MAX_G}, got hd {hd}, G {g}")
@@ -144,7 +201,7 @@ def _check(q, cache, n_kv, head_dim) -> int:
         raise ValueError(f"chunk path takes hd in {_CHUNK_HD} and "
                          f"{q_blk} x G <= {16 * _MAX_G} rows, got hd {hd}, "
                          f"G {g}")
-    return _PAGE_KIND[kp.dtype]
+    return _PAGE_KIND[kp.dtype], q_blk
 
 
 @functools.lru_cache(maxsize=None)
@@ -164,18 +221,16 @@ def ragged_paged_attention_call(
         return ragged_paged_attention_ref(
             q, cache, q_start, kv_len, n_kv=n_kv, head_dim=head_dim,
             window=window, attn_softcap=attn_softcap)
-    kind = _check(q, cache, n_kv, head_dim)
+    kind, q_blk = _check(q, cache, n_kv, head_dim)
     b, s, h, hd = q.shape
     g = h // n_kv
-    q_blk = min(Q_BLOCK, s)
-    qb_n = -(-s // q_blk)
-    s_pad = qb_n * q_blk
-    lib = build.library()
     tbl = cache["block_tbl"]
     page, n_tbl = cache["k_pages"].shape[1], tbl.shape[1]
+    lib = build.library()
     quantized = "k_scale_pages" in cache
-    n_sm = _sm_count(q.device)
-    sp = span_pages(b * n_kv * qb_n, n_tbl, page, n_sm)
+    qb_n = -(-s // q_blk)
+    s_pad = qb_n * q_blk
+    sp = span_pages(b * n_kv * qb_n, n_tbl, page, _sm_count(q.device))
     n_spans = max(1, -(-n_tbl // sp))
     smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd, kind,
                                                sp)

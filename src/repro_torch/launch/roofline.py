@@ -31,7 +31,7 @@ in the table for reference only: no kernel of the port issues bf16
 products.
 
 The work functions (``qmm_work``, ``matmul_work``, ``attention_work``,
-``ssd_work``) count each input read once and each output written once, and the
+``ssd_work``, ``moe_work``) count each input read once and each output written once, and the
 operations the function needs; ``chip_smoke.py``'s kernel bounds and
 ``obs/costs.py``'s per-width step count both call them, so the two
 cannot drift apart. HLO collective parsing, ``model_flops_for`` and
@@ -40,7 +40,7 @@ cannot drift apart. HLO collective parsing, ``model_flops_for`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 # (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense
 # TF32 FLOP/s): the first fragment found in the card's name wins, so the
@@ -114,6 +114,28 @@ def attention_work(*, lanes: int, s: int, n_heads: int, n_kv: int,
         nbytes += 2 * pages * page * n_kv * 2
     nbytes += tbl_entries * 4 + 2 * lanes * 4
     return nbytes, 4.0 * hd * n_heads * keys
+
+
+def moe_work(*, m: int, cap: int, d: int, n_experts: int, topk: int,
+             x_itemsize: int, router_itemsize: int,
+             experts: Sequence[Tuple[float, float]]) -> Tuple[float, float]:
+    """(bytes, FLOPs) of one MoE FFN over ``m`` token rows
+    (``models/moe.py``): the router ``[m, d] @ [d, E]``; ``experts``, the
+    (bytes, FLOPs) of each expert product at ``cap`` rows (E x 3 for a
+    gated FFN, E x 2 otherwise; ``qmm_work`` at qmm's padded rows for a
+    QTensor, ``matmul_work`` for a dense stack); the dispatch (x read,
+    the ``[E, cap, d]`` buffer written) and the combine (the expert
+    outputs and the ``[m, k]`` fp32 gates read, y written; a multiply
+    and an add per contribution)."""
+    nbytes, flops = matmul_work(m, d, n_experts, x_itemsize,
+                                router_itemsize)
+    for b, f in experts:
+        nbytes += b
+        flops += f
+    buf = n_experts * cap * d * x_itemsize
+    nbytes += (m * d * x_itemsize + buf) + (buf + m * topk * 4
+                                            + m * d * x_itemsize)
+    return nbytes, flops + 2.0 * m * topk * d
 
 
 def ssd_work(*, lanes: int, s: int, chunk: int, heads: int, headdim: int,

@@ -29,13 +29,16 @@ the card, CUDA activity) and writes its Chrome trace under ``DIR``:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --trace-out t.json --metrics-out m.json --cost-report --profile p/
 
-Hybrid and SSM stacks serve through the same flags (``--arch hymba-1.5b``,
-``--arch mamba2-370m``; ``--reduced`` is the default, ``--no-reduced`` the
-full width); the features the engine refuses on them (``--prefix-cache``,
-``--speculative``) exit with the engine's message:
+Hybrid, SSM and MoE stacks serve through the same flags (``--arch
+hymba-1.5b``, ``--arch mamba2-370m``, ``--arch dbrx-132b``, ``--arch
+jamba-1.5-large-398b``; ``--reduced`` is the default, ``--no-reduced`` the
+full width); the features the engine refuses on a stack (``--prefix-cache``
+and ``--speculative`` on hybrid and SSM ones) exit with the engine's
+message, and so do the encoder-decoder and VLM architectures, which the
+paged engine does not serve (as the JAX CLI has no flag for them):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --arch hymba-1.5b
+      --arch dbrx-132b
 
 The mesh flags (``--data-shards``, ``--model-shards``) are refused with
 an error instead of being ignored: the port has no mesh yet.

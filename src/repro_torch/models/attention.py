@@ -1,5 +1,6 @@
-"""Grouped-query attention, cache-less or over the paged KV arena
-(counterpart of those two branches of ``repro.models.attention``).
+"""Grouped-query attention, cache-less, over the paged KV arena or over a
+contiguous cache, and the encoder-decoder cross-attention (counterpart of
+``repro.models.attention``).
 
 Without a cache ``attn_block`` attends over the step's own K/V (the
 forward the PTQ path evaluates with), through ``attend`` or, for long
@@ -8,7 +9,11 @@ With the paged arena it scatters the step's K/V into it (in place — the
 PyTorch port updates the arena tensors where JAX returns a new pytree)
 and then attends either through the ragged paged-attention kernel
 (``paged_attention=True``) or through the full-width gather +
-``attend``, the reference route of the JAX package.
+``attend``, the reference route of the JAX package. With a contiguous
+cache (``prefill`` / ``decode_step``) it writes the step's K/V at the
+reference's position (0 for a multi-token call, ``pos`` for one token),
+in place, and attends over the whole slab through ``attend``, as the
+reference does (no kernel there).
 """
 from __future__ import annotations
 
@@ -153,14 +158,53 @@ def paged_cache_read(cache: dict, dtype, n_kv: int, hd: int):
     return k, v
 
 
+def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                 pos0) -> dict:
+    """Write K/V of ``s`` tokens at ``pos0`` (an int or a 0-dim tensor)
+    into one group's contiguous cache ``[B, T, KV*hd]``, in place; int8
+    caches take ``quantize_kv``'s codes and scales. As the reference's
+    ``dynamic_update_slice``, a start past ``T - s`` is clamped to it."""
+    b, s, n_kv, hd = k.shape
+    start = torch.as_tensor(pos0, dtype=torch.int64, device=k.device)
+    idx = torch.arange(s, device=k.device) + torch.clamp(
+        start, 0, cache["k"].shape[1] - s)
+    if "k_scale" in cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        writes = {"k": kq.reshape(b, s, n_kv * hd),
+                  "v": vq.reshape(b, s, n_kv * hd),
+                  "k_scale": ks, "v_scale": vs}
+    else:
+        dt = cache["k"].dtype
+        writes = {"k": k.to(dt).reshape(b, s, n_kv * hd),
+                  "v": v.to(dt).reshape(b, s, n_kv * hd)}
+    for name, val in writes.items():
+        cache[name].index_copy_(1, idx, val)
+    return cache
+
+
+def _cache_read(cache: dict, dtype, n_kv: int, hd: int):
+    """K, V ``[B, T, n_kv, hd]`` of a contiguous cache (int8 codes times
+    their scales, in ``dtype``)."""
+    b, t, _ = cache["k"].shape
+    k = cache["k"].reshape(b, t, n_kv, hd)
+    v = cache["v"].reshape(b, t, n_kv, hd)
+    if "k_scale" in cache:
+        k = k.to(dtype) * cache["k_scale"][..., None].to(dtype)
+        v = v.to(dtype) * cache["v_scale"][..., None].to(dtype)
+    return k, v
+
+
 def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                window: Optional[int], cache: Optional[dict] = None,
-               valid_len: Optional[torch.Tensor] = None,
+               pos=None, valid_len: Optional[torch.Tensor] = None,
                use_kernels: bool = True,
                paged_attention: bool = False) -> torch.Tensor:
-    """Self-attention mixer, cache-less (``cache=None``) or over one
-    group's paged arena (updated in place). ``valid_len`` [B] is each
-    lane's absolute position bound in the arena."""
+    """Self-attention mixer, cache-less (``cache=None``), over one group's
+    paged arena or over its contiguous cache (both updated in place).
+    ``valid_len`` [B] is each lane's absolute position bound; ``pos`` the
+    contiguous write position of a one-token call (default
+    ``positions[0, 0]``)."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = linear(x, p["wq"], p.get("bq"), use_kernels).reshape(b, s, nh, hd)
@@ -180,8 +224,19 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = attend(q, k, v, **kw)
         return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
                       use_kernels)
-    paged_cache_write(cache, k, v, positions, valid_len=valid_len)
     valid = valid_len if valid_len is not None else positions[:, -1] + 1
+    if "k_pages" not in cache:                       # contiguous cache
+        pos0 = 0 if s > 1 else (pos if pos is not None else positions[0, 0])
+        _cache_write(cache, k, v, pos0)
+        k_all, v_all = _cache_read(cache, x.dtype, nkv, hd)
+        t_max = k_all.shape[1]
+        kv_pos = torch.arange(t_max, device=x.device)[None, :].expand(b, -1)
+        out = attend(q, k_all, v_all, q_positions=positions,
+                     kv_positions=kv_pos, kv_valid_len=valid, causal=True,
+                     window=window, attn_softcap=cfg.attn_softcap)
+        return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
+                      use_kernels)
+    paged_cache_write(cache, k, v, positions, valid_len=valid_len)
     if paged_attention:
         if use_kernels:
             out = kpa.ragged_paged_attention(
@@ -200,3 +255,33 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                      window=window, attn_softcap=cfg.attn_softcap)
     return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
                   use_kernels)
+
+
+def cross_attn_block(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
+                     use_kernels: bool = True) -> torch.Tensor:
+    """Cross-attention of the encoder-decoder's decoder: queries from
+    ``x`` (no rotary), keys and values ``enc_kv["xk"/"xv"] [B, T, KV,
+    hd]`` precomputed from the encoder, non-causal."""
+    b, s, _ = x.shape
+    hd, nh = cfg.head_dim, cfg.n_heads
+    q = linear(x, p["wq"], p.get("bq"), use_kernels).reshape(b, s, nh, hd)
+    k, v = enc_kv["xk"], enc_kv["xv"]
+    t = k.shape[1]
+    pos_q = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    pos_k = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    out = attend(q, k, v, q_positions=pos_q, kv_positions=pos_k,
+                 causal=False, window=None, attn_softcap=cfg.attn_softcap)
+    return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
+                  use_kernels)
+
+
+def precompute_cross_kv(p: dict, enc_out: torch.Tensor, cfg,
+                        use_kernels: bool = True) -> dict:
+    """One decoder layer's cross-attention K/V from the encoder output."""
+    b, t, _ = enc_out.shape
+    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    k = linear(enc_out, p["wk"], p.get("bk"), use_kernels
+               ).reshape(b, t, nkv, hd)
+    v = linear(enc_out, p["wv"], p.get("bv"), use_kernels
+               ).reshape(b, t, nkv, hd)
+    return {"xk": k, "xv": v}

@@ -1,9 +1,10 @@
-"""Block-level init/apply for the attention, mamba and parallel-hybrid
-kinds with a dense FFN (counterpart of ``repro.models.blocks``).
+"""Block-level init/apply: one layer of any supported kind (counterpart
+of ``repro.models.blocks``).
 
 A block = pre-norm mixer (attention, the Mamba2 SSD mixer, or both in
 parallel, fused as their mean) + residual, then (if the config has an
-FFN) pre-norm gated MLP + residual. MoE FFNs are not ported yet.
+FFN) pre-norm FFN (dense MLP, or MoE on the config's ``moe_slots``) +
+residual.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.models.attention import attn_block
 from repro_torch.models.layers import glu_mlp, rms_norm
+from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import mamba_block
 
 
@@ -55,6 +57,22 @@ def init_mlp_params(gen, cfg, g: int, device, dtype=torch.float32) -> dict:
     return p
 
 
+def init_moe_params(gen, cfg, g: int, device, dtype=torch.float32) -> dict:
+    """MoE weights for ``g`` groups: a ``[g, d, E]`` fp32 router (std
+    0.02) and ``[g, E, d, ff]`` / ``[g, E, ff, d]`` experts, the
+    reference's layout and scales."""
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    std_in = 1.0 / math.sqrt(d)
+    p = {"router": _normal(gen, (g, d, e), 0.02, device, torch.float32),
+         "w_up": _normal(gen, (g, e, d, ff), std_in, device, dtype),
+         "w_down": _normal(gen, (g, e, ff, d),
+                           1.0 / math.sqrt(ff * 2 * cfg.n_layers), device,
+                           dtype)}
+    if cfg.gated_mlp:
+        p["w_gate"] = _normal(gen, (g, e, d, ff), std_in, device, dtype)
+    return p
+
+
 def init_mamba_params(gen, cfg, g: int, device, dtype=torch.float32
                       ) -> dict:
     """Mamba2 mixer weights for ``g`` groups, stacked [g, ...], with the
@@ -82,15 +100,14 @@ def init_mamba_params(gen, cfg, g: int, device, dtype=torch.float32
             "out_proj": out_proj}
 
 
-def _refuse_unported(kind: str, use_moe: bool) -> None:
-    if use_moe or not kind.startswith(("attn", "mamba", "hybrid")):
-        raise NotImplementedError(
-            f"block kind {kind!r} (moe={use_moe}) is not ported yet")
+def _check_kind(kind: str) -> None:
+    if not kind.startswith(("attn", "mamba", "hybrid")):
+        raise ValueError(kind)
 
 
 def init_block(gen, kind: str, use_moe: bool, cfg, g: int, device,
                dtype=torch.float32) -> dict:
-    _refuse_unported(kind, use_moe)
+    _check_kind(kind)
     p = {"norm1": torch.zeros((g, cfg.d_model), device=device)}
     if kind.startswith(("attn", "hybrid")):
         p["attn"] = init_attn_params(gen, cfg, g, device, dtype)
@@ -98,27 +115,30 @@ def init_block(gen, kind: str, use_moe: bool, cfg, g: int, device,
         p["mamba"] = init_mamba_params(gen, cfg, g, device, dtype)
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros((g, cfg.d_model), device=device)
-        p["ffn"] = init_mlp_params(gen, cfg, g, device, dtype)
+        p["ffn"] = (init_moe_params(gen, cfg, g, device, dtype) if use_moe
+                    else init_mlp_params(gen, cfg, g, device, dtype))
     return p
 
 
 def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                valid_len: Optional[torch.Tensor] = None,
+                pos=None, valid_len: Optional[torch.Tensor] = None,
                 use_kernels: bool = True,
                 paged_attention: bool = False) -> torch.Tensor:
-    """One block, cache-less or over one group's paged cache (updated in
-    place). Attention takes ``valid_len`` as an absolute position bound;
-    the SSM mixer takes the count of valid columns in this window,
-    ``valid_len - positions[:, 0]``."""
-    _refuse_unported(kind, use_moe)
+    """One block, cache-less or over one group's paged or contiguous cache
+    (updated in place); a MoE FFN's load-balancing loss is dropped, as
+    serving drops it. Attention takes ``valid_len`` as an absolute
+    position bound and ``pos`` as the contiguous cache's write position of
+    a one-token call; the SSM mixer takes the count of valid columns in
+    this window, ``valid_len - positions[:, 0]``."""
+    _check_kind(kind)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.window if kind.endswith("_local") else None
     mixes = []
     if "attn" in p:
         mixes.append(attn_block(
             p["attn"], h, cfg, positions=positions, window=window,
-            cache=cache["attn"] if cache is not None else None,
+            cache=cache["attn"] if cache is not None else None, pos=pos,
             valid_len=valid_len, use_kernels=use_kernels,
             paged_attention=paged_attention))
     if "mamba" in p:
@@ -131,6 +151,10 @@ def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
     x = x + (mixes[0] if len(mixes) == 1 else 0.5 * (mixes[0] + mixes[1]))
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + glu_mlp(h, p["ffn"], cfg.act, cfg.gated_mlp,
+        if use_moe:
+            y, _ = moe_block(p["ffn"], h, cfg, use_kernels=use_kernels)
+        else:
+            y = glu_mlp(h, p["ffn"], cfg.act, cfg.gated_mlp,
                         use_kernels=use_kernels)
+        x = x + y
     return x

@@ -1,11 +1,15 @@
-"""Top-level model API: ``init_params`` and ``forward``, cache-less or
-paged (counterpart of ``repro.models.model`` for decoder-only stacks of
-attention, Mamba2 and parallel-hybrid blocks with dense FFNs).
+"""Top-level model API: ``init_params``, ``forward`` (cache-less, paged or
+contiguous), the whisper ``encode``, and ``prefill`` / ``decode_step`` on
+the contiguous cache (counterpart of ``repro.models.model``).
 
 Parameters are nested dicts in the JAX layout: block leaves are stacked
 over layer groups (``[G, ...]`` tensors, or per-group lists of
-:class:`~repro_torch.core.qtensor.QTensor` after ``quantize_for_serving``),
-and the forward pass loops over groups where JAX scans.
+:class:`~repro_torch.core.qtensor.QTensor` after ``quantize_for_serving``;
+MoE experts ``[G, E, ...]`` or ``[G][E]`` lists), and the forward pass
+loops over groups where JAX scans. The encoder-decoder (whisper) adds
+``encoder`` (its layers, ``pos_emb``, ``final_norm``) and ``xattn`` (one
+cross-attention per decoder layer); the VLM takes a prefix of vision
+embeddings before the text.
 """
 from __future__ import annotations
 
@@ -15,9 +19,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import kvcache as KV
+from repro_torch.models.attention import (attend, attn_block,
+                                          cross_attn_block,
+                                          precompute_cross_kv)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_tokens, linear, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import (embed_tokens, glu_mlp, linear,
+                                       rms_norm, softcap)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -25,9 +33,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
     the JAX package's layout and scales (not its values: the two
     frameworks draw different numbers from one seed)."""
-    if cfg.is_encdec or cfg.n_vis_tokens:
-        raise NotImplementedError("encoder-decoder and VLM models are not "
-                                  "ported yet")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -43,6 +48,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         f"b{i}": B.init_block(gen, kind, cfg.moe_slots[i], cfg,
                               cfg.n_groups, dev, dtype)
         for i, kind in enumerate(cfg.pattern)}
+    if cfg.is_encdec:
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+        params["encoder"] = {
+            "blocks": {"norm1": torch.zeros((n_enc, d), device=dev),
+                       "attn": B.init_attn_params(gen, cfg, n_enc, dev,
+                                                  dtype),
+                       "norm2": torch.zeros((n_enc, d), device=dev),
+                       "ffn": B.init_mlp_params(gen, cfg, n_enc, dev,
+                                                dtype)},
+            "pos_emb": B._normal(gen, (cfg.enc_seq, d), 0.02, dev, dtype),
+            "final_norm": torch.zeros((d,), device=dev)}
+        params["xattn"] = {
+            "norm_x": torch.zeros((n_dec, d), device=dev),
+            "xattn": B.init_attn_params(gen, cfg, n_dec, dev, dtype)}
     return params
 
 
@@ -54,42 +73,172 @@ def group_slice(tree, g: int):
     return tree[g]
 
 
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           use_kernels: bool = True) -> torch.Tensor:
+    """The whisper encoder over precomputed frame embeddings ``[B, T,
+    d]``: ``pos_emb``, then non-causal layers (no rotary, no q/k/v bias,
+    as the reference's), then the final norm."""
+    enc = params["encoder"]
+    x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    hd = cfg.head_dim
+    for i in range(cfg.n_enc_layers):
+        lp = group_slice(enc["blocks"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q = linear(h, lp["attn"]["wq"], use_kernels=use_kernels
+                   ).reshape(b, t, cfg.n_heads, hd)
+        k = linear(h, lp["attn"]["wk"], use_kernels=use_kernels
+                   ).reshape(b, t, cfg.n_kv_heads, hd)
+        v = linear(h, lp["attn"]["wv"], use_kernels=use_kernels
+                   ).reshape(b, t, cfg.n_kv_heads, hd)
+        o = attend(q, k, v, q_positions=positions, kv_positions=positions,
+                   causal=False, window=None)
+        x = x + linear(o.reshape(b, t, -1), lp["attn"]["wo"],
+                       use_kernels=use_kernels)
+        h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + glu_mlp(h2, lp["ffn"], cfg.act, cfg.gated_mlp,
+                        use_kernels=use_kernels)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _decoder_layer(cfg, bp, xp, x, cache, enc_kv, positions, pos,
+                   use_kernels):
+    """One encoder-decoder decoder layer: self-attention, cross-attention
+    after ``norm_x``, then the FFN."""
+    h = rms_norm(x, bp["norm1"], cfg.norm_eps)
+    x = x + attn_block(bp["attn"], h, cfg, positions=positions, window=None,
+                       cache=cache["self"] if cache is not None else None,
+                       pos=pos, use_kernels=use_kernels)
+    hx = rms_norm(x, xp["norm_x"], cfg.norm_eps)
+    x = x + cross_attn_block(xp["xattn"], hx, enc_kv, cfg,
+                             use_kernels=use_kernels)
+    h2 = rms_norm(x, bp["norm2"], cfg.norm_eps)
+    return x + glu_mlp(h2, bp["ffn"], cfg.act, cfg.gated_mlp,
+                       use_kernels=use_kernels)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
-            cache: Optional[dict] = None,
+            cache: Optional[dict] = None, pos=None,
             valid_len: Optional[torch.Tensor] = None,
+            vis_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None,
             use_kernels: bool = True,
             paged_attention: bool = False) -> torch.Tensor:
-    """Logits ``[B, S, V]``.
+    """Logits ``[B, S, V]``. A MoE block's load-balancing loss is dropped,
+    as serving drops it (``moe.moe_block`` returns it).
 
     Without ``cache`` every sequence attends over its own tokens, at
     ``positions`` (default ``arange(S)`` in every row) — the forward the
-    PTQ path evaluates with. With ``cache`` (the paged arena) it is one
-    paged step: K/V of ``tokens`` are written into the arena in place, and
+    PTQ path evaluates with. With the paged arena it is one paged step:
+    K/V of ``tokens`` are written into the arena in place, and
     ``valid_len [B]`` bounds each lane's KV (writes at or past it land on
     the null page); mamba and hybrid blocks update their lanes' SSM and
     conv rows in place, a lane with no valid token leaving them as they
-    were. ``use_kernels=False`` runs the plain version of every
-    kernel (the counterpart of JAX's ``use_pallas=False``);
-    ``paged_attention`` selects the ragged paged-attention route over the
-    full-width gather."""
-    if positions is None:
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None, :].expand(
-            b, s)
+    were. With a contiguous cache (``KV.init_cache``, or the
+    ``{"b0": init_encdec_cache(...)}`` of an encoder-decoder) a
+    multi-token call writes from position 0 and a one-token call at
+    ``pos`` (a scalar; ``positions`` default to it), in place.
+
+    ``vis_embeds [B, n_vis, d]`` (a VLM) go before the text embeddings and
+    their rows are cut from the logits. An encoder-decoder runs
+    ``encode(frames)`` (or takes ``enc_out``) and each decoder layer's
+    cross K/V from it, stored into the cache's ``cross`` when one is
+    given; without either, the cache's ``cross`` is read.
+    ``use_kernels=False`` runs the plain version of every kernel (the
+    counterpart of JAX's ``use_pallas=False``); ``paged_attention``
+    selects the ragged paged-attention route over the full-width
+    gather."""
+    b = tokens.shape[0]
     x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed)
-    for g in range(cfg.n_groups):
-        for i, kind in enumerate(cfg.pattern):
-            key = f"b{i}"
-            x = B.apply_block(
-                group_slice(params["blocks"][key], g), x, kind,
-                cfg.moe_slots[i], cfg, positions=positions,
-                cache=(group_slice(cache[key], g) if cache is not None
-                       else None), valid_len=valid_len,
-                use_kernels=use_kernels, paged_attention=paged_attention)
+    n_vis = 0
+    if cfg.n_vis_tokens and vis_embeds is not None:
+        n_vis = vis_embeds.shape[1]
+        x = torch.cat([vis_embeds.to(x.dtype), x], dim=1)
+    total = x.shape[1]
+    if positions is None:
+        if pos is not None:                           # decode step
+            p = torch.as_tensor(pos, dtype=torch.int64, device=x.device)
+            positions = (p.expand(b, total) if p.ndim == 0
+                         else p[:, None])
+        else:
+            positions = torch.arange(total, device=x.device)[None, :
+                                                             ].expand(
+                b, total)
+
+    if cfg.is_encdec:
+        if enc_out is None and frames is not None:
+            enc_out = encode(cfg, params, frames, use_kernels)
+        dec_cache = cache["b0"] if cache is not None else None
+        cross = []
+        for g in range(cfg.n_groups):
+            lc = (group_slice(dec_cache, g) if dec_cache is not None
+                  else None)
+            xp = group_slice(params["xattn"], g)
+            kv = (precompute_cross_kv(xp["xattn"], enc_out, cfg, use_kernels)
+                  if enc_out is not None else lc["cross"])
+            cross.append(kv)
+            x = _decoder_layer(cfg, group_slice(params["blocks"]["b0"], g),
+                               xp, x, lc, kv, positions, pos, use_kernels)
+        if dec_cache is not None and enc_out is not None:
+            # the cross K/V stay in the dtype they were computed in, as in
+            # the reference's returned cache
+            dec_cache["cross"] = {
+                n: torch.stack([kv[n] for kv in cross])
+                for n in ("xk", "xv")}
+    else:
+        for g in range(cfg.n_groups):
+            for i, kind in enumerate(cfg.pattern):
+                key = f"b{i}"
+                x = B.apply_block(
+                    group_slice(params["blocks"][key], g), x, kind,
+                    cfg.moe_slots[i], cfg, positions=positions,
+                    cache=(group_slice(cache[key], g) if cache is not None
+                           else None), pos=pos, valid_len=valid_len,
+                    use_kernels=use_kernels,
+                    paged_attention=paged_attention)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if n_vis:
+        x = x[:, n_vis:]
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tok"].T.to(x.dtype))
     else:
         logits = linear(x, params["lm_head"], use_kernels=use_kernels)
-    return softcap(logits, cfg.logit_softcap)
+    logits = softcap(logits, cfg.logit_softcap)
+    return logits
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: int, cache_dtype=torch.bfloat16,
+            vis_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            use_kernels: bool = True):
+    """Full forward over the prompt into a fresh contiguous cache of
+    ``max_len`` positions; returns ``(last_logits [B, V], cache)``. An
+    encoder-decoder encodes ``frames`` and keeps each decoder layer's
+    cross K/V in the cache, under ``b0``."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    if cfg.is_encdec:
+        cache = {"b0": KV.init_encdec_cache(cfg, b, max_len, cache_dtype,
+                                            dev)}
+        enc_out = encode(cfg, params, frames, use_kernels)
+        logits = forward(cfg, params, tokens, cache=cache, enc_out=enc_out,
+                         use_kernels=use_kernels)
+    else:
+        cache = KV.init_cache(cfg, b, max_len, cache_dtype, dev)
+        logits = forward(cfg, params, tokens, cache=cache,
+                         vis_embeds=vis_embeds, use_kernels=use_kernels)
+    return logits[:, -1], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
+                cache: dict, pos, *, use_kernels: bool = True):
+    """One token step on a contiguous cache (updated in place): ``token
+    [B, 1]`` at position ``pos`` (a scalar); returns ``(logits [B, V],
+    cache)``."""
+    logits = forward(cfg, params, token, cache=cache, pos=pos,
+                     use_kernels=use_kernels)
+    return logits[:, -1], cache

@@ -56,6 +56,7 @@ from repro_torch.memsys.system import (MemSystemConfig, evaluate_conventional,
                                        evaluate_hetero)
 from repro_torch.memsys.workload import (act_bits_per_step, kv_bits_per_step,
                                          make_traffic)
+from repro_torch.models.moe import capacity
 from repro_torch.models.ssm import chunk_for
 
 # ---------------------------------------------------------------------------
@@ -91,6 +92,10 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
       * each projection at the rows its matmul runs: a QTensor leaf
         through ``kernels.ops.qmm`` at M padded to 8 (``qmm_plan``), with
         its int8 codes, subtile metadata and scales; a dense leaf at M;
+      * each MoE FFN (``launch/roofline.py:moe_work``): the router at M,
+        every expert's products at the call's capacity rows
+        (``models/moe.py:capacity``, padded by ``qmm_plan`` on a
+        QTensor), the dispatch and the combine;
       * each attention layer over the full ``[lanes, P]`` block table:
         q, every page of every lane's table row, the softmax over all
         ``P * page`` keys, o, m and l (a static count, as XLA's is);
@@ -110,26 +115,42 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
     m = lanes * c
     flops = nbytes = 0.0
 
-    def matmul(w) -> None:
-        nonlocal flops, nbytes
+    def work(w, rows: int) -> Tuple[float, float]:
         if isinstance(w, QTensor):
             k, n = w.shape
-            m_run = qmm_plan(m, k, n, w.subtile)["pad_m"]
-            b, f = rl.qmm_work(m_run, k, n, xb, w.subtile)
-        else:
-            k, n = w.shape[-2:]
-            b, f = rl.matmul_work(m, k, n, xb, w.element_size())
+            m_run = qmm_plan(rows, k, n, w.subtile)["pad_m"]
+            return rl.qmm_work(m_run, k, n, xb, w.subtile)
+        k, n = w.shape[-2:]
+        return rl.matmul_work(rows, k, n, xb, w.element_size())
+
+    def matmul(w) -> None:
+        nonlocal flops, nbytes
+        b, f = work(w, m)
         nbytes += b
         flops += f
 
+    cap = capacity(m, cfg) if cfg.n_experts else 0
     for key, blk in params["blocks"].items():
         grp = arena[key]
+        moe = cfg.moe_slots[int(key[1:])] and "ffn" in blk
         for g in range(cfg.n_groups):
             for part, names in _PROJECTIONS.items():
+                if part == "ffn" and moe:
+                    continue
                 for name in names:
                     if name in blk.get(part, {}):
                         matmul(blk[part][name][g])
             works = []
+            if moe:
+                ffn = blk["ffn"]
+                router = ffn["router"][g]
+                works.append(rl.moe_work(
+                    m=m, cap=cap, d=cfg.d_model, n_experts=cfg.n_experts,
+                    topk=cfg.topk, x_itemsize=xb,
+                    router_itemsize=router.element_size(),
+                    experts=[work(w_e, cap)
+                             for name in _PROJECTIONS["ffn"] if name in ffn
+                             for w_e in ffn[name][g]]))
             if "attn" in grp:
                 cache = grp["attn"]
                 n_tbl = cache["block_tbl"].shape[-1]

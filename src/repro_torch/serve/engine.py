@@ -13,6 +13,15 @@ for pure decode, after one page-ops flush (the round's copy-on-write page
 copies and the changed block tables). A round with exactly one live lane
 runs the batch-1 ``solo_step`` (``EngineStats.solo_rounds``).
 
+MoE stacks (and hybrid stacks with MoE FFNs) run through the same step:
+each expert's rows of the dispatch buffer go through the qmm kernels
+against its own streams (``models/moe.py``). An expert's capacity
+counts every row of the step, idle lanes and padding included, as in the
+reference, so a token's output depends on the width of the step it ran
+in: this engine is token-identical to the JAX ``ServeEngine``, not to
+the per-slot :class:`LegacyServeEngine`, unless the capacity factor
+rules out drops.
+
 Mamba and hybrid stacks keep their SSM and conv state dense per slot
 beside the pages: seating a slot queues its state reset into the round's
 page-ops flush; decode lanes never share a round with a prefill chunk
@@ -108,8 +117,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.serving_quant import build_exec_weights
+from repro_torch.kernels.paged_attention import Q_BLOCK, q_block_for
 from repro_torch.memsys.workload import chunk_pages_streamed, pages_for
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import prefill
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -343,7 +354,9 @@ class ServeEngine:
                  metrics: Optional[obs_metrics.Registry] = None):
         if cfg.is_encdec or cfg.n_vis_tokens:
             raise NotImplementedError(
-                "the paged engine covers decoder-only models")
+                "the paged engine covers decoder-only models; a VLM serves "
+                "text-only through LegacyServeEngine, an encoder-decoder "
+                "through models.model.prefill / decode_step")
         attn_only = all(k.startswith("attn") for k in cfg.pattern)
         if (prefix_cache or inflight_dedup) and not attn_only:
             raise NotImplementedError(
@@ -372,6 +385,13 @@ class ServeEngine:
         self.chunk = chunk_tokens or serve_steps.default_chunk(
             self.max_pages_per_seq, page_size)
         self._widths = serve_steps.width_ladder(self.chunk)
+        # the attention kernel's q block, which the prefill stream account
+        # counts with
+        kv_pages_dtype = torch.int8 if cfg.kv_cache_quant else cache_dtype
+        self.q_block = (q_block_for(cfg.n_heads // cfg.n_kv_heads,
+                                    cfg.head_dim, kv_pages_dtype,
+                                    self.max_pages_per_seq, page_size)
+                        if cfg.n_kv_heads else Q_BLOCK)
         self.paged_attention = paged_attention
         self.stats = EngineStats()
         self._tracer = tracer          # None -> process default at run()
@@ -1032,7 +1052,8 @@ class ServeEngine:
                                              * self.max_pages_per_seq)
                 for s in plan:
                     self.stats.prefill_kv_pages_live += chunk_pages_streamed(
-                        int(pos[s]), plan[s], page=self.page)
+                        int(pos[s]), plan[s], page=self.page,
+                        q_block=self.q_block)
                     self.stats.prefill_kv_pages_written += (
                         pages_for(int(pos[s]) + plan[s], self.page)
                         - int(pos[s]) // self.page)
@@ -1156,3 +1177,97 @@ class ServeEngine:
                       "arena pages allocated").set(pool.used_count)
             reg.gauge("serve_pages_peak",
                       "peak arena pages this run").set(s.pages_peak)
+
+
+class LegacyServeEngine:
+    """The per-slot baseline (counterpart of the JAX class): batch-1
+    contiguous caches, a prefill when a request is seated and one
+    ``steps.contiguous_decode`` call per active slot per token, eagerly,
+    greedy only. The paged engine is tested against it.
+
+    As in the reference, a request is prefilled from its prompt alone: a
+    VLM serves text-only. An encoder-decoder is refused at construction
+    (the reference's prefill would fail inside ``encode`` with no
+    frames)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 max_len: int = 256, cache_dtype=torch.float32,
+                 device="cuda"):
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "LegacyServeEngine prefills prompts without encoder frames; "
+                "serve an encoder-decoder through models.model.prefill / "
+                "decode_step")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = tree_to(params, self.device)
+        self.slots = slots
+        self.max_len = max_len
+        self.cache_dtype = cache_dtype
+        self.stats = EngineStats()
+        self._decode = serve_steps.contiguous_decode(cfg)
+
+    def _prefill_one(self, prompt: np.ndarray):
+        tokens = torch.as_tensor(np.asarray(prompt, np.int64)[None, :],
+                                 device=self.device)
+        logits, cache = prefill(self.cfg, self.params, tokens,
+                                max_len=self.max_len,
+                                cache_dtype=self.cache_dtype)
+        self.stats.prefills += 1
+        return int(torch.argmax(logits[0])), cache
+
+    def run(self, requests: List[Request],
+            greedy: bool = True) -> List[Request]:
+        """Process all requests to completion; returns them with outputs.
+        Stats describe this run only (a fresh EngineStats per call)."""
+        if not greedy:
+            raise NotImplementedError("only greedy decoding is implemented")
+        self.stats = EngineStats()
+        t0 = time.monotonic()
+        queue = list(requests)
+        active: List[Optional[Request]] = [None] * self.slots
+        caches: List = [None] * self.slots
+        positions = [0] * self.slots
+        next_tok = [0] * self.slots
+
+        def refill() -> None:
+            for s in range(self.slots):
+                while active[s] is None and queue:
+                    req = queue.pop(0)
+                    tok, cache = self._prefill_one(req.prompt)
+                    req.out_tokens.append(tok)
+                    self.stats.tokens_out += 1
+                    if _finished(req, len(req.prompt), self.max_len):
+                        req.done = True   # EOS at prefill: no decode slot
+                        continue
+                    active[s] = req
+                    caches[s] = cache
+                    positions[s] = len(req.prompt)
+                    next_tok[s] = tok
+
+        refill()
+        while any(a is not None for a in active):
+            for s in range(self.slots):
+                req = active[s]
+                if req is None:
+                    continue
+                ts = time.monotonic()
+                tok = torch.tensor([[next_tok[s]]], dtype=torch.int64,
+                                   device=self.device)
+                logits, caches[s] = self._decode(self.params, tok,
+                                                 caches[s], positions[s])
+                positions[s] += 1
+                nxt = int(torch.argmax(logits[0]))
+                next_tok[s] = nxt
+                req.out_tokens.append(nxt)
+                self.stats.decode_steps += 1
+                self.stats.tokens_out += 1
+                self.stats.step_seconds.append(time.monotonic() - ts)
+                self.stats.step_tokens.append(1)
+                if _finished(req, positions[s], self.max_len):
+                    req.done = True
+                    active[s] = None
+                    caches[s] = None
+            refill()
+        self.stats.wall_s = time.monotonic() - t0
+        return requests

@@ -19,6 +19,10 @@ zeroing of freshly seated slots' SSM and conv rows, all in place. The
 recurrent state of those stacks lives dense per slot beside the pages; an
 idle lane (``n_new = 0``) leaves it bit for bit as it was.
 
+``contiguous_decode(cfg)`` is the legacy per-slot engine's executable:
+one token on a batch-1 contiguous cache (``models.model.decode_step``),
+a plain callable run eagerly.
+
 These are plain functions. ``build_paged_steps`` wraps them into the step
 set one engine runs, :class:`PagedServeSteps`, the counterpart of the JAX
 package's per-width jit: its ``step`` and ``solo_step`` hold up to two
@@ -74,7 +78,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import forward
+from repro_torch.models.model import decode_step, forward
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -218,6 +222,13 @@ def carry_decode_tokens(prev_tok: torch.Tensor, slot: Optional[int] = None
     if slot is None or prev_tok.shape[0] == 1:
         return prev_tok
     return prev_tok[slot:slot + 1]
+
+
+def contiguous_decode(cfg: ModelConfig) -> Callable:
+    """``fn(params, token [B, 1], cache, pos) -> (logits [B, V], cache)``:
+    one contiguous decode step, eager (the JAX counterpart jits it once
+    per ModelConfig; there is nothing here to keep per config)."""
+    return functools.partial(decode_step, cfg)
 
 
 def _tallies() -> Dict[str, int]:

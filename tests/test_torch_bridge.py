@@ -3,8 +3,11 @@
 ``jax_tree_to_numpy`` is the test-side half: it flattens a JAX parameter
 or arena tree into nested dicts of numpy arrays (QTensor and one-shard
 ShardedQTensor leaves become dicts of their fields, with the int4 inlier
-container widened to int8 first — numpy has no int4). The other port
-tests import it from here."""
+container widened to int8 first — numpy has no int4). A leaf with two
+stack dims says which kind they are (``"stack"``: ``"shards"`` for a
+group-stacked one-shard ShardedQTensor, ``"experts"`` for a QTensor
+stacked over [G, E], an MoE expert stack); the port refuses it
+unmarked. The other port tests import it from here."""
 import dataclasses
 
 import jax
@@ -50,6 +53,10 @@ def jax_tree_to_numpy(tree):
                 raise ValueError("only one-shard ShardedQTensors cross over")
             if fields["in_codes"].ndim == 4:       # unstacked [1, k, r, c]
                 fields = {f: v[0] for f, v in fields.items()}
+            elif fields["in_codes"].ndim == 5:     # [G, 1, k, r, c]
+                fields["stack"] = "shards"
+        elif fields["in_codes"].ndim == 5:         # [G, E, k, r, c]
+            fields["stack"] = "experts"
         fields.update(shape=tuple(tree.shape), bits_in=tree.bits_in,
                       bits_out=tree.bits_out, subtile=tuple(tree.subtile))
         return fields

@@ -23,7 +23,8 @@ for name in names:
     importlib.import_module(name)
 for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
              "serve.scheduler", "serve.engine", "obs", "obs.metrics",
-             "obs.trace", "obs.costs", "launch.roofline", "models.ssm"):
+             "obs.trace", "obs.costs", "launch.roofline", "models.ssm",
+             "models.moe"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

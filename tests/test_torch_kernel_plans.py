@@ -9,16 +9,22 @@ These tests hold the attention plan to the stream account the serving
 engine keeps: every causally live page is visited exactly once, and the
 live-page total equals ``memsys.workload.chunk_pages_streamed`` (the
 engine's ``prefill_kv_pages_live`` counter), in the port and in the JAX
-package."""
+package; where the kernel halves its q block (``q_block_for``), the
+engine counts with the halved block."""
 import numpy as np
 import pytest
+import torch
 
 from repro.memsys.workload import chunk_pages_streamed as jax_streamed
 from repro_torch.kernels.paged_attention import (Q_BLOCK, STAGE_KEYS,
-                                                 live_pages, span_pages,
+                                                 live_pages, q_block_for,
+                                                 smem_bytes, span_pages,
                                                  span_plan)
 from repro_torch.kernels.qmm import COLSTRIP_BM, colstrip_splits
 from repro_torch.memsys.workload import chunk_pages_streamed
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import init_params
+from repro_torch.serve.engine import Request, ServeEngine
 
 
 def _lanes(seed: int, n: int, s: int, max_start: int):
@@ -125,3 +131,54 @@ def test_colstrip_split_takes_the_fewest_rounds(m, k, n):
     for want in range(1, steps // 8 + 1):
         per = -(-steps // want)
         assert cost(splits, rows // 32) <= 1.05 * cost(-(-steps // per), per)
+
+
+@pytest.mark.parametrize("g,hd,dtype,n_tbl,page,want", [
+    (6, 128, torch.float32, 16, 16, 8),      # dbrx-132b, fp32 pages
+    (6, 128, torch.float32, 8192, 16, 8),    # a 128K-token table
+    (6, 128, torch.bfloat16, 16, 16, 16),
+    (6, 128, torch.int8, 16, 16, 16),
+    (5, 64, torch.float32, 128, 16, 16),     # hymba-1.5b
+    (1, 64, torch.float32, 256, 16, 16),     # stablelm-1.6b
+    (8, 128, torch.float32, 16, 16, 8)])
+def test_q_block_halves_only_where_shared_memory_overflows(g, hd, dtype,
+                                                           n_tbl, page,
+                                                           want):
+    """The kernel's q block is the largest of 16, 8, ... whose rows and
+    page ring fit a block's shared memory at the widest span the table
+    can give."""
+    blk = q_block_for(g, hd, dtype, n_tbl, page)
+    assert blk == want
+    kind = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}[dtype]
+    widest = -(-n_tbl // (STAGE_KEYS // page)) * (STAGE_KEYS // page)
+    assert smem_bytes(blk * g, blk, hd, kind, widest) <= 227 * 1024
+    if blk < Q_BLOCK:
+        assert smem_bytes(2 * blk * g, 2 * blk, hd, kind,
+                          widest) > 227 * 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_prefill_account_uses_the_kernels_q_block(dtype):
+    """At hd 128 and G = 6 over fp32 pages (dbrx-132b's attention) the
+    kernel runs 8-token q blocks, which re-stream their causal pages: the
+    engine's ``prefill_kv_pages_live`` counts the pages of those blocks,
+    as the kernel's span plan walks them (bf16 pages keep 16)."""
+    cfg = ModelConfig(name="hd128-g6", family="dense", n_layers=1,
+                      d_model=64, n_heads=6, n_kv_heads=1, head_dim=128,
+                      d_ff=64, vocab=64)
+    params = init_params(cfg, 0, device="cpu")
+    eng = ServeEngine(cfg, params, slots=1, max_len=64, page_size=16,
+                      cache_dtype=dtype, device="cpu")
+    want_blk = 8 if dtype == torch.float32 else 16
+    assert eng.q_block == want_blk
+    n = 40
+    assert eng.chunk >= n                       # one chunk
+    prompt = np.arange(2, 2 + n, dtype=np.int32)
+    eng.run([Request(uid=0, prompt=prompt, max_new_tokens=2)])
+    plan = span_plan([0], [n], n, 16, 64, q_block=eng.q_block)
+    walked = sum(p1 - p0 for spans in plan[0] for p0, p1 in spans)
+    assert eng.stats.prefill_kv_pages_live == walked
+    assert walked == chunk_pages_streamed(0, n, page=16,
+                                          q_block=want_blk)
+    assert (walked > chunk_pages_streamed(0, n, page=16)) \
+        == (want_blk < Q_BLOCK)

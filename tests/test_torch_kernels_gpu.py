@@ -20,7 +20,16 @@ shapes (G = 5, window 1024) to the attention tolerances, a captured hybrid
 step against the eager one (tokens identical, logprobs and SSM / conv
 rows within 1e-5), slot reuse graphed and pipelined against a fresh
 engine (tokens identical), the decode qmm launched on replay on a mamba
-stack."""
+stack. MoE stacks: the MoE block captured in a CUDA graph and replayed 3
+times bit-identical to its eager call (the combine sums in a fixed
+order), its expert products through the qmm kernels (E x 3 launches a
+call, decode-width and column-strip) within 1e-4 * max|y| of the plain
+versions, a MoE step under the sync debugger and graphed against eager
+(tokens identical, logprobs within 1e-5), attention at dbrx-132b's
+hd 128 and G = 6 on every page kind, the Python count of the kernel's
+shared memory against the library's; one ``decode_step`` of
+reduced whisper-medium and internvl2-2b through the kernels against the
+plain versions, logits within 1e-3 * max|logits|."""
 import sys
 from pathlib import Path
 
@@ -1096,3 +1105,187 @@ def test_mamba_engine_launches_decode_qmm_on_replay(gen):
     eager = ServeEngine(cfg, params, cuda_graphs=False,
                         **kw).run(_hybrid_requests(6))
     assert [r.out_tokens for r in got] == [r.out_tokens for r in eager]
+
+
+# ---------------------------------------------------------------------------
+# MoE stacks and the contiguous-cache surface
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("pages", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+def test_attention_dbrx_shapes_hd128_g6(gen, path, pages):
+    """dbrx-132b's attention: hd 128, 6 query heads a KV head (2 KV heads
+    here, 8 in the model). A 16-token q block over fp32 pages needs more
+    shared memory than a block may have at these shapes, so the wrapper
+    runs 8-token blocks there; every page kind against the plain
+    version, chunk and decode lanes beside an idle one."""
+    if path == "decode":
+        lanes = ((255, 1), (100, 1), (0, 0), (17, 1))
+    else:
+        lanes = ((0, 192), (64, 100), (0, 0), (33, 1))
+    _attn_check(lanes, n_kv=2, g=6, hd=128, quantized=pages == "int8",
+                gen=gen, bf16=pages == "bf16")
+
+
+def test_smem_bytes_mirror_the_librarys(gen):
+    """``kernels.paged_attention.smem_bytes`` (which ``q_block_for`` and
+    so the engine's stream account read on any device) equals the
+    library's own count on every path, page kind and span width."""
+    from repro_torch.kernels.paged_attention import smem_bytes
+    lib = build.library()
+    for hd in (32, 64, 128):
+        for kind in (0, 1, 2):
+            for q_blk, g in ((1, 1), (1, 5), (1, 8), (2, 6), (8, 6),
+                             (16, 1), (16, 5), (16, 6), (16, 8)):
+                for sp in (4, 16, 64, 2048):
+                    want = lib.qmc_ragged_paged_attention_smem(
+                        q_blk * g, q_blk, hd, kind, sp)
+                    assert smem_bytes(q_blk * g, q_blk, hd, kind,
+                                      sp) == want, (hd, kind, q_blk, g, sp)
+
+
+def _moe_model(cf=1.25):
+    """A MoE stack whose expert leaves the qmm kernels take (256 x 512
+    and 512 x 256, E = 4, top-2), quantized for serving."""
+    from repro_torch.core.serving_quant import quantize_for_serving
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.model import init_params
+    cfg = ModelConfig(name="m", family="moe", n_layers=2, d_model=256,
+                      n_heads=4, n_kv_heads=2, d_ff=512, vocab=1024,
+                      n_experts=4, topk=2, moe_pattern=(True,),
+                      capacity_factor=cf)
+    params = quantize_for_serving(init_params(cfg, 0, device="cuda"),
+                                  QMCConfig(rho=0.3, granularity="subtile"),
+                                  min_dim=64)
+    return cfg, params
+
+
+def test_moe_block_graph_replays_bit_identical_to_eager(gen):
+    """The MoE block captured into one CUDA graph and replayed three
+    times: each replay equals the eager call bit for bit (y and aux)."""
+    from repro_torch.models.model import group_slice
+    from repro_torch.models.moe import moe_block
+    cfg, params = _moe_model()
+    p = group_slice(params["blocks"]["b0"]["ffn"], 1)
+    x = torch.randn((4, 16, cfg.d_model), generator=gen, device="cuda")
+    y_e, aux_e = moe_block(p, x, cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        moe_block(p, x, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g, aux_g = moe_block(p, x, cfg)
+    for _ in range(3):
+        y_g.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_g, y_e) and torch.equal(aux_g, aux_e)
+
+
+@pytest.mark.parametrize("rows", [4, 256])
+def test_moe_expert_products_through_qmm_kernels(gen, rows):
+    """Every expert product of a call through the qmm kernels (E x 3
+    launches; at capacity factor 1.0, 4 rows give a capacity of 2, padded
+    to the decode kernel's 8, and 256 rows one of 128, the column-strip
+    kernel's), within 1e-4 * max|y| of the plain versions, and qmm's
+    "ref" path never taken."""
+    import dataclasses
+    from repro_torch.models.model import group_slice
+    from repro_torch.models.moe import capacity, moe_block
+    cfg, params = _moe_model()
+    cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+    p = group_slice(params["blocks"]["b0"]["ffn"], 0)
+    x = torch.randn((rows, 1, cfg.d_model), generator=gen, device="cuda")
+    cap = capacity(rows, cfg)
+    build.reset_launches()
+    kops.reset_path_counts()
+    y, aux = moe_block(p, x, cfg)
+    torch.cuda.synchronize()
+    path = kops.qmm_plan(cap, cfg.d_model, cfg.d_ff, (8, 128))["path"]
+    assert path == ("decode" if rows == 4 else "colstrip")
+    assert kops.path_counts[path] == 3 * cfg.n_experts
+    assert kops.path_counts["ref"] == 0
+    assert build.launches[f"qmm_{path}"] == 3 * cfg.n_experts
+    y_p, aux_p = moe_block(p, x, cfg, use_kernels=False)
+    torch.cuda.synchronize()
+    assert float((y - y_p).abs().max()) <= 1e-4 * float(y_p.abs().max())
+    torch.testing.assert_close(aux, aux_p, atol=1e-6, rtol=1e-6)
+
+
+def test_moe_step_graphed_matches_eager_and_reads_nothing_back(gen):
+    """A MoE stack's step set: one eager step under the sync debugger,
+    then a prefill rung and two decode rounds graphed against eager
+    (tokens identical, logprobs within 1e-5)."""
+    import numpy as np
+    cfg, params = _moe_model()
+    rng = np.random.default_rng(1)
+    rounds = [(rng.integers(2, 1024, (4, 16)), [0, 0, 0, 0],
+               [16, 9, 16, 0]),
+              (rng.integers(2, 1024, (4, 1)), [16, 9, 16, 0], [1, 1, 1, 0]),
+              (rng.integers(2, 1024, (4, 1)), [17, 10, 17, 0],
+               [1, 1, 0, 0])]
+    runs = {}
+    for graphs in (False, True):
+        sset, arena = _step_set(cfg, graphs)
+        if not graphs:
+            z = np.zeros(4, np.int32)
+            sset.step(params, np.zeros((4, 1), np.int32), arena, z, z,
+                      samplib.lane_inputs(4))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sset.step(params, np.ones((4, 1), np.int32), arena, z, z,
+                          samplib.lane_inputs(4))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        outs = []
+        for toks, start, n_new in rounds:
+            tok, logp = sset.step(params, toks.astype(np.int32), arena,
+                                  np.array(start, np.int32),
+                                  np.array(n_new, np.int32),
+                                  samplib.lane_inputs(4))
+            outs.append((tok.clone(), logp.clone()))
+        torch.cuda.synchronize()
+        runs[graphs] = outs
+    for (te, le), (tg, lg) in zip(runs[False], runs[True]):
+        assert torch.equal(te, tg)
+        torch.testing.assert_close(lg, le, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-2b"])
+def test_contiguous_decode_step_kernels_match_plain(gen, arch):
+    """Reduced whisper-medium (encoder frames, cross-attention) and
+    internvl2-2b (a prefix of vision embeddings), QMC weights: prefill
+    and one decode step through the qmm kernels against the plain
+    versions, logits within 1e-3 * max|logits|."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.serving_quant import quantize_for_serving
+    from repro_torch.models.model import decode_step, init_params, prefill
+    cfg = reduced_config(arch)
+    params = quantize_for_serving(init_params(cfg, 0, device="cuda"),
+                                  QMCConfig(rho=0.3, granularity="subtile"),
+                                  min_dim=64)
+    b, s = 2, 9
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device="cuda")
+    kw = {}
+    if cfg.is_encdec:
+        kw["frames"] = 0.1 * torch.randn((b, cfg.enc_seq, cfg.d_model),
+                                         generator=gen, device="cuda")
+    if cfg.n_vis_tokens:
+        kw["vis_embeds"] = 0.1 * torch.randn(
+            (b, cfg.n_vis_tokens, cfg.d_model), generator=gen, device="cuda")
+    out = {}
+    for use_kernels in (True, False):
+        build.reset_launches()
+        lg, cache = prefill(cfg, params, toks[:, :s], max_len=32,
+                            cache_dtype=torch.float32,
+                            use_kernels=use_kernels, **kw)
+        lg2, _ = decode_step(cfg, params, toks[:, s:], cache,
+                             s + cfg.n_vis_tokens, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        assert (build.launches["qmm_decode"] > 0) == use_kernels
+        out[use_kernels] = (lg, lg2)
+    for k, p in zip(out[True], out[False]):
+        assert float((k - p).abs().max()) <= 1e-3 * float(p.abs().max())
