@@ -110,6 +110,17 @@ Phases (each prints its own lines; any failure exits nonzero):
                 against the paged engine's tokens: where they part, the
                 legacy logits there must be a near tie (top-2 gap below
                 1e-3 x max|logits|);
+  4a. attn-hd — the attention kernel's head dims 80 and 256 on the
+                engine's default route: stablelm-3b (hd 80, 32 heads, d
+                2560) and gemma2-2b (hd 256, 8/4 heads, window 4096,
+                attention softcap 50, tied head, vocab 256000) at their
+                published widths, depth cut to 2 layers (gemma2: one
+                (local, global) group), random weights, QMC PTQ rho 0.3,
+                the serve phase's 8 requests eager and graphed (tokens
+                identical, every serving kernel launched), one whole step
+                through the kernels against the plain versions (logits
+                within 1e-3 x max|logits|); their attention shapes are
+                timed in phase 3 over fp32, bf16 and int8 pages;
   5. step     — one mixed ragged step at full width through the kernels
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
@@ -120,7 +131,17 @@ Phases (each prints its own lines; any failure exits nonzero):
                 examples/quickstart.py asserts); the ReRAM read path
                 (every inlier stream of the serve phase's QTensors packed
                 to 3 bits and decoded by the unpack3b kernel, bit-exact);
-                the fig4 memory co-design rows for hymba-1.5b.
+                the fig4 memory co-design rows for hymba-1.5b. GPTQ and
+                AWQ calibrate on the taps of that forward (2 x 256 tokens,
+                every layer); their drift against RTN-INT4's is printed,
+                not required;
+  7. train    — chunked_ce_loss and sharded_ce_loss against
+                cross_entropy_loss (loss and gradients) at vocab 100352, d
+                2048; then train() on stablelm-1.6b at full width and
+                depth, fp32 with fp32 AdamW moments, batch 8 x 128 of the
+                synthetic corpus, 8 steps after a 2-step warmup: ms a
+                step, peak memory, the losses (all finite, the last two
+                steps' mean below the first step's), the parameters moved.
 
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -170,8 +191,14 @@ from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
+from repro_torch.models.chunked_ce import (chunked_ce_loss,  # noqa: E402
+                                           sharded_ce_loss)
+from repro_torch.models.layers import cross_entropy_loss  # noqa: E402
 from repro_torch.models.model import (decode_step, encode,  # noqa: E402
                                       forward, init_params, prefill)
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.tree import leaves as tree_leaves  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, train  # noqa: E402
 from repro_torch.obs import costs as obs_costs  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -192,13 +219,19 @@ SERVE_KERNELS = ("qmm_decode", "qmm_colstrip", "ragged_paged_attention")
 UNPACK_SIZES = [65_536, 8_074_240, 143_864_832, 65_544, 65_541]
 PTQ_METHODS = [("fp16", "fp16", False), ("rtn4", "rtn4", False),
                ("mx4", "mx4", False), ("qmc", "qmc", False),
-               ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False)]
+               ("qmc+ReRAM noise", "qmc", True), ("qtensor", "qtensor", False),
+               ("gptq", "gptq", False), ("awq", "awq", False)]
 TOL_QMM = {torch.float32: 1e-4, torch.bfloat16: 1e-2}   # x max|y|
 ATT_ATOL, ATT_RTOL = 1e-5, 1e-4
 HYMBA_DECODE = "hymba decode kv_len<=2048 G=5 win 1024"
 HYMBA_CHUNK = "hymba chunk S=128 pos>1024 G=5 win 1024"
 DBRX_DECODE = "dbrx decode hd 128 G=6"
 DBRX_CHUNK = "dbrx chunk S=128 hd 128 G=6"
+S3B_DECODE = "stablelm-3b decode hd 80"
+S3B_CHUNK = "stablelm-3b chunk S=128 hd 80"
+G2_DECODE = "gemma2 decode hd 256 G=2 win 4096 cap 50"
+G2_CHUNK = "gemma2 chunk S=128 hd 256 G=2 win 4096 cap 50"
+PAGE_KINDS = ("float32", "bfloat16", "int8")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -465,9 +498,12 @@ def check_attention(timer, peak, gen, rows):
     heads, 4 lanes, page 16) over fp32, int8 and bf16 pages (bf16 q with
     bf16 pages, the arena of a bf16 model), and at hymba-1.5b's (5 KV
     heads of 25 query heads, G = 5, its 1024-token window, kv_len up to
-    2048) over fp32 and bf16 pages, and at dbrx-132b's (hd 128, 8 KV heads
+    2048) over fp32 and bf16 pages, at dbrx-132b's (hd 128, 8 KV heads
     of 48, G = 6) over fp32 pages, where a chunk runs q blocks of 8 tokens
-    (``q_block_for``), against its plain version on the same inputs."""
+    (``q_block_for``), and at stablelm-3b's (hd 80, G = 1) and gemma2-2b's
+    (hd 256, G = 2, window 4096, softcap 50; 32-key ring stages over fp32
+    pages) over fp32, bf16 and int8 pages, against its plain version on
+    the same inputs."""
     bw, fl, _ = peak
     page, b = 16, 4
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
@@ -501,6 +537,17 @@ def check_attention(timer, peak, gen, rows):
     cases += [(DBRX_DECODE, [(200, 1), (150, 1), (31, 1), (0, 0)], 8, 6,
                "float32", None, None, 128),
               (DBRX_CHUNK, chunk, 8, 6, "float32", None, None, 128)]
+    # stablelm-3b (32 KV heads, hd 80: a row of 5, 10 or 20 16-byte
+    # chunks) at the serve phase's lanes, and gemma2-2b (4 KV heads of 8,
+    # hd 256, softcap 50, its local layers' 4096-token window) decoding at
+    # up to its 8192-token context and a chunk past the window
+    for dt in PAGE_KINDS:
+        cases += [(S3B_DECODE, decode, 32, 1, dt, None, None, 80),
+                  (S3B_CHUNK, chunk, 32, 1, dt, None, None, 80),
+                  (G2_DECODE, [(8191, 1), (5000, 1), (4100, 1), (0, 0)], 4,
+                   2, dt, 4096, 50.0, 256),
+                  (G2_CHUNK, [(4200, 128), (6000, 100), (8191, 1), (0, 0)],
+                   4, 2, dt, 4096, 50.0, 256)]
     for label, lanes, n_kv, g, dt, window, cap, hd in cases:
         q, cache, qs, kl, n_new, live = make_attn_case(
             lanes, n_kv=n_kv, g=g, hd=hd, page=page,
@@ -1948,6 +1995,55 @@ def families_phase(cfg, qparams, seed: int, paged_tokens) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4h: the head dims 80 and 256 on the engine's default route
+# ---------------------------------------------------------------------------
+ATTN_HD_LAYERS = 2      # gemma2-2b's 2 layers: one (local, global) group
+
+
+def attn_hd_arch(arch: str, seed: int) -> dict:
+    """``arch`` at its published width, depth cut to ``ATTN_HD_LAYERS``,
+    QMC PTQ on the card: the serve requests eager and graphed through the
+    paged engine (paged attention on fp32 pages, the default route; tokens
+    identical, every serving kernel launched, qmm's "ref" path as its plan
+    says), then one whole step through the kernels against the plain
+    versions."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=ATTN_HD_LAYERS)
+    t0 = time.monotonic()
+    params = init_params(cfg, seed, device="cuda")
+    qparams = quantize_for_serving(params, QMCConfig(
+        rho=0.3, granularity="subtile"), min_dim=64)
+    del params
+    torch.cuda.synchronize()
+    calls, shapes = qmm_plan_calls(qparams)
+    print(f"[attn-hd] {arch} full width, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers (pattern {cfg.pattern}, d "
+          f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, hd "
+          f"{cfg.head_dim}, window {cfg.window}, attention softcap "
+          f"{cfg.attn_softcap}, vocab {cfg.vocab}): init + QMC PTQ on the "
+          f"card in {time.monotonic() - t0:.1f}s; QTensor matmuls a step "
+          f"call {calls} ({shapes})")
+    out, toks = {}, {}
+    for label, kw in SERVE_RUNS[:2]:
+        out[label], toks[label], eng = serve(
+            cfg, qparams, seed, f"{arch} {label}", ref_per_call=calls["ref"],
+            tag="attn-hd", **kw)
+        del eng
+        torch.cuda.empty_cache()
+    require(toks[SERVE_RUNS[1][0]] == toks[SERVE_RUNS[0][0]],
+            f"attn-hd {arch}: graphed tokens differ from the eager run's")
+    print(f"[attn-hd] {arch}: identical tokens eager and graphed")
+    out["step"] = whole_step(cfg, qparams, seed, tag="attn-hd")
+    del qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_hd_phase(seed: int) -> dict:
+    return {arch: attn_hd_arch(arch, seed)
+            for arch in ("stablelm-3b", "gemma2-2b")}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the PTQ entry point at full width
 # ---------------------------------------------------------------------------
 def check_unpack3b(timer, peak, gen, rows):
@@ -1985,12 +2081,22 @@ def drift(ref: torch.Tensor, out: torch.Tensor) -> float:
 def ptq_quickstart(cfg, seed: int):
     """examples/quickstart.py at full width on the card: every ported
     quantize_model method, the cache-less forward over one 2 x 256 batch.
-    At most two full-width trees (the dense one and one quantized) live
-    on the card at a time."""
+    That forward also captures the calibration taps GPTQ and AWQ take (as
+    the paper's table 3 does). At most two full-width trees (the dense
+    one and one quantized) live on the card at a time."""
     params = init_params(cfg, seed, device="cuda")
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(2, 256)), device="cuda")
-    ref = forward(cfg, params, toks)
+    taps = {}
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ref = forward(cfg, params, toks, taps=taps)
+    torch.cuda.synchronize()
+    print(f"[ptq] calibration taps: {len(taps)} keys of "
+          f"{sorted({v.shape[0] for v in taps.values()})} rows, "
+          f"{sum(v.numel() for v in taps.values()) * 4 / 2**20:.0f} MiB, "
+          f"captured with the reference forward in "
+          f"{time.monotonic() - t0:.2f}s")
     qmc = QMCConfig(rho=0.3, bits_in=3, bits_out=5, cell_bits=3)
     out = {}
     for label, method, noisy in PTQ_METHODS:
@@ -2001,7 +2107,8 @@ def ptq_quickstart(cfg, seed: int):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         q = quantize_model(params, method, qmc=qmc, noise_gen=noise_gen,
-                           min_dim=64)
+                           min_dim=64,
+                           taps=taps if method in ("gptq", "awq") else None)
         torch.cuda.synchronize()
         ptq_s = time.monotonic() - t0
         logits = forward(cfg, q, toks)
@@ -2018,7 +2125,11 @@ def ptq_quickstart(cfg, seed: int):
             f"{out['rtn4']['drift']:.4f}")
     print(f"[ptq] QMC < RTN-INT4 drift, as examples/quickstart.py asserts; "
           f"{16 / qmc.avg_bits:.2f}x logical compression of quantized "
-          f"layers")
+          f"layers; against RTN-INT4 (reported, not required): GPTQ "
+          f"{out['gptq']['drift'] / out['rtn4']['drift']:.3f}x, AWQ "
+          f"{out['awq']['drift'] / out['rtn4']['drift']:.3f}x its drift")
+    del taps, params, ref
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2094,17 +2205,121 @@ def fig4_rows(arch: str = "hymba-1.5b", seq: int = 1024):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: training on one card
+# ---------------------------------------------------------------------------
+TRAIN_STEPS, TRAIN_WARMUP = 8, 2
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+
+
+def check_ce_losses(cfg, seed: int) -> dict:
+    """``chunked_ce_loss`` and ``sharded_ce_loss`` against
+    ``cross_entropy_loss`` over the full logits, loss and gradients, at
+    the model's vocab and width on the card (fp32 products)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    x = torch.randn((2, 256, cfg.d_model), generator=gen, device="cuda")
+    w = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                    device="cuda") * cfg.d_model ** -0.5
+    labels = torch.randint(0, cfg.vocab, (2, 256), generator=gen,
+                           device="cuda")
+
+    def grads(fn):
+        xs = x.clone().requires_grad_(True)
+        ws = w.clone().requires_grad_(True)
+        loss = fn(xs, ws)
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), xs.grad, ws.grad
+
+    ref = grads(lambda xs, ws: cross_entropy_loss(xs @ ws, labels))
+    out = {}
+    for name, fn in (("chunked_ce_loss", lambda xs, ws: chunked_ce_loss(
+                         xs, ws, labels)),
+                     ("sharded_ce_loss", lambda xs, ws: sharded_ce_loss(
+                         xs, ws, labels))):
+        got = grads(fn)
+        d_loss = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+        d_g = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got[1:], ref[1:])]
+        require(d_loss <= 1e-5 and max(d_g) <= 1e-4,
+                f"[train] {name}: loss off by {d_loss:.2e} (rel), grads "
+                f"by {d_g} (x max|g|) against cross_entropy_loss")
+        print(f"[train] {name} at vocab {cfg.vocab}, d {cfg.d_model}, "
+              f"T = 512: loss {got[0].item():.6f} vs {ref[0].item():.6f} "
+              f"(rel {d_loss:.2e}); max|dx diff| {d_g[0]:.2e}, max|dw "
+              f"diff| {d_g[1]:.2e} of max|g|")
+        out[name] = dict(loss_rel=d_loss, dx_rel=d_g[0], dw_rel=d_g[1])
+    return out
+
+
+def train_phase(cfg, seed: int) -> dict:
+    """``train()`` at full width and depth in fp32 on the card: batch
+    TRAIN_BATCH x TRAIN_SEQ of the synthetic corpus, TRAIN_STEPS steps
+    after a TRAIN_WARMUP-step warmup (step 0 at lr 0, as the reference).
+    Every loss finite, the last steps' mean below the first step's loss,
+    the parameters moved."""
+    out = {"ce": check_ce_losses(cfg, seed)}
+    probe = init_params(cfg, seed, device="cuda")
+    before = {k: probe["blocks"]["b0"]["attn"][k][0].clone()
+              for k in ("wq", "wo")}
+    del probe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    res = train(cfg, TrainConfig(steps=TRAIN_STEPS,
+                                 global_batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, warmup=TRAIN_WARMUP,
+                                 log_every=1, seed=seed),
+                AdamWConfig(lr=1e-3), device="cuda",
+                log_fn=lambda m: print(m.replace("[trainer]", "[train]")))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in res["history"]]
+    ms = [h["time_s"] * 1e3 for h in res["history"]]
+    require(len(losses) == TRAIN_STEPS
+            and all(np.isfinite(x) for x in losses),
+            f"[train] losses not all finite: {losses}")
+    require(np.mean(losses[-2:]) < losses[0], f"[train] the last steps' "
+            f"loss {np.mean(losses[-2:]):.4f} is not below the first "
+            f"step's {losses[0]:.4f}")
+    moved = {k: (res["params"]["blocks"]["b0"]["attn"][k][0]
+                 - v).abs().max().item() for k, v in before.items()}
+    require(all(d > 0 for d in moved.values()),
+            f"[train] parameters did not move: {moved}")
+    n_params = sum(t.numel() for t in tree_leaves(res["params"]))
+    print(f"[train] stablelm-1.6b full width and depth ({n_params / 1e9:.3f}"
+          f" B parameters, fp32, AdamW fp32 moments), batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: {TRAIN_STEPS} steps in {wall:.1f}s; ms a step "
+          f"{[round(x, 1) for x in ms]} (median after the first "
+          f"{float(np.median(ms[1:])):.1f}); peak memory "
+          f"{peak / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB held "
+          f"before; losses {[round(x, 4) for x in losses]}; "
+          f"max|change| of b0 wq / wo {moved}")
+    out.update(losses=losses, step_ms=ms, wall_s=wall, peak_bytes=peak,
+               n_params=n_params, moved=moved,
+               grad_norm=[h["grad_norm"] for h in res["history"]])
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 def summary(rows, launches, bw_name, hymba_attn_launches: int,
-            moe_qmm_launches: int, moe_attn_launches: int):
+            moe_qmm_launches: int, moe_attn_launches: int,
+            s3b_attn_launches: int, g2_attn_launches: int):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
     lm_head's inlier stream); ``launches`` per kernel from the run of the
     path it serves (the serving kernels: the graphed run (b)). Then the
     attention rows at hymba-1.5b's shapes (G = 5, window 1024; fp32 and
-    bf16 pages), with the launches of the hybrid phase's graphed run, and
-    the attention rows and the decode qmm rows at dbrx-132b's shapes, with
-    the launches of the MoE phase's graphed run."""
+    bf16 pages), with the launches of the hybrid phase's graphed run, the
+    attention rows and the decode qmm rows at dbrx-132b's shapes, with
+    the launches of the MoE phase's graphed run, and the attention rows at
+    stablelm-3b's and gemma2-2b's shapes (fp32, bf16 and int8 pages), with
+    the launches of each one's graphed run in the attn-hd phase."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -2137,7 +2352,11 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
     attn_launches = {HYMBA_DECODE: hymba_attn_launches,
                      HYMBA_CHUNK: hymba_attn_launches,
                      DBRX_DECODE: moe_attn_launches,
-                     DBRX_CHUNK: moe_attn_launches}
+                     DBRX_CHUNK: moe_attn_launches,
+                     S3B_DECODE: s3b_attn_launches,
+                     S3B_CHUNK: s3b_attn_launches,
+                     G2_DECODE: g2_attn_launches,
+                     G2_CHUNK: g2_attn_launches}
     for row in rows:
         if row["shape"] in attn_launches:
             out.append({"name": f"ragged_paged_attention "
@@ -2229,6 +2448,7 @@ def main(argv=None) -> int:
     hybrid = hybrid_phase(args.seed)
     moe = moe_phase(args.seed, rows)
     families = families_phase(cfg, qparams, args.seed, greedy_tokens)
+    attn_hd = attn_hd_phase(args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -2248,18 +2468,25 @@ def main(argv=None) -> int:
     require(ptq_paths["ref"] == 0, "qmm took the plain 'ref' path on the "
             "PTQ path")
     fig4 = fig4_rows()
+    del qparams
+    torch.cuda.empty_cache()
+    trained = train_phase(cfg, args.seed)
 
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
+    hd_launches = {arch: attn_hd[arch]["b graphed"]["launches"][
+        "ragged_paged_attention"] for arch in attn_hd}
     kernels = summary(rows, launches, peak_name, hybrid["hymba-1.5b"][
         "b graphed"]["launches"]["ragged_paged_attention"],
         moe["b graphed"]["launches"]["qmm_decode"],
-        moe["b graphed"]["launches"]["ragged_paged_attention"])
+        moe["b graphed"]["launches"]["ragged_paged_attention"],
+        hd_launches["stablelm-3b"], hd_launches["gemma2-2b"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
-        moe=moe, families=families, step=stepped,
+        moe=moe, families=families, attn_hd=attn_hd, step=stepped,
+        train=trained,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

@@ -12,7 +12,8 @@ mx4         MXINT4 microscaling
 qmc         Algorithm 1, scalar granularity (paper-faithful), fake-quant
 qmc_subtile Algorithm 1, (8,128)-subtile granularity, fake-quant
 qtensor     the dual-stream deployment format: 2-D leaves become QTensors
-gptq, awq   not ported yet (they need calibration taps from the forward)
+gptq        GPTQ, calibrated on ``taps`` (captured per-layer inputs)
+awq         AWQ, calibrated on ``taps``
 
 Leaf selection: 2-D (or batched 3-D/4-D, e.g. stacked layers [G, din,
 dout]) float leaves with min(last two dims) >= min_dim, excluding
@@ -23,12 +24,15 @@ noise generator fall on the leaves in the reference's order.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.core.awq import awq_quantize
+from repro_torch.core.gptq import gptq_quantize
 from repro_torch.core.mx import mx_fake_quant
-from repro_torch.core.qconfig import MXConfig, QMCConfig, RTNConfig
+from repro_torch.core.qconfig import (AWQConfig, GPTQConfig, MXConfig,
+                                      QMCConfig, RTNConfig)
 from repro_torch.core.qmc import qmc_fake_quant
 from repro_torch.core.qtensor import QTensor, quantize_qtensor
 from repro_torch.core.quantizers import rtn_quantize
@@ -36,7 +40,10 @@ from repro_torch.core.quantizers import rtn_quantize
 EXCLUDE_SUBSTRINGS = ("embed", "norm", "scale", "bias", "a_log", "dt_bias",
                       "conv", "d_skip", "pos")
 FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-METHODS = ("fp16", "rtn4", "mx4", "qmc", "qmc_subtile", "qtensor")
+METHODS = ("fp16", "rtn4", "mx4", "qmc", "qmc_subtile", "qtensor", "gptq",
+           "awq")
+# wk / wv read wq's input and w_gate reads w_up's: they share its tap
+TAP_ALIASES = {"wk": "wq", "wv": "wq", "w_gate": "w_up"}
 # the QTensor fields in the reference's pytree order
 _QT_FIELDS = ("in_codes", "out_codes", "stream_pos", "is_out", "scale_in",
               "scale_out")
@@ -82,17 +89,24 @@ def quantize_model(params, method: str = "qmc",
                    qmc: QMCConfig = QMCConfig(),
                    rtn: RTNConfig = RTNConfig(),
                    mx: MXConfig = MXConfig(),
+                   gptq: GPTQConfig = GPTQConfig(),
+                   awq: AWQConfig = AWQConfig(),
+                   taps: Optional[Dict[str, torch.Tensor]] = None,
                    noise_gen: Optional[torch.Generator] = None,
                    noise_aware: bool = True,
                    min_dim: int = 64):
     """Quantize every eligible weight in ``params``; returns a new tree
     (``fp16`` returns ``params`` itself). Quantization runs on the device
     each leaf lies on; ``noise_gen`` (``qmc`` methods only) must be a
-    generator on that device."""
-    if method in ("gptq", "awq"):
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: it needs calibration "
-            f"taps from the forward pass (ROADMAP A10)")
+    generator on that device.
+
+    ``gptq`` and ``awq`` calibrate on ``taps`` (``models.model.forward(...,
+    taps=taps)``): an unstacked leaf on its own tap, a group-stacked
+    ``blocks/`` leaf ``[G, din, dout]`` group by group on
+    ``blocks/{g}/<rest>``; ``wk``/``wv`` take ``wq``'s tap and ``w_gate``
+    ``w_up``'s. A leaf (or group) with no tap, and every leaf when
+    ``taps`` is None, falls back to RTN at ``gptq.bits``, as the
+    reference does."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method}")
     if method == "fp16":
@@ -112,6 +126,8 @@ def quantize_model(params, method: str = "qmc",
             return leaf            # stacked or non-tileable: stays dense
         if method == "rtn4":
             q = _batched(lambda w: rtn_quantize(w, rtn.bits), leaf)
+        elif method in ("gptq", "awq"):
+            q = _calibrated(path, leaf)
         elif method == "mx4":
             q = _batched(lambda w: mx_fake_quant(w, mx), leaf)
         else:
@@ -119,6 +135,29 @@ def quantize_model(params, method: str = "qmc",
                 w, cfg, noise_gen=noise_gen, noise_aware=noise_aware),
                 leaf, noise_gen)
         return q.to(leaf.dtype)
+
+    def _calibrated(path: str, leaf: torch.Tensor) -> torch.Tensor:
+        fn = gptq_quantize if method == "gptq" else awq_quantize
+        fcfg = gptq if method == "gptq" else awq
+        parts = path.split("/")
+        p_alias = "/".join(parts[:-1]
+                           + [TAP_ALIASES.get(parts[-1], parts[-1])])
+        if taps is not None and p_alias in taps:        # unstacked leaf
+            x = taps[p_alias]
+            return _batched(lambda w: fn(w, x, fcfg), leaf)
+        if taps is not None and leaf.ndim == 3 and path.startswith(
+                "blocks/"):
+            # group-stacked layers: one capture per group
+            rest = p_alias[len("blocks/"):]
+            per_g = []
+            for g in range(leaf.shape[0]):
+                key = f"blocks/{g}/{rest}"
+                per_g.append(fn(leaf[g], taps[key], fcfg) if key in taps
+                             else rtn_quantize(leaf[g], gptq.bits))
+            return torch.stack(per_g)
+        # no calibration captured for this leaf: RTN, as GPTQ/AWQ tooling
+        # skips modules it cannot calibrate
+        return _batched(lambda w: rtn_quantize(w, gptq.bits), leaf)
 
     def walk(tree, path: Tuple[str, ...]):
         if isinstance(tree, dict):

@@ -1,5 +1,5 @@
-"""Quantization configuration dataclasses (a copy of the QMC, RTN and MX
-parts of ``repro.core.qconfig``; the port imports nothing of ``repro``)."""
+"""Quantization configuration dataclasses (a copy of
+``repro.core.qconfig``; the port imports nothing of ``repro``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -80,3 +80,18 @@ class MXConfig:
     @property
     def avg_bits(self) -> float:
         return self.bits + 8.0 / self.block
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTQConfig:
+    bits: int = 4
+    block_size: int = 128
+    percdamp: float = 0.01
+    channel_axis: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
+class AWQConfig:
+    bits: int = 4
+    n_grid: int = 20              # alpha grid for s = mean|x|^alpha
+    channel_axis: int = -1

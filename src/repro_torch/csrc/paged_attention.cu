@@ -31,8 +31,10 @@
 //     from span 0 and exits; spans past the live pages exit at once.
 //   * A page ring in shared memory filled by cp.async (16-byte copies,
 //     zero-filled past the span; the int8 scales as 4-byte words), 2 or 3
-//     stages of 64 keys, so the next stages' K, V and scales are in flight
-//     while this one is computed; one __syncthreads per stage. The span's
+//     stages of 64 keys (32 where a page row is over 512 bytes, fp32 at
+//     hd 256, so that two stages fit), so the next stages' K, V and scales
+//     are in flight while this one is computed; one __syncthreads per
+//     stage. The span's
 //     block-table entries are read once into shared memory.
 //   * Chunk path (q_blk = 16 tokens x G rows, padded to 16-row m tiles):
 //     QK^T and PV on tensor cores, mma.sync m16n8k8 TF32. fp32 operands
@@ -49,7 +51,8 @@
 //     memory rows are padded so every fragment load is conflict-free.
 //   * Decode path (S = 1, R = G rows): a 16-row mma tile would be G/16
 //     full, so each warp takes one 16-key tile of the stage and the lanes
-//     split hd (hd/32 dims each); dots are warp-shuffle reductions.
+//     split hd (hd/32 dims each; hd 80 runs as 96 with dims 80-95 dead:
+//     q 0, nothing loaded or stored); dots are warp-shuffle reductions.
 //   * The warps' softmax states are merged in warp order through shared
 //     memory at the end of the span.
 //
@@ -66,7 +69,7 @@ namespace {
 // ---------------------------------------------------------------------------
 // chunk path: tensor cores, one m tile of 16 rows and a key group per warp
 // ---------------------------------------------------------------------------
-template <int KIND, int NT>  // NT = hd / 8
+template <int KIND, int NT>  // NT = hd / 8 (4, 8, 10, 16 or 32)
 __global__ void __launch_bounds__(MAX_THREADS)
 attn_chunk_kernel(Args a) {
   constexpr bool QUANT = KIND == KIND_I8;
@@ -83,6 +86,7 @@ attn_chunk_kernel(Args a) {
 
   const Layout L = layout(HD, KIND, rows_pad, groups, a.span_pages,
                           a.stages, true);
+  constexpr int TILES = stage_keys(HD, KIND) / KEY_TILE;
   int* tbl_s = reinterpret_cast<int*>(smem);
   unsigned char* ring = smem + L.tbl;
   const int ring_or_scratch = L.ring > L.scratch ? L.ring : L.scratch;
@@ -107,8 +111,8 @@ attn_chunk_kernel(Args a) {
 
   for (int st = 0; st < a.stages - 1; ++st) {
     if (st < s.n_stages)
-      load_stage(a, ring + st * L.stage, L, tbl_s, st * STAGE_KEYS, s.n_keys,
-                 s.h);
+      load_stage<KIND, HD>(a, ring + st * L.stage, L, tbl_s, st * L.keys,
+                           s.n_keys, s.h);
     cp_commit();
   }
 
@@ -132,8 +136,8 @@ attn_chunk_kernel(Args a) {
     __syncthreads();
     const int nx = st + a.stages - 1;
     if (nx < s.n_stages)
-      load_stage(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
-                 nx * STAGE_KEYS, s.n_keys, s.h);
+      load_stage<KIND, HD>(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
+                           nx * L.keys, s.n_keys, s.h);
     cp_commit();
 
     if (st == 0) {  // q, pre-scaled, as TF32 hi + lo
@@ -151,7 +155,7 @@ attn_chunk_kernel(Args a) {
       __syncthreads();
     }
     const unsigned char* stg = ring + (st % a.stages) * L.stage;
-    const int key0 = st * STAGE_KEYS;
+    const int key0 = st * L.keys;
     for (int kt = grp; kt < TILES; kt += groups) {
       if (key0 + kt * KEY_TILE >= s.n_keys) break;
       const int kb = kt * KEY_TILE;  // stage-local first key of the tile
@@ -269,7 +273,7 @@ attn_chunk_kernel(Args a) {
         uint32_t ph[4], pl[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) split(p[e], ph[e], pl[e]);
-        const unsigned char* v0r = stg + STAGE_KEYS * L.k_row + ka * L.v_row;
+        const unsigned char* v0r = stg + L.keys * L.k_row + ka * L.v_row;
         const unsigned char* v1r = v0r + L.v_row;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
@@ -368,7 +372,9 @@ int launch_chunk(dim3 grid, int threads, int smem, const Args& a,
   switch (a.hd) {
     case 32: return launch<attn_chunk_kernel<KIND, 4>>(grid, threads, smem, a, st);
     case 64: return launch<attn_chunk_kernel<KIND, 8>>(grid, threads, smem, a, st);
+    case 80: return launch<attn_chunk_kernel<KIND, 10>>(grid, threads, smem, a, st);
     case 128: return launch<attn_chunk_kernel<KIND, 16>>(grid, threads, smem, a, st);
+    case 256: return launch<attn_chunk_kernel<KIND, 32>>(grid, threads, smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -398,25 +404,26 @@ struct Geometry {
   bool chunk;
 };
 
-Geometry geometry(int rows, int q_blk) {
+Geometry geometry(int rows, int q_blk, int hd, int kind) {
   Geometry g;
+  const int tiles = stage_keys(hd, kind) / KEY_TILE;
   g.chunk = q_blk > 1;
   if (!g.chunk) {
     g.rows_pad = rows <= 1 ? 1 : rows <= 2 ? 2 : rows <= 4 ? 4 : 8;
-    g.groups = TILES;
-    g.threads = DEC_THREADS;
+    g.groups = tiles;
+    g.threads = tiles * 32;
     return g;
   }
   const int mt = (rows + 15) / 16;
   g.rows_pad = mt * 16;
-  g.groups = (mt <= TILES && TILES % mt == 0) ? TILES / mt : 1;
+  g.groups = (mt <= tiles && tiles % mt == 0) ? tiles / mt : 1;
   g.threads = mt * g.groups * 32;
   return g;
 }
 
 int smem_bytes(int rows, int q_blk, int hd, int kind, int span_pages,
                int* stages) {
-  const Geometry g = geometry(rows, q_blk);
+  const Geometry g = geometry(rows, q_blk, hd, kind);
   // three stages while two blocks still fit on an SM, else two
   for (int s = 3; s >= 2; --s) {
     const Layout L = layout(hd, kind, g.rows_pad, g.groups, span_pages, s,
@@ -450,7 +457,7 @@ int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int kind,
 // scales [n_pages, page, KV] (kind 1) or bf16 (kind 2);
 // tbl [B, P] int32; q_start / kv_len [B] int32. o [B, S_pad, H, hd] and
 // m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off. Spans
-// of span_pages pages (a multiple of 64 / page), n_spans = ceil(P /
+// of span_pages pages (a multiple of stage_keys(hd, kind) / page), n_spans = ceil(P /
 // span_pages); with n_spans > 1, po / pm / pl are the fp32 workspace
 // [n_spans, B, S_pad, H(, hd)]. Returns cudaGetLastError().
 int qmc_ragged_paged_attention(
@@ -482,7 +489,7 @@ int qmc_ragged_paged_attention(
   a.span_pages = span_pages;
   a.n_spans = n_spans;
   const int rows = q_blk * (H / KV);
-  const Geometry g = geometry(rows, q_blk);
+  const Geometry g = geometry(rows, q_blk, hd, kind);
   const int smem = smem_bytes(rows, q_blk, hd, kind, span_pages, &a.stages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_spans, B * KV, S_pad / q_blk);

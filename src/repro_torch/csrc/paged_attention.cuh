@@ -10,11 +10,10 @@
 
 namespace qmc_pa {
 
-constexpr int STAGE_KEYS = 64;  // keys per ring stage
+constexpr int STAGE_KEYS = 64;  // keys per ring stage (stage_keys: 32 for
+                                // rows over 512 bytes)
 constexpr int KEY_TILE = 16;    // keys per warp work item
-constexpr int TILES = STAGE_KEYS / KEY_TILE;
 constexpr int MAX_THREADS = 256;
-constexpr int DEC_THREADS = TILES * 32;  // decode path: a warp per key tile
 constexpr float NEG = -1e30f;  // the reference's mask value
 
 // What the K/V pages hold. fp32 pages are split into hi + lo TF32 parts on
@@ -44,6 +43,7 @@ struct Args {
 
 // ---- shared-memory layout (host and device agree) ------------------------
 struct Layout {
+  int keys;          // keys per stage
   int k_row, v_row;  // bytes per key row of K / V in a stage
   int stage;         // bytes per stage
   int tbl, ring, q, scratch, total;
@@ -51,8 +51,15 @@ struct Layout {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-__host__ __device__ inline int row_bytes(int hd, int kind) {
+__host__ __device__ constexpr int row_bytes(int hd, int kind) {
   return kind == KIND_I8 ? hd : kind == KIND_BF16 ? 2 * hd : 4 * hd;
+}
+
+// Keys per ring stage: 64, or 32 where a page row is over 512 bytes (fp32
+// at hd 256), so that two stages of K and V fit a block's shared memory.
+// kernels/paged_attention.py:stage_keys mirrors it.
+__host__ __device__ constexpr int stage_keys(int hd, int kind) {
+  return row_bytes(hd, kind) > 512 ? STAGE_KEYS / 2 : STAGE_KEYS;
 }
 
 __host__ __device__ inline Layout layout(int hd, int kind, int rows_pad,
@@ -62,10 +69,11 @@ __host__ __device__ inline Layout layout(int hd, int kind, int rows_pad,
   // 16 bytes of padding per row (fp32 K: 32) make the fragment loads
   // conflict-free (see the note in paged_attention.cu)
   const int rb = row_bytes(hd, kind);
+  L.keys = stage_keys(hd, kind);
   L.k_row = kind == KIND_F32 ? rb + 32 : rb + 16;
   L.v_row = rb + 16;
-  L.stage = STAGE_KEYS * (L.k_row + L.v_row) +
-            (kind == KIND_I8 ? 2 * 4 * STAGE_KEYS : 0);
+  L.stage = L.keys * (L.k_row + L.v_row) +
+            (kind == KIND_I8 ? 2 * 4 * L.keys : 0);
   L.tbl = align16(span_pages * 4);
   L.ring = stages * L.stage;
   L.q = chunk ? 2 * rows_pad * (hd + 8) * 4 : 0;
@@ -151,22 +159,25 @@ __device__ __forceinline__ size_t out_row(const Args& a, int b, int h, int qb,
 
 __device__ __forceinline__ int ilog2(int x) { return 31 - __clz(x); }
 
-// One ring stage: keys [key0, key0 + 64) of the span (span-local), rows
-// past key_end zero-filled. K/V rows are 16-byte chunks; the scale of
-// (page id, slot, head) travels as the aligned 4-byte word holding it.
-// page and the chunks per row are powers of two.
-__device__ inline void load_stage(const Args& a, unsigned char* st, const Layout& L,
-                           const int* tbl_s, int key0, int key_end, int h) {
-  const int rb = row_bytes(a.hd, a.kind);
-  const int c_log = ilog2(rb >> 4);  // log2 chunks per row
-  const int n_log = c_log + 6;              // log2(STAGE_KEYS * chunks)
+// One ring stage: keys [key0, key0 + L.keys) of the span (span-local),
+// rows past key_end zero-filled. K/V rows are 16-byte chunks (a
+// compile-time count: a shift at hd 2^k, a multiply-shift at hd 80's 5,
+// 10 or 20); the scale of (page id, slot, head) travels as the aligned
+// 4-byte word holding it. page is a power of two.
+template <int KIND, int HD>
+__device__ inline void load_stage(const Args& a, unsigned char* st,
+                                  const Layout& L, const int* tbl_s, int key0,
+                                  int key_end, int h) {
+  constexpr int RB = row_bytes(HD, KIND);
+  constexpr int CPR = RB / 16;  // 16-byte chunks per row
   const int p_log = ilog2(a.page);
+  const int per = L.keys * CPR;  // chunks of K (then of V) in a stage
   unsigned char* ks = st;
-  unsigned char* vs = st + STAGE_KEYS * L.k_row;
-  for (int i = threadIdx.x; i < (2 << n_log); i += blockDim.x) {
-    const int which = i >> n_log;  // 0: K, 1: V
-    const int j = i & ((1 << n_log) - 1);
-    const int row = j >> c_log, c = j & ((1 << c_log) - 1);
+  unsigned char* vs = st + L.keys * L.k_row;
+  for (int i = threadIdx.x; i < 2 * per; i += blockDim.x) {
+    const int which = i >= per;  // 0: K, 1: V
+    const int j = which ? i - per : i;
+    const int row = j / CPR, c = j - row * CPR;
     const int key = key0 + row;
     const bool ok = key < key_end;
     const unsigned char* base = which ? a.v_pages : a.k_pages;
@@ -174,18 +185,18 @@ __device__ inline void load_stage(const Args& a, unsigned char* st, const Layout
     if (ok) {
       const size_t r = ((size_t)tbl_s[key >> p_log] * a.page +
                         (key & (a.page - 1))) * a.KV + h;
-      src = base + r * rb + c * 16;
+      src = base + r * RB + c * 16;
     }
     unsigned char* dst =
         (which ? vs + row * L.v_row : ks + row * L.k_row) + c * 16;
     cp16(dst, src, ok ? 16 : 0);
   }
-  if (a.kind == KIND_I8) {
+  if (KIND == KIND_I8) {
     uint32_t* sc = reinterpret_cast<uint32_t*>(
-        st + STAGE_KEYS * (L.k_row + L.v_row));
-    for (int i = threadIdx.x; i < 2 * STAGE_KEYS; i += blockDim.x) {
-      const int which = i >= STAGE_KEYS;
-      const int key = key0 + (i & (STAGE_KEYS - 1));
+        st + L.keys * (L.k_row + L.v_row));
+    for (int i = threadIdx.x; i < 2 * L.keys; i += blockDim.x) {
+      const int which = i >= L.keys;
+      const int key = key0 + (which ? i - L.keys : i);
       const bool ok = key < key_end;
       const unsigned char* base = which ? a.v_scale : a.k_scale;
       const unsigned char* src = base;
@@ -206,11 +217,11 @@ __device__ __forceinline__ float stage_scale(const Args& a,
                                              int key0, int row, int which,
                                              int h) {
   const uint32_t* sc =
-      reinterpret_cast<const uint32_t*>(st + STAGE_KEYS * (L.k_row + L.v_row));
+      reinterpret_cast<const uint32_t*>(st + L.keys * (L.k_row + L.v_row));
   const int key = key0 + row;
   const size_t e = ((size_t)tbl_s[key >> ilog2(a.page)] * a.page +
                     (key & (a.page - 1))) * a.KV + h;
-  return bf16_half(sc[which * STAGE_KEYS + row], (int)(e & 1));
+  return bf16_half(sc[which * L.keys + row], (int)(e & 1));
 }
 
 __device__ __forceinline__ bool visible(const Args& a, int pos_q, int pos_k,
@@ -289,7 +300,8 @@ __device__ inline bool span_of(const Args& a, int rows, Span& s) {
   s.p0 = s.sp * a.span_pages;
   const int p1 = min(n_live, s.p0 + a.span_pages);
   s.n_keys = (p1 - s.p0) * a.page;
-  s.n_stages = (s.n_keys + STAGE_KEYS - 1) / STAGE_KEYS;
+  const int keys = stage_keys(a.hd, a.kind);
+  s.n_stages = (s.n_keys + keys - 1) / keys;
   s.kl = a.kv_len[s.b];
   s.q0 = a.q_start[s.b] + s.qb * a.q_blk;
   return true;

@@ -1,10 +1,11 @@
 // Ragged paged attention, decode path (S = 1), for Hopper (sm_90a): one
 // block per (span, lane * KV head); each warp takes one 16-key tile of a
 // ring stage and the lanes split hd (hd/32 dims each), with warp-shuffle
-// dot products. The kernel template lives here; paged_attention_decode.cu,
-// _i8.cu and _bf16.cu instantiate it for fp32, int8 and bf16 pages, one
-// unit each, so that they compile in parallel. Design note:
-// paged_attention.cu.
+// dot products. hd 80 runs on the hd-96 tiling (3 dims a lane) with dims
+// 80-95 dead: their q is 0, and they load and store nothing. The kernel
+// template lives here; paged_attention_decode.cu, _i8.cu and _bf16.cu
+// instantiate it for fp32, int8 and bf16 pages, one unit each, so that
+// they compile in parallel. Design note: paged_attention.cu.
 #pragma once
 #include "paged_attention.cuh"
 
@@ -19,15 +20,33 @@ __device__ __forceinline__ float elem(const unsigned char* row, int i) {
   return reinterpret_cast<const float*>(row)[i];
 }
 
+// the same, 0 for the dead dims past HD of hd 80's hd-96 tiling (PAD);
+// the other head dims compile to elem alone
+template <int KIND, int HD, bool PAD>
+__device__ __forceinline__ float elem_live(const unsigned char* row, int i) {
+  if constexpr (PAD)
+    return i < HD ? elem<KIND>(row, i) : 0.f;
+  else
+    return elem<KIND>(row, i);
+}
+
 // ---------------------------------------------------------------------------
 // decode path (S = 1): warps over 16-key tiles, lanes over hd
 // ---------------------------------------------------------------------------
-template <int KIND, int GM, int DPL>  // GM >= G rows, DPL = hd / 32
-__global__ void __launch_bounds__(DEC_THREADS)
+// a warp per 16-key tile of a ring stage: 4, or 2 at 32-key stages
+template <int KIND, int HD>
+__host__ __device__ constexpr int dec_threads() {
+  return stage_keys(HD, KIND) / KEY_TILE * 32;
+}
+
+// GM >= G rows, DPL = ceil(HD / 32) dims a lane
+template <int KIND, int GM, int DPL, int HD = DPL * 32>
+__global__ void __launch_bounds__(dec_threads<KIND, HD>())
 attn_decode_kernel(Args a) {
   constexpr bool QUANT = KIND == KIND_I8;
+  constexpr bool PAD = HD != DPL * 32;  // lanes' dims past HD are dead
+  constexpr int TILES = dec_threads<KIND, HD>() / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int HD = DPL * 32;
   const int G = a.H / a.KV;  // rows (q_blk = 1)
   Span s;
   if (!span_of(a, G, s)) return;
@@ -43,8 +62,8 @@ attn_decode_kernel(Args a) {
   __syncthreads();
   for (int st = 0; st < a.stages - 1; ++st) {
     if (st < s.n_stages)
-      load_stage(a, ring + st * L.stage, L, tbl_s, st * STAGE_KEYS, s.n_keys,
-                 s.h);
+      load_stage<KIND, HD>(a, ring + st * L.stage, L, tbl_s, st * L.keys,
+                           s.n_keys, s.h);
     cp_commit();
   }
 
@@ -55,9 +74,11 @@ attn_decode_kernel(Args a) {
   for (int g = 0; g < GM; ++g) {
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      q[g][i] = g < G ? q_at(a, out_row(a, s.b, s.h, s.qb, g) * HD + d0 + i) *
-                            a.scale
-                      : 0.f;
+      bool has = g < G;
+      if constexpr (PAD) has = has && d0 + i < HD;
+      q[g][i] = has ? q_at(a, out_row(a, s.b, s.h, s.qb, g) * HD + d0 + i) *
+                          a.scale
+                    : 0.f;
       acc[g][i] = 0.f;
     }
     m[g] = NEG;
@@ -72,12 +93,12 @@ attn_decode_kernel(Args a) {
     __syncthreads();
     const int nx = st + a.stages - 1;
     if (nx < s.n_stages)
-      load_stage(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
-                 nx * STAGE_KEYS, s.n_keys, s.h);
+      load_stage<KIND, HD>(a, ring + (nx % a.stages) * L.stage, L, tbl_s,
+                           nx * L.keys, s.n_keys, s.h);
     cp_commit();
 
     const unsigned char* stg = ring + (st % a.stages) * L.stage;
-    const int key0 = st * STAGE_KEYS;
+    const int key0 = st * L.keys;
     const int kb = warp * KEY_TILE;
     if (key0 + kb >= s.n_keys) continue;
     const int kpos = s.p0 * a.page + key0 + kb;
@@ -100,7 +121,7 @@ attn_decode_kernel(Args a) {
         float part = 0.f;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
-          const float kv = elem<KIND>(kr, d0 + i);
+          const float kv = elem_live<KIND, HD, PAD>(kr, d0 + i);
           part = fmaf(q[g][i], kv, part);
         }
 #pragma unroll
@@ -123,10 +144,10 @@ attn_decode_kernel(Args a) {
         ps += p;
         const float pv = QUANT ? p * vsc[j] : p;
         const unsigned char* vr =
-            stg + STAGE_KEYS * L.k_row + (kb + j) * L.v_row;
+            stg + L.keys * L.k_row + (kb + j) * L.v_row;
 #pragma unroll
         for (int i = 0; i < DPL; ++i) {
-          const float vv = elem<KIND>(vr, d0 + i);
+          const float vv = elem_live<KIND, HD, PAD>(vr, d0 + i);
           acc[g][i] = fmaf(pv, vv, acc[g][i]);
         }
       }
@@ -142,7 +163,11 @@ attn_decode_kernel(Args a) {
   for (int g = 0; g < GM; ++g) {
     float* sr = scratch + ((size_t)warp * GM + g) * SS;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) sr[d0 + i] = acc[g][i];
+    for (int i = 0; i < DPL; ++i) {
+      if constexpr (PAD)
+        if (d0 + i >= HD) continue;
+      sr[d0 + i] = acc[g][i];
+    }
     if (lane == 0) {
       sr[HD] = m[g];
       sr[HD + 1] = l[g];
@@ -155,10 +180,11 @@ attn_decode_kernel(Args a) {
 template <int KIND, int GM>
 int launch_decode(dim3 grid, int smem, const Args& a, cudaStream_t st) {
   switch (a.hd) {
-    case 32: return launch<attn_decode_kernel<KIND, GM, 1>>(grid, DEC_THREADS, smem, a, st);
-    case 64: return launch<attn_decode_kernel<KIND, GM, 2>>(grid, DEC_THREADS, smem, a, st);
-    case 128: return launch<attn_decode_kernel<KIND, GM, 4>>(grid, DEC_THREADS, smem, a, st);
-    case 256: return launch<attn_decode_kernel<KIND, GM, 8>>(grid, DEC_THREADS, smem, a, st);
+    case 32: return launch<attn_decode_kernel<KIND, GM, 1>>(grid, dec_threads<KIND, 32>(), smem, a, st);
+    case 64: return launch<attn_decode_kernel<KIND, GM, 2>>(grid, dec_threads<KIND, 64>(), smem, a, st);
+    case 80: return launch<attn_decode_kernel<KIND, GM, 3, 80>>(grid, dec_threads<KIND, 80>(), smem, a, st);
+    case 128: return launch<attn_decode_kernel<KIND, GM, 4>>(grid, dec_threads<KIND, 128>(), smem, a, st);
+    case 256: return launch<attn_decode_kernel<KIND, GM, 8>>(grid, dec_threads<KIND, 256>(), smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }

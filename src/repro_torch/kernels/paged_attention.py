@@ -46,12 +46,20 @@ Q_BLOCK = 16
 STAGE_KEYS = 64           # keys per stage of the kernel's page ring
 _BLOCKS_PER_SM = 2        # span blocks in flight per SM the split aims for
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may opt into
-_DECODE_HD = (32, 64, 128, 256)   # decode path: hd / 32 dims per lane
-_CHUNK_HD = (32, 64, 128)         # chunk path: hd / 8 mma n tiles
+# decode path: ceil(hd / 32) dims per lane (hd 80 on the hd-96 tiling)
+_DECODE_HD = (32, 64, 80, 128, 256)
+_CHUNK_HD = (32, 64, 80, 128, 256)   # chunk path: hd / 8 mma n tiles
 _MAX_G = 8                # decode rows (G) / chunk 16-row m tiles
-_TILES = STAGE_KEYS // 16  # 16-key warp work items per ring stage
-# the kernel's page kinds (csrc/paged_attention.cuh: Kind)
+# the kernel's page kinds (csrc/paged_attention.cuh: Kind) and their bytes
 _PAGE_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+_KIND_BYTES = {0: 4, 1: 1, 2: 2}
+
+
+def stage_keys(hd: int, kind: int) -> int:
+    """Keys per ring stage (``csrc/paged_attention.cuh:stage_keys``):
+    ``STAGE_KEYS``, or half of it where a page row is over 512 bytes (fp32
+    pages at hd 256), so that two stages fit a block's shared memory."""
+    return STAGE_KEYS // 2 if hd * _KIND_BYTES[kind] > 512 else STAGE_KEYS
 
 
 def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
@@ -64,12 +72,13 @@ def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
     return -(-min(kv_len, q_start + (qb + 1) * q_blk) // page)
 
 
-def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132
-               ) -> int:
+def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132,
+               keys: int = STAGE_KEYS) -> int:
     """Pages per span: the ``n_items`` (lane, KV head, q block) work items
     times the spans of a full ``n_tbl``-page table come to about
-    ``_BLOCKS_PER_SM`` blocks per SM; a span is whole ring stages."""
-    unit = max(1, STAGE_KEYS // page)
+    ``_BLOCKS_PER_SM`` blocks per SM; a span is whole ring stages of
+    ``keys`` keys (``stage_keys``)."""
+    unit = max(1, keys // page)
     want = max(1, -(-_BLOCKS_PER_SM * n_sm // max(n_items, 1)))
     per = -(-max(n_tbl, 1) // want)
     return max(unit, -(-per // unit) * unit)
@@ -84,18 +93,18 @@ def smem_bytes(rows: int, q_blk: int, hd: int, kind: int,
     else two) or the warps' final states over it, and a chunk's q rows as
     fp32 hi + lo."""
     chunk = q_blk > 1
+    keys = stage_keys(hd, kind)
+    tiles = keys // 16        # 16-key warp work items per ring stage
     if chunk:
         mt = -(-rows // 16)
         rows_pad = mt * 16
-        groups = (_TILES // mt if mt <= _TILES and _TILES % mt == 0
-                  else 1)
+        groups = tiles // mt if mt <= tiles and tiles % mt == 0 else 1
     else:
         rows_pad = next(r for r in (1, 2, 4, 8) if rows <= r or r == 8)
-        groups = _TILES
-    rb = hd * {0: 4, 1: 1, 2: 2}[kind]
+        groups = tiles
+    rb = hd * _KIND_BYTES[kind]
     k_row = rb + (32 if kind == 0 else 16)
-    stage = STAGE_KEYS * (k_row + rb + 16) + (8 * STAGE_KEYS if kind == 1
-                                              else 0)
+    stage = keys * (k_row + rb + 16) + (8 * keys if kind == 1 else 0)
     tbl = -(-n_span_pages * 4 // 16) * 16
     q = 2 * rows_pad * (hd + 8) * 4 if chunk else 0
     scratch = groups * rows_pad * (hd + 2) * 4
@@ -116,7 +125,7 @@ def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
     kind = _PAGE_KIND.get(page_dtype)
     if kind is None:
         return Q_BLOCK
-    unit = max(1, STAGE_KEYS // page)
+    unit = max(1, stage_keys(hd, kind) // page)
     widest = max(unit, -(-max(n_tbl, 1) // unit) * unit)
     blk = Q_BLOCK
     while blk > 2 and smem_bytes(blk * g, blk, hd, kind,
@@ -186,8 +195,10 @@ def _check(q, cache, n_kv, head_dim) -> Tuple[int, int]:
     if tbl.device != q.device or not tbl.is_contiguous():
         raise ValueError(f"block_tbl must be contiguous on {q.device}")
     page = kp.shape[1]
-    if STAGE_KEYS % page:
-        raise ValueError(f"page size {page} must divide {STAGE_KEYS}")
+    keys = stage_keys(hd, _PAGE_KIND[kp.dtype])
+    if keys % page:
+        raise ValueError(f"page size {page} must divide the {keys} keys of "
+                         f"a ring stage (hd {hd}, {kp.dtype} pages)")
     if quantized and (hd % 16 or ks.numel() % 2):
         raise ValueError("int8 pages need hd % 16 == 0 and an even number "
                          "of scales (16-byte rows, 4-byte scale words)")
@@ -230,7 +241,8 @@ def ragged_paged_attention_call(
     quantized = "k_scale_pages" in cache
     qb_n = -(-s // q_blk)
     s_pad = qb_n * q_blk
-    sp = span_pages(b * n_kv * qb_n, n_tbl, page, _sm_count(q.device))
+    sp = span_pages(b * n_kv * qb_n, n_tbl, page, _sm_count(q.device),
+                    stage_keys(hd, kind))
     n_spans = max(1, -(-n_tbl // sp))
     smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd, kind,
                                                sp)

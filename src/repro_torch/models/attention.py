@@ -199,14 +199,17 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                window: Optional[int], cache: Optional[dict] = None,
                pos=None, valid_len: Optional[torch.Tensor] = None,
                use_kernels: bool = True,
-               paged_attention: bool = False) -> torch.Tensor:
+               paged_attention: bool = False, tap=None) -> torch.Tensor:
     """Self-attention mixer, cache-less (``cache=None``), over one group's
     paged arena or over its contiguous cache (both updated in place).
     ``valid_len`` [B] is each lane's absolute position bound; ``pos`` the
     contiguous write position of a one-token call (default
-    ``positions[0, 0]``)."""
+    ``positions[0, 0]``). ``tap(name, value)`` records the inputs of
+    ``wq`` (shared by ``wk`` and ``wv``) and ``wo`` for calibration."""
     b, s, _ = x.shape
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if tap:
+        tap("wq", x)
     q = linear(x, p["wq"], p.get("bq"), use_kernels).reshape(b, s, nh, hd)
     k = linear(x, p["wk"], p.get("bk"), use_kernels).reshape(b, s, nkv, hd)
     v = linear(x, p["wv"], p.get("bv"), use_kernels).reshape(b, s, nkv, hd)
@@ -222,8 +225,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = attend_chunked(q, k, v, chunk=cfg.attn_chunk, **kw)
         else:
             out = attend(q, k, v, **kw)
-        return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
-                      use_kernels)
+        return _out_proj(p, out, tap, use_kernels)
     valid = valid_len if valid_len is not None else positions[:, -1] + 1
     if "k_pages" not in cache:                       # contiguous cache
         pos0 = 0 if s > 1 else (pos if pos is not None else positions[0, 0])
@@ -234,8 +236,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-        return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
-                      use_kernels)
+        return _out_proj(p, out, tap, use_kernels)
     paged_cache_write(cache, k, v, positions, valid_len=valid_len)
     if paged_attention:
         if use_kernels:
@@ -253,8 +254,17 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-    return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
-                  use_kernels)
+    return _out_proj(p, out, tap, use_kernels)
+
+
+def _out_proj(p: dict, out: torch.Tensor, tap, use_kernels: bool
+              ) -> torch.Tensor:
+    """``wo`` over the heads ``out [B, S, H, hd]``, its input tapped."""
+    b, s, nh, hd = out.shape
+    flat = out.reshape(b, s, nh * hd)
+    if tap:
+        tap("wo", flat)
+    return linear(flat, p["wo"], p.get("bo"), use_kernels)
 
 
 def cross_attn_block(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,

@@ -124,13 +124,17 @@ def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 pos=None, valid_len: Optional[torch.Tensor] = None,
                 use_kernels: bool = True,
-                paged_attention: bool = False) -> torch.Tensor:
+                paged_attention: bool = False, tap=None,
+                aux: Optional[list] = None) -> torch.Tensor:
     """One block, cache-less or over one group's paged or contiguous cache
-    (updated in place); a MoE FFN's load-balancing loss is dropped, as
-    serving drops it. Attention takes ``valid_len`` as an absolute
-    position bound and ``pos`` as the contiguous cache's write position of
-    a one-token call; the SSM mixer takes the count of valid columns in
-    this window, ``valid_len - positions[:, 0]``."""
+    (updated in place). A MoE FFN's load-balancing loss is appended to
+    ``aux`` when a list is given (the training loss reads it) and dropped
+    otherwise, as serving drops it. Attention takes ``valid_len`` as an
+    absolute position bound and ``pos`` as the contiguous cache's write
+    position of a one-token call; the SSM mixer takes the count of valid
+    columns in this window, ``valid_len - positions[:, 0]``. ``tap(name,
+    value)`` records the matmul inputs under ``attn/``, ``mamba/``,
+    ``ffn/`` or ``moe/``, as the reference's ``_sub`` names them."""
     _check_kind(kind)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     window = cfg.window if kind.endswith("_local") else None
@@ -140,21 +144,35 @@ def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
             p["attn"], h, cfg, positions=positions, window=window,
             cache=cache["attn"] if cache is not None else None, pos=pos,
             valid_len=valid_len, use_kernels=use_kernels,
-            paged_attention=paged_attention))
+            paged_attention=paged_attention, tap=tap_prefix(tap, "attn")))
     if "mamba" in p:
         ssm_valid = (valid_len - positions[:, 0]
                      if valid_len is not None else None)
         mixes.append(mamba_block(
             p["mamba"], h, cfg,
             cache=cache["mamba"] if cache is not None else None,
-            valid_len=ssm_valid, use_kernels=use_kernels))
+            valid_len=ssm_valid, use_kernels=use_kernels,
+            tap=tap_prefix(tap, "mamba")))
     x = x + (mixes[0] if len(mixes) == 1 else 0.5 * (mixes[0] + mixes[1]))
     if "ffn" in p:
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if use_moe:
-            y, _ = moe_block(p["ffn"], h, cfg, use_kernels=use_kernels)
+            y, a = moe_block(p["ffn"], h, cfg, use_kernels=use_kernels,
+                             tap=tap_prefix(tap, "moe"))
+            if aux is not None:
+                aux.append(a)
         else:
             y = glu_mlp(h, p["ffn"], cfg.act, cfg.gated_mlp,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, tap=tap_prefix(tap, "ffn"))
         x = x + y
     return x
+
+
+def tap_prefix(tap, prefix: str):
+    """``tap`` with ``prefix/`` before every name (None stays None)."""
+    if tap is None:
+        return None
+
+    def inner(name, value):
+        tap(f"{prefix}/{name}", value)
+    return inner

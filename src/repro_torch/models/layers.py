@@ -84,12 +84,31 @@ _ACTS = {"silu": F.silu,
          "relu": F.relu}
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in fp32 (``repro.models.layers.cross_entropy_loss``):
+    logits ``[B, S, V]``, labels ``[B, S]`` integer; with ``mask`` the
+    masked mean, its denominator at least 1."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
 def glu_mlp(x: torch.Tensor, p: dict, act: str = "silu", gated: bool = True,
-            use_kernels: bool = True) -> torch.Tensor:
+            use_kernels: bool = True, tap=None) -> torch.Tensor:
     actf = _ACTS[act]
+    if tap:
+        tap("w_up", x)
     if gated:
         h = actf(linear(x, p["w_gate"], use_kernels=use_kernels)) \
             * linear(x, p["w_up"], use_kernels=use_kernels)
     else:
         h = actf(linear(x, p["w_up"], use_kernels=use_kernels))
+    if tap:
+        tap("w_down", h)
     return linear(h, p["w_down"], use_kernels=use_kernels)

@@ -24,8 +24,11 @@ from repro_torch.models.attention import (attend, attn_block,
                                           cross_attn_block,
                                           precompute_cross_kv)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_tokens, glu_mlp, linear,
-                                       rms_norm, softcap)
+from repro_torch.models.layers import (cross_entropy_loss, embed_tokens,
+                                       glu_mlp, linear, rms_norm, softcap)
+
+MOE_AUX_WEIGHT = 0.01
+TAP_ROWS = 512          # calibration rows a tap keeps per call
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -126,9 +129,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None,
             use_kernels: bool = True,
-            paged_attention: bool = False) -> torch.Tensor:
+            paged_attention: bool = False,
+            taps: Optional[dict] = None) -> torch.Tensor:
     """Logits ``[B, S, V]``. A MoE block's load-balancing loss is dropped,
-    as serving drops it (``moe.moe_block`` returns it).
+    as serving drops it (``moe.moe_block`` returns it; ``train_loss``
+    sums it).
 
     Without ``cache`` every sequence attends over its own tokens, at
     ``positions`` (default ``arange(S)`` in every row) — the forward the
@@ -150,7 +155,47 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``use_kernels=False`` runs the plain version of every kernel (the
     counterpart of JAX's ``use_pallas=False``); ``paged_attention``
     selects the ragged paged-attention route over the full-width
-    gather."""
+    gather.
+
+    ``taps`` (a dict, filled in place) collects calibration inputs for
+    GPTQ and AWQ: the input rows of every tapped matmul of group ``g``
+    under ``blocks/{g}/b{i}/<mixer>/<weight>``, at most ``TAP_ROWS`` rows
+    a call, detached, on the forward's device. As in the reference, an
+    encoder-decoder's layers are not tapped."""
+    return _forward(cfg, params, tokens, positions=positions, cache=cache,
+                    pos=pos, valid_len=valid_len, vis_embeds=vis_embeds,
+                    frames=frames, enc_out=enc_out, use_kernels=use_kernels,
+                    paged_attention=paged_attention, taps=taps)
+
+
+def _make_tap(taps: Optional[dict], g: int):
+    """The tap of group ``g``: keys ``blocks/{g}/<name>``, rows subsampled
+    to ``TAP_ROWS`` with a stride, later calls concatenated
+    (``repro.models.model._make_tap``)."""
+    if taps is None:
+        return None
+
+    def inner(name, value):
+        key = f"blocks/{g}/{name}"
+        v = value.detach().reshape(-1, value.shape[-1])
+        if v.shape[0] > TAP_ROWS:
+            v = v[::v.shape[0] // TAP_ROWS][:TAP_ROWS]
+        v = v.clone()
+        prev = taps.get(key)
+        taps[key] = v if prev is None else torch.cat([prev, v])
+    return inner
+
+
+def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+             positions=None, cache=None, pos=None, valid_len=None,
+             vis_embeds=None, frames=None, enc_out=None,
+             use_kernels: bool = True, paged_attention: bool = False,
+             taps: Optional[dict] = None, aux: Optional[list] = None,
+             skip_head: bool = False) -> torch.Tensor:
+    """``forward``; with ``aux`` (a list) every MoE block's load-balancing
+    loss is appended to it, and with ``skip_head`` the final-normed hidden
+    states ``[B, S, d]`` come back in place of the logits (the training
+    loss reads both)."""
     b = tokens.shape[0]
     x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed)
     n_vis = 0
@@ -190,6 +235,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                 for n in ("xk", "xv")}
     else:
         for g in range(cfg.n_groups):
+            tap = _make_tap(taps, g)
             for i, kind in enumerate(cfg.pattern):
                 key = f"b{i}"
                 x = B.apply_block(
@@ -198,16 +244,51 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                     cache=(group_slice(cache[key], g) if cache is not None
                            else None), pos=pos, valid_len=valid_len,
                     use_kernels=use_kernels,
-                    paged_attention=paged_attention)
+                    paged_attention=paged_attention,
+                    tap=B.tap_prefix(tap, key), aux=aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_vis:
         x = x[:, n_vis:]
+    if skip_head:
+        return x
     if cfg.tie_embeddings:
         logits = torch.matmul(x, params["embed"]["tok"].T.to(x.dtype))
     else:
         logits = linear(x, params["lm_head"], use_kernels=use_kernels)
     logits = softcap(logits, cfg.logit_softcap)
     return logits
+
+
+def train_loss(cfg: ModelConfig, params: dict, batch: dict, *,
+               use_kernels: bool = False):
+    """The training objective (``repro.models.model.train_loss``): mean
+    token NLL of ``batch["labels"]`` plus ``MOE_AUX_WEIGHT`` times the sum
+    of the MoE blocks' load-balancing losses. Returns ``(total, {"loss",
+    "aux"})``. With ``cfg.chunked_ce`` and no ``loss_mask`` the head and
+    the loss run through ``sharded_ce_loss`` on the hidden states, else
+    ``cross_entropy_loss`` over the logits. The hand kernels have no
+    backward, so training runs the plain path (``use_kernels=False``) on
+    dense parameters."""
+    aux_terms: list = []
+    kw = dict(vis_embeds=batch.get("vis_embeds"), frames=batch.get("frames"),
+              use_kernels=use_kernels, aux=aux_terms)
+    if cfg.chunked_ce and batch.get("loss_mask") is None:
+        from repro_torch.models.chunked_ce import sharded_ce_loss
+        hidden = _forward(cfg, params, batch["tokens"], skip_head=True,
+                          **kw)
+        w_head = (params["embed"]["tok"].T if cfg.tie_embeddings
+                  else params["lm_head"])
+        loss = sharded_ce_loss(hidden, w_head, batch["labels"],
+                               logit_softcap=cfg.logit_softcap)
+    else:
+        logits = _forward(cfg, params, batch["tokens"], **kw)
+        loss = cross_entropy_loss(logits, batch["labels"],
+                                  batch.get("loss_mask"))
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    for a in aux_terms:
+        aux = aux + a
+    total = loss + MOE_AUX_WEIGHT * aux
+    return total, {"loss": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,

@@ -49,8 +49,8 @@ def _experts(buf: torch.Tensor, w, use_kernels: bool) -> torch.Tensor:
                         for e in range(len(w))])
 
 
-def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
+              tap=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (y [B, S, d], aux_loss fp32 scalar)."""
     b, s, d = x.shape
     t = b * s
@@ -59,6 +59,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True
     dev = x.device
 
     xf = x.reshape(t, d)
+    if tap:
+        tap("router", xf)
     logits = linear(xf, p["router"], use_kernels=use_kernels
                     ).to(torch.float32)                      # [T, E]
     probs = torch.softmax(logits, dim=-1)

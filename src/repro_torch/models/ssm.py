@@ -124,7 +124,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 def mamba_block(p: dict, x: torch.Tensor, cfg, *,
                 cache: Optional[dict] = None,
                 valid_len: Optional[torch.Tensor] = None,
-                use_kernels: bool = True) -> torch.Tensor:
+                use_kernels: bool = True, tap=None) -> torch.Tensor:
     """Mamba2 mixer. ``cache = {"ssm": [B,H,P,N] fp32, "conv": [B,K-1,
     conv_dim]}`` is updated in place.
 
@@ -134,11 +134,15 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *,
     ``dt = 0`` and ``x = 0`` (state-neutral, as the chunk padding), the
     conv cache is gathered at the true window end, and a lane with
     ``valid_len == 0`` (idling in a mixed round) leaves both states
-    bit for bit as they were, through the s == 1 recurrence too."""
+    bit for bit as they were, through the s == 1 recurrence too.
+    ``tap(name, value)`` records the inputs of ``in_proj`` and
+    ``out_proj`` for calibration."""
     bsz, s, _ = x.shape
     di, hd = cfg.d_inner, cfg.ssm_headdim
     nh, g, n = cfg.ssm_nheads, cfg.ssm_ngroups, cfg.d_state
 
+    if tap:
+        tap("in_proj", x)
     zxbcdt = linear(x, p["in_proj"], use_kernels=use_kernels)
     z, xbc, dt = torch.split(zxbcdt, [di, cfg.conv_dim, nh], dim=-1)
 
@@ -195,6 +199,8 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *,
     y = y + xh[:, :s] * p["d_skip"].to(x.dtype)[None, None, :, None]
     y = y.reshape(bsz, s, di)
     y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
+    if tap:
+        tap("out_proj", y)
     out = linear(y, p["out_proj"], use_kernels=use_kernels)
 
     if cache is not None:

@@ -24,7 +24,10 @@ for name in names:
 for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
              "serve.scheduler", "serve.engine", "obs", "obs.metrics",
              "obs.trace", "obs.costs", "launch.roofline", "models.ssm",
-             "models.moe"):
+             "models.moe", "core.gptq", "core.awq", "models.chunked_ce",
+             "optim.adamw", "data.synthetic", "data.loader",
+             "checkpoint.ckpt", "ft.watchdog", "train.step",
+             "train.trainer", "launch.train", "tree"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -47,7 +50,7 @@ def test_port_and_chip_smoke_import_without_jax():
                          env=_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 35      # every module was walked
+    assert int(out.stdout.split()[-1]) >= 79      # every module was walked
 
 
 def test_chip_smoke_alone_fails(tmp_path):
@@ -88,6 +91,13 @@ def test_cuda_entry_points_raise_without_a_card(no_card):
         arena_from_numpy({})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_cli.main(["--requests", "1"])
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.trainer import TrainConfig, train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--steps",
+                        "1"])
 
 
 def test_chip_smoke_refuses_without_a_card(no_card, capsys):

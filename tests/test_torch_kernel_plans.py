@@ -19,7 +19,7 @@ from repro.memsys.workload import chunk_pages_streamed as jax_streamed
 from repro_torch.kernels.paged_attention import (Q_BLOCK, STAGE_KEYS,
                                                  live_pages, q_block_for,
                                                  smem_bytes, span_pages,
-                                                 span_plan)
+                                                 span_plan, stage_keys)
 from repro_torch.kernels.qmm import COLSTRIP_BM, colstrip_splits
 from repro_torch.memsys.workload import chunk_pages_streamed
 from repro_torch.models.config import ModelConfig
@@ -98,17 +98,19 @@ def test_span_plan_total_is_the_engines_stream_account(seed, n, s, page,
                                                  q_block=min(Q_BLOCK, s))
 
 
+@pytest.mark.parametrize("keys", [STAGE_KEYS, STAGE_KEYS // 2])
 @pytest.mark.parametrize("page", [1, 2, 8, 16, 32, 64])
 @pytest.mark.parametrize("n_items,n_tbl,n_sm", [
     (128, 256, 132), (1024, 17, 132), (4, 1, 132), (1, 4096, 132),
     (128, 17, 132), (256, 300, 16)])
-def test_span_pages_are_whole_ring_stages(page, n_items, n_tbl, n_sm):
-    sp = span_pages(n_items, n_tbl, page, n_sm)
-    assert sp * page % STAGE_KEYS == 0 or page > STAGE_KEYS
+def test_span_pages_are_whole_ring_stages(page, n_items, n_tbl, n_sm,
+                                          keys):
+    sp = span_pages(n_items, n_tbl, page, n_sm, keys)
+    assert sp * page % keys == 0 or page > keys
     assert sp >= 1
     n_spans = -(-n_tbl // sp)
     # enough blocks to fill the card unless the table runs out of stages
-    unit = max(1, STAGE_KEYS // page)
+    unit = max(1, keys // page)
     if sp > unit:
         assert n_items * n_spans >= 2 * n_sm or n_spans * sp >= n_tbl
 
@@ -140,7 +142,13 @@ def test_colstrip_split_takes_the_fewest_rounds(m, k, n):
     (6, 128, torch.int8, 16, 16, 16),
     (5, 64, torch.float32, 128, 16, 16),     # hymba-1.5b
     (1, 64, torch.float32, 256, 16, 16),     # stablelm-1.6b
-    (8, 128, torch.float32, 16, 16, 8)])
+    (8, 128, torch.float32, 16, 16, 8),
+    (1, 80, torch.float32, 256, 16, 16),     # stablelm-3b
+    (1, 80, torch.int8, 256, 16, 16),
+    (2, 256, torch.float32, 512, 16, 16),    # gemma2-2b, 32-key stages
+    (2, 256, torch.bfloat16, 512, 16, 16),
+    (2, 256, torch.int8, 512, 16, 16),
+    (8, 256, torch.float32, 512, 16, 4)])
 def test_q_block_halves_only_where_shared_memory_overflows(g, hd, dtype,
                                                            n_tbl, page,
                                                            want):
@@ -150,11 +158,29 @@ def test_q_block_halves_only_where_shared_memory_overflows(g, hd, dtype,
     blk = q_block_for(g, hd, dtype, n_tbl, page)
     assert blk == want
     kind = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}[dtype]
-    widest = -(-n_tbl // (STAGE_KEYS // page)) * (STAGE_KEYS // page)
+    unit = stage_keys(hd, kind) // page
+    widest = -(-n_tbl // unit) * unit
     assert smem_bytes(blk * g, blk, hd, kind, widest) <= 227 * 1024
     if blk < Q_BLOCK:
         assert smem_bytes(2 * blk * g, 2 * blk, hd, kind,
                           widest) > 227 * 1024
+
+
+@pytest.mark.parametrize("hd,kind,want", [
+    (32, 0, 64), (64, 0, 64), (80, 0, 64), (128, 0, 64), (256, 0, 32),
+    (80, 1, 64), (256, 1, 64), (80, 2, 64), (256, 2, 64)])
+def test_stage_keys_halve_only_past_512_byte_rows(hd, kind, want):
+    """A ring stage holds 64 keys unless a page row is over 512 bytes
+    (fp32 at hd 256), where two 64-key stages (268 KB) would outgrow a
+    block's shared memory; at 32 keys both paths fit at gemma2-2b's
+    shapes, with the widest span its 8192-token context can give."""
+    assert stage_keys(hd, kind) == want
+    if (hd, kind) == (256, 0):
+        big = 64 * (hd * 4 + 32 + hd * 4 + 16) * 2
+        assert big > 227 * 1024
+        for q_blk, g in ((1, 2), (16, 2)):
+            assert smem_bytes(q_blk * g, q_blk, hd, kind, 512) \
+                <= 227 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

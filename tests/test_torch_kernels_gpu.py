@@ -26,8 +26,9 @@ order), its expert products through the qmm kernels (E x 3 launches a
 call, decode-width and column-strip) within 1e-4 * max|y| of the plain
 versions, a MoE step under the sync debugger and graphed against eager
 (tokens identical, logprobs within 1e-5), attention at dbrx-132b's
-hd 128 and G = 6 on every page kind, the Python count of the kernel's
-shared memory against the library's; one ``decode_step`` of
+hd 128 and G = 6 on every page kind, and at stablelm-3b's hd 80 and
+gemma2-2b's hd 256 (G = 2, window, softcap 50), the Python count of the
+kernel's shared memory against the library's; one ``decode_step`` of
 reduced whisper-medium and internvl2-2b through the kernels against the
 plain versions, logits within 1e-3 * max|logits|."""
 import sys
@@ -1126,16 +1127,51 @@ def test_attention_dbrx_shapes_hd128_g6(gen, path, pages):
                 gen=gen, bf16=pages == "bf16")
 
 
+@pytest.mark.parametrize("pages", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+def test_attention_stablelm3b_shapes_hd80(gen, path, pages):
+    """stablelm-3b's attention: hd 80 (2560 / 32 heads), G = 1. A page row
+    is 5, 10 or 20 16-byte chunks (not a power of two); the decode path
+    runs hd 80 on the hd-96 tiling with the last 16 dims dead, the chunk
+    path 10 mma n tiles; chunk and decode lanes beside an idle one, a lane
+    split over several spans."""
+    if path == "decode":
+        lanes = ((255, 1), (100, 1), (0, 0), (4095, 1))
+    else:
+        lanes = ((0, 128), (64, 100), (0, 0), (33, 1))
+    _attn_check(lanes, n_kv=4, g=1, hd=80, quantized=pages == "int8",
+                gen=gen, bf16=pages == "bf16")
+
+
+@pytest.mark.parametrize("pages", ["fp32", "int8", "bf16"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+def test_attention_gemma2_shapes_hd256_window_softcap(gen, path, pages):
+    """gemma2-2b's attention: hd 256, G = 2, softcap 50, with and without
+    a window (its local layers'; 100 keys here so that the window bites at
+    these lengths). Over fp32 pages a ring stage holds 32 keys, not 64;
+    the chunk path holds 32 mma n tiles a warp. Chunk and decode lanes
+    beside an idle one."""
+    if path == "decode":
+        lanes = ((255, 1), (100, 1), (0, 0), (1030, 1))
+    else:
+        lanes = ((0, 128), (164, 100), (0, 0), (33, 1))
+    for window in (100, None):
+        _attn_check(lanes, n_kv=2, g=2, hd=256, quantized=pages == "int8",
+                    gen=gen, bf16=pages == "bf16", window=window, cap=50.0)
+
+
 def test_smem_bytes_mirror_the_librarys(gen):
     """``kernels.paged_attention.smem_bytes`` (which ``q_block_for`` and
     so the engine's stream account read on any device) equals the
-    library's own count on every path, page kind and span width."""
+    library's own count on every path, page kind and span width (hd 256
+    over fp32 pages: 32-key stages)."""
     from repro_torch.kernels.paged_attention import smem_bytes
     lib = build.library()
-    for hd in (32, 64, 128):
+    for hd in (32, 64, 80, 128, 256):
         for kind in (0, 1, 2):
-            for q_blk, g in ((1, 1), (1, 5), (1, 8), (2, 6), (8, 6),
-                             (16, 1), (16, 5), (16, 6), (16, 8)):
+            for q_blk, g in ((1, 1), (1, 2), (1, 5), (1, 8), (2, 6),
+                             (8, 6), (16, 1), (16, 2), (16, 5), (16, 6),
+                             (16, 8)):
                 for sp in (4, 16, 64, 2048):
                     want = lib.qmc_ragged_paged_attention_smem(
                         q_blk * g, q_blk, hd, kind, sp)

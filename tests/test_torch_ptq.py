@@ -345,12 +345,22 @@ def test_quantize_model_noise_draws_are_shared_across_groups(reduced):
     assert not torch.equal(q["a"][0], q["b"][0])
 
 
-def test_quantize_model_refuses_unported_methods(reduced):
+def test_quantize_model_refuses_unported_methods(reduced, jax_quantized):
+    """gptq and awq are ported (calibrated against JAX in
+    ``test_torch_gptq.py``). Without taps every leaf falls back to RTN at
+    ``gptq.bits``, as the reference's do: equal to RTN-4 and to JAX's
+    result leaf for leaf. An unknown method still raises."""
+    _, jparams, pparams = reduced
+    rtn = dict(_flat(apply.quantize_model(pparams, "rtn4")))
     for method in ("gptq", "awq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            apply.quantize_model(reduced[2], method)
+        got = dict(_flat(apply.quantize_model(pparams, method)))
+        want = dict(_flat(jax_quantized(method)))
+        assert got.keys() == rtn.keys() == want.keys()
+        for k in got:
+            assert torch.equal(got[k], rtn[k]), (method, k)
+            np.testing.assert_array_equal(got[k].numpy(), _np(want[k]))
     with pytest.raises(ValueError):
-        apply.quantize_model(reduced[2], "int3")
+        apply.quantize_model(pparams, "int3")
 
 
 # ---------------------------------------------------------------------------
