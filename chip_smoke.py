@@ -19,7 +19,10 @@ Phases (each prints its own lines; any failure exits nonzero):
                 and checkerboard weights, attention also on decode lanes
                 at kv_len up to 4096 (split over spans); and the time of
                 an empty kernel launch, the floor under any one-launch
-                call;
+                call; the attention kernel over a data rank's page slice
+                (D = 2) at the serve phase's decode and chunk shapes,
+                against the sliced plain version, with the merge of the
+                two slices against the whole-arena call;
   4. serve    — full-width stablelm-1.6b (random weights from a seed, QMC
                 PTQ on the card), 8 requests through the paged engine with
                 the qmm streams and paged attention, three times: (a)
@@ -33,6 +36,16 @@ Phases (each prints its own lines; any failure exits nonzero):
                 widths. One eager step runs under the CUDA sync debugger,
                 and torch.profiler reads the device's idle share over a
                 steady decode window of (a) and (b);
+  4s. mesh    — sharded serving of the same model and requests on gloo
+                ranks sharing the card (launch.mesh.spawn): (2, 1) on the
+                serve phase's streams gives exactly its greedy tokens;
+                (1, 2) and (2, 2) on tp_shards = 2 streams, each rank
+                quantizing its own shard (bit-equal to the whole
+                conversion's), give the tokens of one process serving the
+                whole conversion (4 of the prompts, 12 new tokens each);
+                every rank launches B1, B2 and B3 and
+                never qmm's "ref" path; the collectives a round and their
+                seconds, and which collectives gloo takes on CUDA tensors;
   4x. serve-x — the same width and engine settings: sampled lanes (half
                 the serve phase's requests at temperature 0.8, top_k 50,
                 top_p 0.95, one at top_k 1) graphed twice, alone through
@@ -177,11 +190,12 @@ from repro_torch.core.packing import pack_codes, packed_nbytes  # noqa: E402
 from repro_torch.core.qconfig import QMCConfig  # noqa: E402
 from repro_torch.core.qtensor import (QTensor,  # noqa: E402
                                       dequantize_qtensor, quantize_qtensor)
+from repro_torch.core.qtensor_sharded import ShardedQTensor  # noqa: E402
 from repro_torch.core.serving_quant import quantize_for_serving  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    q_block_for, ragged_paged_attention_call)
+    merge_slices, q_block_for, ragged_paged_attention_call)
 from repro_torch.kernels.qmm import (empty_launch,  # noqa: E402
                                      qmm_colstrip, qmm_decode)
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
@@ -189,6 +203,7 @@ from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
                                      unpack3b_ref)
 from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
 from repro_torch.models.chunked_ce import (chunked_ce_loss,  # noqa: E402
@@ -231,6 +246,9 @@ S3B_DECODE = "stablelm-3b decode hd 80"
 S3B_CHUNK = "stablelm-3b chunk S=128 hd 80"
 G2_DECODE = "gemma2 decode hd 256 G=2 win 4096 cap 50"
 G2_CHUNK = "gemma2 chunk S=128 hd 256 G=2 win 4096 cap 50"
+SLICED_DECODE = "stablelm decode D=2 page slices"
+SLICED_CHUNK = "stablelm chunk S=128 D=2 page slices"
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
 PAGE_KINDS = ("float32", "bfloat16", "int8")
 
 
@@ -612,6 +630,148 @@ def check_attention(timer, peak, gen, rows):
               f"bound={b_ms:.4f} ({b_by})")
 
 
+def in_order(cache) -> None:
+    """Renumber a case's pages in place as the engine's pool hands them
+    out, lane after lane from page 1 (its FIFO free list), so that a
+    lane's pages are consecutive ids and a page slice holds them in one or
+    two runs."""
+    tbl = cache["block_tbl"]
+    old = tbl[tbl > 0]                       # lane order, then slot order
+    new = torch.arange(1, old.numel() + 1, dtype=tbl.dtype,
+                       device=tbl.device)
+    for name in ("k_pages", "v_pages"):
+        pages = cache[name]
+        moved = pages[old.long()].clone()
+        pages[new.long()] = moved
+    cache["block_tbl"] = torch.where(tbl > 0, torch.zeros_like(tbl).
+                                     masked_scatter(tbl > 0, new), tbl)
+
+
+def sliced_cost(q, cache, q_start, n_new, page_slice, *, n_kv, hd, page):
+    """``attn_cost`` of one data rank's call: the live pages whose table
+    entry lies in its slice, and the score entries of their keys."""
+    first, n = page_slice
+    tbl = cache["block_tbl"].tolist()
+    b, s, h, _ = q.shape
+    keys = pages = 0
+    for lane, (qs, nn) in enumerate(zip(q_start.tolist(), n_new.tolist())):
+        if not nn:
+            continue
+        owned = [first <= e < first + n for e in tbl[lane]]
+        live = -(-(qs + nn) // page)
+        pages += sum(owned[:live])
+        for t in range(nn):
+            keys += sum(min(page, qs + t + 1 - p * page)
+                        for p in range(live) if owned[p]
+                        and p * page <= qs + t)
+    return rl.attention_work(
+        lanes=b, s=s, n_heads=h, n_kv=n_kv, hd=hd, page=page, pages=pages,
+        keys=keys, tbl_entries=cache["block_tbl"].numel(),
+        q_itemsize=q.element_size(),
+        kv_itemsize=cache["k_pages"].element_size(),
+        kv_scaled="k_scale_pages" in cache)
+
+
+def check_sliced_attention(timer, peak, gen, rows):
+    """The attention kernel over a data rank's page slice at the serve
+    phase's shapes (stablelm-1.6b: 32 KV heads, hd 64, page 16; decode
+    lanes and the S = 128 chunk; pages numbered as the engine's pool
+    hands them out), the arena cut into D = 2 slices: each
+    slice's call against the sliced plain version, its time, the plain
+    version's and SDPA's on the slice's keys (yardstick), its bound; the
+    two slices merged (``merge_slices``, timed) against the call over the
+    whole arena."""
+    bw, fl, _ = peak
+    page, hd, n_kv = 16, 64, 32
+    decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
+    chunk = [(0, 128), (64, 100), (200, 1), (0, 0)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, lanes in ((SLICED_DECODE, decode), (SLICED_CHUNK, chunk)):
+        q, cache, qs, kl, n_new, _ = make_attn_case(
+            lanes, n_kv=n_kv, g=1, hd=hd, page=page, quantized=False,
+            gen=gen)
+        in_order(cache)
+        kw = dict(n_kv=n_kv, head_dim=hd)
+        n_pages = cache["k_pages"].shape[0]
+        half = n_pages // 2
+        slices = [(0, half), (half, n_pages - half)]
+        parts, per = [], []
+        for first, n in slices:
+            local = {k: (v[first:first + n].contiguous()
+                         if k.endswith("_pages") else v)
+                     for k, v in cache.items()}
+            kws = dict(kw, page_slice=(first, n))
+            o, m, l = ragged_paged_attention_call(q, local, qs, kl, **kws)
+            o_r, m_r, l_r = ragged_paged_attention_ref(q, local, qs, kl,
+                                                       **kws)
+            torch.cuda.synchronize()
+            live = l_r > 0
+            require(bool((o[~live] == 0).all() and (m[~live] == -1e30).all()
+                         and (l[~live] == 0).all()),
+                    f"attention {label}: rows with no key in the slice are "
+                    f"not exactly (0, -1e30, 0)")
+            require(torch.allclose(o[live], o_r[live], atol=ATT_ATOL,
+                                   rtol=ATT_RTOL)
+                    and torch.allclose(l[live], l_r[live], atol=ATT_ATOL,
+                                       rtol=ATT_RTOL),
+                    f"attention {label}: slice {first} differs from the "
+                    f"sliced plain version")
+            err = (o[live] - o_r[live]).abs().max().item()
+            ms = timer(lambda: ragged_paged_attention_call(q, local, qs, kl,
+                                                           **kws))
+            plain_ms = timer(lambda: ragged_paged_attention_ref(
+                q, local, qs, kl, **kws))
+            # SDPA over the slice's keys: the masked gather of its pages
+            own = ((cache["block_tbl"] >= first)
+                   & (cache["block_tbl"] < first + n))
+            tbl_l = torch.where(own, cache["block_tbl"] - first,
+                                torch.zeros_like(cache["block_tbl"]))
+            k_all, v_all = paged_cache_read(dict(local, block_tbl=tbl_l),
+                                            torch.float32, n_kv, hd)
+            t = k_all.shape[1]
+            qh = q.transpose(1, 2)
+            kh, vh = k_all.transpose(1, 2), v_all.transpose(1, 2)
+            pq = qs[:, None] + torch.arange(q.shape[1], device="cuda")[None]
+            pk = torch.arange(t, device="cuda")
+            mask = ((pk[None, None, :] <= pq[..., None])
+                    & (pk[None, None, :] < kl[:, None, None])
+                    & own.repeat_interleave(page, dim=1)[:, None, :])
+            lib_ms = timer(lambda: sdpa(qh, kh, vh, attn_mask=mask[:, None]))
+            nbytes, flops = sliced_cost(q, cache, qs, n_new, (first, n),
+                                        n_kv=n_kv, hd=hd, page=page)
+            b_ms, b_by = bound(nbytes, flops, bw, fl)
+            per.append(dict(first=first, pages=n, ms=ms, plain_ms=plain_ms,
+                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                            max_abs_err=err))
+            parts.append((o, m, l))
+        whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+        merged = merge_slices(parts)
+        valid = torch.arange(q.shape[1], device="cuda")[None] < n_new[:, None]
+        require(torch.allclose(merged[valid], whole[valid], atol=ATT_ATOL,
+                               rtol=ATT_RTOL),
+                f"attention {label}: the merged slices differ from the "
+                f"whole-arena call")
+        merge_ms = timer(lambda: merge_slices(parts))
+        slow = max(per, key=lambda r: r["ms"])
+        rows.append(dict(kernel="ragged_paged_attention", shape=label,
+                         dtype="float32", max_abs_err=max(
+                             r["max_abs_err"] for r in per),
+                         ms=slow["ms"], host_ms=None,
+                         plain_ms=max(r["plain_ms"] for r in per),
+                         library_ms=max(r["library_ms"] for r in per),
+                         bound_ms=max(r["bound_ms"] for r in per),
+                         bound_by=max(per, key=lambda r: r["bound_ms"])[
+                             "bound_by"], merge_ms=merge_ms, slices=per))
+        for r in per:
+            print(f"[kernels] attention {label} slice [{r['first']}, "
+                  f"+{r['pages']}) err={r['max_abs_err']:.2e} "
+                  f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
+                  f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} "
+                  f"({r['bound_by']})")
+        print(f"[kernels] attention {label}: merge of the 2 slices "
+              f"{merge_ms:.4f} ms; merged = whole-arena call")
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the main path at full width
 # ---------------------------------------------------------------------------
@@ -860,6 +1020,216 @@ def serve_phase(cfg, qparams, seed: int):
     print("[serve] identical tokens in the eager, graphed and "
           "graphed+pipelined runs")
     return dict(runs=out, idle=idle), ref
+
+
+# ---------------------------------------------------------------------------
+# phase 4s: sharded serving over gloo ranks on the one card
+# ---------------------------------------------------------------------------
+def gloo_probe(mesh) -> dict:
+    """Which collectives gloo runs on CUDA tensors here: all_reduce with
+    each op the mesh path uses, on each dtype it reduces, over the data
+    group; broadcast and all_gather beside them (the mesh path uses
+    neither)."""
+    import torch.distributed as dist
+    group = mesh.groups["data"]
+    out = {}
+    for dt in (torch.float32, torch.int32, torch.int64, torch.uint8):
+        for op in ("sum", "max", "min"):
+            t = torch.full((5,), mesh.rank + 1, dtype=dt, device="cuda")
+            try:
+                mesh.all_reduce(t, "data", op)
+                out[f"all_reduce {op} {dt}"] = t[0].item()
+            except Exception as exc:       # noqa: BLE001
+                out[f"all_reduce {op} {dt}"] = f"refused: {exc}"[:120]
+    t = torch.full((5,), float(mesh.rank), device="cuda")
+    for name, call in (
+            ("broadcast", lambda: dist.broadcast(t, 0, group=group)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(t) for _ in range(2)], t, group=group))):
+        try:
+            call()
+            out[name] = "ok"
+        except Exception as exc:           # noqa: BLE001
+            out[name] = f"refused: {exc}"[:120]
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_rank(mesh, job):
+    """One gloo rank of the mesh phase on the card: its weights (the
+    serve phase's streams as they are, or its own TP shard of the dense
+    weights quantized here and held against the whole conversion's shard
+    bit for bit), then the serve phase's 8 requests through
+    ``ServeEngine(mesh=...)`` once (eager: nothing to capture), with the
+    launch counts set to 0 just before and the collectives counted over
+    it. Prints nothing."""
+    t_rank = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    if job.get("probe"):
+        out["probe"] = gloo_probe(mesh)
+    if "qparams" in job:
+        params = job["qparams"]
+    else:
+        m = mesh.index("model")
+        t0 = time.monotonic()
+        params = quantize_for_serving(
+            job["dense"], QMCConfig(rho=0.3, granularity="subtile"),
+            min_dim=64, tp_shards=mesh.shape[1], only_shard=m)
+        torch.cuda.synchronize()
+        out["ptq_s"] = time.monotonic() - t0
+        same = differ = 0
+        for own, whole in zip(qtensors_and_shards(params),
+                              qtensors_and_shards(job["whole"])):
+            if isinstance(own, ShardedQTensor):
+                a, b = own.local(m), whole.local(m)
+                ok = all(torch.equal(getattr(a, f), getattr(b, f))
+                         for f in ("in_codes", "out_codes", "stream_pos",
+                                   "is_out", "scale_in", "scale_out"))
+                same, differ = same + ok, differ + (not ok)
+        out["shards_equal"], out["shards_differ"] = same, differ
+    cfg = job["cfg"]
+    eng = ServeEngine(cfg, params, slots=4, max_len=256,
+                      paged_attention=True, device="cuda", mesh=mesh,
+                      cuda_graphs=False)
+    reqs = job["requests"]
+    out["setup_s"] = time.monotonic() - t_rank
+    build.reset_launches()
+    kops.reset_path_counts()
+    c0, cs0 = mesh.collectives, mesh.collective_seconds
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    st = eng.stats
+    out.update(tokens=[r.out_tokens for r in reqs],
+               launches=dict(build.launches), paths=dict(kops.path_counts),
+               rounds=st.rounds, tokens_out=st.tokens_out, wall_s=st.wall_s,
+               tokens_per_s=st.tokens_per_s,
+               round_ms_p50=float(np.median(st.step_seconds) * 1e3),
+               collectives=mesh.collectives - c0,
+               collective_s=mesh.collective_seconds - cs0,
+               rank_s=time.monotonic() - t_rank)
+    return out
+
+
+def qtensors_and_shards(tree):
+    """The stream leaves of a parameter tree, in walk order."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from qtensors_and_shards(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from qtensors_and_shards(v)
+    elif isinstance(tree, (QTensor, ShardedQTensor)):
+        yield tree
+
+
+def mesh_phase(cfg, qparams, seed: int, greedy_tokens) -> dict:
+    """Sharded serving on gloo ranks sharing the card (NCCL refuses two
+    ranks on one device; gloo moves every collective through host
+    memory, so these times say nothing of NVLink): (2, 1) on the serve
+    phase's streams must give exactly its greedy tokens; (1, 2) and
+    (2, 2) on tp_shards = 2 streams, each rank quantizing its own shard
+    (equal to the whole conversion's shard bit for bit), must give the
+    same tokens as each other and as one process serving the whole
+    2-shard conversion (weight plan: its streams dequantized once), on 4
+    of the serve phase's prompts with 12 new tokens each. Every
+    rank launches B1, B2 and B3 and never qmm's "ref" path; a rank that
+    raises or hangs fails the phase (``launch.mesh.spawn``)."""
+    out = {}
+    t_phase = time.monotonic()
+
+    def run(shape, job):
+        t0 = time.monotonic()
+        res = spawn(mesh_rank, shape, backend="gloo", args=(job,),
+                    timeout_s=400.0)
+        label = f"({shape[0]},{shape[1]})"
+        for r in res:
+            for k in SERVE_KERNELS:
+                require(r["launches"][k] > 0, f"mesh {label} rank "
+                        f"{r['rank']}: kernel {k} never launched")
+            require(r["paths"]["ref"] == 0, f"mesh {label} rank "
+                    f"{r['rank']}: qmm took its 'ref' path")
+            require(r["tokens"] == res[0]["tokens"], f"mesh {label}: rank "
+                    f"{r['rank']}'s tokens differ from rank 0's")
+        r0 = res[0]
+        per_round = r0["collectives"] / r0["rounds"]
+        print(f"[mesh] {label} gloo, {len(res)} ranks on one card: "
+              f"{r0['tokens_out']} tokens, {r0['rounds']} rounds, "
+              f"{r0['wall_s']:.3f}s, {r0['tokens_per_s']:.1f} tok/s, round "
+              f"ms p50 {r0['round_ms_p50']:.2f}; rank 0: "
+              f"{r0['collectives']} collectives ({per_round:.1f} a round) "
+              f"in {r0['collective_s']:.3f}s "
+              f"({r0['collective_s'] / r0['rounds'] * 1e3:.2f} ms a "
+              f"round); launches {r0['launches']}; qmm paths "
+              f"{r0['paths']}; rank 0 set-up {r0['setup_s']:.1f}s, in all "
+              f"{r0['rank_s']:.1f}s; spawn to join "
+              f"{time.monotonic() - t0:.1f}s")
+        out[label] = dict(res[0], ranks=len(res),
+                          seconds=time.monotonic() - t0,
+                          tokens=None)
+        return res
+
+    res = run((2, 1), dict(cfg=cfg, qparams=qparams, probe=True,
+                           requests=make_requests(cfg, 8, seed)))
+    probe = res[0]["probe"]
+    print(f"[mesh] gloo on CUDA tensors: {probe}")
+    out["gloo_probe"] = probe
+    for r in res:
+        require(r["tokens"] == greedy_tokens, f"mesh (2,1) rank "
+                f"{r['rank']}: tokens differ from the serve phase's")
+    print("[mesh] (2,1) on the serve phase's streams: every rank's tokens "
+          "equal the serve phase's greedy tokens")
+
+    dense = init_params(cfg, seed, device="cuda")
+    qmc = QMCConfig(rho=0.3, granularity="subtile")
+    t0 = time.monotonic()
+    whole = quantize_for_serving(dense, qmc, min_dim=64, tp_shards=2)
+    torch.cuda.synchronize()
+    n_sqt = sum(isinstance(q, ShardedQTensor)
+                for q in qtensors_and_shards(whole))
+    print(f"[mesh] tp_shards=2 conversion of the whole model in "
+          f"{time.monotonic() - t0:.1f}s: {n_sqt} 2-shard leaves")
+    n_qt = sum(1 for _ in qtensors_and_shards(qparams))
+    require(n_sqt == n_qt, f"mesh: {n_sqt} 2-shard leaves, expected every "
+            f"one of the {n_qt} stream leaves")
+    # 4 of the serve phase's prompts, 12 new tokens each (a round of the
+    # (2, 2) mesh costs ~100 gloo collectives through host memory)
+    reqs = make_requests(cfg, 4, seed)
+    for r in reqs:
+        r.max_new_tokens = 12
+    t0 = time.monotonic()
+    one = ServeEngine(cfg, whole, slots=4, max_len=256,
+                      paged_attention=True, weight_plan=True,
+                      cuda_graphs=False, device="cuda")
+    ref_reqs = [dataclasses.replace(r, out_tokens=[]) for r in reqs]
+    one.run(ref_reqs)
+    ref2 = [r.out_tokens for r in ref_reqs]
+    print(f"[mesh] one process on the whole tp_shards=2 conversion (its "
+          f"streams dequantized once): {one.stats.tokens_out} tokens in "
+          f"{time.monotonic() - t0:.1f}s")
+    del one
+    torch.cuda.empty_cache()
+    for shape in ((1, 2), (2, 2)):
+        res = run(shape, dict(cfg=cfg, dense=dense, whole=whole,
+                              requests=reqs))
+        for r in res:
+            require(r["shards_differ"] == 0 and r["shards_equal"] == n_sqt,
+                    f"mesh {shape} rank {r['rank']}: its own shard's "
+                    f"streams differ from the whole conversion's "
+                    f"({r['shards_differ']} of {n_sqt})")
+            require(r["tokens"] == ref2, f"mesh {shape} rank {r['rank']}: "
+                    f"tokens differ from one process on the same streams")
+        print(f"[mesh] {shape}: every rank quantized its own shard "
+              f"({res[0]['ptq_s']:.1f}s on rank 0; {n_sqt} leaves equal to "
+              f"the whole conversion's) and gave the tokens of one process "
+              f"on the same streams")
+    del dense, whole
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"[mesh] phase {out['seconds']:.1f}s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2308,7 +2678,8 @@ def train_phase(cfg, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 def summary(rows, launches, bw_name, hymba_attn_launches: int,
             moe_qmm_launches: int, moe_attn_launches: int,
-            s3b_attn_launches: int, g2_attn_launches: int):
+            s3b_attn_launches: int, g2_attn_launches: int,
+            sliced_attn_launches: int):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
@@ -2319,7 +2690,10 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
     attention rows and the decode qmm rows at dbrx-132b's shapes, with
     the launches of the MoE phase's graphed run, and the attention rows at
     stablelm-3b's and gemma2-2b's shapes (fp32, bf16 and int8 pages), with
-    the launches of each one's graphed run in the attn-hd phase."""
+    the launches of each one's graphed run in the attn-hd phase; and the
+    attention rows over a data rank's page slice (D = 2, the slower
+    slice's time, the merge's beside it), with the launches of rank 0 of
+    the mesh phase's (2, 2) run."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -2356,7 +2730,9 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
                      S3B_DECODE: s3b_attn_launches,
                      S3B_CHUNK: s3b_attn_launches,
                      G2_DECODE: g2_attn_launches,
-                     G2_CHUNK: g2_attn_launches}
+                     G2_CHUNK: g2_attn_launches,
+                     SLICED_DECODE: sliced_attn_launches,
+                     SLICED_CHUNK: sliced_attn_launches}
     for row in rows:
         if row["shape"] in attn_launches:
             out.append({"name": f"ragged_paged_attention "
@@ -2370,7 +2746,9 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
                         "shape": f"{row['shape']} {row['dtype']}",
-                        "peaks": bw_name})
+                        "peaks": bw_name,
+                        **({"merge_ms": row["merge_ms"]}
+                           if "merge_ms" in row else {})})
     src, rep = meta["qmm_decode"]
     for row in rows:
         if row["shape"].endswith("dbrx expert"):
@@ -2428,6 +2806,7 @@ def main(argv=None) -> int:
     check_patterns(timer, peak, gen, rows)
     empty = check_empty_launch(timer)
     check_attention(timer, peak, gen, rows)
+    check_sliced_attention(timer, peak, gen, rows)
     check_expert_qmm(timer, peak, gen, rows)
     del timer
 
@@ -2441,6 +2820,7 @@ def main(argv=None) -> int:
     print(f"[serve] stablelm-1.6b full width: init + QMC PTQ on the card in "
           f"{time.monotonic() - t0:.1f}s")
     served, greedy_tokens = serve_phase(cfg, qparams, args.seed)
+    meshed = mesh_phase(cfg, qparams, args.seed, greedy_tokens)
     extended = serve_x_phase(cfg, qparams, args.seed, greedy_tokens,
                              served["runs"]["b graphed"]["pool_bytes"])
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
@@ -2480,12 +2860,14 @@ def main(argv=None) -> int:
         "b graphed"]["launches"]["ragged_paged_attention"],
         moe["b graphed"]["launches"]["qmm_decode"],
         moe["b graphed"]["launches"]["ragged_paged_attention"],
-        hd_launches["stablelm-3b"], hd_launches["gemma2-2b"])
+        hd_launches["stablelm-3b"], hd_launches["gemma2-2b"],
+        meshed["(2,2)"]["launches"]["ragged_paged_attention"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
-        moe=moe, families=families, attn_hd=attn_hd, step=stepped,
+        mesh=meshed, moe=moe, families=families, attn_hd=attn_hd,
+        step=stepped,
         train=trained,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),

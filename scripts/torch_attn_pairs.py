@@ -9,10 +9,13 @@ imports that tree's ``repro_torch`` and ``chip_smoke`` and times, with
 kernel at the chip_smoke attention shapes every tree takes: the serve
 phase's decode, long decode and chunk lanes (hd 64, 32 KV heads) over
 fp32, int8 and bf16 pages, hymba-1.5b's (G = 5, window 1024) and
-dbrx-132b's (hd 128, G = 6) over fp32 pages. One line of JSON per process, then a table of ms per
-shape and tree.
+dbrx-132b's (hd 128, G = 6) over fp32 pages, stablelm-3b's (hd 80) and
+gemma2-2b's (hd 256, G = 2, window 4096, softcap 50) over every page
+kind. One line of JSON per process, then a table of ms per shape and
+tree.
 
     python scripts/torch_attn_pairs.py --trees build/parent build/change
+    python scripts/torch_attn_pairs.py --trees ... --only "hymba|dbrx"
 
 Needs a CUDA card; the trees build their kernels first, in parallel.
 """
@@ -27,18 +30,26 @@ from pathlib import Path
 DECODE = [(69, 1), (192, 1), (239, 1), (0, 0)]
 LONG = [(4095, 1), (3000, 1), (1500, 1), (511, 1)]
 CHUNK = [(0, 128), (64, 100), (200, 1), (0, 0)]
-# (label, lanes, KV heads, G, page dtype, window, hd)
+PAGES = ("float32", "int8", "bfloat16")
+# (label, lanes, KV heads, G, page dtype, window, hd[, softcap])
 CASES = [(f"{name} {dt}", lanes, 32, 1, dt, None, 64)
          for name, lanes in (("decode", DECODE), ("decode<=4096", LONG),
                              ("chunk S=128", CHUNK))
-         for dt in ("float32", "int8", "bfloat16")] + [
+         for dt in PAGES] + [
     ("hymba decode", [(2047, 1), (1800, 1), (1030, 1), (0, 0)], 5, 5,
      "float32", 1024, 64),
     ("hymba chunk", [(1100, 128), (1500, 100), (2047, 1), (0, 0)], 5, 5,
      "float32", 1024, 64),
     ("dbrx decode", [(200, 1), (150, 1), (31, 1), (0, 0)], 8, 6,
      "float32", None, 128),
-    ("dbrx chunk", CHUNK, 8, 6, "float32", None, 128)]
+    ("dbrx chunk", CHUNK, 8, 6, "float32", None, 128)] + [
+    case for dt in PAGES for case in (
+        (f"s3b decode {dt}", DECODE, 32, 1, dt, None, 80),
+        (f"s3b chunk {dt}", CHUNK, 32, 1, dt, None, 80),
+        (f"g2 decode {dt}", [(8191, 1), (5000, 1), (4100, 1), (0, 0)], 4,
+         2, dt, 4096, 256, 50.0),
+        (f"g2 chunk {dt}", [(4200, 128), (6000, 100), (8191, 1), (0, 0)],
+         4, 2, dt, 4096, 256, 50.0))]
 
 
 def one(tree: Path, seed: int) -> dict:
@@ -54,11 +65,12 @@ def one(tree: Path, seed: int) -> dict:
     gen.manual_seed(seed)
     timer = cs.Timer()
     ms = {}
-    for label, lanes, n_kv, g, dt, window, hd in CASES:
+    for label, lanes, n_kv, g, dt, window, hd, *cap in CASES:
         q, cache, qs, kl, _, _ = cs.make_attn_case(
             lanes, n_kv=n_kv, g=g, hd=hd, page=16, quantized=dt == "int8",
             bf16=dt == "bfloat16", gen=gen)
-        kw = dict(n_kv=n_kv, head_dim=hd, window=window)
+        kw = dict(n_kv=n_kv, head_dim=hd, window=window,
+                  attn_softcap=cap[0] if cap else None)
         ms[label] = timer(lambda: ragged_paged_attention_call(
             q, cache, qs, kl, **kw))
     return {"tree": str(tree), "ms": ms,
@@ -80,7 +92,12 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", metavar="REGEX",
+                    help="time only the shapes whose label matches")
     a = ap.parse_args()
+    if a.only:
+        import re
+        CASES[:] = [c for c in CASES if re.search(a.only, c[0])]
     if a.tree is not None:                     # one child process
         if a.build_only:
             sys.path[:0] = [str(a.tree / "src")]
@@ -98,7 +115,8 @@ def main() -> int:
     for _ in range(a.pairs):
         for t in trees + trees[::-1]:
             t0 = time.monotonic()
-            p = _child(t, "--seed", str(a.seed))
+            p = _child(t, "--seed", str(a.seed),
+                       *(["--only", a.only] if a.only else []))
             out, _ = p.communicate()
             if p.returncode != 0:
                 print(f"{t} failed", file=sys.stderr)

@@ -55,12 +55,22 @@
 //     q 0, nothing loaded or stored); dots are warp-shuffle reductions.
 //   * The warps' softmax states are merged in warp order through shared
 //     memory at the end of the span.
+//   * A page slice (a data rank's part of the arena, on a mesh; JAX's
+//     `meta`): table entries are global ids and only those in the slice
+//     count. It is resolved where spans are planned: a span is a chunk of
+//     span_pages of a run of consecutive live entries in the slice
+//     (slice_chunks, ballots over the lane's table row), so the key
+//     positions inside a span stay linear and the inner loops are the
+//     unsliced ones. A row with no live page in the slice gives (0, -1e30,
+//     0), which the cross-rank merge weighs 0. The slice is a template
+//     switch (SLICED): the kernels of unsliced calls carry none of it.
 //
 // Sources: this file (chunk path, span merge, C entry points), the decode
 // path's kernel in paged_attention_decode.cuh, instantiated for fp32,
 // int8 and bf16 pages in paged_attention_decode.cu, _i8.cu and _bf16.cu
-// (one unit per page kind, built in parallel: 16 instantiations each),
-// and paged_attention.cuh (what all share).
+// and, over a page slice, in their _sliced.cu (one unit per page kind and
+// slicing, built in parallel: 16 instantiations each), and
+// paged_attention.cuh (what all share).
 #include "paged_attention.cuh"
 
 namespace qmc_pa {
@@ -69,7 +79,8 @@ namespace {
 // ---------------------------------------------------------------------------
 // chunk path: tensor cores, one m tile of 16 rows and a key group per warp
 // ---------------------------------------------------------------------------
-template <int KIND, int NT>  // NT = hd / 8 (4, 8, 10, 16 or 32)
+// NT = hd / 8 (4, 8, 10, 16 or 32); SLICED: a page slice
+template <int KIND, int NT, bool SLICED>
 __global__ void __launch_bounds__(MAX_THREADS)
 attn_chunk_kernel(Args a) {
   constexpr bool QUANT = KIND == KIND_I8;
@@ -82,7 +93,7 @@ attn_chunk_kernel(Args a) {
   const int n_warps = blockDim.x >> 5;
   const int groups = n_warps / MT;
   Span s;
-  if (!span_of(a, rows, s)) return;
+  if (!span_of<SLICED>(a, rows, s)) return;
 
   const Layout L = layout(HD, KIND, rows_pad, groups, a.span_pages,
                           a.stages, true);
@@ -104,9 +115,7 @@ attn_chunk_kernel(Args a) {
     if (r < rows) src += out_row(a, s.b, s.h, s.qb, r) * HD + c * 4;
     cp16(q_lo + r * QS + c * 4, src, r < rows ? 16 : 0);
   }
-  const int n_pg = (s.n_keys + a.page - 1) / a.page;
-  for (int i = tid; i < n_pg; i += blockDim.x)
-    tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i];
+  load_span_table<SLICED>(a, s, tbl_s);
   __syncthreads();
 
   for (int st = 0; st < a.stages - 1; ++st) {
@@ -333,6 +342,9 @@ attn_chunk_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // second pass: merge the spans of every row in span order (one warp a row)
 // ---------------------------------------------------------------------------
+// (SLICED: a call over a page slice, whose spans are the chunks of runs;
+// a compile-time switch, so the unsliced merge carries none of it)
+template <bool SLICED>
 __global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
   const size_t rows_total = (size_t)a.B * a.S_pad * a.H;
   const size_t row = (size_t)blockIdx.x * 4 + (threadIdx.x >> 5);
@@ -341,7 +353,11 @@ __global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
   const int b = (int)(row / ((size_t)a.S_pad * a.H));
   const int t = (int)((row / a.H) % a.S_pad);
   const int n_live = live_pages(a, b, t / a.q_blk);
-  const int n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+  int n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+  if constexpr (SLICED) {
+    int p0, len;
+    n_sp = n_live ? slice_chunks(a, b, n_live, -1, &p0, &len) : 0;
+  }
   if (n_sp <= 1) return;  // written by its only span (or dead)
   float mx = NEG;
   for (int sp = 0; sp < n_sp; ++sp)
@@ -366,33 +382,42 @@ __global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
   }
 }
 
-template <int KIND>
+template <int KIND, bool SLICED>
 int launch_chunk(dim3 grid, int threads, int smem, const Args& a,
                  cudaStream_t st) {
   switch (a.hd) {
-    case 32: return launch<attn_chunk_kernel<KIND, 4>>(grid, threads, smem, a, st);
-    case 64: return launch<attn_chunk_kernel<KIND, 8>>(grid, threads, smem, a, st);
-    case 80: return launch<attn_chunk_kernel<KIND, 10>>(grid, threads, smem, a, st);
-    case 128: return launch<attn_chunk_kernel<KIND, 16>>(grid, threads, smem, a, st);
-    case 256: return launch<attn_chunk_kernel<KIND, 32>>(grid, threads, smem, a, st);
+    case 32: return launch<attn_chunk_kernel<KIND, 4, SLICED>>(grid, threads, smem, a, st);
+    case 64: return launch<attn_chunk_kernel<KIND, 8, SLICED>>(grid, threads, smem, a, st);
+    case 80: return launch<attn_chunk_kernel<KIND, 10, SLICED>>(grid, threads, smem, a, st);
+    case 128: return launch<attn_chunk_kernel<KIND, 16, SLICED>>(grid, threads, smem, a, st);
+    case 256: return launch<attn_chunk_kernel<KIND, 32, SLICED>>(grid, threads, smem, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool SLICED>
+int launch_chunk_kind(dim3 grid, int threads, int smem, const Args& a,
+                      cudaStream_t st) {
+  switch (a.kind) {
+    case KIND_F32: return launch_chunk<KIND_F32, SLICED>(grid, threads, smem, a, st);
+    case KIND_I8: return launch_chunk<KIND_I8, SLICED>(grid, threads, smem, a, st);
+    case KIND_BF16: return launch_chunk<KIND_BF16, SLICED>(grid, threads, smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_span(dim3 grid, int threads, int smem, const Args& a,
                 cudaStream_t st) {
-  if (a.q_blk == 1) {
-    switch (a.kind) {
-      case KIND_F32: return launch_decode_f32(grid, smem, a, st);
-      case KIND_I8: return launch_decode_i8(grid, smem, a, st);
-      case KIND_BF16: return launch_decode_bf16(grid, smem, a, st);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  switch (a.kind) {
-    case KIND_F32: return launch_chunk<KIND_F32>(grid, threads, smem, a, st);
-    case KIND_I8: return launch_chunk<KIND_I8>(grid, threads, smem, a, st);
-    case KIND_BF16: return launch_chunk<KIND_BF16>(grid, threads, smem, a, st);
+  if (a.q_blk > 1)
+    return a.sliced ? launch_chunk_kind<true>(grid, threads, smem, a, st)
+                    : launch_chunk_kind<false>(grid, threads, smem, a, st);
+  switch (a.kind * 2 + a.sliced) {
+    case KIND_F32 * 2: return launch_decode_f32(grid, smem, a, st);
+    case KIND_F32 * 2 + 1: return launch_decode_f32_sliced(grid, smem, a, st);
+    case KIND_I8 * 2: return launch_decode_i8(grid, smem, a, st);
+    case KIND_I8 * 2 + 1: return launch_decode_i8_sliced(grid, smem, a, st);
+    case KIND_BF16 * 2: return launch_decode_bf16(grid, smem, a, st);
+    case KIND_BF16 * 2 + 1: return launch_decode_bf16_sliced(grid, smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -459,14 +484,21 @@ int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int kind,
 // m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off. Spans
 // of span_pages pages (a multiple of stage_keys(hd, kind) / page), n_spans = ceil(P /
 // span_pages); with n_spans > 1, po / pm / pl are the fp32 workspace
-// [n_spans, B, S_pad, H(, hd)]. Returns cudaGetLastError().
+// [n_spans, B, S_pad, H(, hd)]. slice_pages > 0: the pages hold the slice
+// [slice_first, slice_first + slice_pages) of the global arena, table
+// entries are global page ids and only those inside the slice are read
+// (a row with none gives o 0, m -1e30, l 0), the spans are the chunks of
+// span_pages of each run of consecutive entries in the slice, and n_spans
+// bounds their count; slice_pages == 0: the entries are local ids.
+// Returns cudaGetLastError().
 int qmc_ragged_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* tbl,
     const void* q_start, const void* kv_len, void* o, void* m, void* l,
     void* po, void* pm, void* pl, int B, int S_pad, int H, int KV, int hd,
     int page, int P, int q_blk, int window, float softcap, float scale,
-    int q_bf16, int kind, int span_pages, int n_spans, void* stream) {
+    int q_bf16, int kind, int span_pages, int n_spans, int slice_first,
+    int slice_pages, void* stream) {
   if (kind < KIND_F32 || kind > KIND_BF16) return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -488,6 +520,9 @@ int qmc_ragged_paged_attention(
   a.scale = scale; a.q_bf16 = q_bf16; a.kind = kind;
   a.span_pages = span_pages;
   a.n_spans = n_spans;
+  a.sliced = slice_pages > 0;
+  a.slice_first = a.sliced ? slice_first : 0;
+  a.slice_pages = slice_pages;
   const int rows = q_blk * (H / KV);
   const Geometry g = geometry(rows, q_blk, hd, kind);
   const int smem = smem_bytes(rows, q_blk, hd, kind, span_pages, &a.stages);
@@ -496,7 +531,11 @@ int qmc_ragged_paged_attention(
   const int rc = launch_span(grid, g.threads, smem, a, st);
   if (rc != 0 || n_spans == 1) return rc;
   const size_t rows_total = (size_t)B * S_pad * H;
-  attn_merge_kernel<<<(unsigned)((rows_total + 3) / 4), 128, 0, st>>>(a);
+  const unsigned blocks = (unsigned)((rows_total + 3) / 4);
+  if (a.sliced)
+    attn_merge_kernel<true><<<blocks, 128, 0, st>>>(a);
+  else
+    attn_merge_kernel<false><<<blocks, 128, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,11 @@ struct Args {
   int B, S_pad, H, KV, hd, page, P, q_blk, window;
   float softcap, scale;
   int q_bf16, kind, span_pages, n_spans, stages;
+  // the page slice [slice_first, slice_first + slice_pages) of the global
+  // arena that the k/v pages hold (a data rank's, on a mesh): table entries
+  // are global ids and those outside it contribute nothing. sliced == 0:
+  // every entry is a local page (slice_first 0).
+  int sliced, slice_first, slice_pages;
 };
 
 // ---- shared-memory layout (host and device agree) ------------------------
@@ -147,6 +152,51 @@ __device__ __forceinline__ int live_pages(const Args& a, int b, int qb) {
   if (qs + qb * a.q_blk >= kl) return 0;
   const int limit = min(kl, qs + (qb + 1) * a.q_blk);
   return (limit + a.page - 1) / a.page;
+}
+
+// Whether table entry e lies in the slice.
+__device__ __forceinline__ bool in_slice(const Args& a, int e) {
+  return (unsigned)(e - a.slice_first) < (unsigned)a.slice_pages;
+}
+
+// The spans of a sliced call: lane b's first n table entries split into
+// runs of consecutive entries in the slice, each run cut into chunks of
+// span_pages pages from its start (so a span's pages are consecutive
+// logical pages, all in the slice, and its key positions stay linear).
+// Returns the number of chunks; chunk `want`, when it exists, starts at
+// logical page *p0 and holds *len pages. Every lane of a warp calls it
+// and gets the same answer (ballots over 32 entries at a time).
+__device__ inline int slice_chunks(const Args& a, int b, int n, int want,
+                                   int* p0, int* len) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const size_t row = (size_t)b * a.P;
+  int count = 0, run = -1, first = -1, end = -1;
+  for (int base = 0; base < n; base += 32) {
+    const int p = base + lane;
+    const bool in = p < n && in_slice(a, a.tbl[row + p]);
+    const unsigned outs = ~__ballot_sync(0xffffffffu, in);
+    // start of the run holding p: past the last entry out of the slice
+    // below it in this word, else the run carried from the last word
+    const unsigned o = outs & below;
+    const int rs = o ? base + 32 - __clz(o) : (run >= 0 ? run : base);
+    const bool start = in && (p - rs) % a.span_pages == 0;
+    const unsigned starts = __ballot_sync(0xffffffffu, start);
+    const unsigned hit = __ballot_sync(
+        0xffffffffu, start && count + __popc(starts & below) == want);
+    if (hit) first = base + __ffs(hit) - 1;
+    if (first >= 0 && end < 0) {
+      const unsigned e = outs & __ballot_sync(0xffffffffu, p > first);
+      if (e) end = base + __ffs(e) - 1;
+    }
+    count += __popc(starts);
+    run = outs >> 31 ? -1 : __shfl_sync(0xffffffffu, rs, 31);
+  }
+  if (first >= 0) {
+    *p0 = first;
+    *len = min(end < 0 ? n : end, first + a.span_pages) - first;
+  }
+  return count;
 }
 
 // Global row index of row r (= token * G + g) of (lane b, head h, block qb).
@@ -285,21 +335,40 @@ struct Span {
   int b, h, qb, sp, n_sp, kl, q0, p0, n_keys, n_stages;
 };
 
+// SLICED (a call over a page slice) is a compile-time switch: the kernels
+// of unsliced calls carry none of the slice's code.
+template <bool SLICED>
 __device__ inline bool span_of(const Args& a, int rows, Span& s) {
   s.sp = blockIdx.x;
   s.b = blockIdx.y / a.KV;
   s.h = blockIdx.y - s.b * a.KV;
   s.qb = blockIdx.z;
   const int n_live = live_pages(a, s.b, s.qb);
-  if (n_live == 0) {  // dead q block: its rows are exactly 0
-    if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
-    return false;
+  if constexpr (SLICED) {  // the chunks of the live runs in the slice
+    // runs are at most ceil(n / 2) (an entry outside the slice parts two),
+    // so chunks at most that plus n / span_pages: a block past it has no
+    // chunk to walk and leaves before the scan
+    if (n_live && s.sp >= (n_live + 1) / 2 + n_live / a.span_pages)
+      return false;
+    int n_pg = 0;
+    s.n_sp = n_live ? slice_chunks(a, s.b, n_live, s.sp, &s.p0, &n_pg) : 0;
+    if (s.n_sp == 0) {  // none of the q block's pages in the slice: rows 0
+      if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
+      return false;
+    }
+    if (s.sp >= s.n_sp) return false;
+    s.n_keys = n_pg * a.page;
+  } else {
+    if (n_live == 0) {  // dead q block: its rows are exactly 0
+      if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
+      return false;
+    }
+    s.n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+    if (s.sp >= s.n_sp) return false;
+    s.p0 = s.sp * a.span_pages;
+    const int p1 = min(n_live, s.p0 + a.span_pages);
+    s.n_keys = (p1 - s.p0) * a.page;
   }
-  s.n_sp = (n_live + a.span_pages - 1) / a.span_pages;
-  if (s.sp >= s.n_sp) return false;
-  s.p0 = s.sp * a.span_pages;
-  const int p1 = min(n_live, s.p0 + a.span_pages);
-  s.n_keys = (p1 - s.p0) * a.page;
   const int keys = stage_keys(a.hd, a.kind);
   s.n_stages = (s.n_keys + keys - 1) / keys;
   s.kl = a.kv_len[s.b];
@@ -323,12 +392,33 @@ int launch(dim3 grid, int threads, int smem, const Args& a,
   return (int)cudaGetLastError();
 }
 
-// The decode path's launchers, one unit per page kind so that they compile
-// in parallel: paged_attention_decode.cu (fp32), _i8.cu, _bf16.cu.
+// The span's table entries into tbl_s: local page ids (a sliced call's
+// entries are global ids in its slice).
+template <bool SLICED>
+__device__ inline void load_span_table(const Args& a, const Span& s,
+                                       int* tbl_s) {
+  const int n_pg = (s.n_keys + a.page - 1) / a.page;
+  for (int i = threadIdx.x; i < n_pg; i += blockDim.x) {
+    if constexpr (SLICED)
+      tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i] - a.slice_first;
+    else
+      tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i];
+  }
+}
+
+// The decode path's launchers, one unit per page kind and slicing so that
+// they compile in parallel: paged_attention_decode.cu (fp32), _i8.cu,
+// _bf16.cu, and the _sliced.cu of each.
 int launch_decode_f32(dim3 grid, int smem, const Args& a,
                       cudaStream_t stream);
 int launch_decode_i8(dim3 grid, int smem, const Args& a, cudaStream_t stream);
 int launch_decode_bf16(dim3 grid, int smem, const Args& a,
                        cudaStream_t stream);
+int launch_decode_f32_sliced(dim3 grid, int smem, const Args& a,
+                             cudaStream_t stream);
+int launch_decode_i8_sliced(dim3 grid, int smem, const Args& a,
+                            cudaStream_t stream);
+int launch_decode_bf16_sliced(dim3 grid, int smem, const Args& a,
+                              cudaStream_t stream);
 
 }  // namespace qmc_pa

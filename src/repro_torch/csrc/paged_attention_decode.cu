@@ -7,7 +7,7 @@
 namespace qmc_pa {
 
 int launch_decode_f32(dim3 grid, int smem, const Args& a, cudaStream_t st) {
-  return launch_decode_kind<KIND_F32>(grid, smem, a, st);
+  return launch_decode_kind<KIND_F32, false>(grid, smem, a, st);
 }
 
 }  // namespace qmc_pa

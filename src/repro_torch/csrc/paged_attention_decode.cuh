@@ -4,8 +4,9 @@
 // dot products. hd 80 runs on the hd-96 tiling (3 dims a lane) with dims
 // 80-95 dead: their q is 0, and they load and store nothing. The kernel
 // template lives here; paged_attention_decode.cu, _i8.cu and _bf16.cu
-// instantiate it for fp32, int8 and bf16 pages, one unit each, so that
-// they compile in parallel. Design note: paged_attention.cu.
+// instantiate it for fp32, int8 and bf16 pages, and their _sliced.cu over
+// a page slice, one unit each, so that they compile in parallel. Design
+// note: paged_attention.cu.
 #pragma once
 #include "paged_attention.cuh"
 
@@ -39,8 +40,8 @@ __host__ __device__ constexpr int dec_threads() {
   return stage_keys(HD, KIND) / KEY_TILE * 32;
 }
 
-// GM >= G rows, DPL = ceil(HD / 32) dims a lane
-template <int KIND, int GM, int DPL, int HD = DPL * 32>
+// GM >= G rows, DPL = ceil(HD / 32) dims a lane; SLICED: a page slice
+template <int KIND, int GM, int DPL, int HD, bool SLICED>
 __global__ void __launch_bounds__(dec_threads<KIND, HD>())
 attn_decode_kernel(Args a) {
   constexpr bool QUANT = KIND == KIND_I8;
@@ -49,16 +50,14 @@ attn_decode_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = a.H / a.KV;  // rows (q_blk = 1)
   Span s;
-  if (!span_of(a, G, s)) return;
+  if (!span_of<SLICED>(a, G, s)) return;
 
   const Layout L = layout(HD, KIND, GM, TILES, a.span_pages, a.stages,
                           false);
   int* tbl_s = reinterpret_cast<int*>(smem);
   unsigned char* ring = smem + L.tbl;
   const int tid = threadIdx.x;
-  const int n_pg = (s.n_keys + a.page - 1) / a.page;
-  for (int i = tid; i < n_pg; i += blockDim.x)
-    tbl_s[i] = a.tbl[(size_t)s.b * a.P + s.p0 + i];
+  load_span_table<SLICED>(a, s, tbl_s);
   __syncthreads();
   for (int st = 0; st < a.stages - 1; ++st) {
     if (st < s.n_stages)
@@ -177,26 +176,26 @@ attn_decode_kernel(Args a) {
   epilogue(a, scratch, TILES, G, GM, s.b, s.h, s.qb, s.sp, s.n_sp);
 }
 
-template <int KIND, int GM>
+template <int KIND, int GM, bool SLICED>
 int launch_decode(dim3 grid, int smem, const Args& a, cudaStream_t st) {
   switch (a.hd) {
-    case 32: return launch<attn_decode_kernel<KIND, GM, 1>>(grid, dec_threads<KIND, 32>(), smem, a, st);
-    case 64: return launch<attn_decode_kernel<KIND, GM, 2>>(grid, dec_threads<KIND, 64>(), smem, a, st);
-    case 80: return launch<attn_decode_kernel<KIND, GM, 3, 80>>(grid, dec_threads<KIND, 80>(), smem, a, st);
-    case 128: return launch<attn_decode_kernel<KIND, GM, 4>>(grid, dec_threads<KIND, 128>(), smem, a, st);
-    case 256: return launch<attn_decode_kernel<KIND, GM, 8>>(grid, dec_threads<KIND, 256>(), smem, a, st);
+    case 32: return launch<attn_decode_kernel<KIND, GM, 1, 32, SLICED>>(grid, dec_threads<KIND, 32>(), smem, a, st);
+    case 64: return launch<attn_decode_kernel<KIND, GM, 2, 64, SLICED>>(grid, dec_threads<KIND, 64>(), smem, a, st);
+    case 80: return launch<attn_decode_kernel<KIND, GM, 3, 80, SLICED>>(grid, dec_threads<KIND, 80>(), smem, a, st);
+    case 128: return launch<attn_decode_kernel<KIND, GM, 4, 128, SLICED>>(grid, dec_threads<KIND, 128>(), smem, a, st);
+    case 256: return launch<attn_decode_kernel<KIND, GM, 8, 256, SLICED>>(grid, dec_threads<KIND, 256>(), smem, a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // rows G = H / KV picks the register tile GM >= G
-template <int KIND>
+template <int KIND, bool SLICED>
 int launch_decode_kind(dim3 grid, int smem, const Args& a, cudaStream_t st) {
   const int G = a.H / a.KV;
-  if (G <= 1) return launch_decode<KIND, 1>(grid, smem, a, st);
-  if (G <= 2) return launch_decode<KIND, 2>(grid, smem, a, st);
-  if (G <= 4) return launch_decode<KIND, 4>(grid, smem, a, st);
-  if (G <= 8) return launch_decode<KIND, 8>(grid, smem, a, st);
+  if (G <= 1) return launch_decode<KIND, 1, SLICED>(grid, smem, a, st);
+  if (G <= 2) return launch_decode<KIND, 2, SLICED>(grid, smem, a, st);
+  if (G <= 4) return launch_decode<KIND, 4, SLICED>(grid, smem, a, st);
+  if (G <= 8) return launch_decode<KIND, 8, SLICED>(grid, smem, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -7,7 +7,7 @@
 namespace qmc_pa {
 
 int launch_decode_bf16(dim3 grid, int smem, const Args& a, cudaStream_t st) {
-  return launch_decode_kind<KIND_BF16>(grid, smem, a, st);
+  return launch_decode_kind<KIND_BF16, false>(grid, smem, a, st);
 }
 
 }  // namespace qmc_pa

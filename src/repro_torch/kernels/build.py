@@ -45,7 +45,7 @@ _SIGNATURES = {
     "qmc_qmm_colstrip": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _P],
     "qmc_ragged_paged_attention": [_P] * 14 + [_I] * 9 + [_F, _F]
-                                  + [_I] * 4 + [_P],
+                                  + [_I] * 6 + [_P],
     "qmc_ragged_paged_attention_smem": [_I] * 5,
     "qmc_unpack3b": [_P, _P, _L, _P],
     "qmc_empty": [_P],

@@ -27,6 +27,18 @@ scales): the kernel widens each to fp32 as it reads it, as the reference
 casts them, and returns ``(o, m, l)`` in fp32; ``ragged_paged_attention``
 casts ``o`` to q's dtype.
 
+A page slice ``(first, n)`` (JAX's ``meta``) says that the pages passed
+hold global pages ``[first, first + n)`` of the arena, a data rank's slice
+on a mesh: block-table entries are global page ids, an entry outside the
+slice contributes nothing, and a row with no live page in the slice
+returns ``o = 0``, ``m = -1e30``, ``l = 0``. The kernel resolves the slice
+where it plans spans: a span is a chunk of a run of consecutive live
+entries in the slice (``slice_runs``), so its pages' key positions stay
+linear and the inner loops are those of an unsliced call. ``merge_slices`` and
+``merge_over`` combine the ``(o, m, l)`` of the slices, as JAX's
+``pmax``/``psum`` merge does. Without a slice every entry is a local page
+(the slice ``(0, n_pages)``).
+
 On a CPU tensor the wrapper runs the plain version
 (``kernels.ref.ragged_paged_attention_ref``); on a CUDA tensor it
 launches the kernel or raises.
@@ -70,6 +82,22 @@ def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
     if q_start + qb * q_blk >= kv_len:
         return 0
     return -(-min(kv_len, q_start + (qb + 1) * q_blk) // page)
+
+
+def slice_runs(tbl_row, n: int, page_slice) -> list:
+    """The runs ``[p0, p1)`` of consecutive entries among a lane's first
+    ``n`` table entries (global page ids) that lie in ``page_slice =
+    (first, pages)``: what a sliced call walks."""
+    first, n_slice = page_slice
+    runs, start = [], None
+    for p in range(n + 1):
+        inside = p < n and 0 <= int(tbl_row[p]) - first < n_slice
+        if inside and start is None:
+            start = p
+        elif not inside and start is not None:
+            runs.append((start, p))
+            start = None
+    return runs
 
 
 def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132,
@@ -135,24 +163,67 @@ def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
 
 
 def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int,
-              q_block: int = Q_BLOCK) -> list:
+              q_block: int = Q_BLOCK, tbl=None, page_slice=None) -> list:
     """The page ranges ``[p0, p1)`` the span blocks of each (lane, q block)
     walk, per lane and q block, for queries of width ``s`` in blocks of
     ``min(q_block, s)`` tokens (what the kernel computes on the card from
-    the same rule)."""
+    the same rule). With a ``page_slice`` (and the tables ``tbl [B, P]``)
+    the spans are each run of the slice's live pages (``slice_runs``) cut
+    into ``n_span_pages`` from its start."""
     q_blk = min(q_block, s)
     out = []
-    for qs, kl in zip(q_start, kv_len):
+    for b, (qs, kl) in enumerate(zip(q_start, kv_len)):
         lane = []
         for qb in range(-(-s // q_blk)):
             n = live_pages(int(qs), int(kl), qb, q_blk, page)
-            lane.append([(p0, min(n, p0 + n_span_pages))
-                         for p0 in range(0, n, n_span_pages)])
+            runs = [(0, n)] if page_slice is None else slice_runs(
+                tbl[b], n, page_slice)
+            lane.append([(p0, min(r1, p0 + n_span_pages))
+                         for r0, r1 in runs
+                         for p0 in range(r0, r1, n_span_pages)])
         out.append(lane)
     return out
 
 
-def _check(q, cache, n_kv, head_dim) -> Tuple[int, int]:
+def shard_compatible(mesh, n_pages_total: int, n_kv: int) -> bool:
+    """Whether the arena and the heads divide the mesh: the page axis over
+    ``data`` (equal page slices) and the KV heads over ``model`` (heads
+    stay whole on a rank)."""
+    if mesh is None:
+        return True
+    from repro_torch.launch.mesh import axis_size
+    d, m = axis_size(mesh, "data"), axis_size(mesh, "model")
+    return n_pages_total % max(d, 1) == 0 and n_kv % max(m, 1) == 0
+
+
+def merge_slices(parts) -> torch.Tensor:
+    """The output of the whole arena from the ``(o, m, l)`` of its page
+    slices, in slice order: JAX's merge, ``num / max(den, 1e-30)`` with
+    ``w = exp(m - max m) * l``."""
+    mg = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mg = torch.maximum(mg, m)
+    num = den = None
+    for o, m, l in parts:
+        w = torch.exp(m - mg) * l
+        num = o * w[..., None] if num is None else num + o * w[..., None]
+        den = w if den is None else den + w
+    return num / torch.clamp_min(den, 1e-30)[..., None]
+
+
+def merge_over(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh,
+               axis: str = "data") -> torch.Tensor:
+    """``merge_slices`` across the ranks of ``axis``: one all_reduce MAX of
+    ``m``, then one all_reduce SUM of ``[o * w, w]`` packed together."""
+    mg = mesh.all_reduce(m.clone(), axis, "max")
+    w = torch.exp(m - mg) * l
+    packed = mesh.all_reduce(torch.cat([o * w[..., None], w[..., None]],
+                                       dim=-1), axis, "sum")
+    return packed[..., :-1] / torch.clamp_min(packed[..., -1], 1e-30)[
+        ..., None]
+
+
+def _check(q, cache, n_kv, head_dim, page_slice=None) -> Tuple[int, int]:
     """Raise on what the kernel does not take; return the page kind and
     the call's q block."""
     if q.device.type != "cuda":
@@ -202,6 +273,11 @@ def _check(q, cache, n_kv, head_dim) -> Tuple[int, int]:
     if quantized and (hd % 16 or ks.numel() % 2):
         raise ValueError("int8 pages need hd % 16 == 0 and an even number "
                          "of scales (16-byte rows, 4-byte scale words)")
+    if page_slice is not None:
+        first, n_slice = page_slice
+        if n_slice <= 0 or first < 0 or n_slice > kp.shape[0]:
+            raise ValueError(f"page slice {page_slice} over the "
+                             f"{kp.shape[0]} pages passed")
     g = h // n_kv
     q_blk = min(q_block_for(g, hd, kp.dtype, tbl.shape[1], page),
                 q.shape[1])
@@ -223,16 +299,20 @@ def _sm_count(device: torch.device) -> int:
 def ragged_paged_attention_call(
         q: torch.Tensor, cache: dict, q_start: torch.Tensor,
         kv_len: torch.Tensor, *, n_kv: int, head_dim: int,
-        window: Optional[int] = None, attn_softcap: Optional[float] = None
+        window: Optional[int] = None, attn_softcap: Optional[float] = None,
+        page_slice: Optional[Tuple[int, int]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns ``(o [B, S, H, hd], m, l [B, S, H])`` in fp32, whatever the
     dtypes of q and the pages: the output plus every row's softmax max and
-    sum (what a cross-device merge of partial results needs)."""
+    sum (what a cross-device merge of partial results needs). With
+    ``page_slice = (first, n)`` the pages hold global pages ``[first,
+    first + n)`` (see the module docstring)."""
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
             q, cache, q_start, kv_len, n_kv=n_kv, head_dim=head_dim,
-            window=window, attn_softcap=attn_softcap)
-    kind, q_blk = _check(q, cache, n_kv, head_dim)
+            window=window, attn_softcap=attn_softcap,
+            page_slice=page_slice)
+    kind, q_blk = _check(q, cache, n_kv, head_dim, page_slice)
     b, s, h, hd = q.shape
     g = h // n_kv
     tbl = cache["block_tbl"]
@@ -241,9 +321,14 @@ def ragged_paged_attention_call(
     quantized = "k_scale_pages" in cache
     qb_n = -(-s // q_blk)
     s_pad = qb_n * q_blk
+    first, n_slice = page_slice if page_slice is not None else (0, 0)
     sp = span_pages(b * n_kv * qb_n, n_tbl, page, _sm_count(q.device),
                     stage_keys(hd, kind))
-    n_spans = max(1, -(-n_tbl // sp))
+    # a sliced call's spans are chunks of runs of entries in the slice:
+    # at most ceil(n_tbl / 2) runs (an entry outside parts two), so at most
+    # that plus n_tbl // sp chunks (csrc/paged_attention.cuh:span_of)
+    n_spans = max(1, -(-n_tbl // sp) if not n_slice
+                  else min(n_tbl, n_slice, (n_tbl + 1) // 2 + n_tbl // sp))
     smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd, kind,
                                                sp)
     if smem > _SMEM_LIMIT:
@@ -281,7 +366,7 @@ def ragged_paged_attention_call(
             int(window) if window is not None else 0,
             float(attn_softcap) if attn_softcap else 0.0,
             float(hd) ** -0.5, int(q.dtype == torch.bfloat16), kind, sp,
-            n_spans, stream)
+            n_spans, first, n_slice, stream)
     build.check(rc, "ragged_paged_attention")
     build.count_launch("ragged_paged_attention")
     return o[:, :s], m[:, :s], l[:, :s]
@@ -292,7 +377,8 @@ def ragged_paged_attention(
         kv_len: torch.Tensor, *, n_kv: int, head_dim: int,
         window: Optional[int] = None, attn_softcap: Optional[float] = None
         ) -> torch.Tensor:
-    """Ragged multi-query attention straight off the paged arena.
+    """Ragged multi-query attention straight off the paged arena (the
+    whole arena: no page slice).
 
     q ``[B, S, H, hd]``; ``cache`` holds ``k_pages/v_pages [n_pages, page,
     KV*hd]`` (int8 layouts add ``{k,v}_scale_pages [n_pages, page, KV]``)

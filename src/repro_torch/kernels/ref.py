@@ -31,15 +31,27 @@ def unpack3b_ref(packed: torch.Tensor, n: int) -> torch.Tensor:
 def ragged_paged_attention_ref(
         q: torch.Tensor, cache: dict, q_start: torch.Tensor,
         kv_len: torch.Tensor, *, n_kv: int, head_dim: int,
-        window: Optional[int] = None, attn_softcap: Optional[float] = None
+        window: Optional[int] = None, attn_softcap: Optional[float] = None,
+        page_slice: Optional[Tuple[int, int]] = None
         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Ragged attention by full-width gather (every block-table slot of
     every lane) and masked softmax. Returns ``(o [B, S, H, hd], m, l
     [B, S, H])`` in fp32: the softmax max and sum of every row; rows at
-    positions ``>= kv_len`` give exactly 0 (``m = -1e30``, ``l = 0``)."""
+    positions ``>= kv_len`` give exactly 0 (``m = -1e30``, ``l = 0``).
+    With ``page_slice = (first, n)`` the pages hold global pages ``[first,
+    first + n)``: table entries outside the slice are masked, and a row
+    with none of its keys in the slice gives 0 the same way."""
     from repro_torch.models.attention import paged_cache_read
     b, s, h, hd = q.shape
     g = h // n_kv
+    tbl = cache["block_tbl"]
+    owned = None
+    if page_slice is not None:
+        first, n_slice = page_slice
+        local = tbl.to(torch.int64) - first
+        owned = (local >= 0) & (local < n_slice)             # [B, P]
+        cache = dict(cache, block_tbl=torch.where(
+            owned, local, torch.zeros_like(local)))
     k, v = paged_cache_read(cache, torch.float32, n_kv, hd)   # [B,T,KV,hd]
     k, v = k.to(torch.float32), v.to(torch.float32)          # bf16 pages
     t = k.shape[1]
@@ -56,6 +68,10 @@ def ragged_paged_attention_ref(
     mask = (pos_k <= pos_q) & (pos_k < kl) & (pos_q < kl)
     if window is not None:
         mask = mask & (pos_q - pos_k < window)
+    if owned is not None:
+        page = t // tbl.shape[1]
+        mask = mask & owned.repeat_interleave(page, dim=1)[
+            :, None, None, None, :]
     scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
     m = scores.amax(dim=-1)                                  # [B,KV,G,S]
     p = torch.where(mask, torch.exp(scores - m[..., None]),

@@ -40,8 +40,22 @@ paged engine does not serve (as the JAX CLI has no flag for them):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch dbrx-132b
 
-The mesh flags (``--data-shards``, ``--model-shards``) are refused with
-an error instead of being ignored: the port has no mesh yet.
+``--data-shards D --model-shards M`` serve on a ``(data, model)`` mesh of
+``D * M`` ranks over ``torch.distributed``: this process spawns them
+(``launch.mesh.spawn``, file rendezvous in a temporary directory), every
+rank runs the CLI on the same requests with its slice of the weights and
+of the arena, and rank 0 prints. ``--dist-backend`` names the backend
+(``gloo`` on the CPU, and for several ranks on one card; ``nccl`` for a
+card per rank); there is no default. The ranks serve the QMC streams of
+the run without shard flags, each cut at subtile boundaries into the
+rank's TP slice (``launch.sharding.shard_params``), so the tokens are
+that run's (the JAX CLI quantizes each shard on its own instead,
+``tp_shards=model_shards``; ``quantize_for_serving(tp_shards=M,
+only_shard=m)`` does that here). A mesh runs its steps eagerly (no CUDA
+graphs), and dense and local/global attention stacks only:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --data-shards 2 --model-shards 2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -55,6 +69,7 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.qconfig import QMCConfig
 from repro_torch.core.serving_quant import quantize_for_serving
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.model import init_params
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import metrics as obs_metrics
@@ -104,8 +119,16 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunked-prefill", action="store_true")
     ap.add_argument("--chunk-tokens", type=int, default=32)
     ap.add_argument("--sys-prompt-len", type=int, default=0)
-    ap.add_argument("--data-shards", type=int, default=1)
-    ap.add_argument("--model-shards", type=int, default=1)
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="mesh 'data' axis: shards the paged arena's page "
+                         "pool")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="mesh 'model' axis: TP over heads / FFN / vocab "
+                         "and the QMC streams")
+    ap.add_argument("--dist-backend", choices=meshlib.BACKENDS,
+                    help="torch.distributed backend of the mesh (required "
+                         "with shard flags): gloo on the CPU or for ranks "
+                         "sharing a card, nccl for a card per rank")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--trace-out", metavar="PATH",
                     help="write a Chrome trace-event JSON of the run "
@@ -129,32 +152,101 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_unported(ap, args) -> None:
-    unported = {
-        "--data-shards": args.data_shards != 1,
-        "--model-shards": args.model_shards != 1,
-    }
-    bad = [flag for flag, on in unported.items() if on]
-    if bad:
-        ap.error(f"not ported to the PyTorch engine yet: {', '.join(bad)}")
-
-
 def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
-    _refuse_unported(ap, args)
+    shape = (args.data_shards, args.model_shards)
+    if min(shape) < 1:
+        ap.error("--data-shards and --model-shards must be >= 1")
+    if shape != (1, 1):
+        if args.dist_backend is None:
+            ap.error("a mesh needs --dist-backend (gloo or nccl)")
+        try:
+            return meshlib.spawn(_cli_rank, shape,
+                                 backend=args.dist_backend,
+                                 args=(list(argv) if argv is not None
+                                       else None,), timeout_s=3600.0)
+        except RuntimeError as exc:
+            if "NotImplementedError" in str(exc):
+                ap.error(str(exc).strip().splitlines()[-1])
+            raise
+    return _main(ap, args)
+
+
+def _cli_rank(mesh, argv):
+    """One rank of a mesh run of the CLI: its own parse of the same
+    arguments, the serve, and the requests' tokens back to the parent."""
+    import sys
+    ap = _parser()
+    args = ap.parse_args(argv if argv is not None else sys.argv[1:])
+    eng = _main(ap, args, mesh)
+    return [r.out_tokens for r in eng.last_requests]
+
+
+def _main(ap, args, mesh=None):
     if args.cost_report:
         obs_costs.enable_capture()
     try:
-        return _serve(args)
+        return _serve(args, mesh)
     except NotImplementedError as exc:
         # a feature the engine refuses for this stack (the prefix cache or
-        # speculative decode on a hybrid / mamba stack): its message, no
-        # traceback
+        # speculative decode on a hybrid / mamba stack, a mesh on one): its
+        # message, no traceback
+        if mesh is not None:
+            raise
         ap.error(str(exc))
     finally:
         if args.cost_report:
             obs_costs.enable_capture(False)
+
+
+def mesh_worker(mesh, job: dict) -> list:
+    """One rank of a scripted mesh run (``launch.mesh.spawn(mesh_worker,
+    shape, backend=..., args=(job,))``): ``job["models"]`` maps a name to
+    its ``cfg`` and weights (``params``, a whole port tree that each rank
+    slices, or ``params_np``, nested numpy dicts through
+    ``bridge.params_from_numpy``); ``job["runs"]`` lists runs, each a
+    ``model`` name, ``ServeEngine`` keywords (``engine``) and
+    ``requests`` (or ``batches``, a list of request lists), served in
+    order by one engine, so a prefix cache persists between them;
+    ``job["device"]`` is the device.
+    Returns, per run and batch, this rank's tokens, logprobs and stats,
+    its kernel launches and qmm paths, and its collectives."""
+    import copy
+    import dataclasses as dc
+
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import ops as kops
+    weights = {}
+    out = []
+    for run in job["runs"]:
+        model = job["models"][run["model"]]
+        if run["model"] not in weights:
+            weights[run["model"]] = model.get("params") or params_from_numpy(
+                model["params_np"], device=job["device"])
+        eng = ServeEngine(model["cfg"], weights[run["model"]], mesh=mesh,
+                          cuda_graphs=False, device=job["device"],
+                          **run.get("engine", {}))
+        for batch in run.get("batches") or [run["requests"]]:
+            reqs = copy.deepcopy(batch)
+            kbuild.reset_launches()
+            kops.reset_path_counts()
+            c0, s0 = mesh.collectives, mesh.collective_seconds
+            eng.run(reqs)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            st = eng.stats
+            out.append(dict(
+                tokens=[r.out_tokens for r in reqs],
+                logprobs=[r.out_logprobs for r in reqs],
+                stats={f.name: getattr(st, f.name) for f in dc.fields(st)
+                       if isinstance(getattr(st, f.name), (int, float))},
+                launches=dict(kbuild.launches),
+                paths=dict(kops.path_counts),
+                collectives=mesh.collectives - c0,
+                collective_s=mesh.collective_seconds - s0))
+    return out
 
 
 def _profiled_run(eng, reqs, out_dir: str) -> str:
@@ -175,7 +267,9 @@ def _profiled_run(eng, reqs, out_dir: str) -> str:
     return path
 
 
-def _serve(args):
+def _serve(args, mesh=None):
+    report = mesh is None or mesh.rank == 0
+    out = print if report else (lambda *a, **k: None)
     cfg = reduced_config(args.arch) if args.reduced else get_config(
         args.arch)
     params = init_params(cfg, args.seed, device=args.device)
@@ -186,7 +280,12 @@ def _serve(args):
             min_dim=64)
         if args.device != "cpu":
             torch.cuda.synchronize()
-        print(f"[serve] QMC PTQ in {time.monotonic() - t0:.1f}s")
+        out(f"[serve] QMC PTQ in {time.monotonic() - t0:.1f}s")
+    if mesh is not None:
+        out(f"[serve] mesh data={args.data_shards} "
+            f"model={args.model_shards} over "
+            f"{args.data_shards * args.model_shards} ranks "
+            f"({args.dist_backend})")
 
     rng = np.random.default_rng(args.seed)
     sys_prompt = rng.integers(2, cfg.vocab, size=args.sys_prompt_len)
@@ -217,15 +316,19 @@ def _serve(args):
                           paged_attention=args.paged_attention,
                           sampling=sp, speculative_k=args.speculative,
                           pipelined=args.pipelined, device=args.device,
+                          cuda_graphs=mesh is None, mesh=mesh,
                           tracer=tracer)
         if args.profile:
             path = _profiled_run(eng, reqs, args.profile)
             print(f"[serve] torch.profiler trace -> {path}")
         else:
             eng.run(reqs)
+        eng.last_requests = reqs
     finally:
         if tracer is not None:
             obs_trace.set_tracer(prev_tracer)
+    if not report:
+        return eng
     s = eng.stats
     if tracer is not None:
         n_ev = tracer.export(args.trace_out)
@@ -237,6 +340,9 @@ def _serve(args):
           f"<= {chunk} tokens), {s.decode_steps} decode steps, "
           f"{s.tokens_out} tokens in {s.wall_s:.2f}s "
           f"({s.tokens_per_s:.1f} tok/s) on {eng.device}")
+    if mesh is not None:
+        print(f"[serve] rank 0: {mesh.collectives} collectives in "
+              f"{mesh.collective_seconds:.3f}s over {s.rounds} rounds")
     if s.phase_seconds:
         print(f"[serve] phases: host={s.host_seconds():.3f}s "
               f"device={s.device_seconds():.3f}s over {s.rounds} rounds "

@@ -1,0 +1,279 @@
+"""Sharding rules of the mesh (counterpart of ``repro.launch.sharding``),
+written as the local slice each rank holds.
+
+``param_spec``, ``_qtensor_field_spec`` and ``paged_cache_spec`` are the
+JAX rules, one entry per dim (an axis name or None, a PartitionSpec as a
+tuple): name-based over the flattened parameter path, stacked leaves
+(``blocks/``, ``encoder/blocks/``, ``xattn/``) with a leading None, and a
+dim that does not divide its axis replicated, as ``_finalize`` does.
+
+Serving departs from them in one way: the ``data`` entries of ``_RULES``
+are FSDP, a training layout, so ``serving_spec`` drops them and every
+serving weight is replicated over ``data``. What remains is TP on
+``model``:
+
+  * column-parallel: ``wq``/``wk``/``wv``, ``w_gate``/``w_up`` and
+    ``lm_head`` over the vocab; the embedding table over the vocab too
+    (a vocab-parallel lookup, one reduce);
+  * row-parallel: ``wo``, ``w_down`` and ``out_proj`` (one all_reduce over
+    the model group after each, in ``models``).
+
+A ShardedQTensor of ``M`` shards gives rank ``m`` shard ``m``
+(``_qtensor_field_spec``: the shard dim on ``model``); a QTensor at a TP
+site is cut along its subtile grid into the rank's slice
+(``shard_qtensor``) where the cut falls on subtile boundaries, and
+replicated where it does not (a dim that does not divide).
+
+The paged arena: pages over ``data`` (rank ``d`` holds global pages
+``[d * n_local, (d + 1) * n_local)``, so the null page 0 lives on data
+rank 0) and the fused KV dim over ``model`` (whole heads: ``n_kv % M ==
+0`` is required, ``kernels.paged_attention.shard_compatible``); block
+tables replicate. On a mesh with ``D > 1`` each rank's slice carries one
+more page past its ``n_local``, the sink: the K/V rows of pages other
+ranks hold are written there, and no block table ever maps it.
+"""
+from __future__ import annotations
+
+import re
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor_sharded import ShardedQTensor, shard_qtensor
+from repro_torch.core.serving_quant import ROW_SHARDED
+from repro_torch.launch import mesh as meshlib
+from repro_torch.models import kvcache as KV
+
+_STACKED_PREFIXES = ("blocks/", "encoder/blocks/", "xattn/")
+
+# (regex on path, spec for the trailing (non-stacked) dims)
+_RULES = [
+    (r"embed/tok$",            ("model", "data")),
+    (r"lm_head$",              ("data", "model")),
+    (r"pos_emb$",              (None, None)),
+    # attention
+    (r"attn/w[qkv]$",          ("data", "model")),
+    (r"attn/wo$",              ("model", "data")),
+    (r"attn/b[qkvo]$",         (None,)),
+    # dense FFN
+    (r"ffn/w_(gate|up)$",      ("data", "model")),
+    (r"ffn/w_down$",           ("model", "data")),
+    # MoE FFN (leaf ndim 3 without stacking: [E, d, ff])
+    (r"ffn/router$",           ("data", None)),
+    # mamba
+    (r"mamba/in_proj$",        ("data", "model")),
+    (r"mamba/out_proj$",       ("model", "data")),
+    (r"mamba/conv_w$",         ("model", None)),
+    (r"mamba/(a_log|dt_bias|d_skip)$", (None,)),
+    (r"mamba/norm_scale$",     (None,)),
+    (r"norm",                  (None,)),
+]
+_MOE_EXPERT_RULES = {
+    "w_gate": ("model", "data", None),
+    "w_up": ("model", "data", None),
+    "w_down": ("model", None, "data"),
+}
+
+
+def _strip_axes(spec: Tuple, mesh) -> Tuple:
+    """Drop axes the mesh does not have."""
+    names = mesh.axis_names
+    return tuple((a if (a in names) else None) for a in spec)
+
+
+def _finalize(spec, stacked, ndim, shape, mesh) -> Tuple:
+    spec = tuple(spec)
+    if stacked:
+        spec = (None,) + spec
+    spec = spec + (None,) * (ndim - len(spec))
+    spec = _strip_axes(spec, mesh)
+    # a sharding that does not divide its dim replicates it
+    return tuple(ax if ax is None or dim % meshlib.axis_size(mesh, ax) == 0
+                 else None for dim, ax in zip(shape, spec))
+
+
+def param_spec(path: str, leaf, mesh) -> Tuple:
+    """The JAX PartitionSpec of one parameter leaf, as a tuple."""
+    stacked = any(path.startswith(p) or ("/" + p) in path
+                  for p in _STACKED_PREFIXES)
+    shape = tuple(leaf.shape)
+    ndim = len(shape)
+    base_ndim = ndim - (1 if stacked else 0)
+    m = re.search(r"ffn/(w_gate|w_up|w_down)$", path)
+    if m is not None and base_ndim == 3:      # MoE experts [.., E, d, ff]
+        e = shape[1] if stacked else shape[0]
+        if e % meshlib.axis_size(mesh, "model") == 0:
+            spec = _MOE_EXPERT_RULES[m.group(1)]
+        else:
+            spec = {"w_gate": (None, "data", "model"),
+                    "w_up": (None, "data", "model"),
+                    "w_down": (None, "model", "data")}[m.group(1)]
+        return _finalize(spec, stacked, ndim, shape, mesh)
+    for pat, spec in _RULES:
+        if re.search(pat, path):
+            if len(spec) != base_ndim:
+                spec = tuple(spec[:base_ndim]) + (None,) * max(
+                    0, base_ndim - len(spec))
+            return _finalize(spec, stacked, ndim, shape, mesh)
+    return _finalize((None,) * base_ndim, stacked, ndim, shape, mesh)
+
+
+def serving_spec(path: str, leaf, mesh) -> Tuple:
+    """``param_spec`` with its FSDP ``data`` entries dropped: serving
+    weights are replicated over ``data``."""
+    return tuple(None if ax == "data" else ax
+                 for ax in param_spec(path, leaf, mesh))
+
+
+_QT_BASE = {"in_codes": 3, "out_codes": 3, "stream_pos": 2, "is_out": 2,
+            "scale_in": 2, "scale_out": 2}
+
+
+def _qtensor_field_spec(path: str, leaf, mesh) -> Tuple:
+    """A QTensor stream field: the innermost lead dim (TP shard or
+    expert) on ``model`` when it divides, everything else replicated."""
+    field = path.split("/")[-1]
+    lead = len(leaf.shape) - _QT_BASE[field]
+    if lead <= 0:
+        return ()
+    tp_n = meshlib.axis_size(mesh, "model")
+    ax = "model" if ("model" in mesh.axis_names
+                     and leaf.shape[lead - 1] % tp_n == 0) else None
+    spec = [None] * len(leaf.shape)
+    spec[lead - 1] = ax
+    return tuple(spec)
+
+
+def paged_cache_spec(path: str, leaf, mesh) -> Tuple:
+    """Paged arena leaves (stacked ``[G, ...]``): ``*_pages`` pages on
+    ``data`` and the last dim on ``model`` where each divides; block
+    tables replicated; dense mamba state batch on dp."""
+    tp_n = meshlib.axis_size(mesh, "model")
+    data_n = meshlib.axis_size(mesh, "data")
+    shape = tuple(leaf.shape)
+
+    def div(dim, ax, n):
+        return ax if (n > 1 and dim % n == 0) else None
+
+    if path.endswith("_pages"):
+        g, n_pages, page, last = shape
+        return (None, div(n_pages, "data", data_n), None,
+                div(last, "model", tp_n))
+    if path.endswith("block_tbl"):
+        return ()
+    if path.endswith("/ssm") or path.endswith("/conv"):
+        dp = meshlib.dp_axes(mesh)
+        spec = [None] * len(shape)
+        if len(dp) == 1:
+            spec[1] = div(shape[1], dp[0], meshlib.dp_size(mesh))
+        return tuple(spec)
+    return ()
+
+
+def local_slices(spec: Tuple, shape: Tuple[int, ...], mesh) -> Tuple:
+    """The index of this rank's block of a ``shape`` leaf under
+    ``spec``."""
+    out = []
+    for i, dim in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        if ax is None:
+            out.append(slice(None))
+            continue
+        n = meshlib.axis_size(mesh, ax)
+        if n == 1:
+            out.append(slice(None))
+            continue
+        k = mesh.index(ax)
+        out.append(slice(k * dim // n, (k + 1) * dim // n))
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# a rank's parameters and arena
+# ---------------------------------------------------------------------------
+# the projections TP cuts (column-parallel, then row-parallel)
+_TP_SITES = ("wq", "wk", "wv", "w_gate", "w_up", "lm_head") + ROW_SHARDED
+
+
+def _shard_stream(path: str, leaf, mesh):
+    tp_n = meshlib.axis_size(mesh, "model")
+    m = mesh.index("model")
+    if isinstance(leaf, list):
+        return [_shard_stream(path, q, mesh) for q in leaf]
+    if isinstance(leaf, ShardedQTensor):
+        if leaf.n_shards == tp_n and tp_n > 1:
+            return leaf if list(leaf.held) == [m] else leaf.select(m)
+        return leaf
+    if isinstance(leaf, QTensor) and tp_n > 1 \
+            and path.split("/")[-1] in _TP_SITES:
+        axis = 0 if path.split("/")[-1] in ROW_SHARDED else 1
+        return shard_qtensor(leaf, tp_n, axis, only=m) or leaf
+    return leaf
+
+
+def shard_params(params, mesh):
+    """This rank's parameters: dense leaves sliced by ``serving_spec``,
+    ShardedQTensors of ``M`` shards reduced to the rank's shard (one that
+    holds the rank's shard alone passes through), QTensors at TP sites cut
+    into the rank's slice."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            idx = local_slices(serving_spec(path, tree, mesh), tree.shape,
+                               mesh)
+            if all(s == slice(None) for s in idx):
+                return tree
+            return tree[idx].contiguous()
+        return _shard_stream(path, tree, mesh)
+    return walk(params, "")
+
+
+def page_slice(n_pages_total: int, mesh) -> Tuple[int, int]:
+    """``(first page, pages)`` of this rank's slice of an arena of
+    ``n_pages_total`` pages (the null page included)."""
+    d = meshlib.axis_size(mesh, "data")
+    if n_pages_total % d:
+        raise ValueError(f"{n_pages_total} arena pages do not divide the "
+                         f"data axis ({d}); size the pool with "
+                         f"serve.steps.default_n_pages(..., mesh)")
+    n = n_pages_total // d
+    return mesh.index("data") * n, n
+
+
+def local_arena(cfg, n_pages_total: int, page: int, max_slots: int,
+                max_pages_per_seq: int, dtype, device, mesh) -> dict:
+    """This rank's zeroed arena: its slice of ``n_pages_total`` pages (the
+    sink page after them when ``D > 1``) and of the KV heads."""
+    import dataclasses
+    _, n = page_slice(n_pages_total, mesh)
+    sink = meshlib.axis_size(mesh, "data") > 1
+    tp_n = meshlib.axis_size(mesh, "model")
+    lcfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp_n,
+                               n_heads=cfg.n_heads // tp_n)
+    return KV.paged_init_cache(lcfg, n + int(sink), page, max_slots,
+                               max_pages_per_seq, dtype, device)
+
+
+def shard_arena(arena: dict, mesh) -> dict:
+    """This rank's slice of a whole arena (JAX layout, every page of
+    every KV head; ``paged_cache_spec``), with the sink page (zeros) when
+    ``D > 1``; block tables are copied whole."""
+    sink = meshlib.axis_size(mesh, "data") > 1
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if not path.endswith("_pages"):
+            return tree.clone()
+        spec = paged_cache_spec(path, tree, mesh)
+        first, n = page_slice(tree.shape[1], mesh)
+        idx = list(local_slices(spec, tree.shape, mesh))
+        idx[1] = slice(first, first + n)
+        t = tree[tuple(idx)]
+        if sink:
+            t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
+        return t.contiguous()
+    return walk(arena, "")

@@ -14,6 +14,16 @@ cache (``prefill`` / ``decode_step``) it writes the step's K/V at the
 reference's position (0 for a multi-token call, ``pos`` for one token),
 in place, and attends over the whole slab through ``attend``, as the
 reference does (no kernel there).
+
+Under a mesh (``runtime_context.use_mesh``) the block runs the rank's
+``n_kv / M`` KV heads and their query heads: ``wq``/``wk``/``wv`` are
+column-parallel and ``wo`` row-parallel (``layers.column_linear``,
+``row_linear``). With a page slice (a mesh whose data axis is over 1)
+the arena holds the rank's slice of the pages: the step's K/V rows land
+only in pages of the slice, at ``global - first`` (other rows in the
+slice's sink page), the kernel reads the slice's pages, and the slices'
+``(o, m, l)`` merge over the data group (``kernels.paged_attention.
+merge_over``).
 """
 from __future__ import annotations
 
@@ -22,11 +32,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import runtime_context as ctx
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels.ref import ragged_paged_attention_ref
 from repro_torch.models.kvcache import quantize_kv
-from repro_torch.models.layers import (apply_rotary, linear, rotary_cos_sin,
-                                       softcap)
+from repro_torch.models.layers import (apply_rotary, column_linear, linear,
+                                       rotary_cos_sin, row_linear, softcap,
+                                       tp_size)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -110,13 +122,18 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def paged_cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
                       positions: torch.Tensor,
-                      valid_len: Optional[torch.Tensor] = None) -> dict:
+                      valid_len: Optional[torch.Tensor] = None,
+                      page_slice=None) -> dict:
     """Scatter K/V tokens into one group's paged arena, in place.
 
     ``cache`` holds ``k_pages/v_pages [n_pages, page, kv_dim]`` plus
     ``block_tbl [B, max_pages]``; ``positions [B, S]`` are absolute write
     positions. Writes at or past ``valid_len`` (right padding, idle
-    lanes) go to the null page 0, which no live table maps."""
+    lanes) go to the null page 0, which no live table maps. With a
+    ``page_slice`` ``(first, n)`` the pages are global pages ``[first,
+    first + n)`` plus the sink page ``n``: a row lands at ``global -
+    first`` when its page is in the slice, else in the sink (so padding
+    rows reach the null page on the rank that holds page 0)."""
     b, s, n_kv, hd = k.shape
     page = cache["k_pages"].shape[1]
     tbl = cache["block_tbl"]
@@ -125,6 +142,11 @@ def paged_cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
     if valid_len is not None:
         page_idx = torch.where(positions < valid_len[:, None], page_idx,
                                torch.zeros_like(page_idx))
+    if page_slice is not None:
+        first, n = page_slice
+        local = page_idx - first
+        page_idx = torch.where((local >= 0) & (local < n), local,
+                               torch.full_like(local, n))
     off = (positions % page).long()
     if "k_scale_pages" in cache:
         kq, ks = quantize_kv(k)
@@ -207,16 +229,21 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     ``positions[0, 0]``). ``tap(name, value)`` records the inputs of
     ``wq`` (shared by ``wk`` and ``wv``) and ``wo`` for calibration."""
     b, s, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tp = tp_size()
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads // tp, cfg.n_kv_heads // tp
     if tap:
         tap("wq", x)
-    q = linear(x, p["wq"], p.get("bq"), use_kernels).reshape(b, s, nh, hd)
-    k = linear(x, p["wk"], p.get("bk"), use_kernels).reshape(b, s, nkv, hd)
-    v = linear(x, p["wv"], p.get("bv"), use_kernels).reshape(b, s, nkv, hd)
+    q = column_linear(x, p["wq"], p.get("bq"), use_kernels,
+                      cfg.n_heads * hd).reshape(b, s, nh, hd)
+    k = column_linear(x, p["wk"], p.get("bk"), use_kernels,
+                      cfg.n_kv_heads * hd).reshape(b, s, nkv, hd)
+    v = column_linear(x, p["wv"], p.get("bv"), use_kernels,
+                      cfg.n_kv_heads * hd).reshape(b, s, nkv, hd)
     cos, sin = rotary_cos_sin(positions, int(hd * cfg.rotary_pct) // 2 * 2,
                               cfg.rope_theta)
     q = apply_rotary(q, cos, sin, cfg.rotary_pct)
     k = apply_rotary(k, cos, sin, cfg.rotary_pct)
+    full_in = cfg.n_heads * hd
 
     if cache is None:
         kw = dict(q_positions=positions, kv_positions=positions, causal=True,
@@ -225,7 +252,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = attend_chunked(q, k, v, chunk=cfg.attn_chunk, **kw)
         else:
             out = attend(q, k, v, **kw)
-        return _out_proj(p, out, tap, use_kernels)
+        return _out_proj(p, out, tap, use_kernels, full_in)
     valid = valid_len if valid_len is not None else positions[:, -1] + 1
     if "k_pages" not in cache:                       # contiguous cache
         pos0 = 0 if s > 1 else (pos if pos is not None else positions[0, 0])
@@ -236,17 +263,30 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-        return _out_proj(p, out, tap, use_kernels)
-    paged_cache_write(cache, k, v, positions, valid_len=valid_len)
-    if paged_attention:
+        return _out_proj(p, out, tap, use_kernels, full_in)
+    page_slice = ctx.current_page_slice()
+    paged_cache_write(cache, k, v, positions, valid_len=valid_len,
+                      page_slice=page_slice)
+    kw = dict(n_kv=nkv, head_dim=hd, window=window,
+              attn_softcap=cfg.attn_softcap)
+    if page_slice is not None:
+        if not paged_attention:
+            raise NotImplementedError(
+                "a sliced arena is read through the ragged kernel "
+                "(paged_attention=True); the full-width gather needs "
+                "every page")
+        call = (kpa.ragged_paged_attention_call if use_kernels
+                else ragged_paged_attention_ref)
+        o, m, l = call(q, cache, positions[:, 0], valid,
+                       page_slice=page_slice, **kw)
+        out = kpa.merge_over(o, m, l, ctx.current_mesh()).to(q.dtype)
+    elif paged_attention:
         if use_kernels:
-            out = kpa.ragged_paged_attention(
-                q, cache, positions[:, 0], valid, n_kv=nkv, head_dim=hd,
-                window=window, attn_softcap=cfg.attn_softcap)
+            out = kpa.ragged_paged_attention(q, cache, positions[:, 0],
+                                             valid, **kw)
         else:
             out = ragged_paged_attention_ref(
-                q, cache, positions[:, 0], valid, n_kv=nkv, head_dim=hd,
-                window=window, attn_softcap=cfg.attn_softcap)[0].to(q.dtype)
+                q, cache, positions[:, 0], valid, **kw)[0].to(q.dtype)
     else:
         k_all, v_all = paged_cache_read(cache, x.dtype, nkv, hd)
         t_max = k_all.shape[1]
@@ -254,17 +294,18 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-    return _out_proj(p, out, tap, use_kernels)
+    return _out_proj(p, out, tap, use_kernels, full_in)
 
 
-def _out_proj(p: dict, out: torch.Tensor, tap, use_kernels: bool
-              ) -> torch.Tensor:
-    """``wo`` over the heads ``out [B, S, H, hd]``, its input tapped."""
+def _out_proj(p: dict, out: torch.Tensor, tap, use_kernels: bool,
+              full_in: int) -> torch.Tensor:
+    """``wo`` over the heads ``out [B, S, H, hd]`` (the rank's heads under
+    a mesh, of ``full_in`` inputs), its input tapped."""
     b, s, nh, hd = out.shape
     flat = out.reshape(b, s, nh * hd)
     if tap:
         tap("wo", flat)
-    return linear(flat, p["wo"], p.get("bo"), use_kernels)
+    return row_linear(flat, p["wo"], p.get("bo"), use_kernels, full_in)
 
 
 def cross_attn_block(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,

@@ -163,7 +163,8 @@ def apply_block(p: dict, x: torch.Tensor, kind: str, use_moe: bool, cfg, *,
                 aux.append(a)
         else:
             y = glu_mlp(h, p["ffn"], cfg.act, cfg.gated_mlp,
-                        use_kernels=use_kernels, tap=tap_prefix(tap, "ffn"))
+                        use_kernels=use_kernels, tap=tap_prefix(tap, "ffn"),
+                        d_ff=cfg.d_ff)
         x = x + y
     return x
 

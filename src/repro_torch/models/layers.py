@@ -3,7 +3,20 @@
 
 ``matmul_any`` is the one dispatch point where QMC stream weights enter
 the forward pass: a :class:`QTensor` goes through ``kernels.ops.qmm`` (the
-qmm kernels on the card), a dense tensor through ``torch.matmul``.
+qmm kernels on the card), a dense tensor through ``torch.matmul``, and a
+:class:`ShardedQTensor` as JAX dispatches it: TP-local under a mesh whose
+model axis has its shard count, ``kernels.ops.qmm`` at one shard, the
+oracle ``qmm_sharded_ref`` otherwise.
+
+Tensor parallelism (under ``runtime_context.use_mesh``): a rank runs its
+slice of the heads, of the FFN's hidden units and of the vocab.
+``column_linear`` returns the rank's slice of a projection's outputs (a
+replicated weight's whole output is cut to it), ``row_linear`` takes the
+rank's slice of the inputs and sums the partial products over the model
+group (a replicated weight takes the whole input, gathered), and
+``embed_tokens`` looks a vocab-sharded table up on the rank that holds
+each token, summed over the model group. Off a mesh all three are the
+plain ops.
 """
 from __future__ import annotations
 
@@ -12,7 +25,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import runtime_context as ctx
 from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor_sharded import (ShardedQTensor, qmm_shard,
+                                              qmm_sharded_ref)
 from repro_torch.kernels import ops as kops
 
 
@@ -27,7 +43,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def matmul_any(x: torch.Tensor, w, use_kernels: bool = True
                ) -> torch.Tensor:
-    """x @ w where w is dense or a QTensor (QMC serving)."""
+    """x @ w where w is dense, a QTensor or a ShardedQTensor (QMC
+    serving)."""
+    if isinstance(w, ShardedQTensor):
+        mesh = ctx.current_mesh()
+        if mesh is not None and w.n_shards == tp_size():
+            return qmm_shard(x, w, mesh, use_kernels=use_kernels)
+        if w.n_shards == 1:
+            return kops.qmm(x, w.local(w.first), use_kernels=use_kernels)
+        return qmm_sharded_ref(x, w)
     if isinstance(w, QTensor):
         return kops.qmm(x, w, use_kernels=use_kernels)
     return torch.matmul(x, w.to(x.dtype))
@@ -36,6 +60,74 @@ def matmul_any(x: torch.Tensor, w, use_kernels: bool = True
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None,
            use_kernels: bool = True) -> torch.Tensor:
     y = matmul_any(x, w, use_kernels=use_kernels)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def tp_size() -> int:
+    """The model axis of the current mesh (1 off a mesh)."""
+    mesh = ctx.current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.devices.shape[list(mesh.axis_names).index("model")]
+
+
+def _tp_local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the last dim of ``x``."""
+    n = x.shape[-1] // tp_size()
+    m = ctx.current_mesh().index("model")
+    return x[..., m * n:(m + 1) * n]
+
+
+def tp_gather(x: torch.Tensor, full: int) -> torch.Tensor:
+    """The whole last dim from every rank's slice of it: one all_reduce
+    SUM over the model group of the slices placed in zeros (exact)."""
+    mesh = ctx.current_mesh()
+    n = x.shape[-1]
+    m = mesh.index("model")
+    buf = torch.zeros(x.shape[:-1] + (full,), dtype=x.dtype,
+                      device=x.device)
+    buf[..., m * n:(m + 1) * n] = x
+    return mesh.all_reduce(buf, "model")
+
+
+def column_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
+                  use_kernels: bool, full: int) -> torch.Tensor:
+    """A column-parallel projection with ``full`` outputs: this rank's
+    slice of them (all of them off a mesh)."""
+    if tp_size() == 1:
+        return linear(x, w, b, use_kernels)
+    y = matmul_any(x, w, use_kernels=use_kernels)
+    if y.shape[-1] == full:                   # a replicated weight
+        y = _tp_local(y)
+    if b is not None:
+        y = y + (_tp_local(b) if b.shape[-1] == full else b).to(y.dtype)
+    return y
+
+
+def row_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
+               use_kernels: bool, full_in: int) -> torch.Tensor:
+    """A row-parallel projection over ``full_in`` inputs: the rank's slice
+    of them times its rows of ``w``, summed over the model group (off a
+    mesh, the plain projection)."""
+    n = tp_size()
+    if n == 1:
+        return linear(x, w, b, use_kernels)
+    if isinstance(w, ShardedQTensor):
+        rows = w.shape[0] // (n if w.n_shards == n else 1)
+    else:
+        rows = w.shape[0]
+    if rows == full_in:                       # a replicated weight
+        if x.shape[-1] != full_in:
+            x = tp_gather(x, full_in)
+        y = matmul_any(x, w, use_kernels=use_kernels)
+    else:
+        if x.shape[-1] == full_in:
+            x = _tp_local(x)
+        y = matmul_any(x, w, use_kernels=use_kernels)
+        if not isinstance(w, ShardedQTensor):     # qmm_shard reduces
+            ctx.current_mesh().all_reduce(y, "model")
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -71,8 +163,20 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
 
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
-                 scale: bool = False) -> torch.Tensor:
-    x = table[tokens]
+                 scale: bool = False, vocab: Optional[int] = None
+                 ) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``. Under a mesh, a table holding a
+    slice of the ``vocab`` rows gives each token's row on the rank that
+    holds it and zeros elsewhere, summed over the model group."""
+    if vocab is not None and table.shape[0] != vocab and tp_size() > 1:
+        mesh = ctx.current_mesh()
+        local = tokens - mesh.index("model") * table.shape[0]
+        own = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(own, local, torch.zeros_like(local))]
+        x = mesh.all_reduce(torch.where(own[..., None], x,
+                                        torch.zeros_like(x)), "model")
+    else:
+        x = table[tokens]
     if scale:
         x = x * torch.full((), table.shape[1] ** 0.5, dtype=x.dtype,
                            device=x.device)
@@ -100,15 +204,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def glu_mlp(x: torch.Tensor, p: dict, act: str = "silu", gated: bool = True,
-            use_kernels: bool = True, tap=None) -> torch.Tensor:
+            use_kernels: bool = True, tap=None,
+            d_ff: Optional[int] = None) -> torch.Tensor:
+    """The (gated) MLP; with ``d_ff`` (the whole hidden width) its
+    projections are tensor-parallel under a mesh."""
     actf = _ACTS[act]
     if tap:
         tap("w_up", x)
+
+    def up(name):
+        if d_ff is None:
+            return linear(x, p[name], use_kernels=use_kernels)
+        return column_linear(x, p[name], None, use_kernels, d_ff)
     if gated:
-        h = actf(linear(x, p["w_gate"], use_kernels=use_kernels)) \
-            * linear(x, p["w_up"], use_kernels=use_kernels)
+        h = actf(up("w_gate")) * up("w_up")
     else:
-        h = actf(linear(x, p["w_up"], use_kernels=use_kernels))
+        h = actf(up("w_up"))
     if tap:
         tap("w_down", h)
-    return linear(h, p["w_down"], use_kernels=use_kernels)
+    if d_ff is None:
+        return linear(h, p["w_down"], use_kernels=use_kernels)
+    return row_linear(h, p["w_down"], None, use_kernels, d_ff)

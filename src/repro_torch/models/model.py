@@ -157,6 +157,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     selects the ragged paged-attention route over the full-width
     gather.
 
+    Under a mesh (``runtime_context.use_mesh``, the mesh step set) the
+    projections are tensor-parallel (``layers.column_linear`` /
+    ``row_linear``) and a vocab-sharded head gives this rank's slice of
+    the vocab's logits.
+
     ``taps`` (a dict, filled in place) collects calibration inputs for
     GPTQ and AWQ: the input rows of every tapped matmul of group ``g``
     under ``blocks/{g}/b{i}/<mixer>/<weight>``, at most ``TAP_ROWS`` rows
@@ -197,7 +202,8 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     states ``[B, S, d]`` come back in place of the logits (the training
     loss reads both)."""
     b = tokens.shape[0]
-    x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed)
+    x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed,
+                     vocab=cfg.vocab)
     n_vis = 0
     if cfg.n_vis_tokens and vis_embeds is not None:
         n_vis = vis_embeds.shape[1]

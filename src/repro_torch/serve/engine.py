@@ -43,6 +43,18 @@ weights. ``paged_attention=True`` (the default) attends through the
 ragged paged-attention kernel. On ``device="cpu"`` every kernel wrapper
 runs its plain PyTorch version.
 
+``mesh=`` (a ``launch.mesh.Mesh``) serves on a ``(data, model)`` mesh of
+ranks, as the JAX engine's ``mesh=`` does: every rank runs this host loop
+on the same requests, with its slice of the weights (``launch.sharding.
+shard_params``: TP over ``model``, replicated over ``data``) and of the
+arena (pages over ``data``, KV heads over ``model``), through the mesh
+step set (``steps.build_paged_steps(mesh=...)``: eager, no solo lane, so
+``cuda_graphs=False`` must be passed). The weight plan is off under a
+mesh, as in JAX. Every rank's host state and tokens are the same; rank 0
+reports. A rank that fails ends its collectives, so its peers raise too
+(gloo sees the closed connection; a hung peer hits the group's
+timeout). Dense and local/global attention stacks only (ROADMAP A12).
+
 Token selection runs inside the step (``serve/sampling.py``): per-request
 :class:`~repro_torch.serve.sampling.SamplingParams` ride on
 ``Request.sampling`` (engine default via ``sampling=``), greedy by
@@ -116,8 +128,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor_sharded import ShardedQTensor
 from repro_torch.core.serving_quant import build_exec_weights
-from repro_torch.kernels.paged_attention import Q_BLOCK, q_block_for
+from repro_torch.kernels.paged_attention import (Q_BLOCK, q_block_for,
+                                                 shard_compatible)
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharding as shd
 from repro_torch.memsys.workload import chunk_pages_streamed, pages_for
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import prefill
@@ -318,13 +334,13 @@ class _PhaseSpan:
 
 
 def tree_to(tree, device):
-    """Move a parameter tree (dicts, tensors, QTensors, per-group QTensor
-    lists) to ``device``."""
+    """Move a parameter tree (dicts, tensors, QTensors and
+    ShardedQTensors, per-group lists of them) to ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
-    if isinstance(tree, (torch.Tensor, QTensor)):
+    if isinstance(tree, (torch.Tensor, QTensor, ShardedQTensor)):
         return tree.to(device)
     return tree
 
@@ -349,7 +365,7 @@ class ServeEngine:
                  speculative_k: int = 0,
                  step_set: Optional[serve_steps.PagedServeSteps] = None,
                  pipelined: bool = False, cuda_graphs: bool = True,
-                 device="cuda",
+                 device="cuda", mesh=None,
                  tracer: Optional[obs_trace.Tracer] = None,
                  metrics: Optional[obs_metrics.Registry] = None):
         if cfg.is_encdec or cfg.n_vis_tokens:
@@ -371,6 +387,13 @@ class ServeEngine:
                 f"(pattern={cfg.pattern})")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            serve_steps.check_mesh_cfg(cfg)
+            if cuda_graphs:
+                raise ValueError("a mesh engine runs its steps eagerly: "
+                                 "pass cuda_graphs=False")
+            params = shd.shard_params(params, mesh)
         self.params = tree_to(params, self.device)
         self.slots = slots
         self.max_len = max_len
@@ -378,7 +401,16 @@ class ServeEngine:
         self.page = page_size
         self.max_pages_per_seq = pages_for(max_len, page_size)
         self.n_pages = n_pages or serve_steps.default_n_pages(
-            slots, self.max_pages_per_seq)
+            slots, self.max_pages_per_seq, mesh)
+        # the rank's slice of the arena's pages (a data axis over 1)
+        self._page_slice = None
+        if mesh is not None:
+            if not shard_compatible(mesh, self.n_pages + 1, cfg.n_kv_heads):
+                raise ValueError(
+                    f"{self.n_pages} + 1 arena pages and {cfg.n_kv_heads} "
+                    f"KV heads must divide the mesh {mesh.shape}")
+            if meshlib.axis_size(mesh, "data") > 1:
+                self._page_slice = shd.page_slice(self.n_pages + 1, mesh)
         self.max_prefill_tokens = (max_prefill_tokens
                                    or max(512, bucket_len(max_len,
                                                           page_size)))
@@ -415,6 +447,8 @@ class ServeEngine:
         self._co_schedule = attn_only
         if step_set is not None and (
                 step_set.cfg != cfg or step_set.device != self.device
+                or step_set.mesh is not mesh
+                or step_set.page_slice != self._page_slice
                 or not step_set.compatible_with(
                     page=self.page, n_pages=self.n_pages, max_slots=slots,
                     max_pages_per_seq=self.max_pages_per_seq,
@@ -422,11 +456,13 @@ class ServeEngine:
                     paged_attention=paged_attention)):
             raise ValueError(
                 "step_set was built for a different engine geometry "
-                "(cfg/device/page/n_pages/slots/cache_dtype/chunk/"
+                "(cfg/device/mesh/page/n_pages/slots/cache_dtype/chunk/"
                 "paged_attention must match)")
         self._steps = step_set
         # the serving weight plan: streams dequantized once, at setup
-        self._exec_params = (build_exec_weights(self.params) if weight_plan
+        # (single device only: a mesh engine runs its shards' streams)
+        self._exec_params = (build_exec_weights(self.params)
+                             if weight_plan and mesh is None
                              else self.params)
         # COW page copies and state resets queued by seat(), flushed
         # once per round in one page-ops call
@@ -449,7 +485,13 @@ class ServeEngine:
                 max_slots=self.slots,
                 max_pages_per_seq=self.max_pages_per_seq,
                 cache_dtype=self.cache_dtype, device=self.device)
-            self._arena = self._pool.init_arena()
+            if self.mesh is None:
+                self._arena = self._pool.init_arena()
+            else:
+                self._arena = shd.local_arena(
+                    self.cfg, self.n_pages + 1, self.page, self.slots,
+                    self.max_pages_per_seq, self.cache_dtype, self.device,
+                    self.mesh)
             if self._steps is None:
                 self._steps = serve_steps.build_paged_steps(
                     self.cfg, page=self.page, n_pages=self.n_pages,
@@ -457,7 +499,8 @@ class ServeEngine:
                     max_pages_per_seq=self.max_pages_per_seq,
                     cache_dtype=self.cache_dtype, chunk=self.chunk,
                     paged_attention=self.paged_attention,
-                    device=self.device, cuda_graphs=self._cuda_graphs)
+                    device=self.device, cuda_graphs=self._cuda_graphs,
+                    mesh=self.mesh, page_slice=self._page_slice)
             if self._use_prefix:
                 self.prefix_cache = PrefixCache(self._pool,
                                                 tracer=self._tracer)
@@ -541,7 +584,7 @@ class ServeEngine:
         cow0, adopt0 = pool.cow_copies, pool.adopt_calls
         tbl0 = pool.tables_rebuilds
         _, cap0, cap_s0 = steps.capture_counters()
-        replays0 = steps.step.replays + steps.solo_step.replays
+        replays0 = steps.replays
         cost0 = obs_costs.snapshot(steps) \
             if obs_costs.capture_enabled() else None
         admissions = {"miss": 0, "hit": 0, "dedup": 0}
@@ -910,7 +953,8 @@ class ServeEngine:
                     self.stats.kv_pages_full += (len(dec)
                                                  * self.max_pages_per_seq)
                     self._flush_page_ops(pool)
-                    s0 = dec[0] if len(dec) == 1 else None
+                    s0 = (dec[0] if len(dec) == 1 and steps.solo_step
+                          is not None else None)
                 with phase("round/dispatch"):
                     tok_in = serve_steps.carry_decode_tokens(
                         inflight["tok_dev"], s0)
@@ -1059,7 +1103,8 @@ class ServeEngine:
                         - int(pos[s]) // self.page)
                 self._flush_page_ops(pool)
                 live = np.flatnonzero(n_new > 0)
-                s0 = int(live[0]) if len(live) == 1 else None
+                s0 = (int(live[0]) if len(live) == 1 and steps.solo_step
+                      is not None else None)
             # a pure-decode round with an idle queue enters the pipeline
             # (never a verify round, nor any round of a speculative
             # engine): it retires one round from now
@@ -1104,8 +1149,7 @@ class ServeEngine:
         _, cap1, cap_s1 = steps.capture_counters()
         self.stats.graph_captures = cap1 - cap0
         self.stats.capture_s = cap_s1 - cap_s0
-        self.stats.graph_replays = (steps.step.replays
-                                    + steps.solo_step.replays - replays0)
+        self.stats.graph_replays = steps.replays - replays0
         self.stats.wall_s = time.monotonic() - t0
         self._flush_metrics(reg, admissions)
         if cost0 is not None:

@@ -268,3 +268,46 @@ def select_tokens(logits: torch.Tensor, temp: torch.Tensor,
     return (torch.where(live, tok, torch.full_like(tok, DEAD_TOKEN))
             .to(torch.int32),
             torch.where(live, logp, torch.zeros_like(logp)))
+
+
+def select_tokens_tp(logits: torch.Tensor, vocab: int, temp: torch.Tensor,
+                     top_k: torch.Tensor, top_p: torch.Tensor,
+                     key: torch.Tensor, positions: torch.Tensor,
+                     n_new: torch.Tensor, mesh, *, sampled: bool = True):
+    """``select_tokens`` over a vocab-parallel head: ``logits [B, C,
+    V / M]`` hold this rank's slice of the ``vocab`` (model rank ``m``
+    the ids ``[m V / M, (m + 1) V / M)``). Every rank returns the same
+    ``(tokens, logprobs)``.
+
+    Greedy (``sampled=False``) reduces across the model group: the max
+    logit (all_reduce MAX), the lowest id that reaches it (all_reduce MIN
+    of each rank's first argmax, so ties go to the lowest index, as
+    ``argmax`` has them), and the softmax sum at that max (all_reduce
+    SUM); the logprob is ``-log(sum)``, the selected logit being the
+    max. With a sampled lane the logits rows are gathered whole (one
+    all_reduce SUM of the slices in zeros, exact) and ``select_tokens``
+    runs on them, so a draw sees the vocab it sees on one rank."""
+    b, c, vl = logits.shape
+    m = mesh.index("model")
+    if sampled:
+        full = torch.zeros((b, c, vocab), dtype=logits.dtype,
+                           device=logits.device)
+        full[..., m * vl:(m + 1) * vl] = logits
+        mesh.all_reduce(full, "model")
+        return select_tokens(full, temp, top_k, top_p, key, positions,
+                             n_new, sampled=True)
+    lf = logits.to(torch.float32)
+    mx, idx = torch.max(lf, dim=-1)
+    gmax = mesh.all_reduce(mx.clone(), "model", "max")
+    cand = torch.where(mx == gmax, idx + m * vl,
+                       torch.full_like(idx, vocab))
+    tok = mesh.all_reduce(cand, "model", "min")
+    ssum = mesh.all_reduce(torch.exp(lf - gmax[..., None]).sum(-1),
+                           "model")
+    logp = -torch.log(ssum)
+    dev = logits.device
+    cols = torch.arange(c, device=dev)[None, :]
+    live = cols < n_new[:, None].to(dev)
+    return (torch.where(live, tok, torch.full_like(tok, DEAD_TOKEN))
+            .to(torch.int32),
+            torch.where(live, logp, torch.zeros_like(logp)))

@@ -44,6 +44,20 @@ wrapper runs the body eagerly on its static buffers, and on the card
 ``cuda_graphs=False`` does so too (a switch to compare against, not a
 fallback: a failed capture raises).
 
+The mesh step set (``build_paged_steps(..., mesh=...)``, built like the
+JAX one): every step runs under ``runtime_context.use_mesh`` with the
+rank's page slice, so the model is tensor-parallel over ``model`` and
+attention reads the rank's pages and merges over ``data``; the head
+selects over vocab shards (``sampling.select_tokens_tp``). It has no
+solo lane (``solo_step`` is None, as JAX's is under a mesh), and it runs
+eagerly: ``cuda_graphs=False`` must be passed, because gloo collectives
+cannot be captured (and NCCL inside a graph waits for a host with one
+card per rank). Its page ops copy a COW page whose source and
+destination sit on different data ranks with one all_reduce SUM over the
+data group (every page copy of the call packed into one int32 buffer, the
+source rank's bytes and zeros elsewhere: exact). The pipelined loop and
+speculative decode run on it unchanged (they only call the step).
+
 Kernel launch tallies (``kernels.build.launches``, ``kernels.ops.
 path_counts``) are Python counters that a replay does not move: each
 graph records the tallies of its capture and adds them on every replay.
@@ -75,14 +89,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import runtime_context as ctx
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import decode_step, forward
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve.sampling import select_tokens
+from repro_torch.serve.sampling import select_tokens, select_tokens_tp
 from repro_torch.serve.scheduler import bucket_len
 
 
@@ -105,9 +121,15 @@ def default_chunk(max_pages_per_seq: int, page: int) -> int:
     return bucket_len(max_pages_per_seq * page, page)
 
 
-def default_n_pages(slots: int, max_pages_per_seq: int) -> int:
-    """Default pool size: every slot at full length (single device)."""
-    return slots * max_pages_per_seq
+def default_n_pages(slots: int, max_pages_per_seq: int, mesh=None) -> int:
+    """Default pool size: every slot at full length, rounded up so that
+    the arena's page count (usable pages + the null page) divides the
+    mesh's ``data`` axis."""
+    n = slots * max_pages_per_seq
+    d = meshlib.axis_size(mesh, "data") if mesh is not None else 1
+    if d > 1:
+        n += (-(n + 1)) % d
+    return n
 
 
 def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
@@ -125,6 +147,11 @@ def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
     logits = forward(cfg, params, tokens, positions=positions, cache=arena,
                      valid_len=valid, use_kernels=use_kernels,
                      paged_attention=paged_attention)
+    if logits.shape[-1] != cfg.vocab:        # a vocab-parallel head
+        return select_tokens_tp(logits, cfg.vocab, samp["temp"],
+                                samp["top_k"], samp["top_p"], samp["key"],
+                                positions, n_new, ctx.current_mesh(),
+                                sampled=sampled)
     return select_tokens(logits, samp["temp"], samp["top_k"], samp["top_p"],
                          samp["key"], positions, n_new, sampled=sampled)
 
@@ -167,7 +194,8 @@ def solo_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 def apply_page_ops(arena: dict, tables: torch.Tensor,
                    copy_src: Optional[torch.Tensor] = None,
                    copy_dst: Optional[torch.Tensor] = None,
-                   reset: Optional[torch.Tensor] = None) -> dict:
+                   reset: Optional[torch.Tensor] = None, mesh=None,
+                   page_slice: Optional[Tuple[int, int]] = None) -> dict:
     """One round's page maintenance, in place (counterpart of
     ``_apply_page_ops_body``): page ``copy_dst[i]`` of every page leaf
     becomes a copy of page ``copy_src[i]`` (the device half of
@@ -176,7 +204,12 @@ def apply_page_ops(arena: dict, tables: torch.Tensor,
     written into every group's ``block_tbl``, and the SSM and conv rows of
     the slots where ``reset [S]`` is nonzero (freshly seated) are zeroed.
     Groups without attention have no pages or table. In place because the
-    step set's graphs read the arena by address."""
+    step set's graphs read the arena by address. With a ``page_slice``
+    (a rank of a mesh whose data axis is over 1) the page ids are global
+    and the copies cross ranks (``_copy_pages_across``)."""
+    if copy_src is not None and page_slice is not None:
+        _copy_pages_across(arena, copy_src, copy_dst, mesh, page_slice)
+        copy_src = None
     for grp in arena.values():
         if "attn" in grp:
             attn = grp["attn"]
@@ -193,6 +226,42 @@ def apply_page_ops(arena: dict, tables: torch.Tensor,
                 mask = (reset != 0).view((1, -1) + (1,) * (leaf.dim() - 2))
                 leaf.masked_fill_(mask, 0)
     return arena
+
+
+def _copy_pages_across(arena: dict, copy_src: torch.Tensor,
+                       copy_dst: torch.Tensor, mesh,
+                       page_slice: Tuple[int, int]) -> None:
+    """Page copies ``src -> dst`` (global ids) over the data ranks' page
+    slices: the rank holding ``src`` puts its bytes (every page leaf of
+    every group) in one buffer, the others zeros; one all_reduce SUM over
+    the data group, on the buffer's int32 view, gives every rank the
+    source's bytes exactly; the rank holding ``dst`` writes them, the
+    others write their sink page."""
+    first, n = page_slice
+    src = copy_src.to(torch.int64) - first
+    dst = copy_dst.to(torch.int64) - first
+    own_src = (src >= 0) & (src < n)
+    own_dst = (dst >= 0) & (dst < n)
+    src = torch.where(own_src, src, torch.zeros_like(src))
+    dst = torch.where(own_dst, dst, torch.full_like(dst, n))
+    leaves = [leaf for grp in arena.values() if "attn" in grp
+              for name, leaf in grp["attn"].items()
+              if name.endswith("_pages")]
+    parts, sizes = [], []
+    for leaf in leaves:
+        x = leaf.index_select(1, src)                 # [G, S, page, X]
+        x = torch.where(own_src.view(1, -1, 1, 1), x, torch.zeros_like(x))
+        x = x.contiguous().view(torch.uint8).reshape(-1)
+        sizes.append(x.numel())
+        parts += [x, x.new_zeros((-x.numel()) % 16)]  # 16-byte aligned
+    flat = torch.cat(parts)
+    mesh.all_reduce(flat.view(torch.int32), "data")
+    o = 0
+    for leaf, size in zip(leaves, sizes):
+        shape = (leaf.shape[0], src.numel()) + tuple(leaf.shape[2:])
+        x = flat[o:o + size].view(leaf.dtype).view(shape)
+        leaf.index_copy_(1, dst, x)
+        o += size + (-size) % 16
 
 
 def reset_state(arena: dict, slot: int) -> dict:
@@ -549,8 +618,10 @@ class PageOps(_CostTables):
     count."""
 
     def __init__(self, max_slots: int, max_pages_per_seq: int,
-                 device: torch.device):
+                 device: torch.device, mesh=None,
+                 page_slice: Optional[Tuple[int, int]] = None):
         self._init_cost_tables("apply_page_ops", device)
+        self.mesh, self.page_slice = mesh, page_slice
         self.slots = max_slots
         self.n_tbl = max_slots * max_pages_per_seq
         self.shape = (max_slots, max_pages_per_seq)
@@ -576,7 +647,8 @@ class PageOps(_CostTables):
         apply_page_ops(arena, dev[:o].view(self.shape),
                        dev[o:o + n] if copies else None,
                        dev[o + n:o + 2 * n] if copies else None,
-                       dev[o + 2 * n:] if len(resets) else None)
+                       dev[o + 2 * n:] if len(resets) else None,
+                       self.mesh, self.page_slice)
         if capture:
             self.cost_by_key.setdefault("call", {"flops": 0.0, "bytes": 0.0})
             self._record("call", t0)
@@ -592,6 +664,7 @@ class PagedServeSteps:
           -> (tok [B, C], logp [B, C])   graphs per C on the card
       solo_step(params, tokens [1, C], arena, start [1], n_new [1],
                 samp (one lane), slot) -> (tok [1, C], logp [1, C])
+                (None on a mesh)
       apply_page_ops(arena, tables [B, P], copies=[(src, dst), ...],
                      resets=[slot, ...]) -> arena
       reset_state(arena, slot) -> arena   (None without SSM state)
@@ -609,9 +682,11 @@ class PagedServeSteps:
     device: torch.device
     cuda_graphs: bool
     step: GraphedStep
-    solo_step: GraphedStep
+    solo_step: Optional[GraphedStep]
     apply_page_ops: PageOps
     reset_state: Optional[Callable] = None
+    mesh: Optional[object] = None
+    page_slice: Optional[Tuple[int, int]] = None
 
     def compatible_with(self, *, page, n_pages, max_slots,
                         max_pages_per_seq, cache_dtype, chunk,
@@ -627,27 +702,53 @@ class PagedServeSteps:
         """(calls, captures, capture seconds) over ``step`` and
         ``solo_step``: the counterpart of the JAX set's ``jit_counters``
         (the engine takes their differences around a run)."""
-        fns = (self.step, self.solo_step)
+        fns = self.callables
         return (sum(f.calls for f in fns), sum(f.captures for f in fns),
                 sum(f.capture_seconds for f in fns))
 
     @property
+    def callables(self) -> Tuple[GraphedStep, ...]:
+        """``step`` and, off a mesh, ``solo_step``."""
+        return tuple(f for f in (self.step, self.solo_step)
+                     if f is not None)
+
+    @property
+    def replays(self) -> int:
+        return sum(f.replays for f in self.callables)
+
+    @property
     def pool_bytes(self) -> int:
         """Device memory the captures added to the shared graph pool."""
-        return self.step.pool_bytes + self.solo_step.pool_bytes
+        return sum(f.pool_bytes for f in self.callables)
 
 
 def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
                       max_slots: int, max_pages_per_seq: int,
                       cache_dtype, chunk: Optional[int] = None,
                       paged_attention: bool = True, device="cuda",
-                      cuda_graphs: bool = True) -> PagedServeSteps:
+                      cuda_graphs: bool = True, mesh=None,
+                      page_slice: Optional[Tuple[int, int]] = None
+                      ) -> PagedServeSteps:
     """The step set of one engine geometry. ``step`` and ``solo_step``
     each declare ``len(width_ladder(chunk)) + 1`` widths, the compile
     surface the JAX ``build_paged_steps`` declares per callable (with
     two heads per width on the card); their graphs share one memory pool
-    and one capture stream."""
+    and one capture stream. With a ``mesh`` it is the mesh step set (see
+    the module docstring): ``page_slice`` is the rank's ``(first, pages)``
+    of the arena when the data axis is over 1, and ``cuda_graphs`` must
+    be False."""
     dev = resolve_device(device)
+    if mesh is not None:
+        check_mesh_cfg(cfg)
+        if cuda_graphs:
+            raise ValueError(
+                "the mesh step set runs eagerly: pass cuda_graphs=False "
+                "(gloo collectives cannot be captured in a CUDA graph, and "
+                "NCCL inside one waits for a host with a card per rank)")
+        if not paged_attention:
+            raise NotImplementedError(
+                "the mesh step set attends through the ragged kernel over "
+                "each rank's page slice (paged_attention=True)")
     if chunk is None:
         chunk = default_chunk(max_pages_per_seq, page)
     widths = (1,) + width_ladder(chunk)
@@ -656,10 +757,15 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
         pool = torch.cuda.graph_pool_handle()
         stream = torch.cuda.Stream(dev)
     kw = dict(paged_attention=paged_attention)
+    dp = meshlib.dp_axes(mesh) if mesh is not None else ()
 
     def step_body(params, tokens, arena, start, n_new, samp, slot, sampled):
-        return step(cfg, params, tokens, arena, start, n_new, samp,
-                    sampled=sampled, **kw)
+        if mesh is None:
+            return step(cfg, params, tokens, arena, start, n_new, samp,
+                        sampled=sampled, **kw)
+        with ctx.use_mesh(mesh, dp, page_slice):
+            return step(cfg, params, tokens, arena, start, n_new, samp,
+                        sampled=sampled, **kw)
 
     def solo_body(params, tokens, arena, start, n_new, samp, slot, sampled):
         return solo_step(cfg, params, tokens, arena, slot, start, n_new,
@@ -674,8 +780,23 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
         chunk=chunk, paged_attention=paged_attention, device=dev,
         cuda_graphs=cuda_graphs,
         step=GraphedStep("step", step_body, lanes=max_slots, **common),
-        solo_step=GraphedStep("solo_step", solo_body, lanes=1, **common),
-        apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev),
+        solo_step=(GraphedStep("solo_step", solo_body, lanes=1, **common)
+                   if mesh is None else None),
+        apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev, mesh,
+                               page_slice),
         reset_state=(reset_state if any(
             k == "mamba" or k.startswith("hybrid") for k in cfg.pattern)
-            else None))
+            else None),
+        mesh=mesh, page_slice=page_slice)
+
+
+def check_mesh_cfg(cfg: ModelConfig) -> None:
+    """The mesh serves dense and local/global attention stacks; the rest
+    waits for ROADMAP A12."""
+    attn_only = all(k.startswith("attn") for k in cfg.pattern)
+    if not attn_only or any(cfg.moe_slots) or cfg.is_encdec \
+            or cfg.n_vis_tokens:
+        raise NotImplementedError(
+            f"sharded serving covers dense and local/global attention "
+            f"stacks; {cfg.name} (pattern {cfg.pattern}, MoE slots "
+            f"{cfg.moe_slots}) waits for ROADMAP A12")

@@ -1,13 +1,14 @@
 """The numpy bridge between the JAX package and the PyTorch port.
 
 ``jax_tree_to_numpy`` is the test-side half: it flattens a JAX parameter
-or arena tree into nested dicts of numpy arrays (QTensor and one-shard
+or arena tree into nested dicts of numpy arrays (QTensor and
 ShardedQTensor leaves become dicts of their fields, with the int4 inlier
 container widened to int8 first — numpy has no int4). A leaf with two
 stack dims says which kind they are (``"stack"``: ``"shards"`` for a
-group-stacked one-shard ShardedQTensor, ``"experts"`` for a QTensor
-stacked over [G, E], an MoE expert stack); the port refuses it
-unmarked. The other port tests import it from here."""
+group-stacked ShardedQTensor, ``"experts"`` for a QTensor stacked over
+[G, E], an MoE expert stack); the port refuses it unmarked. An unstacked
+ShardedQTensor of several shards is marked ``"shards"`` too, and every
+shard stack carries its ``shard_axis`` and ``n_shards``. The other port tests import it from here."""
 import dataclasses
 
 import jax
@@ -49,12 +50,12 @@ def jax_tree_to_numpy(tree):
                                 if f == "in_codes" else getattr(tree, f))
                   for f in QT_FIELDS}
         if isinstance(tree, ShardedQTensor):
-            if tree.n_shards != 1:
-                raise ValueError("only one-shard ShardedQTensors cross over")
-            if fields["in_codes"].ndim == 4:       # unstacked [1, k, r, c]
-                fields = {f: v[0] for f, v in fields.items()}
-            elif fields["in_codes"].ndim == 5:     # [G, 1, k, r, c]
+            if fields["in_codes"].ndim == 4 and tree.n_shards == 1:
+                fields = {f: v[0] for f, v in fields.items()}  # [1, k, r, c]
+            else:                                  # [S, ...] / [G, S, ...]
                 fields["stack"] = "shards"
+                fields.update(shard_axis=tree.shard_axis,
+                              n_shards=tree.n_shards)
         elif fields["in_codes"].ndim == 5:         # [G, E, k, r, c]
             fields["stack"] = "experts"
         fields.update(shape=tuple(tree.shape), bits_in=tree.bits_in,
@@ -67,9 +68,11 @@ def jax_tree_to_numpy(tree):
 
 
 def port_params_to_jax(tree):
-    """A port parameter tree as a JAX tree: QTensors become JAX QTensors
-    (per-group lists stack their fields over [G]), tensors jnp arrays —
-    so the JAX package can serve the port's own QMC streams."""
+    """A port parameter tree as a JAX tree: QTensors and ShardedQTensors
+    become their JAX classes (per-group lists stack their fields over
+    [G]), tensors jnp arrays — so the JAX package can serve the port's
+    own QMC streams."""
+    from repro_torch.core.qtensor_sharded import ShardedQTensor as PortSQT
     if isinstance(tree, dict):
         return {k: port_params_to_jax(v) for k, v in tree.items()}
     if isinstance(tree, QTensor):
@@ -77,6 +80,13 @@ def port_params_to_jax(tree):
                             for f in QT_FIELDS), shape=tree.shape,
                           bits_in=tree.bits_in, bits_out=tree.bits_out,
                           subtile=tree.subtile)
+    if isinstance(tree, PortSQT):
+        return ShardedQTensor(*(jnp.asarray(getattr(tree, f).numpy())
+                                for f in QT_FIELDS), shape=tree.shape,
+                              bits_in=tree.bits_in, bits_out=tree.bits_out,
+                              subtile=tree.subtile,
+                              shard_axis=tree.shard_axis,
+                              n_shards=tree.n_shards)
     if isinstance(tree, list):
         qts = [port_params_to_jax(q) for q in tree]
         return jax.tree_util.tree_map(lambda *ls: jnp.stack(ls), *qts)

@@ -27,7 +27,8 @@ for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
              "models.moe", "core.gptq", "core.awq", "models.chunked_ce",
              "optim.adamw", "data.synthetic", "data.loader",
              "checkpoint.ckpt", "ft.watchdog", "train.step",
-             "train.trainer", "launch.train", "tree"):
+             "train.trainer", "launch.train", "tree", "launch.mesh",
+             "launch.sharding", "runtime_context", "core.qtensor_sharded"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke

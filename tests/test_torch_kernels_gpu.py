@@ -30,7 +30,11 @@ hd 128 and G = 6 on every page kind, and at stablelm-3b's hd 80 and
 gemma2-2b's hd 256 (G = 2, window, softcap 50), the Python count of the
 kernel's shared memory against the library's; one ``decode_step`` of
 reduced whisper-medium and internvl2-2b through the kernels against the
-plain versions, logits within 1e-3 * max|logits|."""
+plain versions, logits within 1e-3 * max|logits|. The attention kernel
+over a page slice (a data rank's) at hd 80, 128 and 256 on every page
+kind against the sliced plain version (attention tolerances), the
+slices merged against the whole-arena call, and the whole-arena slice
+bit-identical to a call without one."""
 import sys
 from pathlib import Path
 
@@ -1177,6 +1181,79 @@ def test_smem_bytes_mirror_the_librarys(gen):
                         q_blk * g, q_blk, hd, kind, sp)
                     assert smem_bytes(q_blk * g, q_blk, hd, kind,
                                       sp) == want, (hd, kind, q_blk, g, sp)
+
+
+# ---------------------------------------------------------------------------
+# the attention kernel over a page slice (a data rank's, on a mesh)
+# ---------------------------------------------------------------------------
+SLICE_LANES = ((0, 128), (64, 100), (0, 0), (33, 1), (255, 1), (1030, 1))
+
+
+def _slice_case(gen, hd, pages, g=2):
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        SLICE_LANES, n_kv=2, g=g, hd=hd, page=16,
+        quantized=pages == "int8", gen=gen, bf16=pages == "bf16")
+    return q, cache, qs, kl, n_new
+
+
+def _local(cache, first, n):
+    return {k: (v[first:first + n].contiguous() if k.endswith("_pages")
+                else v) for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("slices", [2, 4])
+@pytest.mark.parametrize("hd", [80, 128, 256])
+@pytest.mark.parametrize("pages", ["fp32", "bf16", "int8"])
+def test_sliced_attention_matches_sliced_plain(gen, pages, hd, slices):
+    """The kernel over each of 2 or 4 page slices (the rows whose pages
+    lie elsewhere contribute nothing) against the sliced plain version,
+    chunk and decode lanes beside an idle one; the slices merged
+    (``merge_slices``) against the kernel over the whole arena; a slice
+    with no live page of a row gives o 0, m -1e30, l 0."""
+    from repro_torch.kernels.paged_attention import merge_slices
+    q, cache, qs, kl, n_new = _slice_case(gen, hd, pages)
+    kw = dict(n_kv=2, head_dim=hd)
+    n_pages = cache["k_pages"].shape[0]
+    bounds = [round(i * n_pages / slices) for i in range(slices + 1)]
+    build.reset_launches()
+    parts = []
+    for a, b in zip(bounds, bounds[1:]):
+        local = _local(cache, a, b - a)
+        o, m, l = ragged_paged_attention_call(q, local, qs, kl,
+                                              page_slice=(a, b - a), **kw)
+        o_r, m_r, l_r = ragged_paged_attention_ref(
+            q, local, qs, kl, page_slice=(a, b - a), **kw)
+        torch.cuda.synchronize()
+        live = l_r > 0
+        assert (o[~live] == 0).all() and (l[~live] == 0).all()
+        assert (m[~live] == -1e30).all()
+        for got, want in ((o, o_r), (m, m_r), (l, l_r)):
+            torch.testing.assert_close(got[live], want[live], atol=1e-5,
+                                       rtol=1e-4)
+        parts.append((o, m, l))
+    assert build.launches["ragged_paged_attention"] == slices
+    whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
+    merged = merge_slices(parts)
+    torch.testing.assert_close(merged[valid], whole[valid], atol=1e-5,
+                               rtol=1e-4)
+    assert (merged[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("pages", ["fp32", "bf16", "int8"])
+def test_whole_arena_slice_is_bit_identical(gen, pages):
+    """The slice (0, n_pages) takes the sliced path (spans planned over the
+    runs of entries in the slice: one run a lane here) and gives the call
+    without a slice bit for bit."""
+    for hd in (80, 128, 256):
+        q, cache, qs, kl, _ = _slice_case(gen, hd, pages)
+        kw = dict(n_kv=2, head_dim=hd)
+        n = cache["k_pages"].shape[0]
+        a = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+        b = ragged_paged_attention_call(q, cache, qs, kl,
+                                        page_slice=(0, n), **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), hd
 
 
 def _moe_model(cf=1.25):

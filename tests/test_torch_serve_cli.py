@@ -1,7 +1,7 @@
 """The port's serving CLI on the CPU: the sampling, prefix-cache and
 speculative flags run through to the engine with the JAX CLI's meanings;
-the sharding flags are refused (the tracing, metrics, profiling and
-cost-report flags run: ``tests/test_torch_obs.py``)."""
+the sharding flags refuse to run without a named backend (the tracing,
+metrics, profiling and cost-report flags run: ``tests/test_torch_obs.py``)."""
 import pytest
 
 from repro_torch.launch import serve as serve_cli
@@ -30,6 +30,11 @@ def test_cli_runs_sampled_cached_speculative(capsys):
 @pytest.mark.parametrize("flag", [
     ["--data-shards", "2"], ["--model-shards", "2"]])
 def test_cli_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
+    """A shard flag without ``--dist-backend`` exits 2 naming the flag the
+    mesh needs: the backend is never picked by falling back (the mesh
+    itself runs in ``tests/test_torch_mesh_serve.py``)."""
+    with pytest.raises(SystemExit) as exc:
         serve_cli.main(SMALL + flag)
-    assert flag[0] in capsys.readouterr().err
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert flag[0] in err and "a mesh needs --dist-backend" in err
