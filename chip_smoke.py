@@ -154,7 +154,20 @@ Phases (each prints its own lines; any failure exits nonzero):
                 depth, fp32 with fp32 AdamW moments, batch 8 x 128 of the
                 synthetic corpus, 8 steps after a 2-step warmup: ms a
                 step, peak memory, the losses (all finite, the last two
-                steps' mean below the first step's), the parameters moved.
+                steps' mean below the first step's), the parameters moved;
+  7m. train-mesh — sharded training (FSDP on data, TP on model) of
+                stablelm-1.6b at full width on gloo ranks sharing the card:
+                step 0's gradients of the sharded step and train() at
+                (2, 2) for TRAIN_MESH_STEPS steps with remat, batch 8 x
+                128, then, after those ranks have exited, the same on a
+                (1, 1) mesh in one process: each leaf's gradient (made
+                whole) by its norm and a seeded projection within
+                TRAIN_MESH_GRAD_TOL, losses and grad norms within
+                TRAIN_MESH_RTOL, every rank's metrics
+                rank 0's; each rank's peak memory a step (at most its
+                slice of the one process's, one gathered layer group and
+                1 GiB) and their sum; the collectives a step by kind,
+                their seconds and payload bytes.
 
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -212,6 +225,7 @@ from repro_torch.models.layers import cross_entropy_loss  # noqa: E402
 from repro_torch.models.model import (decode_step, encode,  # noqa: E402
                                       forward, init_params, prefill)
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.tree import items as tree_items  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.train.trainer import TrainConfig, train  # noqa: E402
 from repro_torch.obs import costs as obs_costs  # noqa: E402
@@ -1028,8 +1042,11 @@ def serve_phase(cfg, qparams, seed: int):
 def gloo_probe(mesh) -> dict:
     """Which collectives gloo runs on CUDA tensors here: all_reduce with
     each op the mesh path uses, on each dtype it reduces, over the data
-    group; broadcast and all_gather beside them (the mesh path uses
-    neither)."""
+    group; broadcast, all_gather, reduce_scatter_tensor and
+    all_gather_into_tensor beside them. Serving uses all_reduce only;
+    training (launch/collectives.py) all_reduce SUM and MAX,
+    reduce_scatter_tensor and all_gather_into_tensor on float32,
+    whatever this probe finds: nothing switches on it."""
     import torch.distributed as dist
     group = mesh.groups["data"]
     out = {}
@@ -1041,17 +1058,25 @@ def gloo_probe(mesh) -> dict:
                 out[f"all_reduce {op} {dt}"] = t[0].item()
             except Exception as exc:       # noqa: BLE001
                 out[f"all_reduce {op} {dt}"] = f"refused: {exc}"[:120]
-    t = torch.full((5,), float(mesh.rank), device="cuda")
+    t = torch.full((4,), float(mesh.rank), device="cuda")
+    both = torch.empty(8, device="cuda")
+    half = torch.empty(2, device="cuda")
     for name, call in (
             ("broadcast", lambda: dist.broadcast(t, 0, group=group)),
             ("all_gather", lambda: dist.all_gather(
-                [torch.empty_like(t) for _ in range(2)], t, group=group))):
+                [torch.empty_like(t) for _ in range(2)], t, group=group)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                half, t, group=group)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                both, t, group=group))):
         try:
             call()
             out[name] = "ok"
         except Exception as exc:           # noqa: BLE001
             out[name] = f"refused: {exc}"[:120]
     torch.cuda.synchronize()
+    out["training uses"] = ("all_reduce sum/max, reduce_scatter_tensor "
+                            "sum, all_gather_into_tensor; float32")
     return out
 
 
@@ -2645,7 +2670,8 @@ def train_phase(cfg, seed: int) -> dict:
                 log_fn=lambda m: print(m.replace("[trainer]", "[train]")))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    peak = torch.cuda.max_memory_allocated() - base
+    # train() resets the peak before each step and keeps it per step
+    peak = max(h["peak_bytes"] for h in res["history"]) - base
     losses = [h["loss"] for h in res["history"]]
     ms = [h["time_s"] * 1e3 for h in res["history"]]
     require(len(losses) == TRAIN_STEPS
@@ -2672,6 +2698,204 @@ def train_phase(cfg, seed: int) -> dict:
                grad_norm=[h["grad_norm"] for h in res["history"]])
     del res
     torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE = 3, (2, 2)
+TRAIN_MESH_LAYERS = 24          # stablelm-1.6b's depth: nothing cut
+# (2, 2) against one process: fp32 sums split over ranks and reduced in
+# another order differ in the last bits, and AdamW's m / sqrt(v) turns a
+# last-bit difference of a near-zero gradient into a whole lr-sized step
+# of that entry (ROADMAP C, hazards), which the next steps' losses carry
+TRAIN_MESH_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
+# step 0's gradients, before any update (so no AdamW hazard): each leaf's
+# norm and projection against one process's, over the leaf's norm plus
+# TRAIN_MESH_GRAD_FLOOR x the whole gradient's norm. Read up to 5.6e-6
+# on the card (the key bias, then the embedding at 4.4e-6), so the limit
+# is 3.6x that; a bias missing its SUM over model reads 0.5 (a 2-layer
+# CPU run)
+TRAIN_MESH_GRAD_TOL, TRAIN_MESH_GRAD_FLOOR = 2e-5, 1e-4
+
+
+def grad_fingerprints(mesh, cfg, seed: int):
+    """Step 0's gradients of the sharded step (``mesh_grads_fn``, remat
+    on) on this rank's slices and the corpus's step-0 batch, made whole
+    leaf by leaf (``unshard``); on rank 0 two numbers a leaf, in float64:
+    its norm and its projection on a normal vector drawn for it from
+    ``seed``. A dropped or doubled sum, or a wrong scale, sign or place
+    of a leaf's gradient moves one of them. None on the other ranks; the
+    mesh's collective counts are set back to 0."""
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch import sharding as shd
+    from repro_torch.train.step import mesh_grads_fn
+    compute = mesh_grads_fn(cfg, mesh, remat=True)
+    params = shd.train_slices(init_params(cfg, seed, device="cuda"), mesh,
+                              compute.specs)
+    rows = shd.batch_rows(mesh, TRAIN_BATCH)
+    batch = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=seed + 1)
+                            ).sample_batch(TRAIN_BATCH, TRAIN_SEQ, step=0)
+    batch = {k: torch.from_numpy(v[rows]).long().cuda()
+             for k, v in batch.items()}
+    _, _, grads = compute(params, batch)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for path, g in tree_items(grads):
+        whole = shd.unshard(g, mesh, {"": compute.specs[path]},
+                            keep=mesh.rank == 0)
+        if whole is not None:
+            w = whole.double()
+            r = torch.randn(w.shape, generator=gen, device="cuda",
+                            dtype=torch.float64)
+            out[path] = (float(w.norm()), float((w * r).sum()))
+            del w, r, whole
+    del grads
+    torch.cuda.empty_cache()
+    mesh.reset_counts()
+    return out if mesh.rank == 0 else None
+
+
+def train_mesh_rank(mesh, job):
+    """One rank of ``[train-mesh]``: ``train()`` on its slices (the whole
+    tree initialised from the seed on the card, sliced, dropped), batch
+    8 x 128 of the synthetic corpus, remat on; its history (with each
+    step's peak memory), the bytes of its parameter slices and of one
+    gathered layer group, and the collectives by kind."""
+    t0 = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = job["cfg"]
+    fingerprint = grad_fingerprints(mesh, cfg, job["seed"])
+    res = train(cfg, TrainConfig(steps=TRAIN_MESH_STEPS,
+                                 global_batch=TRAIN_BATCH,
+                                 seq_len=TRAIN_SEQ, warmup=TRAIN_WARMUP,
+                                 log_every=1, seed=job["seed"]),
+                AdamWConfig(lr=1e-3), mesh, device="cuda",
+                log_fn=lambda m: print(m.replace("[trainer]",
+                                                 "[train-mesh]")))
+    torch.cuda.synchronize()
+    local = sum(t.numel() * t.element_size()
+                for t in tree_leaves(res["params"]))
+    group = sum(t[0].numel() * t.element_size()
+                for t in tree_leaves(res["params"]["blocks"]))
+    data = mesh.shape[list(mesh.axis_names).index("data")]
+    return dict(rank=mesh.rank, history=res["history"], local_bytes=local,
+                fingerprint=fingerprint,
+                gathered_group_bytes=group * data,
+                by_kind={k: list(v) for k, v in mesh.by_kind.items()},
+                collectives=mesh.collectives,
+                collective_s=mesh.collective_seconds,
+                rank_s=time.monotonic() - t0)
+
+
+def train_mesh_phase(seed: int) -> dict:
+    """Sharded training of stablelm-1.6b (TRAIN_MESH_LAYERS layers, full
+    width) on TRAIN_MESH_SHAPE gloo ranks sharing the card, then one
+    process on a (1, 1) mesh (after the ranks have exited): step 0's
+    gradients leaf by leaf (``grad_fingerprints``) within
+    TRAIN_MESH_GRAD_TOL, the losses
+    and grad norms of TRAIN_MESH_STEPS steps within TRAIN_MESH_RTOL, every
+    rank's metrics equal to rank 0's, each rank's peak within its slice
+    of the one process's plus one gathered group; the collectives a step
+    by kind. gloo copies every collective through host memory and the
+    ranks time-share one card, so the step time says nothing of NVLink
+    or NCCL."""
+    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
+                              n_layers=TRAIN_MESH_LAYERS)
+    torch.cuda.empty_cache()
+    out = {"layers": TRAIN_MESH_LAYERS}
+    t_phase = time.monotonic()
+    runs, secs = {}, {}
+    for shape in (TRAIN_MESH_SHAPE, (1, 1)):
+        t0 = time.monotonic()
+        runs[shape] = spawn(train_mesh_rank, shape, backend="gloo",
+                            args=(dict(cfg=cfg, seed=seed),),
+                            timeout_s=600.0)
+        secs[shape] = time.monotonic() - t0
+    mesh_res, one = runs[TRAIN_MESH_SHAPE], runs[(1, 1)][0]
+    label = f"({TRAIN_MESH_SHAPE[0]},{TRAIN_MESH_SHAPE[1]})"
+    r0 = mesh_res[0]
+    for r in mesh_res:
+        for k in ("loss", "grad_norm"):
+            require([h[k] for h in r["history"]]
+                    == [h[k] for h in r0["history"]],
+                    f"[train-mesh] rank {r['rank']}'s {k} differ from "
+                    f"rank 0's")
+    want, got = one["fingerprint"], r0["fingerprint"]
+    require(set(got) == set(want), "[train-mesh] the sharded step's "
+            "gradients hold other leaves than one process's")
+    whole = float(np.sqrt(sum(n * n for n, _ in want.values())))
+    errs = {}
+    for path, (n1, p1) in want.items():
+        nm, pm = got[path]
+        errs[path] = max(abs(nm - n1), abs(pm - p1)) / (
+            n1 + TRAIN_MESH_GRAD_FLOOR * whole)
+    worst = sorted(errs, key=errs.get, reverse=True)[:6]
+    print(f"[train-mesh] step 0's gradients, {len(errs)} leaves made whole"
+          f" (norm, projection) against one process's, the worst: " +
+          "; ".join(f"{p} {got[p][0]:.9g} vs {want[p][0]:.9g}, "
+                    f"{got[p][1]:.9g} vs {want[p][1]:.9g}: {errs[p]:.2e}"
+                    for p in worst) +
+          f" (the whole gradient's norm {whole:.6g}; tol "
+          f"{TRAIN_MESH_GRAD_TOL} of a leaf's norm + "
+          f"{TRAIN_MESH_GRAD_FLOOR} x the whole's)")
+    require(max(errs.values()) <= TRAIN_MESH_GRAD_TOL,
+            f"[train-mesh] {label} step 0's gradient of {worst[0]} is off "
+            f"one process's by {errs[worst[0]]:.2e} > "
+            f"{TRAIN_MESH_GRAD_TOL}")
+    out["grad_err"] = {p: errs[p] for p in worst}
+    for k, rtol in TRAIN_MESH_RTOL.items():
+        got = np.array([h[k] for h in r0["history"]])
+        want = np.array([h[k] for h in one["history"]])
+        rel = np.abs(got - want) / np.abs(want)
+        require(np.all(np.isfinite(got)) and np.all(rel <= rtol),
+                f"[train-mesh] {label} {k} {got.tolist()} against one "
+                f"process's {want.tolist()}: rel {rel.tolist()} > {rtol}")
+        out[f"{k}_rel"] = rel.tolist()
+    # a rank holds its slice of what one process holds (parameters,
+    # gradients, moments, the update's copies) plus one gathered group;
+    # 1 GiB more for its activations and the gathered head
+    one_peak = max(h["peak_bytes"] for h in one["history"])
+    peaks = [max(h["peak_bytes"] for h in r["history"]) for r in mesh_res]
+    bound = (one_peak * r0["local_bytes"] / one["local_bytes"]
+             + r0["gathered_group_bytes"] + 2**30)
+    require(max(peaks) <= bound,
+            f"[train-mesh] a rank's peak {max(peaks) / 2**30:.2f} GiB is "
+            f"over its slice of one process's {one_peak / 2**30:.2f} GiB "
+            f"plus a gathered group and 1 GiB ({bound / 2**30:.2f})")
+    steps = TRAIN_MESH_STEPS
+    kinds = {k: (v[0] / steps, v[1] / steps, v[2] / steps)
+             for k, v in r0["by_kind"].items()}
+    ms = [h["time_s"] * 1e3 for h in r0["history"]]
+    one_ms = [h["time_s"] * 1e3 for h in one["history"]]
+    print(f"[train-mesh] stablelm-1.6b, {TRAIN_MESH_LAYERS} layers, full "
+          f"width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, {label} gloo "
+          f"ranks on one card: losses {[h['loss'] for h in r0['history']]}"
+          f" grad norms {[h['grad_norm'] for h in r0['history']]}; one "
+          f"process (1,1): losses {[h['loss'] for h in one['history']]} "
+          f"grad norms {[h['grad_norm'] for h in one['history']]}; rel "
+          f"{out['loss_rel']} / {out['grad_norm_rel']} (rtol "
+          f"{TRAIN_MESH_RTOL})")
+    print(f"[train-mesh] ms a step: {label} {[round(x, 1) for x in ms]}, "
+          f"one process {[round(x, 1) for x in one_ms]}; spawn to join "
+          f"{secs[TRAIN_MESH_SHAPE]:.1f}s and {secs[(1, 1)]:.1f}s")
+    print(f"[train-mesh] peak memory a step (GiB): ranks "
+          f"{[round(p / 2**30, 3) for p in peaks]}, sum "
+          f"{sum(peaks) / 2**30:.3f}; one process {one_peak / 2**30:.3f}; "
+          f"a rank's parameter slices {r0['local_bytes'] / 2**30:.3f} of "
+          f"{one['local_bytes'] / 2**30:.3f}, one gathered group "
+          f"{r0['gathered_group_bytes'] / 2**30:.3f}; bound "
+          f"{bound / 2**30:.3f}")
+    print(f"[train-mesh] rank 0's collectives a step: "
+          f"{r0['collectives'] / steps:.0f} in "
+          f"{r0['collective_s'] / steps:.3f}s; by kind (calls, s, payload "
+          f"MB): " + "; ".join(
+              f"{k} {n:.0f} {sec:.3f} {b / 1e6:.1f}"
+              for k, (n, sec, b) in sorted(kinds.items())))
+    out.update(ranks=mesh_res, one=one, peaks=peaks, one_peak=one_peak,
+               by_kind_per_step=kinds, step_ms=ms, one_step_ms=one_ms,
+               seconds=time.monotonic() - t_phase)
+    print(f"[train-mesh] phase {out['seconds']:.1f}s")
     return out
 
 
@@ -2851,6 +3075,7 @@ def main(argv=None) -> int:
     del qparams
     torch.cuda.empty_cache()
     trained = train_phase(cfg, args.seed)
+    train_meshed = train_mesh_phase(args.seed)
 
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
@@ -2868,7 +3093,7 @@ def main(argv=None) -> int:
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
         mesh=meshed, moe=moe, families=families, attn_hd=attn_hd,
         step=stepped,
-        train=trained,
+        train=trained, train_mesh=train_meshed,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

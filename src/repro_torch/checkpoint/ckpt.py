@@ -11,7 +11,11 @@ then ``LATEST`` is replaced: a reader sees a whole checkpoint or the one
 before it. bf16 leaves travel as their 16-bit patterns (numpy has no
 bf16) and come back bit for bit. ``restore`` loads into the structure,
 dtypes and devices of a tree like the saved one and refuses a leaf whose
-shape differs.
+shape differs. Leaves are saved whole (on a mesh, gathered first:
+``launch.sharding.unshard``), so a checkpoint restores onto any mesh:
+``restore(..., slice_fn=)`` gives each leaf this rank's slice of the
+whole array on disk (the reference's ``restore(..., shardings=)``, the
+elastic-restart path; ``launch.sharding.restore_slicer`` makes one).
 
 Async: ``AsyncCheckpointer.save`` snapshots to host memory synchronously
 and writes in a daemon thread so training continues during the I/O.
@@ -22,7 +26,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,10 +128,13 @@ def latest_step(directory: str) -> Optional[int]:
         return int(f.read().strip())
 
 
-def restore(tree_like, directory: str, step: Optional[int] = None):
+def restore(tree_like, directory: str, step: Optional[int] = None, *,
+            slice_fn: Optional[Callable] = None):
     """Load into the structure of ``tree_like`` (shapes must match; each
     leaf takes its counterpart's dtype and device). Returns ``(tree,
-    step)``."""
+    step)``. With ``slice_fn``, ``tree_like`` holds this rank's slices
+    and each leaf on disk becomes ``slice_fn(path, whole array)``, the
+    rank's block of it, before the shape check."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -146,9 +153,12 @@ def restore(tree_like, directory: str, step: Optional[int] = None):
                 shards[sid] = np.load(os.path.join(stepdir,
                                                    f"shard_{sid}.npz"))
             arr = shards[sid][meta["name"]]
+            if slice_fn is not None:
+                arr = slice_fn(key, arr)
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(ref.shape)}")
+            arr = np.asarray(arr, order="C")       # a slice: contiguous
             if meta["dtype"] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:

@@ -1,1 +1,1 @@
-"""Port counterpart of ``repro.ft`` (the single-device part)."""
+"""Port counterpart of ``repro.ft``."""

@@ -31,17 +31,37 @@ rank 0) and the fused KV dim over ``model`` (whole heads: ``n_kv % M ==
 tables replicate. On a mesh with ``D > 1`` each rank's slice carries one
 more page past its ``n_local``, the sink: the K/V rows of pages other
 ranks hold are written there, and no block table ever maps it.
+
+Training keeps the JAX rules whole (FSDP on ``data``, TP on ``model``;
+``train_specs``, ``train_slices``): every large parameter is cut along
+both, and a dim that does not divide its axis replicates, as
+``_finalize`` does. Each rank holds its slice of the parameters, of the
+gradients and of both AdamW moments. The leaves that end up replicated
+over ``data`` are the norms (``norm1``, ``norm2``, ``final_norm``), the
+attention biases (``bq``/``bk``/``bv``) and any leaf whose FSDP dim does
+not divide the data axis; their gradients need a SUM over ``data`` in
+place of the reduce-scatter (``grad_axes``), and the global norm counts
+them once (``owns``). The attention biases are also replicated over
+``model`` while each rank adds only its heads' slice of them, so their
+gradients are partial there and take a SUM over ``model``. The ``pod``
+axis is pure data parallelism: every leaf replicates over it and every
+gradient takes a SUM over it. ``fsdp_gather`` makes a group's leaves
+whole along their ``data`` dim just before use; ``unshard`` makes a
+whole tree (a checkpoint, the tests); ``batch_spec`` / ``batch_rows``
+put the global batch over ``(pod, data)`` when it divides.
 """
 from __future__ import annotations
 
 import re
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as T
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.qtensor_sharded import ShardedQTensor, shard_qtensor
 from repro_torch.core.serving_quant import ROW_SHARDED
+from repro_torch.launch import collectives as C
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import kvcache as KV
 
@@ -277,3 +297,150 @@ def shard_arena(arena: dict, mesh) -> dict:
             t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
         return t.contiguous()
     return walk(arena, "")
+
+
+# ---------------------------------------------------------------------------
+# training: FSDP on data, TP on model, the batch over (pod, data)
+# ---------------------------------------------------------------------------
+# leaves each rank adds only its model slice of (column-parallel biases)
+_MODEL_PARTIAL = r"attn/b[qkv]$"
+
+
+def check_train_mesh(cfg, mesh) -> None:
+    """Refuse a model the training mesh does not run: hybrid, SSM, MoE,
+    encoder-decoder and VLM stacks (``NotImplementedError``, ROADMAP
+    A12), and TP widths that do not divide the model axis."""
+    kinds = set(cfg.pattern)
+    if (any(not k.startswith("attn") for k in kinds) or any(cfg.moe_slots)
+            or cfg.is_encdec or cfg.n_vis_tokens):
+        raise NotImplementedError(
+            f"{cfg.name}: the training mesh runs dense and local/global "
+            f"attention stacks only; hybrid, SSM, MoE, encoder-decoder and "
+            f"VLM stacks wait (ROADMAP A12)")
+    if mesh is None:
+        raise ValueError("the sharded step needs a mesh; one device trains "
+                         "with train.step.single_device_step")
+    m = meshlib.axis_size(mesh, "model")
+    for name in ("n_heads", "n_kv_heads", "d_ff", "vocab"):
+        if getattr(cfg, name) % m:
+            raise ValueError(f"{cfg.name}: {name} = {getattr(cfg, name)} "
+                             f"does not divide the model axis ({m})")
+
+
+def train_specs(params, mesh) -> dict:
+    """``{path: spec}`` of a whole parameter tree (``param_spec``; a
+    ``meta`` tree of the shapes will do)."""
+    return {path: param_spec(path, leaf, mesh)
+            for path, leaf in T.items(params)}
+
+
+def train_slices(params, mesh, specs: Optional[dict] = None):
+    """This rank's slice of every leaf of a whole tree, copied (the whole
+    tree can be freed)."""
+    specs = specs if specs is not None else train_specs(params, mesh)
+    out = []
+    for path, leaf in T.items(params):
+        idx = local_slices(specs[path], leaf.shape, mesh)
+        out.append(leaf[idx].clone(memory_format=torch.contiguous_format))
+    return T.unflatten(params, out)
+
+
+def _sharded_dims(spec: Tuple, mesh):
+    """``(dim, axis)`` of each dim ``spec`` cuts over an axis of size
+    > 1."""
+    return [(i, ax) for i, ax in enumerate(spec)
+            if ax is not None and meshlib.axis_size(mesh, ax) > 1]
+
+
+def fsdp_gather(specs: dict, mesh):
+    """``gather(tree, prefix)``: ``tree`` (the leaves under ``prefix``,
+    or one group's slice of them) with each leaf made whole along its
+    ``data`` dim, through ``collectives.gather_over`` (a reduce-scatter of
+    its gradient in the backward pass)."""
+    def gather(tree, prefix: str):
+        out = []
+        for path, leaf in T.items(tree, (prefix,)):
+            spec = specs[path]
+            if len(spec) == leaf.ndim + 1:        # one group of a stack
+                spec = spec[1:]
+            for dim, ax in _sharded_dims(spec, mesh):
+                if ax == "data":
+                    leaf = C.gather_over(leaf, mesh, dim)
+            out.append(leaf)
+        return T.unflatten(tree, out)
+    return gather
+
+
+def grad_axes(path: str, spec: Tuple, mesh) -> Tuple[str, ...]:
+    """The axes this leaf's gradient is summed over after the backward
+    pass: ``data`` where the leaf is replicated over it, ``model`` for
+    the column-parallel biases, ``pod`` always."""
+    out = []
+    if "data" not in spec and meshlib.axis_size(mesh, "data") > 1:
+        out.append("data")
+    if re.search(_MODEL_PARTIAL, path) \
+            and meshlib.axis_size(mesh, "model") > 1:
+        out.append("model")
+    if meshlib.axis_size(mesh, "pod") > 1:
+        out.append("pod")
+    return tuple(out)
+
+
+def restore_slicer(mesh, spec_fn=None) -> Callable:
+    """``slice_fn(path, whole array)`` for ``checkpoint.ckpt.restore``:
+    this rank's block of a leaf on disk under ``spec_fn(path, array,
+    mesh)`` (``param_spec`` by default)."""
+    spec_fn = spec_fn or param_spec
+
+    def slice_fn(path: str, arr):
+        return arr[local_slices(spec_fn(path, arr, mesh), arr.shape, mesh)]
+    return slice_fn
+
+
+def owns(spec: Tuple, mesh) -> bool:
+    """Whether this rank counts its slice of a leaf in a global sum: it
+    sits at index 0 of every axis the leaf is replicated over."""
+    return all(mesh.index(ax) == 0 for ax in mesh.axis_names
+               if ax not in spec and meshlib.axis_size(mesh, ax) > 1)
+
+
+def unshard(tree, mesh, specs: dict, keep: bool = True):
+    """The whole leaves of a tree of this rank's slices, gathered leaf by
+    leaf over each axis that cuts them (every rank must call it);
+    ``keep=False`` drops them (a rank that does not write the
+    checkpoint)."""
+    out = []
+    with torch.no_grad():
+        for path, leaf in T.items(tree):
+            for dim, ax in _sharded_dims(specs[path], mesh):
+                leaf = mesh.all_gather(leaf, ax, dim, kind="unshard")
+            out.append(leaf if keep else None)
+    return T.unflatten(tree, out) if keep else None
+
+
+def _dp_entry(mesh):
+    """dp axes as a spec entry: the name for a single axis, a tuple for
+    ``(pod, data)``."""
+    dp = meshlib.dp_axes(mesh)
+    return dp[0] if len(dp) == 1 else dp
+
+
+def batch_spec(mesh, global_batch: int) -> Tuple:
+    """The global batch's spec: over the dp axes when it divides them,
+    else replicated (``()``)."""
+    dp = _dp_entry(mesh)
+    if global_batch % meshlib.dp_size(mesh) == 0 and dp:
+        return (dp,)
+    return ()
+
+
+def batch_rows(mesh, global_batch: int) -> slice:
+    """This rank's rows of the global batch under ``batch_spec``: the dp
+    axes flattened ``pod``-major, as JAX lays a tuple entry out."""
+    if not batch_spec(mesh, global_batch):
+        return slice(None)
+    k = 0
+    for ax in meshlib.dp_axes(mesh):
+        k = k * meshlib.axis_size(mesh, ax) + mesh.index(ax)
+    n = global_batch // meshlib.dp_size(mesh)
+    return slice(k * n, (k + 1) * n)

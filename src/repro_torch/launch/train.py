@@ -7,9 +7,18 @@ async checkpoints.
 
 Runs on the card (``--device cuda``, the default) or, asked, on the CPU
 (``--device cpu``). On restart after a crash or kill, ``--resume`` picks
-up from the newest checkpoint. The mesh flags (``--dp``, ``--tp``) are
-refused with an error instead of being ignored: the sharded step waits
-for the multi-GPU item (ROADMAP A12).
+up from the newest checkpoint, whatever mesh wrote it.
+
+``--dp D --tp M`` train on a ``(D, M)`` mesh (FSDP on data, TP on model;
+``train.step.build_train_step``): this process spawns ``D * M`` ranks
+over ``torch.distributed`` (``launch.mesh.spawn``, file rendezvous in a
+temporary directory) and rank 0 logs and prints the final loss.
+``--dist-backend`` names the backend and has no default: ``gloo`` on the
+CPU and for several ranks sharing one card, ``nccl`` for a card per
+rank. On the CPU (~10 s)::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+      --reduced --dp 2 --tp 2 --device cpu --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import argparse
 import torch
 
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.launch import mesh as meshlib
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import TrainConfig, train
 
@@ -39,6 +49,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--deadline", type=float, default=600.0)
+    ap.add_argument("--dist-backend", choices=meshlib.BACKENDS,
+                    default=None,
+                    help="the collectives' backend of a mesh (required "
+                         "with --dp / --tp)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
     return ap
@@ -48,9 +62,31 @@ def main(argv=None):
     ap = _parser()
     args = ap.parse_args(argv)
     if args.dp or args.tp:
-        ap.error("--dp / --tp: the sharded train step is not ported to "
-                 "PyTorch yet (ROADMAP A12); train on one device")
+        if args.dist_backend is None:
+            ap.error("a mesh needs --dist-backend (gloo or nccl)")
+        shape = (args.dp or 1, args.tp or 1)
+        try:
+            losses = meshlib.spawn(_rank, shape, backend=args.dist_backend,
+                                   args=(args,), timeout_s=3600.0)
+        except RuntimeError as exc:
+            if "NotImplementedError" in str(exc):   # a stack the mesh
+                ap.error(str(exc).strip().splitlines()[-1])  # refuses
+            raise
+        print(f"[train] done on a {shape} mesh. final loss={losses[0]}")
+        return losses[0]
+    result = _train(args)
+    final = result["history"][-1]["loss"] if result["history"] else None
+    print(f"[train] done. final loss={final}")
+    return final
 
+
+def _rank(mesh, args):
+    """One rank of a mesh run: the loop on its slices; its final loss."""
+    result = _train(args, mesh)
+    return result["history"][-1]["loss"] if result["history"] else None
+
+
+def _train(args, mesh=None):
     cfg = reduced_config(args.arch) if args.reduced else get_config(
         args.arch)
     tc = TrainConfig(steps=args.steps, global_batch=args.batch,
@@ -70,11 +106,9 @@ def main(argv=None):
                 (batch, c.enc_seq, c.d_model), dtype=torch.float32)
         return out
 
-    result = train(cfg, tc, oc, device=args.device,
-                   extra_batch_fn=extra if (cfg.n_vis_tokens
-                                            or cfg.is_encdec) else None)
-    final = result["history"][-1]["loss"] if result["history"] else None
-    print(f"[train] done. final loss={final}")
+    return train(cfg, tc, oc, mesh, device=args.device,
+                 extra_batch_fn=extra if (cfg.n_vis_tokens
+                                          or cfg.is_encdec) else None)
 
 
 if __name__ == "__main__":

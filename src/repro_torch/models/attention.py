@@ -38,7 +38,7 @@ from repro_torch.kernels.ref import ragged_paged_attention_ref
 from repro_torch.models.kvcache import quantize_kv
 from repro_torch.models.layers import (apply_rotary, column_linear, linear,
                                        rotary_cos_sin, row_linear, softcap,
-                                       tp_size)
+                                       tp_input, tp_size)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -233,6 +233,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     hd, nh, nkv = cfg.head_dim, cfg.n_heads // tp, cfg.n_kv_heads // tp
     if tap:
         tap("wq", x)
+    x = tp_input(x)
     q = column_linear(x, p["wq"], p.get("bq"), use_kernels,
                       cfg.n_heads * hd).reshape(b, s, nh, hd)
     k = column_linear(x, p["wk"], p.get("bk"), use_kernels,

@@ -20,6 +20,8 @@ from repro_torch.models.ssm import mamba_block
 
 
 def _normal(gen, shape, std, device, dtype):
+    if gen is None:                   # a "meta" tree: the shapes only
+        return torch.empty(shape, device=device, dtype=dtype)
     return (torch.randn(shape, generator=gen, device=device,
                         dtype=torch.float32) * std).to(dtype)
 

@@ -10,9 +10,14 @@ is padded with zero columns masked to ``-inf``, the gold logit is summed
 through an arithmetic mask, and the optional logit softcap's derivative is
 ``1 - tanh^2``.
 
-``sharded_ce_loss`` is the reference's gather-free loss on one device: the
-full fp32 logits, the label "gather" as an arithmetic mask, plain autograd.
-The mesh constraints of the reference wait for the multi-GPU item.
+``sharded_ce_loss`` is the reference's gather-free loss: the fp32 logits,
+the label "gather" as an arithmetic mask, plain autograd. Under a
+training mesh it takes the layout the reference pins with its sharding
+constraints: the tokens stay on this rank's dp rows, the head's
+contraction dim is whole (``w`` is ``[d, V/M]``, FSDP-gathered), and the
+logits stay ``[T/dp, V/M]``, never gathered; the row max is a MAX and
+``se`` and the gold logit a SUM over the model group
+(``layers.vocab_parallel_nll``).
 
 loss = mean( logsumexp(logits) - logits[label] ),
 logits = softcap(x @ w) with the model's optional logit softcap.
@@ -23,6 +28,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import runtime_context as ctx
+from repro_torch.models.layers import tp_input, tp_size, vocab_parallel_nll
 
 NEG = -1e30
 
@@ -112,17 +120,25 @@ def chunked_ce_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 
 def sharded_ce_loss(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-                    *, logit_softcap: Optional[float] = None
-                    ) -> torch.Tensor:
-    """Gather-free CE (the reference's ``sharded_ce_loss`` on one device):
-    fp32 logits, the gold logit through an arithmetic label mask."""
+                    *, logit_softcap: Optional[float] = None,
+                    vocab: Optional[int] = None) -> torch.Tensor:
+    """Gather-free CE (the reference's ``sharded_ce_loss``): fp32 logits,
+    the gold logit through an arithmetic label mask. Under a mesh a ``w``
+    holding this rank's slice of the ``vocab`` columns gives the mean
+    over this rank's tokens through the vocab-parallel reductions."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     labels1 = labels.reshape(-1).long()
     v = w.shape[1]
+    sharded = vocab is not None and v != vocab and tp_size() > 1
+    if sharded:
+        x2 = tp_input(x2)
     logits = torch.matmul(x2.float(), w.float())
     if logit_softcap is not None:
         logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    if sharded:
+        return vocab_parallel_nll(logits, labels1,
+                                  ctx.current_mesh()).mean()
     m = logits.amax(dim=1)
     se = torch.exp(logits - m[:, None]).sum(dim=1)
     lse = m + torch.log(se)

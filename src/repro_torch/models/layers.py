@@ -17,6 +17,12 @@ group (a replicated weight takes the whole input, gathered), and
 ``embed_tokens`` looks a vocab-sharded table up on the rank that holds
 each token, summed over the model group. Off a mesh all three are the
 plain ops.
+
+Training on a mesh takes gradients through the same code: the sums over
+the model group are ``launch.collectives.sum_over`` (in place, as
+before, when nothing needs a gradient) and ``tp_input`` marks a
+column-parallel input, whose gradient is summed over the model group in
+the backward pass.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.core.qtensor import QTensor
 from repro_torch.core.qtensor_sharded import (ShardedQTensor, qmm_shard,
                                               qmm_sharded_ref)
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import collectives as C
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -71,6 +78,15 @@ def tp_size() -> int:
     if mesh is None or "model" not in mesh.axis_names:
         return 1
     return mesh.devices.shape[list(mesh.axis_names).index("model")]
+
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering column-parallel projections (or a vocab-sharded
+    head): the identity forward, its gradient summed over the model
+    group in the backward pass (nothing off a mesh or off the graph)."""
+    if tp_size() == 1:
+        return x
+    return C.copy_to(x, ctx.current_mesh())
 
 
 def _tp_local(x: torch.Tensor) -> torch.Tensor:
@@ -127,7 +143,7 @@ def row_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
             x = _tp_local(x)
         y = matmul_any(x, w, use_kernels=use_kernels)
         if not isinstance(w, ShardedQTensor):     # qmm_shard reduces
-            ctx.current_mesh().all_reduce(y, "model")
+            y = C.sum_over(y, ctx.current_mesh())
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -173,8 +189,8 @@ def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
         local = tokens - mesh.index("model") * table.shape[0]
         own = (local >= 0) & (local < table.shape[0])
         x = table[torch.where(own, local, torch.zeros_like(local))]
-        x = mesh.all_reduce(torch.where(own[..., None], x,
-                                        torch.zeros_like(x)), "model")
+        x = C.sum_over(torch.where(own[..., None], x, torch.zeros_like(x)),
+                       mesh)
     else:
         x = table[tokens]
     if scale:
@@ -189,18 +205,44 @@ _ACTS = {"silu": F.silu,
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None,
+                       vocab: Optional[int] = None) -> torch.Tensor:
     """Mean token NLL in fp32 (``repro.models.layers.cross_entropy_loss``):
     logits ``[B, S, V]``, labels ``[B, S]`` integer; with ``mask`` the
-    masked mean, its denominator at least 1."""
+    masked mean, its denominator at least 1. Under a mesh, logits holding
+    this rank's slice of the ``vocab`` columns take the vocab-parallel
+    reductions (``vocab_parallel_nll``)."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long()).squeeze(-1)
-    nll = lse - gold
+    if vocab is not None and logits.shape[-1] != vocab and tp_size() > 1:
+        nll = vocab_parallel_nll(logits, labels, ctx.current_mesh())
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long()
+                            ).squeeze(-1)
+        nll = lse - gold
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       mesh) -> torch.Tensor:
+    """``logsumexp - gold`` per token of fp32 ``logits [..., V/M]``, this
+    rank's slice of the vocab (rank ``m`` holds columns ``[m V/M, (m + 1)
+    V/M)``), equal on every model rank: the row max is a MAX over the
+    model group (no gradient: the loss does not depend on it), the
+    exponent sum and the gold logit (picked by an arithmetic label mask)
+    one SUM of both over the model group."""
+    n = logits.shape[-1]
+    col = mesh.index("model") * n + torch.arange(n, device=logits.device)
+    m = C.max_over(logits.amax(dim=-1), mesh)
+    hit = labels[..., None].long() == col
+    parts = torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(hit, logits, torch.zeros_like(logits)).sum(dim=-1)])
+    se, gold = C.sum_over(parts, mesh, kind="loss").unbind(0)
+    return m + torch.log(se) - gold
 
 
 def glu_mlp(x: torch.Tensor, p: dict, act: str = "silu", gated: bool = True,
@@ -211,6 +253,8 @@ def glu_mlp(x: torch.Tensor, p: dict, act: str = "silu", gated: bool = True,
     actf = _ACTS[act]
     if tap:
         tap("w_up", x)
+    if d_ff is not None:
+        x = tp_input(x)
 
     def up(name):
         if d_ff is None:

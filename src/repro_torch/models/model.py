@@ -13,9 +13,12 @@ embeddings before the text.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as torch_ckpt
+from torch.utils.checkpoint import CheckpointPolicy
 
 from repro_torch import resolve_device
 from repro_torch.models import blocks as B
@@ -25,7 +28,8 @@ from repro_torch.models.attention import (attend, attn_block,
                                           precompute_cross_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy_loss, embed_tokens,
-                                       glu_mlp, linear, rms_norm, softcap)
+                                       glu_mlp, linear, rms_norm, softcap,
+                                       tp_input)
 
 MOE_AUX_WEIGHT = 0.01
 TAP_ROWS = 512          # calibration rows a tap keeps per call
@@ -35,10 +39,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                 dtype=torch.float32) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``, with
     the JAX package's layout and scales (not its values: the two
-    frameworks draw different numbers from one seed)."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    frameworks draw different numbers from one seed). ``device="meta"``
+    gives the tree's shapes and dtypes without storage (the training
+    mesh's specs)."""
+    if str(device) == "meta":
+        dev, gen = torch.device("meta"), None
+    else:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d = cfg.d_model
     params = {
         "embed": {"tok": B._normal(gen, (cfg.vocab, d), 0.02, dev, dtype)},
@@ -130,7 +139,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             enc_out: Optional[torch.Tensor] = None,
             use_kernels: bool = True,
             paged_attention: bool = False,
-            taps: Optional[dict] = None) -> torch.Tensor:
+            taps: Optional[dict] = None,
+            remat: bool = False) -> torch.Tensor:
     """Logits ``[B, S, V]``. A MoE block's load-balancing loss is dropped,
     as serving drops it (``moe.moe_block`` returns it; ``train_loss``
     sums it).
@@ -162,6 +172,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``row_linear``) and a vocab-sharded head gives this rank's slice of
     the vocab's logits.
 
+    ``remat`` recomputes each layer group's activations in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` per group: all of them for ``cfg.remat_policy ==
+    "full"``, all but the matmul outputs for ``"dots"`` (JAX's
+    ``dots_with_no_batch_dims_saveable``: ``aten.mm`` outputs are saved,
+    the attention's batched products are not). Cache-less only.
+
     ``taps`` (a dict, filled in place) collects calibration inputs for
     GPTQ and AWQ: the input rows of every tapped matmul of group ``g``
     under ``blocks/{g}/b{i}/<mixer>/<weight>``, at most ``TAP_ROWS`` rows
@@ -170,7 +187,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     return _forward(cfg, params, tokens, positions=positions, cache=cache,
                     pos=pos, valid_len=valid_len, vis_embeds=vis_embeds,
                     frames=frames, enc_out=enc_out, use_kernels=use_kernels,
-                    paged_attention=paged_attention, taps=taps)
+                    paged_attention=paged_attention, taps=taps, remat=remat)
 
 
 def _make_tap(taps: Optional[dict], g: int):
@@ -196,14 +213,23 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
              vis_embeds=None, frames=None, enc_out=None,
              use_kernels: bool = True, paged_attention: bool = False,
              taps: Optional[dict] = None, aux: Optional[list] = None,
-             skip_head: bool = False) -> torch.Tensor:
+             skip_head: bool = False, remat: bool = False,
+             gather=None) -> torch.Tensor:
     """``forward``; with ``aux`` (a list) every MoE block's load-balancing
     loss is appended to it, and with ``skip_head`` the final-normed hidden
     states ``[B, S, d]`` come back in place of the logits (the training
-    loss reads both)."""
+    loss reads both). ``gather(tree, prefix)`` (the training mesh's
+    ``launch.sharding.fsdp_gather``) makes the leaves under ``prefix``
+    whole along their FSDP dim just before each use: the embedding, each
+    group's blocks inside the group (so a rematerialised group gathers
+    again in the backward pass), the head."""
+    if remat and (cache is not None or taps is not None):
+        raise ValueError("remat recomputes a cache-less forward only")
+    if gather is None:
+        gather = _whole
     b = tokens.shape[0]
-    x = embed_tokens(tokens, params["embed"]["tok"], cfg.scale_embed,
-                     vocab=cfg.vocab)
+    x = embed_tokens(tokens, gather(params["embed"]["tok"], "embed/tok"),
+                     cfg.scale_embed, vocab=cfg.vocab)
     n_vis = 0
     if cfg.n_vis_tokens and vis_embeds is not None:
         n_vis = vis_embeds.shape[1]
@@ -240,33 +266,88 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                 n: torch.stack([kv[n] for kv in cross])
                 for n in ("xk", "xv")}
     else:
+        run = functools.partial(
+            _apply_group, cfg, positions=positions, pos=pos,
+            valid_len=valid_len, use_kernels=use_kernels,
+            paged_attention=paged_attention, gather=gather)
+        if remat:
+            run = functools.partial(torch_ckpt.checkpoint, run,
+                                    use_reentrant=False,
+                                    **_remat_kw(cfg.remat_policy))
+        keys = [f"b{i}" for i in range(len(cfg.pattern))]
         for g in range(cfg.n_groups):
-            tap = _make_tap(taps, g)
-            for i, kind in enumerate(cfg.pattern):
-                key = f"b{i}"
-                x = B.apply_block(
-                    group_slice(params["blocks"][key], g), x, kind,
-                    cfg.moe_slots[i], cfg, positions=positions,
-                    cache=(group_slice(cache[key], g) if cache is not None
-                           else None), pos=pos, valid_len=valid_len,
-                    use_kernels=use_kernels,
-                    paged_attention=paged_attention,
-                    tap=B.tap_prefix(tap, key), aux=aux)
+            gp = {k: group_slice(params["blocks"][k], g) for k in keys}
+            gc = ({k: group_slice(cache[k], g) for k in keys}
+                  if cache is not None else None)
+            x, terms = run(gp, x, gc, _make_tap(taps, g))
+            if aux is not None:
+                aux.extend(terms)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if n_vis:
         x = x[:, n_vis:]
     if skip_head:
         return x
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"]["tok"].T.to(x.dtype))
-    else:
-        logits = linear(x, params["lm_head"], use_kernels=use_kernels)
+    logits = linear(tp_input(x), head_weight(cfg, params, gather),
+                    use_kernels=use_kernels)
     logits = softcap(logits, cfg.logit_softcap)
     return logits
 
 
+def _whole(tree, prefix: str):
+    """The ``gather`` off a training mesh: every leaf as it is."""
+    return tree
+
+
+def _apply_group(cfg: ModelConfig, gp: dict, x: torch.Tensor, gc, tap, *,
+                 positions, pos, valid_len, use_kernels: bool,
+                 paged_attention: bool, gather):
+    """Group ``g``'s blocks in pattern order over ``gp`` (its slice of
+    ``params["blocks"]``) and ``gc`` (its slice of the cache, or None):
+    ``(x, [the MoE blocks' aux losses])``."""
+    terms: list = []
+    for i, kind in enumerate(cfg.pattern):
+        key = f"b{i}"
+        x = B.apply_block(
+            gather(gp[key], f"blocks/{key}"), x, kind, cfg.moe_slots[i],
+            cfg, positions=positions,
+            cache=gc[key] if gc is not None else None, pos=pos,
+            valid_len=valid_len, use_kernels=use_kernels,
+            paged_attention=paged_attention,
+            tap=B.tap_prefix(tap, key), aux=terms)
+    return x, terms
+
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kw(policy: str) -> dict:
+    """``torch.utils.checkpoint`` keywords of a remat policy."""
+    if policy == "full":
+        return {}
+    if policy == "dots":
+        return {"context_fn": functools.partial(
+            torch_ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def head_weight(cfg: ModelConfig, params: dict, gather=None):
+    """The head's ``[d, V]`` weight (this rank's vocab slice under TP):
+    ``lm_head``, or the embedding table's transpose for a tied head;
+    through ``gather`` on a training mesh."""
+    gather = gather if gather is not None else _whole
+    if cfg.tie_embeddings:
+        return gather(params["embed"]["tok"], "embed/tok").T
+    return gather(params["lm_head"], "lm_head")
+
+
 def train_loss(cfg: ModelConfig, params: dict, batch: dict, *,
-               use_kernels: bool = False):
+               use_kernels: bool = False, remat: bool = True,
+               gather=None):
     """The training objective (``repro.models.model.train_loss``): mean
     token NLL of ``batch["labels"]`` plus ``MOE_AUX_WEIGHT`` times the sum
     of the MoE blocks' load-balancing losses. Returns ``(total, {"loss",
@@ -274,22 +355,31 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict, *,
     the loss run through ``sharded_ce_loss`` on the hidden states, else
     ``cross_entropy_loss`` over the logits. The hand kernels have no
     backward, so training runs the plain path (``use_kernels=False``) on
-    dense parameters."""
+    dense parameters. ``remat`` (default on, as the reference's) as in
+    ``forward``; the single-device step passes ``remat=False``, as the
+    reference's does.
+
+    On a training mesh (``runtime_context.use_mesh`` and ``gather``, the
+    FSDP gather) the parameters are this rank's slices, the batch its dp
+    rows, and the loss the mean over them: under TP both losses reduce
+    over the vocab shards (``vocab_parallel_nll``) and come out equal on
+    every model rank."""
     aux_terms: list = []
     kw = dict(vis_embeds=batch.get("vis_embeds"), frames=batch.get("frames"),
-              use_kernels=use_kernels, aux=aux_terms)
+              use_kernels=use_kernels, aux=aux_terms, remat=remat,
+              gather=gather)
     if cfg.chunked_ce and batch.get("loss_mask") is None:
         from repro_torch.models.chunked_ce import sharded_ce_loss
         hidden = _forward(cfg, params, batch["tokens"], skip_head=True,
                           **kw)
-        w_head = (params["embed"]["tok"].T if cfg.tie_embeddings
-                  else params["lm_head"])
-        loss = sharded_ce_loss(hidden, w_head, batch["labels"],
-                               logit_softcap=cfg.logit_softcap)
+        loss = sharded_ce_loss(hidden, head_weight(cfg, params, gather),
+                               batch["labels"],
+                               logit_softcap=cfg.logit_softcap,
+                               vocab=cfg.vocab)
     else:
         logits = _forward(cfg, params, batch["tokens"], **kw)
         loss = cross_entropy_loss(logits, batch["labels"],
-                                  batch.get("loss_mask"))
+                                  batch.get("loss_mask"), vocab=cfg.vocab)
     aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     for a in aux_terms:
         aux = aux + a

@@ -6,6 +6,13 @@ copy: params are the canonical values (bf16 or fp32 per model dtype); the
 update math runs in fp32, with the reference's arithmetic step for step
 (clip by ``grad_clip / (gnorm + 1e-9)``, bias correction, decay on
 ``ndim >= 2`` leaves only). State tensors lie on the parameters' device.
+
+On a training mesh every tree is this rank's slices: ``update`` stays
+elementwise on them (weight decay keys on ``ndim``, which a slice keeps;
+bf16 moments round as they do whole), and ``global_norm(tree, mesh,
+owned)`` sums the squares of the slices this rank owns (the step marks
+them: a replicated leaf counts on one rank) and SUMs them over every
+rank of the grid.
 """
 from __future__ import annotations
 
@@ -49,18 +56,31 @@ def init(params, cfg: AdamWConfig) -> OptState:
                     m=T.map_(zeros, params), v=T.map_(zeros, params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for leaf in T.leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+def global_norm(tree, mesh=None, owned=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``; with a mesh, of the whole
+    tree its ranks' slices make up, equal on every rank: this rank adds
+    the leaves ``owned`` marks (one bool per leaf in ``tree.leaves``
+    order; each leaf's blocks are owned once over the grid) and the sum
+    is taken over every rank."""
+    leaves = T.leaves(tree)
+    if owned is None:
+        owned = [True] * len(leaves)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for keep, leaf in zip(owned, leaves):
+        if keep:
+            total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    if mesh is not None:
+        total = mesh.all_reduce(total, "all", kind="norm")
     return torch.sqrt(total)
 
 
 def update(grads, state: OptState, params, cfg: AdamWConfig,
-           lr_scale=1.0) -> Tuple[Any, OptState, dict]:
-    """One step: ``(new params, new state, {"grad_norm"})``."""
+           lr_scale=1.0, gnorm=None) -> Tuple[Any, OptState, dict]:
+    """One step: ``(new params, new state, {"grad_norm"})``; ``gnorm``
+    (the mesh's ``global_norm``) in place of the tree's own."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
             if cfg.grad_clip else 1.0)
     dt = _dtype(cfg.moment_dtype)

@@ -28,7 +28,8 @@ for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
              "optim.adamw", "data.synthetic", "data.loader",
              "checkpoint.ckpt", "ft.watchdog", "train.step",
              "train.trainer", "launch.train", "tree", "launch.mesh",
-             "launch.sharding", "runtime_context", "core.qtensor_sharded"):
+             "launch.sharding", "runtime_context", "core.qtensor_sharded",
+             "launch.collectives", "optim.grad_compress", "ft.elastic"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -52,6 +53,23 @@ def test_port_and_chip_smoke_import_without_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 79      # every module was walked
+
+
+LOWER_LAYERS = r"""
+import sys
+import repro_torch.optim.adamw, repro_torch.checkpoint.ckpt
+up = sorted(m for m in sys.modules if m.startswith("repro_torch.launch"))
+assert not up, up
+"""
+
+
+def test_optimizer_and_checkpoint_import_nothing_of_launch():
+    """The optimizer and the checkpoint format sit below the mesh: the
+    sharded step and the trainer hand them what the mesh decides (the
+    leaves a rank owns, a slicing function)."""
+    out = subprocess.run([sys.executable, "-c", LOWER_LAYERS], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_chip_smoke_alone_fails(tmp_path):

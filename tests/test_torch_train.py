@@ -501,6 +501,9 @@ def test_resumed_run_is_bit_identical_to_an_unbroken_one(tmp_path):
 
 
 def test_train_cli_runs_on_the_cpu_and_refuses_the_mesh(tmp_path, capsys):
+    """The CLI on one device; a mesh without a backend exits 2; the
+    sharded step refuses the stacks its mesh does not run, naming A12
+    (tests/test_torch_train_mesh.py runs the mesh)."""
     train_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "2",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path)])
@@ -511,6 +514,11 @@ def test_train_cli_runs_on_the_cpu_and_refuses_the_mesh(tmp_path, capsys):
             train_cli.main(["--arch", "stablelm-1.6b", "--reduced", flag,
                             "2", "--device", "cpu"])
         assert e.value.code == 2
-        assert "ROADMAP A12" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="A12"):
+        assert "--dist-backend" in capsys.readouterr().err
+    for arch in ("hymba-1.5b", "mamba2-370m", "dbrx-132b",
+                 "whisper-medium", "internvl2-2b"):
+        with pytest.raises(NotImplementedError, match="A12"):
+            train_step.build_train_step(reduced_config(arch), AdamWConfig(),
+                                        None)
+    with pytest.raises(ValueError, match="needs a mesh"):
         train_step.build_train_step(CFG, AdamWConfig(), None)
