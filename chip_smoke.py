@@ -20,9 +20,10 @@ Phases (each prints its own lines; any failure exits nonzero):
                 at kv_len up to 4096 (split over spans); and the time of
                 an empty kernel launch, the floor under any one-launch
                 call; the attention kernel over a data rank's page slice
-                (D = 2) at the serve phase's decode and chunk shapes,
-                against the sliced plain version, with the merge of the
-                two slices against the whole-arena call;
+                (D = 2) at the serve phase's decode and chunk shapes and
+                at hymba-1.5b's decode (G = 5, window 1024), against the
+                sliced plain version, with the merge of the two slices
+                against the whole-arena call;
   4. serve    — full-width stablelm-1.6b (random weights from a seed, QMC
                 PTQ on the card), 8 requests through the paged engine with
                 the qmm streams and paged attention, three times: (a)
@@ -110,6 +111,20 @@ Phases (each prints its own lines; any failure exits nonzero):
                 through the kernels against the plain versions (logits
                 within 1e-3 x max|logits|); the decode qmm at the expert
                 shapes is timed in phase 3;
+  4e. mesh-x  — MoE, SSM and hybrid stacks on gloo ranks sharing the card,
+                on the [moe] and [hybrid] phases' streams (no second init
+                or PTQ), 4 of the serve prompts with 12 new tokens each,
+                eager: dbrx-132b (2 layers; expert parallelism, 8 of the
+                16 experts a rank) then mamba2-370m (in_proj gathered,
+                the mixer replicated) at (2, 2), hymba-1.5b at (2, 1);
+                every rank gives one process's tokens on the same
+                streams, launches the decode qmm (dbrx, mamba2), the
+                attention kernel (dbrx, hymba) and every kernel one
+                process launches, takes qmm's "ref" path only as the plan
+                sends hymba's K = 1600 leaves there, and a dbrx rank holds
+                half the expert codes (its bytes against the whole);
+                rank 0's collectives a round by kind, the phase's
+                seconds;
   4f. families — the contiguous-cache surface at full width: whisper-medium
                 (24 encoder + 24 decoder layers, 1500 frames) and
                 internvl2-2b (24 layers, 256 vision embeddings), random
@@ -178,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -262,7 +278,7 @@ G2_DECODE = "gemma2 decode hd 256 G=2 win 4096 cap 50"
 G2_CHUNK = "gemma2 chunk S=128 hd 256 G=2 win 4096 cap 50"
 SLICED_DECODE = "stablelm decode D=2 page slices"
 SLICED_CHUNK = "stablelm chunk S=128 D=2 page slices"
-MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+SLICED_HYMBA = "hymba decode D=2 page slices G=5 win 1024"
 PAGE_KINDS = ("float32", "bfloat16", "int8")
 
 
@@ -661,9 +677,11 @@ def in_order(cache) -> None:
                                      masked_scatter(tbl > 0, new), tbl)
 
 
-def sliced_cost(q, cache, q_start, n_new, page_slice, *, n_kv, hd, page):
+def sliced_cost(q, cache, q_start, n_new, page_slice, *, n_kv, hd, page,
+                window=None):
     """``attn_cost`` of one data rank's call: the live pages whose table
-    entry lies in its slice, and the score entries of their keys."""
+    entry lies in its slice (under a window, those the window reaches),
+    and the score entries of their keys."""
     first, n = page_slice
     tbl = cache["block_tbl"].tolist()
     b, s, h, _ = q.shape
@@ -672,12 +690,16 @@ def sliced_cost(q, cache, q_start, n_new, page_slice, *, n_kv, hd, page):
         if not nn:
             continue
         owned = [first <= e < first + n for e in tbl[lane]]
-        live = -(-(qs + nn) // page)
-        pages += sum(owned[:live])
+        lo = max(0, qs - window + 1) if window else 0
+        pages += sum(owned[p] for p in range(lo // page,
+                                             (qs + nn - 1) // page + 1))
         for t in range(nn):
-            keys += sum(min(page, qs + t + 1 - p * page)
-                        for p in range(live) if owned[p]
-                        and p * page <= qs + t)
+            pos = qs + t
+            start = max(0, pos - window + 1) if window else 0
+            keys += sum(min(pos, p * page + page - 1)
+                        - max(start, p * page) + 1
+                        for p in range(start // page, pos // page + 1)
+                        if owned[p])
     return rl.attention_work(
         lanes=b, s=s, n_heads=h, n_kv=n_kv, hd=hd, page=page, pages=pages,
         keys=keys, tbl_entries=cache["block_tbl"].numel(),
@@ -689,23 +711,28 @@ def sliced_cost(q, cache, q_start, n_new, page_slice, *, n_kv, hd, page):
 def check_sliced_attention(timer, peak, gen, rows):
     """The attention kernel over a data rank's page slice at the serve
     phase's shapes (stablelm-1.6b: 32 KV heads, hd 64, page 16; decode
-    lanes and the S = 128 chunk; pages numbered as the engine's pool
-    hands them out), the arena cut into D = 2 slices: each
+    lanes and the S = 128 chunk) and at hymba-1.5b's decode (5 KV heads of
+    25, G = 5, window 1024, kv_len up to 2048), pages numbered as the
+    engine's pool hands them out, the arena cut into D = 2 slices: each
     slice's call against the sliced plain version, its time, the plain
     version's and SDPA's on the slice's keys (yardstick), its bound; the
     two slices merged (``merge_slices``, timed) against the call over the
     whole arena."""
     bw, fl, _ = peak
-    page, hd, n_kv = 16, 64, 32
+    page, hd = 16, 64
     decode = [(69, 1), (192, 1), (239, 1), (0, 0)]
     chunk = [(0, 128), (64, 100), (200, 1), (0, 0)]
+    hymba = [(2047, 1), (1800, 1), (1030, 1), (0, 0)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for label, lanes in ((SLICED_DECODE, decode), (SLICED_CHUNK, chunk)):
+    for label, lanes, n_kv, g, window in (
+            (SLICED_DECODE, decode, 32, 1, None),
+            (SLICED_CHUNK, chunk, 32, 1, None),
+            (SLICED_HYMBA, hymba, 5, 5, 1024)):
         q, cache, qs, kl, n_new, _ = make_attn_case(
-            lanes, n_kv=n_kv, g=1, hd=hd, page=page, quantized=False,
+            lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=False,
             gen=gen)
         in_order(cache)
-        kw = dict(n_kv=n_kv, head_dim=hd)
+        kw = dict(n_kv=n_kv, head_dim=hd, window=window)
         n_pages = cache["k_pages"].shape[0]
         half = n_pages // 2
         slices = [(0, half), (half, n_pages - half)]
@@ -744,15 +771,19 @@ def check_sliced_attention(timer, peak, gen, rows):
                                             torch.float32, n_kv, hd)
             t = k_all.shape[1]
             qh = q.transpose(1, 2)
-            kh, vh = k_all.transpose(1, 2), v_all.transpose(1, 2)
+            kh = k_all.transpose(1, 2).repeat_interleave(g, dim=1)
+            vh = v_all.transpose(1, 2).repeat_interleave(g, dim=1)
             pq = qs[:, None] + torch.arange(q.shape[1], device="cuda")[None]
             pk = torch.arange(t, device="cuda")
             mask = ((pk[None, None, :] <= pq[..., None])
                     & (pk[None, None, :] < kl[:, None, None])
                     & own.repeat_interleave(page, dim=1)[:, None, :])
+            if window is not None:
+                mask = mask & (pq[..., None] - pk[None, None, :] < window)
             lib_ms = timer(lambda: sdpa(qh, kh, vh, attn_mask=mask[:, None]))
             nbytes, flops = sliced_cost(q, cache, qs, n_new, (first, n),
-                                        n_kv=n_kv, hd=hd, page=page)
+                                        n_kv=n_kv, hd=hd, page=page,
+                                        window=window)
             b_ms, b_by = bound(nbytes, flops, bw, fl)
             per.append(dict(first=first, pages=n, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1159,7 +1190,9 @@ def mesh_phase(cfg, qparams, seed: int, greedy_tokens) -> dict:
     (equal to the whole conversion's shard bit for bit), must give the
     same tokens as each other and as one process serving the whole
     2-shard conversion (weight plan: its streams dequantized once), on 4
-    of the serve phase's prompts with 12 new tokens each. Every
+    of the serve phase's prompts with 12 new tokens each. (1, 2) is plain
+    TP: B1 over the whole arena on a rank's heads, no page-slice merge,
+    COW copies local. Every
     rank launches B1, B2 and B3 and never qmm's "ref" path; a rank that
     raises or hangs fails the phase (``launch.mesh.spawn``)."""
     out = {}
@@ -2041,11 +2074,14 @@ def decode_round_parts(cfg, qparams, lanes: int = 4) -> dict:
     return out
 
 
-def hybrid_arch(arch: str, seed: int, runs, kernels, breakdown: bool):
+def hybrid_arch(arch: str, seed: int, runs, kernels, breakdown: bool,
+                kept: dict):
     """One hybrid or SSM arch at full width through the serve runs
     ``runs`` (identical tokens), the sync-debugger step, the profiler over
     a decode window of (b), the decode round by part, and one whole step
-    through the kernels against the plain versions."""
+    through the kernels against the plain versions. Its streams stay in
+    ``kept[arch]`` as ``(cfg, qparams, "ref" calls a step)`` for
+    ``[mesh-x]``."""
     cfg, qparams = ssm_model(arch, seed)
     calls, shapes = qmm_plan_calls(qparams)
     n_g = cfg.n_groups
@@ -2085,19 +2121,20 @@ def hybrid_arch(arch: str, seed: int, runs, kernels, breakdown: bool):
               f"profiler busy per round of (b)'s window {busy:.3f}")
         out["parts"] = parts
     out["step"] = whole_step(cfg, qparams, seed, tag="hybrid")
-    del qparams
-    torch.cuda.empty_cache()
+    kept[arch] = (cfg, qparams, calls["ref"])
     return out
 
 
-def hybrid_phase(seed: int) -> dict:
-    """hymba-1.5b (a, b, c) and mamba2-370m (a, b) at full width."""
+def hybrid_phase(seed: int, kept: dict) -> dict:
+    """hymba-1.5b (a, b, c) and mamba2-370m (a, b) at full width; their
+    streams stay in ``kept``."""
     return {"hymba-1.5b": hybrid_arch(
                 "hymba-1.5b", seed, SERVE_RUNS,
-                ("ragged_paged_attention",), breakdown=True),
+                ("ragged_paged_attention",), breakdown=True, kept=kept),
             "mamba2-370m": hybrid_arch(
                 "mamba2-370m", seed, SERVE_RUNS[:2],
-                ("qmm_decode", "qmm_colstrip"), breakdown=True)}
+                ("qmm_decode", "qmm_colstrip"), breakdown=True,
+                kept=kept)}
 
 
 # ---------------------------------------------------------------------------
@@ -2180,12 +2217,13 @@ def moe_round_parts(cfg, qparams, arena, lanes: int = 4) -> dict:
     return out
 
 
-def moe_phase(seed: int, kernel_rows) -> dict:
+def moe_phase(seed: int, kernel_rows, kept: dict) -> dict:
     """dbrx-132b (2 layers) through the serve runs (a), (b), (c): tokens
     identical, qmm_decode and attention launched in every run (on replay
     too), qmm's "ref" path never; one eager step under the sync debugger;
     the decode window's busy time and the round's MoE part; one whole
-    step through the kernels against the plain versions."""
+    step through the kernels against the plain versions. Its streams stay
+    in ``kept["dbrx-132b"]`` for ``[mesh-x]``."""
     cfg, qparams = moe_model(seed)
     out, toks = {}, {}
     kernels = ("qmm_decode", "ragged_paged_attention")
@@ -2221,8 +2259,181 @@ def moe_phase(seed: int, kernel_rows) -> dict:
     out["step"] = whole_step(cfg, qparams, seed, tag="moe")
     out["expert_rows"] = [r for r in kernel_rows
                           if r["shape"].endswith("dbrx expert")]
-    del qparams
-    torch.cuda.empty_cache()
+    kept["dbrx-132b"] = (cfg, qparams, qmm_plan_calls(qparams)[0]["ref"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: MoE, SSM and hybrid stacks on the serving mesh
+# ---------------------------------------------------------------------------
+# (mesh shape, the archs its ranks serve in order); each arch's streams
+# are the [hybrid] and [moe] phases' own
+FAMILY_MESH = (((2, 2), ("dbrx-132b", "mamba2-370m")),
+               ((2, 1), ("hymba-1.5b",)))
+# the kernels each arch's ranks must launch (and every kernel its one
+# process run launched); hymba's streams all take qmm's "ref" path
+FAMILY_KERNELS = {"dbrx-132b": ("qmm_decode", "ragged_paged_attention"),
+                  "mamba2-370m": ("qmm_decode",),
+                  "hymba-1.5b": ("ragged_paged_attention",)}
+
+
+def expert_codes(tree) -> int:
+    """Bytes of the QTensor experts a (rank's) parameter tree holds: every
+    held entry of its ``[G][E]`` lists (``None`` is another rank's)."""
+    if isinstance(tree, dict):
+        return sum(expert_codes(v) for v in tree.values())
+    if isinstance(tree, list) and tree and isinstance(tree[0], list):
+        return sum(q.nbytes_container() for row in tree for q in row
+                   if q is not None)
+    return 0
+
+
+def family_mesh_rank(mesh, job):
+    """One gloo rank of ``[mesh-x]``: each arch of ``job["order"]`` in turn
+    served through ``ServeEngine(mesh=...)`` on the parent's streams (CUDA
+    IPC; the rank keeps its slice: its experts, its TP columns and rows),
+    eagerly, once, with the launch counts set to 0 just before the run and
+    the collectives counted by kind over it; the bytes of the expert
+    codes the rank holds. Prints nothing."""
+    t_rank = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    out = {"rank": mesh.rank, "coords": mesh.coords, "archs": {}}
+    for arch in job["order"]:
+        model = job["models"][arch]
+        t0 = time.monotonic()
+        eng = ServeEngine(model["cfg"], model["qparams"], slots=4,
+                          max_len=256, paged_attention=True, device="cuda",
+                          mesh=mesh, cuda_graphs=False)
+        held = expert_codes(eng.params)
+        reqs = model["requests"]
+        setup_s = time.monotonic() - t0
+        build.reset_launches()
+        kops.reset_path_counts()
+        k0 = {k: list(v) for k, v in mesh.by_kind.items()}
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        st = eng.stats
+        kinds = {k: [v[i] - k0.get(k, [0, 0.0, 0])[i] for i in range(3)]
+                 for k, v in mesh.by_kind.items()}
+        out["archs"][arch] = dict(
+            tokens=[r.out_tokens for r in reqs],
+            launches=dict(build.launches), paths=dict(kops.path_counts),
+            rounds=st.rounds, tokens_out=st.tokens_out, wall_s=st.wall_s,
+            tokens_per_s=st.tokens_per_s,
+            round_ms_p50=float(np.median(st.step_seconds) * 1e3),
+            by_kind={k: v for k, v in kinds.items() if v[0]},
+            expert_bytes=held, setup_s=setup_s)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    # drop every reference to the parent's streams (CUDA IPC) before the
+    # rank exits, so their counters fall to zero and the parent can free
+    # them (torch.cuda.ipc_collect); a reference left at exit pins them in
+    # the parent for its lifetime
+    for model in job["models"].values():
+        model.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    out["rank_s"] = time.monotonic() - t_rank
+    return out
+
+
+def family_mesh_phase(seed: int, models: dict) -> dict:
+    """MoE, SSM and hybrid stacks on gloo ranks sharing the card, on the
+    streams the ``[moe]`` and ``[hybrid]`` phases built (no second init,
+    no second PTQ): dbrx-132b (2 of 40 layers, published widths; its 16
+    experts over ``model``: 8 a rank) and then mamba2-370m (full width and
+    depth; ``in_proj`` cut into 2192 columns a rank and gathered, the
+    mixer replicated, ``out_proj`` row-parallel) at (2, 2), hymba-1.5b
+    (full; 5 KV heads serve at M = 1) at (2, 1); each on 4 of the serve
+    phase's prompts with 12 new tokens. On every rank: the tokens of one
+    process serving the same streams and requests eagerly, the decode
+    qmm launched for dbrx and mamba2 and the attention kernel for dbrx
+    and hymba (and every kernel the one process's run launched), qmm's
+    "ref" path exactly as often as ``qmm_plan`` sends the model's leaves
+    there a step call; a dbrx rank holds half the expert codes. Rank 0's
+    collectives a round by kind and the phase's seconds are printed.
+    ``models`` maps an arch to ``(cfg, qparams, ref_per_call)``."""
+    t_phase = time.monotonic()
+    out = {}
+    jobs = {}
+    for arch, (cfg, qparams, ref_per_call) in models.items():
+        reqs = make_requests(cfg, 4, seed)
+        for r in reqs:
+            r.max_new_tokens = 12
+        eng = serve_engine(cfg, qparams, cuda_graphs=False)
+        ref_reqs = [dataclasses.replace(r, out_tokens=[]) for r in reqs]
+        build.reset_launches()
+        kops.reset_path_counts()
+        t0 = time.monotonic()
+        eng.run(ref_reqs)
+        torch.cuda.synchronize()
+        one = dict(tokens=[r.out_tokens for r in ref_reqs],
+                   launches=dict(build.launches),
+                   paths=dict(kops.path_counts), rounds=eng.stats.rounds,
+                   seconds=time.monotonic() - t0,
+                   expert_bytes=expert_codes(qparams))
+        del eng
+        torch.cuda.empty_cache()
+        print(f"[mesh-x] {arch} one process, eager: {len(reqs)} requests x "
+              f"12 tokens, {one['rounds']} rounds in {one['seconds']:.1f}s; "
+              f"launches {one['launches']}; qmm paths {one['paths']}")
+        out[arch] = dict(one=one)
+        jobs[arch] = dict(cfg=cfg, qparams=qparams, requests=reqs)
+    for shape, archs in FAMILY_MESH:
+        t0 = time.monotonic()
+        res = spawn(family_mesh_rank, shape, backend="gloo",
+                    args=(dict(order=archs,
+                               models={a: jobs[a] for a in archs}),),
+                    timeout_s=600.0)
+        label = f"({shape[0]},{shape[1]})"
+        for arch in archs:
+            one, ref_per_call = out[arch]["one"], models[arch][2]
+            for r in res:
+                got = r["archs"][arch]
+                tag = f"mesh-x {arch} {label} rank {r['rank']}"
+                require(got["tokens"] == one["tokens"], f"{tag}: tokens "
+                        f"differ from one process's on the same streams")
+                need = set(FAMILY_KERNELS[arch]) | {
+                    k for k, n in one["launches"].items() if n}
+                for k in need:
+                    require(got["launches"][k] > 0, f"{tag}: kernel {k} "
+                            f"never launched")
+                require(got["paths"]["ref"] == ref_per_call * got["rounds"],
+                        f"{tag}: qmm's 'ref' path {got['paths']['ref']} "
+                        f"times, the plan sends {ref_per_call} leaves there "
+                        f"a step call ({got['rounds']} calls)")
+                if one["expert_bytes"]:
+                    require(2 * got["expert_bytes"] == one["expert_bytes"],
+                            f"{tag}: holds {got['expert_bytes']} B of expert "
+                            f"codes, not half of {one['expert_bytes']}")
+            r0 = res[0]["archs"][arch]
+            per_round = {k: f"{v[0] / r0['rounds']:.1f} "
+                            f"({v[1] / r0['rounds'] * 1e3:.2f} ms, "
+                            f"{v[2] / r0['rounds'] / 1e6:.3f} MB)"
+                         for k, v in sorted(r0["by_kind"].items())}
+            held = (f"; rank 0 holds {r0['expert_bytes'] / 1e9:.3f} GB of "
+                    f"the {one['expert_bytes'] / 1e9:.3f} GB of expert "
+                    f"codes" if one["expert_bytes"] else "")
+            print(f"[mesh-x] {arch} {label} gloo, {len(res)} ranks on one "
+                  f"card: every rank's tokens equal one process's; rank 0: "
+                  f"{r0['tokens_out']} tokens, {r0['rounds']} rounds, "
+                  f"{r0['wall_s']:.3f}s ({r0['tokens_per_s']:.1f} tok/s, "
+                  f"round ms p50 {r0['round_ms_p50']:.2f}); collectives a "
+                  f"round by kind (calls, seconds, payload): {per_round}; "
+                  f"launches {r0['launches']}; qmm paths {r0['paths']}; "
+                  f"set-up {r0['setup_s']:.1f}s{held}")
+            out[arch][label] = dict(r0, ranks=len(res), tokens=None)
+        torch.cuda.ipc_collect()
+        out[f"spawn {label}"] = dict(
+            seconds=time.monotonic() - t0,
+            rank_s=[r["rank_s"] for r in res])
+        print(f"[mesh-x] {label} spawn to join "
+              f"{time.monotonic() - t0:.1f}s")
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"[mesh-x] phase {out['seconds']:.1f}s")
     return out
 
 
@@ -2903,7 +3114,8 @@ def train_mesh_phase(seed: int) -> dict:
 def summary(rows, launches, bw_name, hymba_attn_launches: int,
             moe_qmm_launches: int, moe_attn_launches: int,
             s3b_attn_launches: int, g2_attn_launches: int,
-            sliced_attn_launches: int):
+            sliced_attn_launches: int, hymba_mesh_attn_launches: int,
+            dbrx_ep_qmm_launches: int):
     """One row per kernel for the JSON line: the representative shape of
     the main path (decode M=4 / prefill M=512 through the 2048 x 5632 MLP
     projection, fp32; the mixed ragged chunk over fp32 pages; the
@@ -2917,7 +3129,10 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
     the launches of each one's graphed run in the attn-hd phase; and the
     attention rows over a data rank's page slice (D = 2, the slower
     slice's time, the merge's beside it), with the launches of rank 0 of
-    the mesh phase's (2, 2) run."""
+    the mesh phase's (2, 2) run (at hymba-1.5b's shapes: of rank 0 of
+    ``[mesh-x]``'s (2, 1) run). The dbrx expert rows also carry
+    ``ep_rank_launches``: rank 0's decode qmm launches on ``[mesh-x]``'s
+    (2, 2) expert-parallel mesh."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -2956,7 +3171,8 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
                      G2_DECODE: g2_attn_launches,
                      G2_CHUNK: g2_attn_launches,
                      SLICED_DECODE: sliced_attn_launches,
-                     SLICED_CHUNK: sliced_attn_launches}
+                     SLICED_CHUNK: sliced_attn_launches,
+                     SLICED_HYMBA: hymba_mesh_attn_launches}
     for row in rows:
         if row["shape"] in attn_launches:
             out.append({"name": f"ragged_paged_attention "
@@ -2980,6 +3196,7 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
                                 f"{row['dtype']}]",
                         "route": "cuda", "source": src, "replaces": rep,
                         "launches": moe_qmm_launches,
+                        "ep_rank_launches": dbrx_ep_qmm_launches,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "host_ms": row["host_ms"],
                         "plain_ms": row["plain_ms"],
@@ -3049,8 +3266,13 @@ def main(argv=None) -> int:
                              served["runs"]["b graphed"]["pool_bytes"])
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
                          served["idle"])
-    hybrid = hybrid_phase(args.seed)
-    moe = moe_phase(args.seed, rows)
+    kept = {}
+    hybrid = hybrid_phase(args.seed, kept)
+    moe = moe_phase(args.seed, rows, kept)
+    family_meshed = family_mesh_phase(args.seed, kept)
+    kept.clear()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
     families = families_phase(cfg, qparams, args.seed, greedy_tokens)
     attn_hd = attn_hd_phase(args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
@@ -3086,12 +3308,16 @@ def main(argv=None) -> int:
         moe["b graphed"]["launches"]["qmm_decode"],
         moe["b graphed"]["launches"]["ragged_paged_attention"],
         hd_launches["stablelm-3b"], hd_launches["gemma2-2b"],
-        meshed["(2,2)"]["launches"]["ragged_paged_attention"])
+        meshed["(2,2)"]["launches"]["ragged_paged_attention"],
+        family_meshed["hymba-1.5b"]["(2,1)"]["launches"][
+            "ragged_paged_attention"],
+        family_meshed["dbrx-132b"]["(2,2)"]["launches"]["qmm_decode"])
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
-        mesh=meshed, moe=moe, families=families, attn_hd=attn_hd,
+        mesh=meshed, moe=moe, mesh_families=family_meshed,
+        families=families, attn_hd=attn_hd,
         step=stepped,
         train=trained, train_mesh=train_meshed,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,

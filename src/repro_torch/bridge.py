@@ -20,7 +20,10 @@ With ``mesh=`` (a ``launch.mesh.Mesh`` or any object with its
 ``axis_names``, ``devices`` and ``index``) each returns rank ``(d, m)``'s
 part: shard ``m`` of a ``[G, S, ...]`` stack and the slices of the dense
 leaves (``launch.sharding.shard_params``), or its slice of the arena's
-pages and KV heads (``launch.sharding.shard_arena``).
+pages and KV heads (``launch.sharding.shard_arena``); of a ``[G, E]``
+expert stack, under expert parallelism (``E % M == 0``), rank ``m``'s
+experts, each ``[E]`` list holding ``None`` for the others, and
+otherwise every expert cut.
 
 ``arena_from_numpy`` / ``arena_to_numpy`` move the paged arena, with the
 dense SSM (``ssm``, always fp32) and conv rows of mamba and hybrid

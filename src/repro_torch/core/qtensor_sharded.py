@@ -200,5 +200,5 @@ def qmm_shard(x: torch.Tensor, sqt: ShardedQTensor, mesh,
     data axis does not split them in serving."""
     y = kops.qmm(x, sqt.local(mesh.index(axis)), use_kernels=use_kernels)
     if sqt.shard_axis == 0:
-        mesh.all_reduce(y, axis, "sum")
+        mesh.all_reduce(y, axis, "sum", kind="tp")
     return y

@@ -30,7 +30,12 @@ kernels.
 ``only_shard=m`` quantizes shard ``m`` of every sharded leaf alone (the
 fields hold one shard, ``first = m``): what TP rank ``m`` does on its
 own slice of the weights, which equals the whole conversion's shard
-``m``.
+``m``. On an expert stack whose ``E`` the ``tp_shards`` divide it
+quantizes rank ``m``'s experts ``[m E/S, (m + 1) E/S)`` alone (expert
+parallelism, ``launch.sharding.expert_range``): each ``[E]`` list keeps
+its length, with ``None`` where another rank holds the expert, and each
+held expert equals the whole conversion's. Otherwise every expert is
+converted whole, as JAX's conversion does, and the mesh cuts it.
 """
 from __future__ import annotations
 
@@ -76,6 +81,14 @@ def _convert_leaf(path: str, leaf: torch.Tensor, cfg: QMCConfig,
     if not _tileable(din, dout, cfg, eff, sa):
         return leaf
 
+    if moe:                              # [G][E] lists of QTensors
+        g, e = leaf.shape[:2]
+        lo, hi = 0, e
+        if only is not None and shards > 1 and e % shards == 0:
+            lo, hi = only * (e // shards), (only + 1) * (e // shards)
+        return [[quantize_qtensor(leaf[gi, ei], cfg) if lo <= ei < hi
+                 else None for ei in range(e)] for gi in range(g)]
+
     def convert(w):
         if w.ndim == 2:
             if eff == 1:
@@ -102,9 +115,12 @@ def quantize_for_serving(params, qmc: QMCConfig, min_dim: int = 128,
 
 def is_stream_leaf(leaf) -> bool:
     """A QTensor or ShardedQTensor, or a (nested) per-group / per-expert
-    list of them."""
-    return isinstance(leaf, (QTensor, ShardedQTensor)) or (
-        isinstance(leaf, list) and bool(leaf) and is_stream_leaf(leaf[0]))
+    list of them (an expert list may hold ``None`` for the experts other
+    ranks hold)."""
+    if isinstance(leaf, list):
+        held = [q for q in leaf if q is not None]
+        return bool(held) and is_stream_leaf(held[0])
+    return isinstance(leaf, (QTensor, ShardedQTensor))
 
 
 def build_exec_weights(params, dtype=torch.float32):

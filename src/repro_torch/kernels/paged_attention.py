@@ -214,11 +214,13 @@ def merge_slices(parts) -> torch.Tensor:
 def merge_over(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh,
                axis: str = "data") -> torch.Tensor:
     """``merge_slices`` across the ranks of ``axis``: one all_reduce MAX of
-    ``m``, then one all_reduce SUM of ``[o * w, w]`` packed together."""
-    mg = mesh.all_reduce(m.clone(), axis, "max")
+    ``m``, then one all_reduce SUM of ``[o * w, w]`` packed together (kind
+    ``merge``)."""
+    mg = mesh.all_reduce(m.clone(), axis, "max", kind="merge")
     w = torch.exp(m - mg) * l
     packed = mesh.all_reduce(torch.cat([o * w[..., None], w[..., None]],
-                                       dim=-1), axis, "sum")
+                                       dim=-1), axis, "sum",
+                            kind="merge")
     return packed[..., :-1] / torch.clamp_min(packed[..., -1], 1e-30)[
         ..., None]
 

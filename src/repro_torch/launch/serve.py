@@ -52,10 +52,15 @@ rank's TP slice (``launch.sharding.shard_params``), so the tokens are
 that run's (the JAX CLI quantizes each shard on its own instead,
 ``tp_shards=model_shards``; ``quantize_for_serving(tp_shards=M,
 only_shard=m)`` does that here). A mesh runs its steps eagerly (no CUDA
-graphs), and dense and local/global attention stacks only:
+graphs). It serves dense, local/global, MoE (experts over ``model``: at
+``--arch dbrx-132b --model-shards 2`` a rank holds half the experts),
+SSM and hybrid stacks; the encoder-decoder and VLM architectures exit 2,
+as they do without shard flags:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --data-shards 2 --model-shards 2 --dist-backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch dbrx-132b --data-shards 2 --model-shards 2 --dist-backend gloo
 """
 from __future__ import annotations
 
@@ -211,7 +216,8 @@ def mesh_worker(mesh, job: dict) -> list:
     order by one engine, so a prefix cache persists between them;
     ``job["device"]`` is the device.
     Returns, per run and batch, this rank's tokens, logprobs and stats,
-    its kernel launches and qmm paths, and its collectives."""
+    its kernel launches and qmm paths, and its collectives (in all and
+    by kind: ``Mesh.by_kind`` calls)."""
     import copy
     import dataclasses as dc
 
@@ -233,6 +239,7 @@ def mesh_worker(mesh, job: dict) -> list:
             kbuild.reset_launches()
             kops.reset_path_counts()
             c0, s0 = mesh.collectives, mesh.collective_seconds
+            k0 = {k: v[0] for k, v in mesh.by_kind.items()}
             eng.run(reqs)
             if eng.device.type == "cuda":
                 torch.cuda.synchronize()
@@ -245,6 +252,8 @@ def mesh_worker(mesh, job: dict) -> list:
                 launches=dict(kbuild.launches),
                 paths=dict(kops.path_counts),
                 collectives=mesh.collectives - c0,
+                by_kind={k: v[0] - k0.get(k, 0)
+                         for k, v in mesh.by_kind.items()},
                 collective_s=mesh.collective_seconds - s0))
     return out
 

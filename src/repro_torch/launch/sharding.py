@@ -7,16 +7,37 @@ tuple): name-based over the flattened parameter path, stacked leaves
 (``blocks/``, ``encoder/blocks/``, ``xattn/``) with a leading None, and a
 dim that does not divide its axis replicated, as ``_finalize`` does.
 
-Serving departs from them in one way: the ``data`` entries of ``_RULES``
-are FSDP, a training layout, so ``serving_spec`` drops them and every
-serving weight is replicated over ``data``. What remains is TP on
-``model``:
+Serving departs from them in three ways, each with the same result:
 
-  * column-parallel: ``wq``/``wk``/``wv``, ``w_gate``/``w_up`` and
-    ``lm_head`` over the vocab; the embedding table over the vocab too
-    (a vocab-parallel lookup, one reduce);
+  * the ``data`` entries of ``_RULES`` are FSDP, a training layout, so
+    ``serving_spec`` drops them and every serving weight is replicated
+    over ``data``;
+  * ``mamba/conv_w`` stays whole (JAX cuts its channels over ``model``):
+    the Mamba2 mixer runs replicated on every model rank, so it needs the
+    whole conv;
+  * a QTensor expert list is cut by experts (EP) or each expert by its
+    subtile grid, where JAX replicates a ``[G, E]`` QTensor stack whose
+    E does not divide ``model`` (``_qtensor_field_spec``).
+
+What remains is TP and EP on ``model``:
+
+  * column-parallel: ``wq``/``wk``/``wv``, ``w_gate``/``w_up``,
+    ``in_proj`` (the Mamba2 mixer makes its outputs whole right after the
+    product: ``layers.gathered_linear``) and ``lm_head`` over the vocab;
+    the embedding table over the vocab too (a vocab-parallel lookup, one
+    reduce);
   * row-parallel: ``wo``, ``w_down`` and ``out_proj`` (one all_reduce over
-    the model group after each, in ``models``).
+    the model group after each, in ``models``);
+  * MoE experts: when ``E % M == 0`` rank ``m`` keeps experts ``[m E/M,
+    (m + 1) E/M)`` of every group whole (``_MOE_EXPERT_RULES`` with its
+    ``data`` entries dropped; ``expert_range``): a dense ``[G, E, d,
+    ff]`` stack is sliced to ``[G, E/M, d, ff]``, a ``[G][E]`` QTensor
+    list keeps its length with ``None`` where another rank holds the
+    expert. Otherwise every expert is cut Megatron-style, as JAX's
+    fallback: ``w_gate``/``w_up`` by columns and ``w_down`` by rows (a
+    QTensor through ``shard_qtensor``, into a plain QTensor of the rank's
+    slice, where the cut falls on subtile boundaries, replicated where it
+    does not). ``models.moe`` sums a layer's experts once over ``model``.
 
 A ShardedQTensor of ``M`` shards gives rank ``m`` shard ``m``
 (``_qtensor_field_spec``: the shard dim on ``model``); a QTensor at a TP
@@ -30,9 +51,13 @@ rank 0) and the fused KV dim over ``model`` (whole heads: ``n_kv % M ==
 0`` is required, ``kernels.paged_attention.shard_compatible``); block
 tables replicate. On a mesh with ``D > 1`` each rank's slice carries one
 more page past its ``n_local``, the sink: the K/V rows of pages other
-ranks hold are written there, and no block table ever maps it.
+ranks hold are written there, and no block table ever maps it. The SSM
+and conv state of mamba and hybrid blocks is whole on every rank (JAX
+puts its slot dim on the dp axes): every data rank runs every lane, and
+every model rank runs the whole mixer.
 
-Training keeps the JAX rules whole (FSDP on ``data``, TP on ``model``;
+Training (dense and local/global attention stacks, ``check_train_mesh``)
+keeps the JAX rules whole (FSDP on ``data``, TP on ``model``;
 ``train_specs``, ``train_slices``): every large parameter is cut along
 both, and a dim that does not divide its axis replicates, as
 ``_finalize`` does. Each rank holds its slice of the parameters, of the
@@ -141,9 +166,25 @@ def param_spec(path: str, leaf, mesh) -> Tuple:
 
 def serving_spec(path: str, leaf, mesh) -> Tuple:
     """``param_spec`` with its FSDP ``data`` entries dropped: serving
-    weights are replicated over ``data``."""
+    weights are replicated over ``data``. ``mamba/conv_w`` stays whole:
+    the mixer runs replicated on every model rank."""
+    if path.endswith("mamba/conv_w"):
+        return (None,) * len(leaf.shape)
     return tuple(None if ax == "data" else ax
                  for ax in param_spec(path, leaf, mesh))
+
+
+def expert_range(n_experts: int, mesh) -> Tuple[int, int]:
+    """``[first, stop)`` of the experts this rank holds whole: its
+    ``E / M`` of them when the model axis divides ``E`` (expert
+    parallelism), else all of them (each cut Megatron-style, or whole off
+    a mesh)."""
+    tp_n = meshlib.axis_size(mesh, "model") if mesh is not None else 1
+    if tp_n == 1 or n_experts % tp_n:
+        return 0, n_experts
+    n = n_experts // tp_n
+    m = mesh.index("model")
+    return m * n, (m + 1) * n
 
 
 _QT_BASE = {"in_codes": 3, "out_codes": 3, "stream_pos": 2, "is_out": 2,
@@ -213,21 +254,45 @@ def local_slices(spec: Tuple, shape: Tuple[int, ...], mesh) -> Tuple:
 # a rank's parameters and arena
 # ---------------------------------------------------------------------------
 # the projections TP cuts (column-parallel, then row-parallel)
-_TP_SITES = ("wq", "wk", "wv", "w_gate", "w_up", "lm_head") + ROW_SHARDED
+_TP_SITES = ("wq", "wk", "wv", "w_gate", "w_up", "in_proj",
+             "lm_head") + ROW_SHARDED
+
+
+def _shard_experts(name: str, row: list, mesh) -> list:
+    """One group's ``[E]`` expert list on this rank: under expert
+    parallelism its experts whole and ``None`` elsewhere; otherwise each
+    expert cut at subtile boundaries into the plain QTensor of its slice
+    (columns for ``w_gate``/``w_up``, rows for ``w_down``; whole where
+    the cut would split a subtile). ``models.moe`` sums the layer once."""
+    tp_n = meshlib.axis_size(mesh, "model")
+    if tp_n == 1:
+        return row
+    lo, hi = expert_range(len(row), mesh)
+    if hi - lo < len(row):
+        return [q if lo <= i < hi else None for i, q in enumerate(row)]
+    m = mesh.index("model")
+    axis = 0 if name in ROW_SHARDED else 1
+    out = []
+    for q in row:
+        cut = shard_qtensor(q, tp_n, axis, only=m)
+        out.append(q if cut is None else cut.local(m))
+    return out
 
 
 def _shard_stream(path: str, leaf, mesh):
     tp_n = meshlib.axis_size(mesh, "model")
     m = mesh.index("model")
+    name = path.split("/")[-1]
     if isinstance(leaf, list):
+        if leaf and isinstance(leaf[0], list):   # [G][E] experts
+            return [_shard_experts(name, row, mesh) for row in leaf]
         return [_shard_stream(path, q, mesh) for q in leaf]
     if isinstance(leaf, ShardedQTensor):
         if leaf.n_shards == tp_n and tp_n > 1:
             return leaf if list(leaf.held) == [m] else leaf.select(m)
         return leaf
-    if isinstance(leaf, QTensor) and tp_n > 1 \
-            and path.split("/")[-1] in _TP_SITES:
-        axis = 0 if path.split("/")[-1] in ROW_SHARDED else 1
+    if isinstance(leaf, QTensor) and tp_n > 1 and name in _TP_SITES:
+        axis = 0 if name in ROW_SHARDED else 1
         return shard_qtensor(leaf, tp_n, axis, only=m) or leaf
     return leaf
 
@@ -236,7 +301,8 @@ def shard_params(params, mesh):
     """This rank's parameters: dense leaves sliced by ``serving_spec``,
     ShardedQTensors of ``M`` shards reduced to the rank's shard (one that
     holds the rank's shard alone passes through), QTensors at TP sites cut
-    into the rank's slice."""
+    into the rank's slice, ``[G][E]`` expert lists by ``_shard_experts``
+    (a list that holds the rank's experts alone passes through)."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}" if path else k)
@@ -280,7 +346,8 @@ def local_arena(cfg, n_pages_total: int, page: int, max_slots: int,
 def shard_arena(arena: dict, mesh) -> dict:
     """This rank's slice of a whole arena (JAX layout, every page of
     every KV head; ``paged_cache_spec``), with the sink page (zeros) when
-    ``D > 1``; block tables are copied whole."""
+    ``D > 1``; block tables and the SSM and conv rows are copied
+    whole."""
     sink = meshlib.axis_size(mesh, "data") > 1
 
     def walk(tree, path):

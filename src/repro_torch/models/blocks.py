@@ -5,6 +5,11 @@ A block = pre-norm mixer (attention, the Mamba2 SSD mixer, or both in
 parallel, fused as their mean) + residual, then (if the config has an
 FFN) pre-norm FFN (dense MLP, or MoE on the config's ``moe_slots``) +
 residual.
+
+On a serving mesh each mixer comes back complete on every model rank,
+after its own sums over ``model`` (attention's ``wo``, the Mamba2
+``out_proj``), so a hybrid block's mean of the two is one process's; the
+MoE FFN ends in its one ``moe`` sum (``models.moe``).
 """
 from __future__ import annotations
 

@@ -15,8 +15,10 @@ replicated weight's whole output is cut to it), ``row_linear`` takes the
 rank's slice of the inputs and sums the partial products over the model
 group (a replicated weight takes the whole input, gathered), and
 ``embed_tokens`` looks a vocab-sharded table up on the rank that holds
-each token, summed over the model group. Off a mesh all three are the
-plain ops.
+each token, summed over the model group. ``gathered_linear`` (the Mamba2
+``in_proj``, whose output splits at boundaries the column cut does not
+respect) makes a column-parallel product's outputs whole again right
+after it (``tp_gather``). Off a mesh all four are the plain ops.
 
 Training on a mesh takes gradients through the same code: the sums over
 the model group are ``launch.collectives.sum_over`` (in place, as
@@ -97,15 +99,23 @@ def _tp_local(x: torch.Tensor) -> torch.Tensor:
 
 
 def tp_gather(x: torch.Tensor, full: int) -> torch.Tensor:
-    """The whole last dim from every rank's slice of it: one all_reduce
-    SUM over the model group of the slices placed in zeros (exact)."""
-    mesh = ctx.current_mesh()
-    n = x.shape[-1]
-    m = mesh.index("model")
-    buf = torch.zeros(x.shape[:-1] + (full,), dtype=x.dtype,
-                      device=x.device)
-    buf[..., m * n:(m + 1) * n] = x
-    return mesh.all_reduce(buf, "model")
+    """The whole last dim from every rank's equal slice of it: one
+    all_gather over the model group (kind ``gather``)."""
+    if x.shape[-1] * tp_size() != full:
+        raise ValueError(f"a slice of {x.shape[-1]} does not make {full} "
+                         f"over {tp_size()} model ranks")
+    return ctx.current_mesh().all_gather(x, "model", -1, kind="gather")
+
+
+def gathered_linear(x: torch.Tensor, w, use_kernels: bool,
+                    full: int) -> torch.Tensor:
+    """``x @ w`` with all ``full`` outputs on every rank: a column-parallel
+    weight's slice of them made whole (``tp_gather``); a replicated
+    weight, or no mesh, gives them as they are."""
+    y = matmul_any(x, w, use_kernels=use_kernels)
+    if y.shape[-1] != full:
+        y = tp_gather(y, full)
+    return y
 
 
 def column_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],

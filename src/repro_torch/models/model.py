@@ -169,7 +169,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
     Under a mesh (``runtime_context.use_mesh``, the mesh step set) the
     projections are tensor-parallel (``layers.column_linear`` /
-    ``row_linear``) and a vocab-sharded head gives this rank's slice of
+    ``row_linear``), MoE layers expert-parallel (``models.moe``), the
+    Mamba2 mixer replicated after its gathered ``in_proj``
+    (``models.ssm``), and a vocab-sharded head gives this rank's slice of
     the vocab's logits.
 
     ``remat`` recomputes each layer group's activations in the backward

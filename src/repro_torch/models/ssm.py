@@ -11,6 +11,19 @@ a difference of cumulative sums masked to ``-inf`` (``exp(-inf) = 0``
 exactly), ``dt`` in fp32 before the softplus, padded positions at ``dt =
 0`` and ``x = 0``.
 
+On a serving mesh (``runtime_context.use_mesh``) ``in_proj`` is
+column-parallel, as JAX's rule has it, but its cut does not fall on the
+``z | xBC | dt`` boundaries, so the rank's columns are made whole right
+after the product (``layers.gathered_linear``: one all_reduce over
+``model``); the mixer (the conv, the scan or recurrence, the gated norm
+over the whole ``d_inner``) then runs replicated on every model rank,
+over the whole state, and ``out_proj`` is row-parallel: the rank
+multiplies its rows of ``y``, summed over ``model``
+(``layers.row_linear``). A weight the mesh leaves whole (a dim that does
+not divide, a stream whose cut would split a subtile) takes the plain
+product. Splitting the heads, conv channels and state over ``model`` is
+a later speed step (ROADMAP B).
+
 With a cache, ``mamba_block`` writes the new ``ssm`` and ``conv`` rows
 into the cache tensors it was given, in place (``copy_``): the serving
 step's graphs read the arena by address, so a rebinding would freeze
@@ -23,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import linear, rms_norm
+from repro_torch.models.layers import gathered_linear, rms_norm, row_linear
 
 CHUNK = 256
 
@@ -143,7 +156,8 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *,
 
     if tap:
         tap("in_proj", x)
-    zxbcdt = linear(x, p["in_proj"], use_kernels=use_kernels)
+    zxbcdt = gathered_linear(x, p["in_proj"], use_kernels,
+                             2 * di + 2 * g * n + nh)
     z, xbc, dt = torch.split(zxbcdt, [di, cfg.conv_dim, nh], dim=-1)
 
     conv_cache = cache["conv"] if cache is not None else None
@@ -201,7 +215,7 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *,
     y = rms_norm(y * F.silu(z), p["norm_scale"], cfg.norm_eps)
     if tap:
         tap("out_proj", y)
-    out = linear(y, p["out_proj"], use_kernels=use_kernels)
+    out = row_linear(y, p["out_proj"], None, use_kernels, di)
 
     if cache is not None:
         cache["ssm"].copy_(h_final)

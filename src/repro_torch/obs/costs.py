@@ -50,6 +50,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.qtensor import QTensor
+from repro_torch.core.qtensor_sharded import ShardedQTensor
 from repro_torch.kernels.ops import qmm_plan
 from repro_torch.launch import roofline as rl
 from repro_torch.memsys.system import (MemSystemConfig, evaluate_conventional,
@@ -105,6 +106,12 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
         width's chunk above it;
       * the lm_head (or the tied embedding) at M.
 
+    On a mesh rank (its slice of the parameters and the arena) the count
+    is the rank's own work: its shard of each ShardedQTensor, its slice of
+    each cut leaf, only the experts it holds (an expert list's ``None``
+    entries are another rank's), its KV heads (read off the arena) and
+    the whole Mamba2 mixer, which every model rank runs.
+
     Norms, rotary, the K/V scatter, the conv taps, the residual adds,
     the softmax's exponentials and the sampling head are not counted: a
     few operations per element, against 2K per output element of a
@@ -116,6 +123,9 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
     flops = nbytes = 0.0
 
     def work(w, rows: int) -> Tuple[float, float]:
+        if isinstance(w, ShardedQTensor):        # the shards it holds
+            parts = [work(w.local(i), rows) for i in w.held]
+            return (sum(b for b, _ in parts), sum(f for _, f in parts))
         if isinstance(w, QTensor):
             k, n = w.shape
             m_run = qmm_plan(rows, k, n, w.subtile)["pad_m"]
@@ -144,20 +154,23 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
             if moe:
                 ffn = blk["ffn"]
                 router = ffn["router"][g]
+                held = [w_e for w_e in ffn["w_up"][g] if w_e is not None]
                 works.append(rl.moe_work(
-                    m=m, cap=cap, d=cfg.d_model, n_experts=cfg.n_experts,
+                    m=m, cap=cap, d=cfg.d_model, n_experts=len(held),
                     topk=cfg.topk, x_itemsize=xb,
                     router_itemsize=router.element_size(),
                     experts=[work(w_e, cap)
                              for name in _PROJECTIONS["ffn"] if name in ffn
-                             for w_e in ffn[name][g]]))
+                             for w_e in ffn[name][g] if w_e is not None]))
             if "attn" in grp:
                 cache = grp["attn"]
                 n_tbl = cache["block_tbl"].shape[-1]
                 page = cache["k_pages"].shape[-2]
+                n_kv = cache["k_pages"].shape[-1] // cfg.head_dim
                 works.append(rl.attention_work(
-                    lanes=lanes, s=c, n_heads=cfg.n_heads,
-                    n_kv=cfg.n_kv_heads, hd=cfg.head_dim, page=page,
+                    lanes=lanes, s=c,
+                    n_heads=cfg.n_heads * n_kv // cfg.n_kv_heads,
+                    n_kv=n_kv, hd=cfg.head_dim, page=page,
                     pages=lanes * n_tbl, keys=lanes * c * n_tbl * page,
                     tbl_entries=lanes * n_tbl, q_itemsize=xb,
                     kv_itemsize=cache["k_pages"].element_size(),

@@ -53,7 +53,12 @@ step set (``steps.build_paged_steps(mesh=...)``: eager, no solo lane, so
 mesh, as in JAX. Every rank's host state and tokens are the same; rank 0
 reports. A rank that fails ends its collectives, so its peers raise too
 (gloo sees the closed connection; a hung peer hits the group's
-timeout). Dense and local/global attention stacks only (ROADMAP A12).
+timeout). Dense, local/global, MoE (experts over ``model``), SSM and
+hybrid stacks, the Mamba2 mixer replicated on every model rank after its
+gathered ``in_proj`` (``launch.sharding``); KV heads must divide the
+model axis, so a stack whose do not (hymba-1.5b's 5) serves at M = 1;
+encoder-decoder and VLM stacks are refused, as off the mesh (ROADMAP
+A12).
 
 Token selection runs inside the step (``serve/sampling.py``): per-request
 :class:`~repro_torch.serve.sampling.SamplingParams` ride on
@@ -389,7 +394,6 @@ class ServeEngine:
         self.cfg = cfg
         self.mesh = mesh
         if mesh is not None:
-            serve_steps.check_mesh_cfg(cfg)
             if cuda_graphs:
                 raise ValueError("a mesh engine runs its steps eagerly: "
                                  "pass cuda_graphs=False")

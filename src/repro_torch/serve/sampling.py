@@ -293,17 +293,17 @@ def select_tokens_tp(logits: torch.Tensor, vocab: int, temp: torch.Tensor,
         full = torch.zeros((b, c, vocab), dtype=logits.dtype,
                            device=logits.device)
         full[..., m * vl:(m + 1) * vl] = logits
-        mesh.all_reduce(full, "model")
+        mesh.all_reduce(full, "model", kind="head")
         return select_tokens(full, temp, top_k, top_p, key, positions,
                              n_new, sampled=True)
     lf = logits.to(torch.float32)
     mx, idx = torch.max(lf, dim=-1)
-    gmax = mesh.all_reduce(mx.clone(), "model", "max")
+    gmax = mesh.all_reduce(mx.clone(), "model", "max", kind="head")
     cand = torch.where(mx == gmax, idx + m * vl,
                        torch.full_like(idx, vocab))
-    tok = mesh.all_reduce(cand, "model", "min")
+    tok = mesh.all_reduce(cand, "model", "min", kind="head")
     ssum = mesh.all_reduce(torch.exp(lf - gmax[..., None]).sum(-1),
-                           "model")
+                           "model", kind="head")
     logp = -torch.log(ssum)
     dev = logits.device
     cols = torch.arange(c, device=dev)[None, :]

@@ -56,7 +56,9 @@ card per rank). Its page ops copy a COW page whose source and
 destination sit on different data ranks with one all_reduce SUM over the
 data group (every page copy of the call packed into one int32 buffer, the
 source rank's bytes and zeros elsewhere: exact). The pipelined loop and
-speculative decode run on it unchanged (they only call the step).
+speculative decode run on it unchanged (they only call the step). Its
+page ops zero a reseated slot's SSM and conv rows on every rank (the
+state is whole on each), and ``reset_state`` is the same function.
 
 Kernel launch tallies (``kernels.build.launches``, ``kernels.ops.
 path_counts``) are Python counters that a replay does not move: each
@@ -255,7 +257,7 @@ def _copy_pages_across(arena: dict, copy_src: torch.Tensor,
         sizes.append(x.numel())
         parts += [x, x.new_zeros((-x.numel()) % 16)]  # 16-byte aligned
     flat = torch.cat(parts)
-    mesh.all_reduce(flat.view(torch.int32), "data")
+    mesh.all_reduce(flat.view(torch.int32), "data", kind="pages")
     o = 0
     for leaf, size in zip(leaves, sizes):
         shape = (leaf.shape[0], src.numel()) + tuple(leaf.shape[2:])
@@ -791,12 +793,13 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
 
 
 def check_mesh_cfg(cfg: ModelConfig) -> None:
-    """The mesh serves dense and local/global attention stacks; the rest
-    waits for ROADMAP A12."""
-    attn_only = all(k.startswith("attn") for k in cfg.pattern)
-    if not attn_only or any(cfg.moe_slots) or cfg.is_encdec \
-            or cfg.n_vis_tokens:
+    """The mesh serves every stack the paged engine serves: dense,
+    local/global, MoE (experts over ``model``), SSM and hybrid (the Mamba2
+    mixer replicated on every model rank; ``launch.sharding``);
+    encoder-decoder and VLM stacks wait for ROADMAP A12, as the paged
+    engine serves neither."""
+    if cfg.is_encdec or cfg.n_vis_tokens:
         raise NotImplementedError(
-            f"sharded serving covers dense and local/global attention "
-            f"stacks; {cfg.name} (pattern {cfg.pattern}, MoE slots "
-            f"{cfg.moe_slots}) waits for ROADMAP A12")
+            f"sharded serving covers decoder-only stacks (dense, "
+            f"local/global, MoE, SSM, hybrid); {cfg.name} (family "
+            f"{cfg.family}) waits for ROADMAP A12")

@@ -34,7 +34,11 @@ plain versions, logits within 1e-3 * max|logits|. The attention kernel
 over a page slice (a data rank's) at hd 80, 128 and 256 on every page
 kind against the sliced plain version (attention tolerances), the
 slices merged against the whole-arena call, and the whole-arena slice
-bit-identical to a call without one."""
+bit-identical to a call without one; over 2 slices at hymba-1.5b's shapes
+(G = 5, window 1024). The serving mesh's MoE rank (expert parallelism at
+M = 2): its experts' products through the qmm kernels, one ``moe`` sum,
+the two ranks' partial outputs adding up to the whole block's within
+1e-4 * max|y|."""
 import sys
 from pathlib import Path
 
@@ -1402,3 +1406,101 @@ def test_contiguous_decode_step_kernels_match_plain(gen, arch):
         out[use_kernels] = (lg, lg2)
     for k, p in zip(out[True], out[False]):
         assert float((k - p).abs().max()) <= 1e-3 * float(p.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh's MoE and hybrid ranks
+# ---------------------------------------------------------------------------
+class _RecordingMesh:
+    """A (1, 2) mesh rank whose collectives only record their calls: what
+    an EP rank computes before its one ``moe`` sum over ``model``."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, m):
+        import numpy as np
+        self.devices = np.empty((1, 2), dtype=object)
+        self.groups = {"model": object()}
+        self.m = m
+        self.sums = []
+
+    def index(self, axis):
+        return self.m if axis == "model" else 0
+
+    def all_reduce(self, t, axis, op="sum", kind="serve"):
+        self.sums.append((axis, op, kind))
+        return t
+
+
+@pytest.mark.parametrize("rows", [4, 256])
+def test_moe_ep_rank_runs_its_experts_through_qmm(gen, rows):
+    """Each rank of a (1, 2) EP mesh holds 2 of the 4 experts (its ``[E]``
+    lists ``None`` elsewhere, ``launch.sharding.shard_params``): its call
+    runs 2 x 3 products through the qmm kernels (decode-width at 4 rows,
+    column-strip at 256), never qmm's "ref" path, and makes one ``moe``
+    sum; the two ranks' partial outputs add up to the whole block's
+    within 1e-4 * max|y|."""
+    import dataclasses
+    from repro_torch import runtime_context as ctx
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models.model import group_slice
+    from repro_torch.models.moe import moe_block
+    cfg, params = _moe_model()
+    cfg = dataclasses.replace(cfg, capacity_factor=1.0)
+    x = torch.randn((rows, 1, cfg.d_model), generator=gen, device="cuda")
+    whole, _ = moe_block(group_slice(params["blocks"]["b0"]["ffn"], 0), x,
+                         cfg)
+    total = torch.zeros_like(whole)
+    path = "decode" if rows == 4 else "colstrip"
+    for m in range(2):
+        mesh = _RecordingMesh(m)
+        p = group_slice(shd.shard_params(params, mesh)["blocks"]["b0"][
+            "ffn"], 0)
+        assert [i for i, q in enumerate(p["w_up"]) if q is not None] \
+            == [2 * m, 2 * m + 1]
+        build.reset_launches()
+        kops.reset_path_counts()
+        with ctx.use_mesh(mesh):
+            y, _ = moe_block(p, x, cfg)
+        torch.cuda.synchronize()
+        assert build.launches[f"qmm_{path}"] == 2 * 3
+        assert kops.path_counts["ref"] == 0
+        assert mesh.sums == [("model", "sum", "moe")]
+        total += y
+    assert float((total - whole).abs().max()) <= \
+        1e-4 * float(whole.abs().max())
+
+
+@pytest.mark.parametrize("pages", ["fp32", "bf16"])
+def test_sliced_attention_at_hymba_shapes(gen, pages):
+    """The kernel over each of 2 page slices at hymba-1.5b's shapes (5 KV
+    heads of 25, G = 5, hd 64, its 1024-token window, kv_len up to 2048;
+    chip_smoke's row 3d-h), decode lanes and a chunk past the window,
+    against the sliced plain version; the slices merged against the
+    whole-arena call."""
+    from repro_torch.kernels.paged_attention import merge_slices
+    lanes = ((2047, 1), (1800, 1), (1100, 128), (0, 0), (1030, 1))
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        lanes, n_kv=5, g=5, hd=64, page=16, quantized=False, gen=gen,
+        bf16=pages == "bf16")
+    _from_chip_smoke("in_order")(cache)
+    kw = dict(n_kv=5, head_dim=64, window=1024)
+    n_pages = cache["k_pages"].shape[0]
+    parts = []
+    for a, b in ((0, n_pages // 2), (n_pages // 2, n_pages)):
+        local = _local(cache, a, b - a)
+        o, m, l = ragged_paged_attention_call(q, local, qs, kl,
+                                              page_slice=(a, b - a), **kw)
+        o_r, m_r, l_r = ragged_paged_attention_ref(
+            q, local, qs, kl, page_slice=(a, b - a), **kw)
+        torch.cuda.synchronize()
+        live = l_r > 0
+        assert (o[~live] == 0).all() and (l[~live] == 0).all()
+        for got, want in ((o, o_r), (m, m_r), (l, l_r)):
+            torch.testing.assert_close(got[live], want[live], atol=1e-5,
+                                       rtol=1e-4)
+        parts.append((o, m, l))
+    whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
+    torch.testing.assert_close(merge_slices(parts)[valid], whole[valid],
+                               atol=1e-5, rtol=1e-4)

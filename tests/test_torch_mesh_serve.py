@@ -32,6 +32,7 @@ from repro_torch.launch import serve as port_cli
 from repro_torch.launch.mesh import spawn
 from repro_torch.models.config import ModelConfig
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.steps import build_paged_steps
 from repro_torch.serve.sampling import SamplingParams
 from test_torch_bridge import jax_tree_to_numpy, port_params_to_jax
 
@@ -246,12 +247,21 @@ class _StandInMesh:
 
 
 def test_mesh_refusals():
+    """Encoder-decoder and VLM stacks wait for A12 on the mesh step set
+    (hybrid, SSM and MoE stacks are served: ``test_torch_mesh_families.
+    py``); a mesh engine runs eagerly; shard flags need a backend."""
     pcfg = ModelConfig(name="t", family="dense", **BASE)
-    hybrid = ModelConfig(name="th", family="hybrid", pattern=("hybrid",),
-                         d_state=16, ssm_headdim=32, **BASE)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServeEngine(hybrid, {}, device="cpu", cuda_graphs=False,
-                    mesh=_StandInMesh())
+    for kw in (dict(family="encdec", is_encdec=True, n_enc_layers=2),
+               dict(family="vlm", n_vis_tokens=8)):
+        cfg = ModelConfig(name="tx", **kw, **BASE)
+        with pytest.raises(NotImplementedError, match="A12"):
+            build_paged_steps(cfg, page=8, n_pages=15, max_slots=4,
+                              max_pages_per_seq=4, cache_dtype=None,
+                              device="cpu", cuda_graphs=False,
+                              mesh=_StandInMesh())
+        with pytest.raises(NotImplementedError):
+            ServeEngine(cfg, {}, device="cpu", cuda_graphs=False,
+                        mesh=_StandInMesh())
     with pytest.raises(ValueError, match="cuda_graphs=False"):
         ServeEngine(pcfg, {}, device="cpu", mesh=_StandInMesh())
     with pytest.raises(SystemExit):
