@@ -171,18 +171,40 @@ Phases (each prints its own lines; any failure exits nonzero):
                 step, peak memory, the losses (all finite, the last two
                 steps' mean below the first step's), the parameters moved;
   7m. train-mesh — sharded training (FSDP on data, TP on model) of
-                stablelm-1.6b at full width on gloo ranks sharing the card:
+                stablelm-1.6b at full width (TRAIN_MESH_LAYERS = 4 of its
+                24 layers) on gloo ranks sharing the card:
                 step 0's gradients of the sharded step and train() at
                 (2, 2) for TRAIN_MESH_STEPS steps with remat, batch 8 x
                 128, then, after those ranks have exited, the same on a
-                (1, 1) mesh in one process: each leaf's gradient (made
-                whole) by its norm and a seeded projection within
+                (1, 1) mesh in one process (its spawns shared with
+                train-mesh-x's runs of the same shape): each leaf's whole
+                gradient by its norm and a seeded projection, summed from
+                the ranks' slices (tree_fingerprints), within
                 TRAIN_MESH_GRAD_TOL, losses and grad norms within
                 TRAIN_MESH_RTOL, every rank's metrics
                 rank 0's; each rank's peak memory a step (at most its
                 slice of the one process's, one gathered layer group and
                 1 GiB) and their sum; the collectives a step by kind,
-                their seconds and payload bytes.
+                their seconds and payload bytes;
+  7x. train-mesh-x — MoE, SSM and hybrid stacks on the training mesh,
+                gloo ranks sharing the card, as train-mesh checks
+                stablelm: mamba2-370m (full: 48 layers, d 1024; in_proj
+                cut over model and gathered, the mixer replicated with
+                whole gradients) at (2, 2) and hymba-1.5b (full width, 4
+                of its 32 layers; 25 heads, so M = 1) at (2, 1), each
+                step 0's gradients and 3 steps of train() against one
+                process on a (1, 1) mesh (both references in one spawn);
+                then dbrx-132b at its published widths, 1 of its 40
+                layers (4.49 G parameters, 18.0 GB fp32), batch 2 x 64,
+                capacity factor 1.25: step 0 in one process, then at
+                (1, 2) (expert parallelism, 8 whole experts a rank) on
+                the same tree handed over by CUDA IPC: the routing of
+                every call identical to one process's (expert ids, kept
+                mask, the smallest top-k margin printed), assignments
+                dropped, the loss and aux, the gradients leaf by leaf;
+                each rank's peak against its slice of one process's, the
+                collectives by kind, the counted matmul TFLOP of a step
+                (obs.costs.train_step_work), the phase's seconds.
 
 The line before the last is a JSON object with one row per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -239,7 +261,8 @@ from repro_torch.models.chunked_ce import (chunked_ce_loss,  # noqa: E402
                                            sharded_ce_loss)
 from repro_torch.models.layers import cross_entropy_loss  # noqa: E402
 from repro_torch.models.model import (decode_step, encode,  # noqa: E402
-                                      forward, init_params, prefill)
+                                      forward, init_params, prefill,
+                                      train_loss)
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.tree import items as tree_items  # noqa: E402
 from repro_torch.tree import leaves as tree_leaves  # noqa: E402
@@ -2913,7 +2936,9 @@ def train_phase(cfg, seed: int) -> dict:
 
 
 TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE = 3, (2, 2)
-TRAIN_MESH_LAYERS = 24          # stablelm-1.6b's depth: nothing cut
+# 4 of stablelm-1.6b's 24 layers: the dense path's per-layer work is the
+# same at any depth, and the time went to [train-mesh-x]
+TRAIN_MESH_LAYERS = 4
 # (2, 2) against one process: fp32 sums split over ranks and reduced in
 # another order differ in the last bits, and AdamW's m / sqrt(v) turns a
 # last-bit difference of a near-zero gradient into a whole lr-sized step
@@ -2928,13 +2953,58 @@ TRAIN_MESH_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
 TRAIN_MESH_GRAD_TOL, TRAIN_MESH_GRAD_FLOOR = 2e-5, 1e-4
 
 
+def tree_fingerprints(grads, seed: int, mesh=None, specs=None) -> dict:
+    """``{path: (norm, projection)}`` of the whole gradients that this
+    rank's slices make up (a gradient tree in one process without a
+    mesh), in float64: a leaf's projection on ``u_0 x u_1 x ... x u_k``,
+    normal vectors drawn from ``seed`` for each dim of the whole leaf, so
+    that a rank contracts its slice with its slices of them and the sums
+    over the ranks that own a slice (``sharding.owns``) are the whole
+    leaf's: one all_reduce for the tree, and no gradient gathered. A
+    dropped or doubled sum, or a wrong scale, sign or place of a leaf's
+    gradient moves its norm or its projection. Every rank of a mesh must
+    call it."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding as shd
+    dev = tree_leaves(grads)[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = dict(device=dev, dtype=torch.float64)
+    paths, sums = [], []
+    for path, g in tree_items(grads):
+        spec = specs[path] if mesh is not None else ()
+        shape = list(g.shape)
+        for dim, ax in enumerate(spec):
+            shape[dim] *= meshlib.axis_size(mesh, ax)
+        us = [torch.randn(n, generator=gen, **f64) for n in shape]
+        if mesh is not None:
+            us = [u[i] for u, i in zip(us, shd.local_slices(spec, shape,
+                                                            mesh))]
+        rows = g.reshape(-1, g.shape[-1])
+        w = torch.ones(1, **f64)
+        for u in us[:-1]:
+            w = torch.outer(w, u).reshape(-1)
+        sq = proj = torch.zeros((), **f64)
+        step = max(1, (1 << 24) // rows.shape[1])
+        for a in range(0, rows.shape[0], step):
+            c = rows[a:a + step].double()
+            sq = sq + (c * c).sum()
+            proj = proj + (w[a:a + step] * (c @ us[-1])).sum()
+        keep = mesh is None or shd.owns(spec, mesh)
+        paths.append(path)
+        sums.append(torch.stack([sq, proj]) * float(keep))
+    total = torch.stack(sums)
+    if mesh is not None:
+        mesh.all_reduce(total, "all", kind="unshard")
+    total = total.cpu().tolist()
+    return {p: (float(np.sqrt(sq)), proj) for p, (sq, proj) in
+            zip(paths, total)}
+
+
 def grad_fingerprints(mesh, cfg, seed: int):
     """Step 0's gradients of the sharded step (``mesh_grads_fn``, remat
-    on) on this rank's slices and the corpus's step-0 batch, made whole
-    leaf by leaf (``unshard``); on rank 0 two numbers a leaf, in float64:
-    its norm and its projection on a normal vector drawn for it from
-    ``seed``. A dropped or doubled sum, or a wrong scale, sign or place
-    of a leaf's gradient moves one of them. None on the other ranks; the
+    on) on this rank's slices of the tree initialised from the seed and
+    the corpus's step-0 batch; on rank 0 ``{"leaves":
+    tree_fingerprints, "loss", "aux"}``, None on the other ranks; the
     mesh's collective counts are set back to 0."""
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.launch import sharding as shd
@@ -2947,23 +3017,45 @@ def grad_fingerprints(mesh, cfg, seed: int):
                             ).sample_batch(TRAIN_BATCH, TRAIN_SEQ, step=0)
     batch = {k: torch.from_numpy(v[rows]).long().cuda()
              for k, v in batch.items()}
-    _, _, grads = compute(params, batch)
+    loss, metrics, grads = compute(params, batch)
     del params
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {}
-    for path, g in tree_items(grads):
-        whole = shd.unshard(g, mesh, {"": compute.specs[path]},
-                            keep=mesh.rank == 0)
-        if whole is not None:
-            w = whole.double()
-            r = torch.randn(w.shape, generator=gen, device="cuda",
-                            dtype=torch.float64)
-            out[path] = (float(w.norm()), float((w * r).sum()))
-            del w, r, whole
+    leaves = tree_fingerprints(grads, seed, mesh, compute.specs)
     del grads
     torch.cuda.empty_cache()
     mesh.reset_counts()
-    return out if mesh.rank == 0 else None
+    if mesh.rank != 0:
+        return None
+    return {"leaves": leaves, "loss": float(loss),
+            "aux": float(metrics["aux"])}
+
+
+def compare_fingerprints(tag: str, got: dict, want: dict, tol: float,
+                         floor: float, what: str = "") -> dict:
+    """The worst leaves of ``got`` against ``want`` (``grad_fingerprints``
+    leaves): ``max(|norm diff|, |projection diff|)`` over the leaf's norm
+    plus ``floor`` x the whole gradient's norm; printed, and required
+    within ``tol``. Returns the six worst."""
+    tag = f"{tag}] [{what}" if what else tag
+    require(set(got) == set(want), f"[{tag}] the sharded step's gradients "
+            f"hold other leaves than one process's")
+    whole = float(np.sqrt(sum(n * n for n, _ in want.values())))
+    errs = {}
+    for path, (n1, p1) in want.items():
+        nm, pm = got[path]
+        errs[path] = max(abs(nm - n1), abs(pm - p1)) / (n1 + floor * whole)
+    worst = sorted(errs, key=errs.get, reverse=True)[:6]
+    print(f"[{tag}] step 0's gradients, {len(errs)} leaves (norm, "
+          f"projection of the whole leaf) against one process's, the "
+          f"worst: " +
+          "; ".join(f"{p} {got[p][0]:.9g} vs {want[p][0]:.9g}, "
+                    f"{got[p][1]:.9g} vs {want[p][1]:.9g}: {errs[p]:.2e}"
+                    for p in worst) +
+          f" (the whole gradient's norm {whole:.6g}; tol {tol} of a leaf's "
+          f"norm + {floor} x the whole's)")
+    require(max(errs.values()) <= tol,
+            f"[{tag}] step 0's gradient of {worst[0]} is off one "
+            f"process's by {errs[worst[0]]:.2e} > {tol}")
+    return {p: errs[p] for p in worst}
 
 
 def train_mesh_rank(mesh, job):
@@ -2975,7 +3067,7 @@ def train_mesh_rank(mesh, job):
     t0 = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = job["cfg"]
+    cfg, tag = job["cfg"], job.get("tag", "train-mesh")
     fingerprint = grad_fingerprints(mesh, cfg, job["seed"])
     res = train(cfg, TrainConfig(steps=TRAIN_MESH_STEPS,
                                  global_batch=TRAIN_BATCH,
@@ -2983,14 +3075,17 @@ def train_mesh_rank(mesh, job):
                                  log_every=1, seed=job["seed"]),
                 AdamWConfig(lr=1e-3), mesh, device="cuda",
                 log_fn=lambda m: print(m.replace("[trainer]",
-                                                 "[train-mesh]")))
+                                                 f"[{tag}] {cfg.name}")))
     torch.cuda.synchronize()
     local = sum(t.numel() * t.element_size()
                 for t in tree_leaves(res["params"]))
     group = sum(t[0].numel() * t.element_size()
                 for t in tree_leaves(res["params"]["blocks"]))
     data = mesh.shape[list(mesh.axis_names).index("data")]
+    work = obs_costs.train_step_work(
+        cfg, mesh, tokens=TRAIN_BATCH // data * TRAIN_SEQ)
     return dict(rank=mesh.rank, history=res["history"], local_bytes=local,
+                flops=work["flops"],
                 fingerprint=fingerprint,
                 gathered_group_bytes=group * data,
                 by_kind={k: list(v) for k, v in mesh.by_kind.items()},
@@ -2999,69 +3094,32 @@ def train_mesh_rank(mesh, job):
                 rank_s=time.monotonic() - t0)
 
 
-def train_mesh_phase(seed: int) -> dict:
-    """Sharded training of stablelm-1.6b (TRAIN_MESH_LAYERS layers, full
-    width) on TRAIN_MESH_SHAPE gloo ranks sharing the card, then one
-    process on a (1, 1) mesh (after the ranks have exited): step 0's
-    gradients leaf by leaf (``grad_fingerprints``) within
-    TRAIN_MESH_GRAD_TOL, the losses
-    and grad norms of TRAIN_MESH_STEPS steps within TRAIN_MESH_RTOL, every
-    rank's metrics equal to rank 0's, each rank's peak within its slice
-    of the one process's plus one gathered group; the collectives a step
-    by kind. gloo copies every collective through host memory and the
-    ranks time-share one card, so the step time says nothing of NVLink
-    or NCCL."""
-    cfg = dataclasses.replace(get_config("stablelm-1.6b"),
-                              n_layers=TRAIN_MESH_LAYERS)
-    torch.cuda.empty_cache()
-    out = {"layers": TRAIN_MESH_LAYERS}
-    t_phase = time.monotonic()
-    runs, secs = {}, {}
-    for shape in (TRAIN_MESH_SHAPE, (1, 1)):
-        t0 = time.monotonic()
-        runs[shape] = spawn(train_mesh_rank, shape, backend="gloo",
-                            args=(dict(cfg=cfg, seed=seed),),
-                            timeout_s=600.0)
-        secs[shape] = time.monotonic() - t0
-    mesh_res, one = runs[TRAIN_MESH_SHAPE], runs[(1, 1)][0]
-    label = f"({TRAIN_MESH_SHAPE[0]},{TRAIN_MESH_SHAPE[1]})"
+def check_train_runs(tag: str, what: str, label: str, mesh_res, one,
+                     grad_tol: float, rtol: dict) -> dict:
+    """The ``train_mesh_rank`` results of a mesh's ranks against one
+    process's: every rank's metrics rank 0's, step 0's gradients leaf by
+    leaf within ``grad_tol`` (``compare_fingerprints``), the losses and
+    grad norms within ``rtol``, each rank's peak within its slice of the
+    one process's plus one gathered group and 1 GiB; printed with the ms
+    a step and rank 0's collectives a step by kind."""
+    out = {}
     r0 = mesh_res[0]
     for r in mesh_res:
         for k in ("loss", "grad_norm"):
             require([h[k] for h in r["history"]]
                     == [h[k] for h in r0["history"]],
-                    f"[train-mesh] rank {r['rank']}'s {k} differ from "
+                    f"[{tag}] {what} rank {r['rank']}'s {k} differ from "
                     f"rank 0's")
-    want, got = one["fingerprint"], r0["fingerprint"]
-    require(set(got) == set(want), "[train-mesh] the sharded step's "
-            "gradients hold other leaves than one process's")
-    whole = float(np.sqrt(sum(n * n for n, _ in want.values())))
-    errs = {}
-    for path, (n1, p1) in want.items():
-        nm, pm = got[path]
-        errs[path] = max(abs(nm - n1), abs(pm - p1)) / (
-            n1 + TRAIN_MESH_GRAD_FLOOR * whole)
-    worst = sorted(errs, key=errs.get, reverse=True)[:6]
-    print(f"[train-mesh] step 0's gradients, {len(errs)} leaves made whole"
-          f" (norm, projection) against one process's, the worst: " +
-          "; ".join(f"{p} {got[p][0]:.9g} vs {want[p][0]:.9g}, "
-                    f"{got[p][1]:.9g} vs {want[p][1]:.9g}: {errs[p]:.2e}"
-                    for p in worst) +
-          f" (the whole gradient's norm {whole:.6g}; tol "
-          f"{TRAIN_MESH_GRAD_TOL} of a leaf's norm + "
-          f"{TRAIN_MESH_GRAD_FLOOR} x the whole's)")
-    require(max(errs.values()) <= TRAIN_MESH_GRAD_TOL,
-            f"[train-mesh] {label} step 0's gradient of {worst[0]} is off "
-            f"one process's by {errs[worst[0]]:.2e} > "
-            f"{TRAIN_MESH_GRAD_TOL}")
-    out["grad_err"] = {p: errs[p] for p in worst}
-    for k, rtol in TRAIN_MESH_RTOL.items():
+    out["grad_err"] = compare_fingerprints(
+        tag, r0["fingerprint"]["leaves"], one["fingerprint"]["leaves"],
+        grad_tol, TRAIN_MESH_GRAD_FLOOR, what)
+    for k, tol in rtol.items():
         got = np.array([h[k] for h in r0["history"]])
         want = np.array([h[k] for h in one["history"]])
         rel = np.abs(got - want) / np.abs(want)
-        require(np.all(np.isfinite(got)) and np.all(rel <= rtol),
-                f"[train-mesh] {label} {k} {got.tolist()} against one "
-                f"process's {want.tolist()}: rel {rel.tolist()} > {rtol}")
+        require(np.all(np.isfinite(got)) and np.all(rel <= tol),
+                f"[{tag}] {what} {label} {k} {got.tolist()} against one "
+                f"process's {want.tolist()}: rel {rel.tolist()} > {tol}")
         out[f"{k}_rel"] = rel.tolist()
     # a rank holds its slice of what one process holds (parameters,
     # gradients, moments, the update's copies) plus one gathered group;
@@ -3071,43 +3129,328 @@ def train_mesh_phase(seed: int) -> dict:
     bound = (one_peak * r0["local_bytes"] / one["local_bytes"]
              + r0["gathered_group_bytes"] + 2**30)
     require(max(peaks) <= bound,
-            f"[train-mesh] a rank's peak {max(peaks) / 2**30:.2f} GiB is "
-            f"over its slice of one process's {one_peak / 2**30:.2f} GiB "
-            f"plus a gathered group and 1 GiB ({bound / 2**30:.2f})")
-    steps = TRAIN_MESH_STEPS
+            f"[{tag}] {what}: a rank's peak {max(peaks) / 2**30:.2f} GiB "
+            f"is over its slice of one process's {one_peak / 2**30:.2f} "
+            f"GiB plus a gathered group and 1 GiB ({bound / 2**30:.2f})")
+    steps = len(r0["history"])
     kinds = {k: (v[0] / steps, v[1] / steps, v[2] / steps)
              for k, v in r0["by_kind"].items()}
     ms = [h["time_s"] * 1e3 for h in r0["history"]]
     one_ms = [h["time_s"] * 1e3 for h in one["history"]]
-    print(f"[train-mesh] stablelm-1.6b, {TRAIN_MESH_LAYERS} layers, full "
-          f"width, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, {label} gloo "
-          f"ranks on one card: losses {[h['loss'] for h in r0['history']]}"
-          f" grad norms {[h['grad_norm'] for h in r0['history']]}; one "
-          f"process (1,1): losses {[h['loss'] for h in one['history']]} "
-          f"grad norms {[h['grad_norm'] for h in one['history']]}; rel "
-          f"{out['loss_rel']} / {out['grad_norm_rel']} (rtol "
-          f"{TRAIN_MESH_RTOL})")
-    print(f"[train-mesh] ms a step: {label} {[round(x, 1) for x in ms]}, "
-          f"one process {[round(x, 1) for x in one_ms]}; spawn to join "
-          f"{secs[TRAIN_MESH_SHAPE]:.1f}s and {secs[(1, 1)]:.1f}s")
-    print(f"[train-mesh] peak memory a step (GiB): ranks "
+    print(f"[{tag}] {what}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat, "
+          f"{label} gloo ranks on one card: losses "
+          f"{[h['loss'] for h in r0['history']]} grad norms "
+          f"{[h['grad_norm'] for h in r0['history']]}; one process (1,1): "
+          f"losses {[h['loss'] for h in one['history']]} grad norms "
+          f"{[h['grad_norm'] for h in one['history']]}; rel "
+          f"{out['loss_rel']} / {out['grad_norm_rel']} (rtol {rtol})")
+    print(f"[{tag}] {what}: ms a step: {label} "
+          f"{[round(x, 1) for x in ms]}, one process "
+          f"{[round(x, 1) for x in one_ms]}; counted matmul TFLOP a step "
+          f"(obs.costs.train_step_work): a rank {r0['flops'] / 1e12:.3f}, "
+          f"one process {one['flops'] / 1e12:.3f}")
+    print(f"[{tag}] {what}: peak memory a step (GiB): ranks "
           f"{[round(p / 2**30, 3) for p in peaks]}, sum "
           f"{sum(peaks) / 2**30:.3f}; one process {one_peak / 2**30:.3f}; "
           f"a rank's parameter slices {r0['local_bytes'] / 2**30:.3f} of "
           f"{one['local_bytes'] / 2**30:.3f}, one gathered group "
           f"{r0['gathered_group_bytes'] / 2**30:.3f}; bound "
           f"{bound / 2**30:.3f}")
-    print(f"[train-mesh] rank 0's collectives a step: "
+    print(f"[{tag}] {what}: rank 0's collectives a step: "
           f"{r0['collectives'] / steps:.0f} in "
           f"{r0['collective_s'] / steps:.3f}s; by kind (calls, s, payload "
           f"MB): " + "; ".join(
               f"{k} {n:.0f} {sec:.3f} {b / 1e6:.1f}"
               for k, (n, sec, b) in sorted(kinds.items())))
     out.update(ranks=mesh_res, one=one, peaks=peaks, one_peak=one_peak,
-               by_kind_per_step=kinds, step_ms=ms, one_step_ms=one_ms,
-               seconds=time.monotonic() - t_phase)
-    print(f"[train-mesh] phase {out['seconds']:.1f}s")
+               by_kind_per_step=kinds, step_ms=ms, one_step_ms=one_ms)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7x: MoE, SSM and hybrid stacks on the training mesh
+# ---------------------------------------------------------------------------
+# (tag, arch, mesh shape, layers) of the runs that train() for
+# TRAIN_MESH_STEPS steps: stablelm-1.6b's dense path ([train-mesh]);
+# mamba2-370m whole (48 layers: in_proj cut over model and gathered, the
+# mixer replicated), hymba-1.5b at 4 of its 32 layers (one group of its
+# pattern: a global and three windowed hybrid layers; its 25 heads train
+# at M = 1). The runs of one shape share a
+# spawn, and every run's one-process reference shares one (1, 1) spawn
+TRAIN_MESH_RUNS = (
+    ("train-mesh", "stablelm-1.6b", TRAIN_MESH_SHAPE, TRAIN_MESH_LAYERS),
+    ("train-mesh-x", "mamba2-370m", (2, 2), 48),
+    ("train-mesh-x", "hymba-1.5b", (2, 1), 4))
+# dbrx-132b at 1 of its 40 layers on (1, 2): expert parallelism, 8 whole
+# experts a rank; step 0 only: one layer with the embedding and head is
+# 4.49 G parameters, 18.0 GB in fp32, and fp32 moments beside the
+# parameters and gradients would not fit on one card
+DBRX_TRAIN = dict(shape=(1, 2), layers=1, batch=2, seq=64)
+# step 0's gradients, leaf by leaf, as [train-mesh]'s (norm and
+# projection over the leaf's norm + TRAIN_MESH_GRAD_FLOOR x the whole's).
+# The mesh's reordered fp32 sums drift further the deeper the stack: on
+# the CPU (reduced mamba2, (2, 2) against one process) 6.6e-7 at 2
+# layers, 3.1e-6 at 8, 8.1e-6 at 24; on the card mamba2's 48 layers read
+# 5.5e-5 (the mixer's norm_scale, whose projection cancels most). So the
+# limit is 3.6x that reading, as [train-mesh]'s is of its own; a sum
+# dropped or doubled over an axis reads ~0.5
+TRAIN_MESH_X_GRAD_TOL = 2e-4
+TRAIN_MESH_X_RTOL = {"loss": 1e-6, "grad_norm": 1e-5}
+DBRX_TRAIN_RTOL = 1e-6              # the loss and the aux at step 0
+
+
+def train_jobs_rank(mesh, jobs):
+    """``train_mesh_rank`` for each job in turn on this rank (the runs
+    of one mesh shape share a spawn)."""
+    out = []
+    for job in jobs:
+        out.append(train_mesh_rank(mesh, job))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_routes(cfg, params, batch, mesh=None, specs=None) -> list:
+    """Every ``moe_block`` call's routing (``models.moe.record_routes``:
+    expert ids, kept mask, smallest top-k margin) in one forward without
+    gradients, in one process or on this rank's slices and rows."""
+    from repro_torch import runtime_context as rctx
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.models import moe
+    with torch.no_grad(), moe.record_routes() as out:
+        if mesh is None:
+            train_loss(cfg, params, batch, remat=False)
+        else:
+            with rctx.use_mesh(mesh, meshlib.dp_axes(mesh),
+                               split_rows=True):
+                train_loss(cfg, params, batch, remat=False,
+                           gather=shd.fsdp_gather(specs, mesh))
+    return out
+
+
+def dbrx_train_batch(cfg, seed: int) -> dict:
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    b = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=seed + 1)
+                        ).sample_batch(DBRX_TRAIN["batch"],
+                                       DBRX_TRAIN["seq"], step=0)
+    return {k: torch.from_numpy(v).long().cuda() for k, v in b.items()}
+
+
+def moe_train_rank(mesh, job):
+    """One rank of ``[train-mesh-x]``'s dbrx run: its slice of the
+    parent's whole tree (CUDA IPC; every reference to the shared tree is
+    dropped once sliced), the routing of a forward without gradients,
+    then step 0 of ``mesh_grads_fn`` (remat on): the loss, the aux, the
+    peak memory and the collectives by kind over it, and on rank 0 the
+    gradients' fingerprints (``tree_fingerprints``)."""
+    from repro_torch.launch import sharding as shd
+    from repro_torch.train.step import mesh_grads_fn
+    t_rank = time.monotonic()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, seed = job["cfg"], job["seed"]
+    compute = mesh_grads_fn(cfg, mesh, remat=True)
+    local = shd.train_slices(job["params"], mesh, compute.specs)
+    job.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    local_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(local))
+    batch = dbrx_train_batch(cfg, seed)
+    batch = {k: v[shd.batch_rows(mesh, DBRX_TRAIN["batch"])]
+             for k, v in batch.items()}
+    routes = moe_routes(cfg, local, batch, mesh, compute.specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh.reset_counts()
+    t0 = time.monotonic()
+    loss, metrics, grads = compute(local, batch)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kinds = {k: list(v) for k, v in mesh.by_kind.items()}
+    del local
+    leaves = tree_fingerprints(grads, seed, mesh, compute.specs)
+    del grads
+    torch.cuda.empty_cache()
+    work = obs_costs.train_step_work(
+        cfg, mesh, tokens=batch["tokens"].numel())
+    return dict(rank=mesh.rank, routes=routes, loss=float(loss),
+                flops=work["flops"],
+                aux=float(metrics["aux"]), leaves=leaves, step_s=step_s,
+                peak_bytes=peak, local_bytes=local_bytes, by_kind=kinds,
+                rank_s=time.monotonic() - t_rank)
+
+
+def check_routes(tag: str, got: list, want: list) -> float:
+    """A rank's routing against one process's, call by call (the same
+    rows: dp 1): expert ids and kept mask identical; the smallest top-k
+    margin."""
+    require(len(got) == len(want), f"[{tag}] {len(got)} MoE calls, one "
+            f"process made {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        require(torch.equal(a["ids"], b["ids"]),
+                f"[{tag}] call {i}: expert ids differ from one process's "
+                f"({int((a['ids'] != b['ids']).sum())} of "
+                f"{a['ids'].numel()}; smallest top-k margin "
+                f"{b['margin']:.3e}): a routing flip voids the gradient "
+                f"comparison")
+        require(torch.equal(a["kept"], b["kept"]),
+                f"[{tag}] call {i}: the kept mask differs from one "
+                f"process's")
+    return min(r["margin"] for r in got)
+
+
+def dbrx_train_mesh(seed: int) -> dict:
+    """dbrx-132b (DBRX_TRAIN) step 0 in one process here, then on the
+    (1, 2) mesh's gloo ranks on the same whole tree (CUDA IPC): routing
+    identical, the loss and aux within DBRX_TRAIN_RTOL, the gradients
+    leaf by leaf within TRAIN_MESH_X_GRAD_TOL; each rank's peak within
+    its slice of one process's plus 1 GiB."""
+    from repro_torch.train.step import grads_fn
+    tag = "train-mesh-x] [dbrx-132b"
+    cfg = dataclasses.replace(get_config("dbrx-132b"),
+                              n_layers=DBRX_TRAIN["layers"])
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    base = torch.cuda.memory_allocated()   # what earlier phases still hold
+    params = init_params(cfg, seed, device="cuda")
+    batch = dbrx_train_batch(cfg, seed)
+    one_bytes = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(params))
+    want_routes = moe_routes(cfg, params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.monotonic()
+    loss, metrics, grads = grads_fn(cfg, remat=True)(params, batch)
+    torch.cuda.synchronize()
+    one = dict(step_s=time.monotonic() - t1, loss=float(loss),
+               aux=float(metrics["aux"]),
+               flops=obs_costs.train_step_work(
+                   cfg, tokens=batch["tokens"].numel())["flops"],
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               leaves=tree_fingerprints(grads, seed))
+    del grads, loss, metrics
+    torch.cuda.empty_cache()
+    drops = sum(int((~r["kept"]).sum()) for r in want_routes)
+    print(f"[{tag}] 1 of 40 layers, published widths, {one_bytes / 1e9:.2f}"
+          f" GB of fp32 parameters, batch {DBRX_TRAIN['batch']} x "
+          f"{DBRX_TRAIN['seq']}, capacity factor {cfg.capacity_factor}: "
+          f"one process step 0 in {one['step_s']:.2f}s, loss "
+          f"{one['loss']:.9g}, aux {one['aux']:.9g}, peak "
+          f"{one['peak_bytes'] / 2**30:.2f} GiB, {drops} of "
+          f"{sum(r['kept'].numel() for r in want_routes)} assignments "
+          f"dropped (init and one process {time.monotonic() - t0:.1f}s)")
+    require(drops > 0, f"[{tag}] no assignment dropped at capacity factor "
+            f"{cfg.capacity_factor}: the capacity path went untested")
+    t1 = time.monotonic()
+    res = spawn(moe_train_rank, DBRX_TRAIN["shape"], backend="gloo",
+                args=(dict(cfg=cfg, seed=seed, params=params),),
+                timeout_s=600.0)
+    spawn_s = time.monotonic() - t1
+    del params
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    label = "({},{})".format(*DBRX_TRAIN["shape"])
+    margins = [check_routes(f"{tag}] [rank {r['rank']}", r["routes"],
+                            want_routes) for r in res]
+    print(f"[{tag}] {label} routing: every rank's expert ids and kept mask "
+          f"of every call equal one process's; smallest top-k margin "
+          f"{min(margins):.3e}")
+    for r in res:
+        for k in ("loss", "aux"):
+            rel = abs(r[k] - one[k]) / abs(one[k])
+            require(rel <= DBRX_TRAIN_RTOL, f"[{tag}] rank {r['rank']}'s "
+                    f"{k} {r[k]!r} against one process's {one[k]!r}: rel "
+                    f"{rel:.2e} > {DBRX_TRAIN_RTOL}")
+    r0 = res[0]
+    err = compare_fingerprints("train-mesh-x", r0["leaves"], one["leaves"],
+                               TRAIN_MESH_X_GRAD_TOL, TRAIN_MESH_GRAD_FLOOR,
+                               "dbrx-132b")
+    peaks = [r["peak_bytes"] for r in res]
+    bound = one["peak_bytes"] * r0["local_bytes"] / one_bytes + 2**30
+    require(max(peaks) <= bound,
+            f"[{tag}] a rank's peak {max(peaks) / 2**30:.2f} GiB is over "
+            f"its slice of one process's {one['peak_bytes'] / 2**30:.2f} "
+            f"GiB plus 1 GiB ({bound / 2**30:.2f})")
+    kinds = r0["by_kind"]
+    print(f"[{tag}] {label} gloo ranks on one card: losses "
+          f"{[r['loss'] for r in res]} (one process {one['loss']!r}), aux "
+          f"{[r['aux'] for r in res]} (one process {one['aux']!r}); step 0 "
+          f"{[round(r['step_s'], 2) for r in res]}s; peak (GiB) "
+          f"{[round(p / 2**30, 3) for p in peaks]} of one process's "
+          f"{one['peak_bytes'] / 2**30:.3f}, a rank's slices "
+          f"{r0['local_bytes'] / 1e9:.2f} of {one_bytes / 1e9:.2f} GB; "
+          f"bound {bound / 2**30:.3f}; counted matmul TFLOP "
+          f"(obs.costs.train_step_work) a rank {r0['flops'] / 1e12:.3f}, "
+          f"one process {one['flops'] / 1e12:.3f}; rank 0's collectives "
+          f"by kind "
+          f"(calls, s, payload MB): " + "; ".join(
+              f"{k} {n} {sec:.3f} {b / 1e6:.1f}"
+              for k, (n, sec, b) in sorted(kinds.items())) +
+          f"; spawn to join {spawn_s:.1f}s")
+    return dict(one=dict(one, leaves=None), ranks=[dict(r, routes=None,
+                                                        leaves=None)
+                                                   for r in res],
+                grad_err=err, min_margin=min(margins), drops=drops,
+                peaks=peaks, bound=bound, spawn_s=spawn_s)
+
+
+def train_mesh_phases(seed: int):
+    """``[train-mesh]`` and ``[train-mesh-x]``: each run of
+    TRAIN_MESH_RUNS on its mesh's gloo ranks sharing the card (the runs of
+    one shape in one spawn), then every run's one-process reference on a
+    (1, 1) mesh in one spawn (after the ranks have exited); each held to
+    its reference by ``check_train_runs`` (step 0's gradients leaf by
+    leaf, the losses and grad norms of TRAIN_MESH_STEPS steps, every
+    rank's metrics rank 0's, each rank's peak within its slice of one
+    process's plus one gathered group; the collectives a step by kind).
+    Then dbrx-132b's step 0 at (1, 2) (``dbrx_train_mesh``). gloo copies
+    every collective through host memory and the ranks time-share one
+    card, so the step time says nothing of NVLink or NCCL. Returns the
+    two phases' results."""
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    jobs = [dict(cfg=dataclasses.replace(get_config(arch), n_layers=layers),
+                 seed=seed, tag=tag)
+            for tag, arch, _, layers in TRAIN_MESH_RUNS]
+    ranks, secs = {}, {}
+    for shape in dict.fromkeys(run[2] for run in TRAIN_MESH_RUNS):
+        mine = [i for i, run in enumerate(TRAIN_MESH_RUNS)
+                if run[2] == shape]
+        t0 = time.monotonic()
+        res = spawn(train_jobs_rank, shape, backend="gloo",
+                    args=([jobs[i] for i in mine],), timeout_s=900.0)
+        secs["({},{})".format(*shape)] = time.monotonic() - t0
+        for j, i in enumerate(mine):
+            ranks[i] = [r[j] for r in res]
+    t0 = time.monotonic()
+    refs = spawn(train_jobs_rank, (1, 1), backend="gloo", args=(jobs,),
+                 timeout_s=900.0)[0]
+    secs["(1,1)"] = time.monotonic() - t0
+    out = {"train-mesh": {"layers": TRAIN_MESH_LAYERS}, "train-mesh-x": {}}
+    for i, (tag, arch, shape, layers) in enumerate(TRAIN_MESH_RUNS):
+        what = (f"{arch}, {layers} of {get_config(arch).n_layers} layers, "
+                f"full width")
+        tol, rtol = ((TRAIN_MESH_GRAD_TOL, TRAIN_MESH_RTOL)
+                     if tag == "train-mesh" else
+                     (TRAIN_MESH_X_GRAD_TOL, TRAIN_MESH_X_RTOL))
+        out[tag][arch] = check_train_runs(
+            tag, what, "({},{})".format(*shape), ranks[i], refs[i], tol,
+            rtol)
+    print(f"[train-mesh] spawn to join (s), shared with [train-mesh-x]: " +
+          ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    out["train-mesh"]["spawn_s"] = secs
+    out["train-mesh"]["seconds"] = time.monotonic() - t_phase
+    print(f"[train-mesh] phases' spawns {out['train-mesh']['seconds']:.1f}s")
+    t0 = time.monotonic()
+    out["train-mesh-x"]["dbrx-132b"] = dbrx_train_mesh(seed)
+    out["train-mesh-x"]["seconds"] = time.monotonic() - t0
+    print(f"[train-mesh-x] dbrx-132b {out['train-mesh-x']['seconds']:.1f}s;"
+          f" both phases {time.monotonic() - t_phase:.1f}s")
+    return out["train-mesh"], out["train-mesh-x"]
 
 
 # ---------------------------------------------------------------------------
@@ -3297,7 +3640,7 @@ def main(argv=None) -> int:
     del qparams
     torch.cuda.empty_cache()
     trained = train_phase(cfg, args.seed)
-    train_meshed = train_mesh_phase(args.seed)
+    train_meshed, train_meshed_x = train_mesh_phases(args.seed)
 
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
@@ -3320,6 +3663,7 @@ def main(argv=None) -> int:
         families=families, attn_hd=attn_hd,
         step=stepped,
         train=trained, train_mesh=train_meshed,
+        train_mesh_x=train_meshed_x,
         ptq=dict(quickstart=quick, read_path=read, launches=ptq_launches,
                  qmm_paths=ptq_paths, fig4=fig4),
         kernels=kernels, seconds=time.monotonic() - t_start), indent=1))

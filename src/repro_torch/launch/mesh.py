@@ -215,6 +215,15 @@ def dp_size(mesh) -> int:
     return n
 
 
+def dp_index(mesh) -> int:
+    """This rank's index over the dp axes, ``pod``-major (the order JAX
+    lays a ``(pod, data)`` spec entry out in)."""
+    k = 0
+    for a in dp_axes(mesh):
+        k = k * axis_size(mesh, a) + mesh.index(a)
+    return k
+
+
 # ---------------------------------------------------------------------------
 # spawning the ranks of one mesh
 # ---------------------------------------------------------------------------
@@ -304,4 +313,5 @@ def spawn(fn: Callable, shape: Sequence[int], *, backend: str,
 
 
 __all__ = ["Mesh", "make_mesh", "grid_mesh", "default_axes", "dp_axes",
-           "tp_axis", "axis_size", "dp_size", "spawn", "BACKENDS"]
+           "tp_axis", "axis_size", "dp_size", "dp_index", "spawn",
+           "BACKENDS"]

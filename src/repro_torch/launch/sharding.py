@@ -56,9 +56,10 @@ and conv state of mamba and hybrid blocks is whole on every rank (JAX
 puts its slot dim on the dp axes): every data rank runs every lane, and
 every model rank runs the whole mixer.
 
-Training (dense and local/global attention stacks, ``check_train_mesh``)
-keeps the JAX rules whole (FSDP on ``data``, TP on ``model``;
-``train_specs``, ``train_slices``): every large parameter is cut along
+Training (every decoder-only stack: dense, local/global attention, MoE,
+Mamba2 and hybrid; ``check_train_mesh``) keeps the JAX rules whole (FSDP
+on ``data``, TP on ``model``; ``train_specs``, ``train_slices``): every
+large parameter is cut along
 both, and a dim that does not divide its axis replicates, as
 ``_finalize`` does. Each rank holds its slice of the parameters, of the
 gradients and of both AdamW moments. The leaves that end up replicated
@@ -68,12 +69,22 @@ not divide the data axis; their gradients need a SUM over ``data`` in
 place of the reduce-scatter (``grad_axes``), and the global norm counts
 them once (``owns``). The attention biases are also replicated over
 ``model`` while each rank adds only its heads' slice of them, so their
-gradients are partial there and take a SUM over ``model``. The ``pod``
-axis is pure data parallelism: every leaf replicates over it and every
-gradient takes a SUM over it. ``fsdp_gather`` makes a group's leaves
+gradients are partial there and take a SUM over ``model``; so is the
+MoE router, replicated over ``model`` while each rank's gates combine
+only its experts (``models.moe``). The MoE expert stacks follow the
+expert rules (EP on ``model`` when it divides ``E``, else the Megatron
+cut of each expert's hidden units), FSDP on their ``d`` dim. The Mamba2
+mixer's replicated leaves get whole gradients on every model rank
+(``models.ssm``), so they take no SUM over ``model``; ``conv_w`` keeps
+JAX's cut of its channels over ``model`` and is gathered before use.
+The ``pod`` axis is pure data parallelism: every leaf replicates over it
+and every gradient takes a SUM over it. ``fsdp_gather`` makes a group's leaves
 whole along their ``data`` dim just before use; ``unshard`` makes a
 whole tree (a checkpoint, the tests); ``batch_spec`` / ``batch_rows``
-put the global batch over ``(pod, data)`` when it divides.
+put the global batch over ``(pod, data)`` when it divides, and with
+microbatches give each dp rank its share of each global microbatch (the
+reference splits the global batch into consecutive chunks, and an MoE
+block's capacity and aux depend on which rows share one).
 """
 from __future__ import annotations
 
@@ -369,21 +380,22 @@ def shard_arena(arena: dict, mesh) -> dict:
 # ---------------------------------------------------------------------------
 # training: FSDP on data, TP on model, the batch over (pod, data)
 # ---------------------------------------------------------------------------
-# leaves each rank adds only its model slice of (column-parallel biases)
-_MODEL_PARTIAL = r"attn/b[qkv]$"
+# leaves whose gradient is partial over model: the column-parallel
+# biases (each rank adds its slice) and the MoE router (each rank's gates
+# combine only its experts or hidden units)
+_MODEL_PARTIAL = r"attn/b[qkv]$|ffn/router$"
 
 
 def check_train_mesh(cfg, mesh) -> None:
-    """Refuse a model the training mesh does not run: hybrid, SSM, MoE,
-    encoder-decoder and VLM stacks (``NotImplementedError``, ROADMAP
-    A12), and TP widths that do not divide the model axis."""
-    kinds = set(cfg.pattern)
-    if (any(not k.startswith("attn") for k in kinds) or any(cfg.moe_slots)
-            or cfg.is_encdec or cfg.n_vis_tokens):
+    """Refuse a model the training mesh does not run: encoder-decoder and
+    VLM stacks (``NotImplementedError``, ROADMAP A12), and TP widths that
+    do not divide the model axis. Every decoder-only stack trains:
+    dense, local/global attention, MoE (EP or the Megatron fallback),
+    Mamba2 and hybrid."""
+    if cfg.is_encdec or cfg.n_vis_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: the training mesh runs dense and local/global "
-            f"attention stacks only; hybrid, SSM, MoE, encoder-decoder and "
-            f"VLM stacks wait (ROADMAP A12)")
+            f"{cfg.name}: the training mesh runs decoder-only stacks; "
+            f"encoder-decoder and VLM stacks wait (ROADMAP A12)")
     if mesh is None:
         raise ValueError("the sharded step needs a mesh; one device trains "
                          "with train.step.single_device_step")
@@ -441,7 +453,7 @@ def fsdp_gather(specs: dict, mesh):
 def grad_axes(path: str, spec: Tuple, mesh) -> Tuple[str, ...]:
     """The axes this leaf's gradient is summed over after the backward
     pass: ``data`` where the leaf is replicated over it, ``model`` for
-    the column-parallel biases, ``pod`` always."""
+    the column-parallel biases and the MoE router, ``pod`` always."""
     out = []
     if "data" not in spec and meshlib.axis_size(mesh, "data") > 1:
         out.append("data")
@@ -501,13 +513,19 @@ def batch_spec(mesh, global_batch: int) -> Tuple:
     return ()
 
 
-def batch_rows(mesh, global_batch: int) -> slice:
+def batch_rows(mesh, global_batch: int, microbatches: int = 1):
     """This rank's rows of the global batch under ``batch_spec``: the dp
-    axes flattened ``pod``-major, as JAX lays a tuple entry out."""
+    axes flattened ``pod``-major, as JAX lays a tuple entry out. With
+    ``microbatches > 1`` (dividing the rank's rows) the rank's share of
+    each of the global batch's consecutive ``microbatches`` chunks, in
+    chunk order (a list of row indices), so the rank's own split into
+    ``microbatches`` pieces is its share of the reference's."""
     if not batch_spec(mesh, global_batch):
         return slice(None)
-    k = 0
-    for ax in meshlib.dp_axes(mesh):
-        k = k * meshlib.axis_size(mesh, ax) + mesh.index(ax)
+    k = meshlib.dp_index(mesh)
     n = global_batch // meshlib.dp_size(mesh)
-    return slice(k * n, (k + 1) * n)
+    if microbatches <= 1 or n % microbatches or n == global_batch:
+        return slice(k * n, (k + 1) * n)
+    chunk, part = global_batch // microbatches, n // microbatches
+    return [i * chunk + k * part + j for i in range(microbatches)
+            for j in range(part)]

@@ -9,8 +9,10 @@ Runs on the card (``--device cuda``, the default) or, asked, on the CPU
 (``--device cpu``). On restart after a crash or kill, ``--resume`` picks
 up from the newest checkpoint, whatever mesh wrote it.
 
-``--dp D --tp M`` train on a ``(D, M)`` mesh (FSDP on data, TP on model;
-``train.step.build_train_step``): this process spawns ``D * M`` ranks
+``--dp D --tp M`` train on a ``(D, M)`` mesh (FSDP on data, TP and expert
+parallelism on model; ``train.step.build_train_step``; every decoder-only
+stack, while an encoder-decoder or VLM stack exits 2 with the mesh's
+refusal): this process spawns ``D * M`` ranks
 over ``torch.distributed`` (``launch.mesh.spawn``, file rendezvous in a
 temporary directory) and rank 0 logs and prints the final loss.
 ``--dist-backend`` names the backend and has no default: ``gloo`` on the
@@ -19,6 +21,8 @@ rank. On the CPU (~10 s)::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
       --reduced --dp 2 --tp 2 --device cpu --dist-backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
+      --reduced --steps 20 --dp 2 --tp 2 --device cpu --dist-backend gloo
 """
 from __future__ import annotations
 

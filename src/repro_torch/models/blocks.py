@@ -9,7 +9,12 @@ residual.
 On a serving mesh each mixer comes back complete on every model rank,
 after its own sums over ``model`` (attention's ``wo``, the Mamba2
 ``out_proj``), so a hybrid block's mean of the two is one process's; the
-MoE FFN ends in its one ``moe`` sum (``models.moe``).
+MoE FFN ends in its one ``moe`` sum (``models.moe``). On a training mesh
+the same holds for the gradients: each mixer takes its input through its
+own ``tp_input`` (the attention's column-parallel projections; the
+Mamba2 ``in_proj``), so the block's ``dx`` is summed over ``model`` once
+per mixer, and both mixers' outputs, hence their mean, are whole and
+equal on every model rank.
 """
 from __future__ import annotations
 

@@ -24,7 +24,13 @@ Training on a mesh takes gradients through the same code: the sums over
 the model group are ``launch.collectives.sum_over`` (in place, as
 before, when nothing needs a gradient) and ``tp_input`` marks a
 column-parallel input, whose gradient is summed over the model group in
-the backward pass.
+the backward pass. ``tp_gather`` is ``collectives.gather_model`` (its
+backward keeps the rank's slice of a gradient the replicated consumer
+made whole) and ``row_linear`` cuts a replicated input with
+``collectives.split_model`` (its backward gathers the slices'
+gradients), so a mixer that runs replicated between them (the Mamba2
+mixer) gets whole gradients on every model rank; off the graph both are
+serving's all_gather and plain slice.
 """
 from __future__ import annotations
 
@@ -98,20 +104,24 @@ def _tp_local(x: torch.Tensor) -> torch.Tensor:
     return x[..., m * n:(m + 1) * n]
 
 
-def tp_gather(x: torch.Tensor, full: int) -> torch.Tensor:
-    """The whole last dim from every rank's equal slice of it: one
-    all_gather over the model group (kind ``gather``)."""
-    if x.shape[-1] * tp_size() != full:
-        raise ValueError(f"a slice of {x.shape[-1]} does not make {full} "
+def tp_gather(x: torch.Tensor, full: int, dim: int = -1) -> torch.Tensor:
+    """The whole ``dim`` from every rank's equal slice of it: one
+    all_gather over the model group (kind ``gather``; on the autograd
+    graph its backward keeps this rank's slice of the gradient)."""
+    if x.shape[dim] * tp_size() != full:
+        raise ValueError(f"a slice of {x.shape[dim]} does not make {full} "
                          f"over {tp_size()} model ranks")
-    return ctx.current_mesh().all_gather(x, "model", -1, kind="gather")
+    return C.gather_model(x, ctx.current_mesh(), dim)
 
 
 def gathered_linear(x: torch.Tensor, w, use_kernels: bool,
                     full: int) -> torch.Tensor:
     """``x @ w`` with all ``full`` outputs on every rank: a column-parallel
-    weight's slice of them made whole (``tp_gather``); a replicated
-    weight, or no mesh, gives them as they are."""
+    weight's slice of them made whole (``tp_gather``; ``x`` enters
+    through ``tp_input``); a replicated weight, or no mesh, gives them as
+    they are."""
+    if isinstance(w, torch.Tensor) and w.shape[-1] != full:
+        x = tp_input(x)
     y = matmul_any(x, w, use_kernels=use_kernels)
     if y.shape[-1] != full:
         y = tp_gather(y, full)
@@ -135,8 +145,9 @@ def column_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
 def row_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
                use_kernels: bool, full_in: int) -> torch.Tensor:
     """A row-parallel projection over ``full_in`` inputs: the rank's slice
-    of them times its rows of ``w``, summed over the model group (off a
-    mesh, the plain projection)."""
+    of them (cut from a whole ``x`` by ``collectives.split_model``) times
+    its rows of ``w``, summed over the model group (off a mesh, the plain
+    projection)."""
     n = tp_size()
     if n == 1:
         return linear(x, w, b, use_kernels)
@@ -150,7 +161,7 @@ def row_linear(x: torch.Tensor, w, b: Optional[torch.Tensor],
         y = matmul_any(x, w, use_kernels=use_kernels)
     else:
         if x.shape[-1] == full_in:
-            x = _tp_local(x)
+            x = C.split_model(x, ctx.current_mesh(), -1)
         y = matmul_any(x, w, use_kernels=use_kernels)
         if not isinstance(w, ShardedQTensor):     # qmm_shard reduces
             y = C.sum_over(y, ctx.current_mesh())

@@ -365,7 +365,11 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict, *,
     FSDP gather) the parameters are this rank's slices, the batch its dp
     rows, and the loss the mean over them: under TP both losses reduce
     over the vocab shards (``vocab_parallel_nll``) and come out equal on
-    every model rank."""
+    every model rank. Each MoE block's aux is already the global one
+    (its statistics summed over the dp ranks, ``models.moe``), so the
+    aux and its sum are equal on every rank; ``gather`` reaches every
+    leaf of a group, the ``mamba/`` and ``ffn/`` experts and router
+    too."""
     aux_terms: list = []
     kw = dict(vis_embeds=batch.get("vis_embeds"), frames=batch.get("frames"),
               use_kernels=use_kernels, aux=aux_terms, remat=remat,

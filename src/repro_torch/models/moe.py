@@ -32,25 +32,72 @@ combine is a partial sum. Either way one all_reduce SUM over ``model``
 Rank ``m``'s experts are ids above rank ``m - 1``'s, so the sum groups
 the one-process combine's ascending terms by rank.
 
+On a training mesh (``train.step.mesh_grads_fn``) the same layout
+carries gradients. The layer is partial over ``model`` (EP or the
+fallback), so ``x`` enters through ``layers.tp_input``, whose backward
+sums the ranks' partial ``dx`` (each rank dispatches and combines only
+its experts or hidden units). The router runs replicated; the part of
+its gradient that comes through the gates is partial in the same way,
+while the load-balancing loss is whole on every model rank, so only
+model rank 0 takes the aux loss's gradient (the others take its value
+alone): the router's and ``dx``'s partial gradients then sum over
+``model`` to one process's (``launch.sharding.grad_axes`` sums the
+router's). When the batch's rows are split over the dp axes
+(``runtime_context.current_row_axes``) the block is global over them,
+as the reference's is over the whole batch: the capacity counts every
+dp rank's rows; the drops follow one stable sort over the global rows,
+laid out rank-major (``launch.sharding.batch_rows``, ``launch.mesh.
+dp_index``), which no token
+needs to cross ranks for: each dp rank adds to an assignment's position
+in its expert the assignments to that expert on the dp ranks before it;
+and the load-balancing loss takes the router's probability mass and the
+top-1 counts summed over the dp ranks. One ``moe_dp`` all_reduce over
+each dp axis a layer carries those sums and the per-rank assignment
+counts (``collectives.sum_dp``). Each rank runs only its kept rows: its
+expert buffer holds, per expert, as many rows as it keeps for the
+busiest of its experts (read to the host once a layer). One process, or
+rows not split over dp, keeps the one-process code.
+
+``record_routes()`` collects, for every call, the expert ids, the kept
+mask over the global capacity and the smallest top-k margin of the
+router's probabilities (a check that a mesh routes as one process does).
+
 Everything is a fixed-shape tensor op: nothing reads the device from the
 host, so a CUDA graph of the serving step can hold it. The combine sums
 each token's k contributions in ascending expert id, starting from zero
 (the order of the reference's sorted scatter-add), so eager and graphed
 runs give the same bits; the dispatch writes each kept assignment to its
-own row and dropped ones to a spare row that is cut off.
+own row and dropped ones to a spare row that is cut off. (The global
+capacity's buffer size is read to the host: training only.)
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import runtime_context as ctx
 from repro_torch.launch import collectives as C
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.sharding import expert_range
 from repro_torch.models.layers import (_ACTS, _tp_local, linear, matmul_any,
-                                       tp_size)
+                                       tp_input, tp_size)
+
+_ROUTES: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """A list that every ``moe_block`` call inside the block appends
+    ``{"ids" [T, k], "kept" [T, k], "margin"}`` to (on the CPU)."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
 
 
 def capacity(t: int, cfg) -> int:
@@ -81,9 +128,13 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.topk
-    cap = capacity(t, cfg)
     dev = x.device
-    first, stop = expert_range(e, ctx.current_mesh())
+    mesh = ctx.current_mesh()
+    axes = ctx.current_row_axes()
+    dp_k, dp_n = ((meshlib.dp_index(mesh), meshlib.dp_size(mesh)) if axes
+                  else (0, 1))
+    cap = capacity(t * dp_n, cfg)
+    first, stop = expert_range(e, mesh)
     n = stop - first
     ff_rows = _ff_rows(p["w_down"], first)
     # the layer's y is partial on this rank: some experts elsewhere (EP),
@@ -91,6 +142,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
     partial = tp_size() > 1 and (n < e or ff_rows != cfg.d_ff)
 
     xf = x.reshape(t, d)
+    if partial:
+        xf = tp_input(xf)
     if tap:
         tap("router", xf)
     logits = linear(xf, p["router"], use_kernels=use_kernels
@@ -100,28 +153,49 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
     gate_vals = gate_vals / torch.clamp_min(
         gate_vals.sum(dim=-1, keepdim=True), 1e-9)
 
-    # Switch-style load-balancing loss
-    me = probs.mean(dim=0)
-    experts = torch.arange(e, device=dev)
-    ce = (expert_ids[:, :1] == experts).to(torch.float32).mean(dim=0)
-    aux = (me * ce).sum() * e
-
-    # sort-based dispatch: each assignment's position within its expert;
-    # the kept assignments to this rank's experts get rows [0, n * cap)
+    # sort-based dispatch: each assignment's position within its expert
     flat_expert = expert_ids.reshape(-1)                     # [T*k]
     order = torch.argsort(flat_expert, stable=True)
     se = flat_expert[order]
     st = order // k                                          # token ids
+    experts = torch.arange(e, device=dev)
     starts = torch.searchsorted(se, experts)
     seg_pos = torch.arange(t * k, device=dev) - starts[se]
-    rows = n * cap
-    row = (se - first) * cap + seg_pos
-    own = (seg_pos < cap) & (se >= first) & (se < first + n)
+    top1 = (expert_ids[:, :1] == experts).to(torch.float32)  # [T, E]
+
+    # Switch-style load-balancing loss; over dp, of the global rows: the
+    # probability mass, the top-1 counts and each rank's assignment
+    # counts summed over the dp ranks in one buffer
+    if dp_n == 1:
+        me, ce = probs.mean(dim=0), top1.mean(dim=0)
+        keep, cap_b = seg_pos < cap, cap
+    else:
+        counts = torch.zeros((dp_n, e), dtype=torch.float32, device=dev)
+        counts[dp_k] = torch.bincount(flat_expert, minlength=e).to(
+            torch.float32)
+        stats = C.sum_dp(torch.cat([probs.sum(dim=0), top1.sum(dim=0),
+                                    counts.reshape(-1)]), mesh, axes)
+        me, ce = stats[:e] / (t * dp_n), stats[e:2 * e] / (t * dp_n)
+        counts = stats[2 * e:].detach().reshape(dp_n, e).to(torch.int64)
+        before = counts[:dp_k].sum(dim=0)                    # [E]
+        keep = seg_pos + before[se] < cap
+        # this rank's kept rows of its busiest expert
+        kept_rows = torch.clamp(cap - before, min=0).minimum(counts[dp_k])
+        cap_b = max(1, int(kept_rows[first:stop].max()))
+    aux = (me * ce).sum() * e
+    if partial and mesh.index("model") != 0:
+        aux = aux.detach()                # its gradient on model rank 0
+    if _ROUTES is not None:
+        _record(probs, expert_ids, keep, order, k)
+
+    # the kept assignments to this rank's experts get rows [0, n * cap_b)
+    rows = n * cap_b
+    row = (se - first) * cap_b + seg_pos
+    own = keep & (se >= first) & (se < first + n)
     slot = torch.where(own, row, torch.full_like(row, rows))  # spare row
     buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=dev)
     buf.index_copy_(0, slot, xf[st])
-    buf = buf[:rows].reshape(n, cap, d)
-
+    buf = buf[:rows].reshape(n, cap_b, d)
     # grouped expert FFN over this rank's experts (or hidden units)
     act = _ACTS[cfg.act]
 
@@ -155,5 +229,18 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
     for j in range(k):
         y = y + contrib[:, j]
     if partial:
-        y = C.sum_over(y, ctx.current_mesh(), kind="moe")
+        y = C.sum_over(y, mesh, kind="moe")
     return y.reshape(b, s, d), aux
+
+
+def _record(probs, expert_ids, keep, order, k: int) -> None:
+    """One call's routing into ``record_routes``'s list."""
+    kept = torch.empty_like(keep)
+    kept[order] = keep
+    e = probs.shape[-1]
+    margin = float("inf")
+    if k < e and probs.shape[0]:
+        top = torch.topk(probs.detach(), k + 1, dim=-1).values
+        margin = float((top[:, k - 1] - top[:, k]).min())
+    _ROUTES.append({"ids": expert_ids.detach().cpu(),
+                    "kept": kept.reshape(-1, k).cpu(), "margin": margin})

@@ -24,6 +24,22 @@ not divide, a stream whose cut would split a subtile) takes the plain
 product. Splitting the heads, conv channels and state over ``model`` is
 a later speed step (ROADMAP B).
 
+On a training mesh the same layout carries gradients, and the replicated
+mixer's are whole on every model rank (the one consistent design of two:
+the other slices ``y`` plainly and sums partial mixer gradients over
+``model``). ``x`` enters ``in_proj`` through ``layers.tp_input`` (its
+gradient, partial over the rank's columns, summed over ``model``); the
+gather after ``in_proj`` keeps the rank's slice of the whole gradient in
+the backward; ``y`` reaches ``out_proj`` through
+``collectives.split_model``, whose backward gathers the slices' gradients
+into the whole ``dy``. So the mixer's replicated leaves (``a_log``,
+``dt_bias``, ``d_skip``, ``norm_scale``) get the same whole gradient on
+every model rank and are counted once, with no sum over ``model``. JAX's
+rule cuts ``conv_w``'s channels over ``model``; training keeps that cut
+and gathers the whole conv before the taps (``layers.tp_gather`` on dim
+0, kind ``gather``), whose backward keeps the rank's channels of the
+whole gradient. Serving holds ``conv_w`` whole and gathers nothing.
+
 With a cache, ``mamba_block`` writes the new ``ssm`` and ``conv`` rows
 into the cache tensors it was given, in place (``copy_``): the serving
 step's graphs read the arena by address, so a rebinding would freeze
@@ -36,7 +52,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import gathered_linear, rms_norm, row_linear
+from repro_torch.models.layers import (gathered_linear, rms_norm,
+                                       row_linear, tp_gather)
 
 CHUNK = 256
 
@@ -160,8 +177,11 @@ def mamba_block(p: dict, x: torch.Tensor, cfg, *,
                              2 * di + 2 * g * n + nh)
     z, xbc, dt = torch.split(zxbcdt, [di, cfg.conv_dim, nh], dim=-1)
 
+    conv_w = p["conv_w"]
+    if conv_w.shape[0] != cfg.conv_dim:     # channels cut over model
+        conv_w = tp_gather(conv_w, cfg.conv_dim, dim=0)
     conv_cache = cache["conv"] if cache is not None else None
-    xbc, new_conv = _causal_conv(xbc, p["conv_w"], conv_cache,
+    xbc, new_conv = _causal_conv(xbc, conv_w, conv_cache,
                                  valid_len=valid_len)
     xbc = F.silu(xbc)
     xs, b_mat, c_mat = torch.split(xbc, [di, g * n, g * n], dim=-1)

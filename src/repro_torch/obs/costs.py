@@ -49,14 +49,18 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch import tree as T
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.qtensor_sharded import ShardedQTensor
 from repro_torch.kernels.ops import qmm_plan
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import sharding as shd
 from repro_torch.memsys.system import (MemSystemConfig, evaluate_conventional,
                                        evaluate_hetero)
 from repro_torch.memsys.workload import (act_bits_per_step, kv_bits_per_step,
                                          make_traffic)
+from repro_torch.models.model import init_params
 from repro_torch.models.moe import capacity
 from repro_torch.models.ssm import chunk_for
 
@@ -192,6 +196,60 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
         matmul(params["lm_head"])
     return {"flops": flops, "bytes": nbytes,
             "dtype": str(act).replace("torch.", "")}
+
+
+# the leaves a training step multiplies by (the head: lm_head, or the tied
+# embedding table)
+_TRAIN_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                  "router", "in_proj", "out_proj", "lm_head")
+
+
+def train_step_work(cfg, mesh=None, *, tokens: int,
+                    remat: bool = True) -> Dict[str, float]:
+    """``{"flops", "forward_flops"}``: the matmul FLOPs of one training
+    step (``train.step``) on a rank of ``mesh`` (one process without)
+    over its ``tokens`` rows, counted from the model's shapes and the
+    training rules (``launch.sharding.param_spec``), as ``step_work``
+    counts a serving call:
+
+      * every projection at ``tokens`` rows with the rank's part of its
+        weight: cut over ``model`` where the rules cut it (column- or
+        row-parallel, a vocab slice of the head), whole along ``data``
+        (FSDP gathers it before use);
+      * each MoE FFN: the router at ``tokens`` rows, and each expert the
+        rank holds (its ``E / M`` under expert parallelism; all ``E``,
+        each cut to its ``d_ff / M`` hidden units, under the Megatron
+        fallback) at ``models.moe.capacity(tokens)`` rows (a call's
+        capacity over the rank's rows; with rows split over dp the block
+        runs at most the rank's kept rows of the global capacity, which
+        depend on the routing and are not counted here).
+
+    The forward counts once, the backward twice (the input's and the
+    weight's gradients) and, with ``remat``, the layer groups' recompute
+    once more; the head is not recomputed. Attention scores, the SSD
+    scan, the norms and the optimizer are not counted."""
+    groups = head = 0.0
+    for path, leaf in T.items(init_params(cfg, device="meta")):
+        name = path.split("/")[-1]
+        if name not in _TRAIN_MATMULS and not (
+                path == "embed/tok" and cfg.tie_embeddings):
+            continue
+        shape = list(leaf.shape)
+        if mesh is not None:
+            for i, ax in enumerate(shd.param_spec(path, leaf, mesh)):
+                if ax == "model":
+                    shape[i] //= meshlib.axis_size(mesh, "model")
+        if path.startswith("blocks/"):
+            g, shape = shape[0], shape[1:]
+            if len(shape) == 3:                       # [E, k, n] experts
+                rows = capacity(tokens, cfg)
+                groups += g * 2.0 * rows * shape[0] * shape[1] * shape[2]
+            else:
+                groups += g * 2.0 * tokens * shape[0] * shape[1]
+        else:                                         # the head [d, V]
+            head += 2.0 * tokens * shape[0] * shape[1]
+    return {"flops": groups * (4 if remat else 3) + head * 3,
+            "forward_flops": groups + head}
 
 
 # ---------------------------------------------------------------------------

@@ -122,20 +122,26 @@ def mesh_grads_fn(model_cfg: ModelConfig, mesh, microbatches: int = 1, *,
     """``compute(params, batch) -> (loss, {"loss", "aux"}, grads)`` on a
     training mesh (``repro.train.step._grads_fn`` under GSPMD): this
     rank's slices of the parameters (``launch.sharding.train_slices``)
-    and its rows of the global batch (``sharding.batch_rows``), which
-    ``microbatches`` split (they must divide, as the reference's reshape
-    requires). Each group's leaves are gathered over ``data`` just
-    before use and their gradients reduce-scattered back; the TP
-    collectives carry the gradients of the column- and row-parallel
-    products; after the backward pass the leaves replicated over
-    ``data``, the column-parallel biases over ``model`` and every leaf
-    over ``pod`` are summed there (``sharding.grad_axes``), and the
-    gradients scaled by ``1 / dp`` (the global batch's mean is the mean
-    of the dp ranks' means). So the gradients come out sharded as their
-    parameters, and the loss and aux are the global ones, equal on every
-    rank. Dense and local/global attention stacks only
-    (``sharding.check_train_mesh``). ``compute.specs`` is the mesh's
-    ``{path: spec}`` of the parameters."""
+    and its rows of the global batch (``sharding.batch_rows(mesh, B,
+    microbatches)``: split over the dp axes, each rank's share of each
+    global microbatch), which ``microbatches`` split (they must divide,
+    as the reference's reshape requires). Each group's leaves are
+    gathered over ``data`` just before use and their gradients
+    reduce-scattered back; the TP collectives carry the gradients of the
+    column- and row-parallel products, of the Mamba2 mixer's gather and
+    split and of the MoE block's expert-parallel dispatch; each MoE
+    block's capacity, drops and aux are global over the dp ranks' rows
+    (``models.moe``). After the backward pass the leaves replicated over
+    ``data``, the column-parallel biases and the MoE router over
+    ``model`` and every leaf over ``pod`` are summed there
+    (``sharding.grad_axes``), and the gradients scaled by ``1 / dp``
+    (the global batch's mean is the mean of the dp ranks' means). So the
+    gradients come out sharded as their parameters, and the loss and aux
+    are the global ones, equal on every rank. Every decoder-only stack:
+    dense, local/global attention, MoE, Mamba2 and hybrid
+    (``sharding.check_train_mesh`` refuses encoder-decoder and VLM
+    stacks). ``compute.specs`` is the mesh's ``{path: spec}`` of the
+    parameters."""
     shd.check_train_mesh(model_cfg, mesh)
     specs = shd.train_specs(init_params(model_cfg, device="meta"), mesh)
     local = grads_fn(model_cfg, microbatches, remat=remat,
@@ -147,16 +153,17 @@ def mesh_grads_fn(model_cfg: ModelConfig, mesh, microbatches: int = 1, *,
             # the mean of the dp ranks' masked means is not the global
             # masked mean (GSPMD's); no batch here carries a mask
             raise NotImplementedError("a loss mask over a dp mesh")
-        with ctx.use_mesh(mesh, meshlib.dp_axes(mesh)):
+        with ctx.use_mesh(mesh, meshlib.dp_axes(mesh), split_rows=True):
             loss, metrics, grads = local(params, batch)
         grads = _sum_grads(grads, specs, mesh)
         if dp > 1:
+            # the aux is the global one already, equal on every rank
             grads = T.map_(lambda g: g * (1.0 / dp), grads)
-            sums = torch.stack([loss, metrics["loss"], metrics["aux"]])
+            sums = torch.stack([loss, metrics["loss"]])
             for axis in meshlib.dp_axes(mesh):
                 mesh.all_reduce(sums, axis, kind="metrics")
             loss, metrics = sums[0] / dp, {"loss": sums[1] / dp,
-                                           "aux": sums[2] / dp}
+                                           "aux": metrics["aux"]}
         return loss, metrics, grads
     compute.specs = specs
     return compute

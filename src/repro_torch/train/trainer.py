@@ -24,8 +24,12 @@ loop runs ``train.step.build_train_step``: every rank initialises the
 whole tree from the seed, keeps its slice (``launch.sharding.
 train_slices``) and drops the whole tree before the moments are made;
 every rank draws the same global batch from ``(seed, step)`` and takes
-its dp rows (``sharding.batch_rows``). A checkpoint holds whole leaves
-(``sharding.unshard``, written by rank 0), as the reference's is
+its dp rows (``sharding.batch_rows``; with ``microbatches``, its share of
+each global microbatch, as the reference's step splits the global
+batch). An MoE stack on a dp mesh needs a global batch that divides the
+dp axes: its capacity and aux are taken over the dp ranks' rows. A
+checkpoint holds whole leaves (``sharding.unshard``, written by rank 0),
+as the reference's is
 unsharded on disk, so a run resumes on any mesh or on one device. Each
 rank keeps its own watchdog; rank 0 logs. A rank that raises leaves its
 peers blocked in a collective until the group's timeout, so every rank
@@ -45,6 +49,7 @@ from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.data.loader import PrefetchLoader
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.ft.watchdog import StepWatchdog
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import init_params
@@ -100,7 +105,14 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
                                    microbatches=train_cfg.microbatches,
                                    warmup=train_cfg.warmup,
                                    total_steps=train_cfg.steps)
-        rows = shd.batch_rows(mesh, train_cfg.global_batch)
+        rows = shd.batch_rows(mesh, train_cfg.global_batch,
+                              train_cfg.microbatches)
+        if (any(model_cfg.moe_slots) and rows == slice(None)
+                and meshlib.dp_size(mesh) > 1):
+            raise ValueError(
+                f"a global batch of {train_cfg.global_batch} does not "
+                f"divide the {meshlib.dp_size(mesh)} dp ranks: an MoE "
+                f"stack's capacity counts every dp rank's own rows")
         if mesh.rank != 0:
             log_fn = _quiet
     corpus = SyntheticCorpus(CorpusConfig(vocab=model_cfg.vocab,

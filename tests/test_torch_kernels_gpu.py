@@ -38,7 +38,12 @@ bit-identical to a call without one; over 2 slices at hymba-1.5b's shapes
 (G = 5, window 1024). The serving mesh's MoE rank (expert parallelism at
 M = 2): its experts' products through the qmm kernels, one ``moe`` sum,
 the two ranks' partial outputs adding up to the whole block's within
-1e-4 * max|y|."""
+1e-4 * max|y|. The training mesh's collectives with gradients on CUDA
+tensors over gloo: reduced dbrx-132b (expert parallelism, capacity and
+aux over the dp ranks) and mamba2-370m (the gathered ``in_proj``, the
+split into ``out_proj``) at (2, 2) with 2 microbatches, step 0's
+gradients against one process's on the card at rtol 1e-4 and atol 2e-6
+* max|g| (``tests/test_torch_train_mesh_families.py``'s)."""
 import sys
 from pathlib import Path
 
@@ -1504,3 +1509,59 @@ def test_sliced_attention_at_hymba_shapes(gen, pages):
     valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
     torch.testing.assert_close(merge_slices(parts)[valid], whole[valid],
                                atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the training mesh's collectives with gradients, on CUDA tensors
+# ---------------------------------------------------------------------------
+def _family_grads_rank(mesh, cfg, params, batch, microbatches):
+    """One gloo rank on the card: step 0's loss, aux and gradients of the
+    sharded step on its slices and rows (made whole), and its collectives
+    by kind."""
+    from repro_torch import tree as T
+    from repro_torch.launch import sharding as shd
+    from repro_torch.train.step import mesh_grads_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    whole = T.map_(lambda t: t.cuda(), params)
+    specs = shd.train_specs(whole, mesh)
+    local = shd.train_slices(whole, mesh, specs)
+    rows = shd.batch_rows(mesh, batch["tokens"].shape[0], microbatches)
+    batch = {k: v[rows].cuda() for k, v in batch.items()}
+    loss, metrics, grads = mesh_grads_fn(cfg, mesh, microbatches)(local,
+                                                                  batch)
+    kinds = {k: v[0] for k, v in mesh.by_kind.items()}
+    grads = T.map_(lambda g: g.cpu(), shd.unshard(grads, mesh, specs))
+    return float(loss), float(metrics["aux"]), grads, kinds
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-370m"])
+def test_training_mesh_collectives_on_the_card(gen, arch):
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.model import init_params
+    from repro_torch.train.step import grads_fn
+    cfg = dataclasses.replace(reduced_config(arch), capacity_factor=1.25)
+    params = init_params(cfg, 0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (8, 17), generator=torch.Generator(
+        ).manual_seed(3))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    one = grads_fn(cfg, 2)(T.map_(lambda t: t.cuda(), params),
+                           {k: v.cuda() for k, v in batch.items()})
+    runs = spawn(_family_grads_rank, (2, 2), backend="gloo",
+                 args=(cfg, params, batch, 2), timeout_s=300.0)
+    want = dict(T.items(one[2]))
+    for loss, aux, grads, kinds in runs:
+        assert abs(loss - float(one[0])) <= 1e-5 * abs(float(one[0]))
+        assert abs(aux - float(one[1]["aux"])) <= 1e-5 * abs(
+            float(one[1]["aux"]))
+        for path, g in T.items(grads):
+            w = want[path].cpu()
+            torch.testing.assert_close(g, w, rtol=1e-4,
+                                       atol=2e-6 * float(w.abs().max()),
+                                       msg=path)
+        new = {"moe", "moe_dp"} if arch == "dbrx-132b" else {"gather",
+                                                            "split"}
+        assert new <= set(kinds), kinds
+

@@ -502,8 +502,9 @@ def test_resumed_run_is_bit_identical_to_an_unbroken_one(tmp_path):
 
 def test_train_cli_runs_on_the_cpu_and_refuses_the_mesh(tmp_path, capsys):
     """The CLI on one device; a mesh without a backend exits 2; the
-    sharded step refuses the stacks its mesh does not run, naming A12
-    (tests/test_torch_train_mesh.py runs the mesh)."""
+    sharded step refuses the stacks its mesh does not run (encoder-decoder
+    and VLM), naming A12, and asks every other stack for a mesh
+    (tests/test_torch_train_mesh*.py run the mesh)."""
     train_cli.main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "2",
                     "--batch", "2", "--seq", "8", "--device", "cpu",
                     "--ckpt-dir", str(tmp_path)])
@@ -515,10 +516,11 @@ def test_train_cli_runs_on_the_cpu_and_refuses_the_mesh(tmp_path, capsys):
                             "2", "--device", "cpu"])
         assert e.value.code == 2
         assert "--dist-backend" in capsys.readouterr().err
-    for arch in ("hymba-1.5b", "mamba2-370m", "dbrx-132b",
-                 "whisper-medium", "internvl2-2b"):
+    for arch in ("whisper-medium", "internvl2-2b"):
         with pytest.raises(NotImplementedError, match="A12"):
             train_step.build_train_step(reduced_config(arch), AdamWConfig(),
                                         None)
-    with pytest.raises(ValueError, match="needs a mesh"):
-        train_step.build_train_step(CFG, AdamWConfig(), None)
+    for cfg in (CFG, reduced_config("hymba-1.5b"),
+                reduced_config("mamba2-370m"), reduced_config("dbrx-132b")):
+        with pytest.raises(ValueError, match="needs a mesh"):
+            train_step.build_train_step(cfg, AdamWConfig(), None)
