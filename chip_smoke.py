@@ -114,17 +114,22 @@ Phases (each prints its own lines; any failure exits nonzero):
   4e. mesh-x  — MoE, SSM and hybrid stacks on gloo ranks sharing the card,
                 on the [moe] and [hybrid] phases' streams (no second init
                 or PTQ), 4 of the serve prompts with 12 new tokens each,
-                eager: dbrx-132b (2 layers; expert parallelism, 8 of the
-                16 experts a rank) then mamba2-370m (in_proj gathered,
-                the mixer replicated) at (2, 2), hymba-1.5b at (2, 1);
-                every rank gives one process's tokens on the same
-                streams, launches the decode qmm (dbrx, mamba2), the
-                attention kernel (dbrx, hymba) and every kernel one
-                process launches, takes qmm's "ref" path only as the plan
-                sends hymba's K = 1600 leaves there, and a dbrx rank holds
-                half the expert codes (its bytes against the whole);
-                rank 0's collectives a round by kind, the phase's
-                seconds;
+                eager, all at (2, 2) in one spawn: dbrx-132b (2 layers;
+                expert parallelism, 8 of the 16 experts a rank), then
+                mamba2-370m (in_proj gathered, the mixer replicated),
+                then hymba-1.5b (its 25 heads and 5 KV heads do not
+                divide 2: every model rank runs the whole attention
+                block, the attention kernel over its page slice of all
+                5 KV heads; the mixer and the FFN cut); every rank gives
+                one process's tokens on the same streams, launches the
+                decode qmm (dbrx, mamba2), the attention kernel (dbrx,
+                hymba) and every kernel one process launches, takes
+                qmm's "ref" path only as the plan sends its own leaves
+                there (hymba's K = 1600 leaves), holds every KV head
+                where the heads replicate
+                (its arena's KV columns), and a dbrx rank holds half the
+                expert codes (its bytes against the whole); rank 0's
+                collectives a round by kind, the phase's seconds;
   4f. families — the contiguous-cache surface at full width: whisper-medium
                 (24 encoder + 24 decoder layers, 1500 frames) and
                 internvl2-2b (24 layers, 256 vision embeddings), random
@@ -186,14 +191,22 @@ Phases (each prints its own lines; any failure exits nonzero):
                 slice of the one process's, one gathered layer group and
                 1 GiB) and their sum; the collectives a step by kind,
                 their seconds and payload bytes;
-  7x. train-mesh-x — MoE, SSM and hybrid stacks on the training mesh,
-                gloo ranks sharing the card, as train-mesh checks
-                stablelm: mamba2-370m (full: 48 layers, d 1024; in_proj
-                cut over model and gathered, the mixer replicated with
-                whole gradients) at (2, 2) and hymba-1.5b (full width, 4
-                of its 32 layers; 25 heads, so M = 1) at (2, 1), each
-                step 0's gradients and 3 steps of train() against one
-                process on a (1, 1) mesh (both references in one spawn);
+  7x. train-mesh-x — MoE, SSM, hybrid, encoder-decoder and VLM stacks on
+                the training mesh, gloo ranks sharing the card, as
+                train-mesh checks stablelm, all at (2, 2) in train-mesh's
+                spawn: mamba2-370m (full: 48 layers, d 1024; in_proj cut
+                over model and gathered, the mixer replicated with whole
+                gradients), hymba-1.5b (full width, 4 of its 32 layers;
+                its 25 heads and 5 KV heads do not divide 2, so its
+                attention block and its 32001-row embedding replicate
+                over model with whole gradients), whisper-medium (full
+                width, 2 of 24 encoder and 2 of 24 decoder layers over
+                1500 frames; vocab 51865 replicated) and internvl2-2b
+                (full width, 2 of 24 layers, 256 visual tokens; vocab
+                92553 replicated), the frames and visual embeddings
+                seeded (extra_batch), each step 0's gradients and 3
+                steps of train() against one process on a (1, 1) mesh
+                (the references in one spawn), with each run's seconds;
                 then dbrx-132b at its published widths, 1 of its 40
                 layers (4.49 G parameters, 18.0 GB fp32), batch 2 x 64,
                 capacity factor 1.25: step 0 in one process, then at
@@ -259,7 +272,8 @@ from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
 from repro_torch.models.chunked_ce import (chunked_ce_loss,  # noqa: E402
                                            sharded_ce_loss)
-from repro_torch.models.layers import cross_entropy_loss  # noqa: E402
+from repro_torch.models.layers import (attn_replicated,  # noqa: E402
+                                       cross_entropy_loss)
 from repro_torch.models.model import (decode_step, encode,  # noqa: E402
                                       forward, init_params, prefill,
                                       train_loss)
@@ -2291,8 +2305,7 @@ def moe_phase(seed: int, kernel_rows, kept: dict) -> dict:
 # ---------------------------------------------------------------------------
 # (mesh shape, the archs its ranks serve in order); each arch's streams
 # are the [hybrid] and [moe] phases' own
-FAMILY_MESH = (((2, 2), ("dbrx-132b", "mamba2-370m")),
-               ((2, 1), ("hymba-1.5b",)))
+FAMILY_MESH = (((2, 2), ("dbrx-132b", "mamba2-370m", "hymba-1.5b")),)
 # the kernels each arch's ranks must launch (and every kernel its one
 # process run launched); hymba's streams all take qmm's "ref" path
 FAMILY_KERNELS = {"dbrx-132b": ("qmm_decode", "ragged_paged_attention"),
@@ -2314,10 +2327,11 @@ def expert_codes(tree) -> int:
 def family_mesh_rank(mesh, job):
     """One gloo rank of ``[mesh-x]``: each arch of ``job["order"]`` in turn
     served through ``ServeEngine(mesh=...)`` on the parent's streams (CUDA
-    IPC; the rank keeps its slice: its experts, its TP columns and rows),
-    eagerly, once, with the launch counts set to 0 just before the run and
-    the collectives counted by kind over it; the bytes of the expert
-    codes the rank holds. Prints nothing."""
+    IPC; the rank keeps its slice: its experts, its TP columns and rows,
+    a replicated attention block whole), eagerly, once, with the launch
+    counts set to 0 just before the run and the collectives counted by
+    kind over it; the bytes of the expert codes the rank holds and its
+    arena's fused KV width. Prints nothing."""
     t_rank = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2347,7 +2361,9 @@ def family_mesh_rank(mesh, job):
             tokens_per_s=st.tokens_per_s,
             round_ms_p50=float(np.median(st.step_seconds) * 1e3),
             by_kind={k: v for k, v in kinds.items() if v[0]},
-            expert_bytes=held, setup_s=setup_s)
+            expert_bytes=held, setup_s=setup_s,
+            kv_width=next((g["attn"]["k_pages"].shape[-1]
+                           for g in eng._arena.values() if "attn" in g), 0))
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -2369,16 +2385,22 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
     no second PTQ): dbrx-132b (2 of 40 layers, published widths; its 16
     experts over ``model``: 8 a rank) and then mamba2-370m (full width and
     depth; ``in_proj`` cut into 2192 columns a rank and gathered, the
-    mixer replicated, ``out_proj`` row-parallel) at (2, 2), hymba-1.5b
-    (full; 5 KV heads serve at M = 1) at (2, 1); each on 4 of the serve
-    phase's prompts with 12 new tokens. On every rank: the tokens of one
-    process serving the same streams and requests eagerly, the decode
-    qmm launched for dbrx and mamba2 and the attention kernel for dbrx
-    and hymba (and every kernel the one process's run launched), qmm's
-    "ref" path exactly as often as ``qmm_plan`` sends the model's leaves
-    there a step call; a dbrx rank holds half the expert codes. Rank 0's
-    collectives a round by kind and the phase's seconds are printed.
-    ``models`` maps an arch to ``(cfg, qparams, ref_per_call)``."""
+    mixer replicated, ``out_proj`` row-parallel) and hymba-1.5b (full;
+    its 25 heads and 5 KV heads do not divide 2, so every model rank runs
+    the whole attention block over its page slice of all 5 KV heads,
+    while the Mamba2 mixer and the FFN are cut as mamba2's; its vocab
+    32001 replicates too) at (2, 2); each on 4 of the serve phase's
+    prompts with 12 new tokens. On every rank: the tokens of one process
+    serving the same streams and requests eagerly, the decode qmm
+    launched for dbrx and mamba2 and the attention kernel for dbrx and
+    hymba (and every kernel the one process's run launched), qmm's "ref"
+    path exactly as often as ``qmm_plan`` sends the model's leaves there
+    a step call (hymba's ``w_up`` / ``w_gate`` streams, whose 2752-column
+    cut would split a subtile, stay whole on a rank); a dbrx rank holds
+    half the expert codes; a hymba rank's arena holds every KV head.
+    Rank 0's collectives a round by kind and the phase's seconds are
+    printed. ``models`` maps an arch to ``(cfg, qparams,
+    ref_per_call)``."""
     t_phase = time.monotonic()
     out = {}
     jobs = {}
@@ -2428,6 +2450,13 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
                         f"{tag}: qmm's 'ref' path {got['paths']['ref']} "
                         f"times, the plan sends {ref_per_call} leaves there "
                         f"a step call ({got['rounds']} calls)")
+                c = models[arch][0]
+                if c.n_kv_heads:
+                    want = c.kv_dim if attn_replicated(c, shape[1]) \
+                        else c.kv_dim // shape[1]
+                    require(got["kv_width"] == want, f"{tag}: its arena "
+                            f"holds {got['kv_width']} KV columns, not "
+                            f"{want}")
                 if one["expert_bytes"]:
                     require(2 * got["expert_bytes"] == one["expert_bytes"],
                             f"{tag}: holds {got['expert_bytes']} B of expert "
@@ -2447,7 +2476,8 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
                   f"round ms p50 {r0['round_ms_p50']:.2f}); collectives a "
                   f"round by kind (calls, seconds, payload): {per_round}; "
                   f"launches {r0['launches']}; qmm paths {r0['paths']}; "
-                  f"set-up {r0['setup_s']:.1f}s{held}")
+                  f"arena KV columns {r0['kv_width']}; set-up "
+                  f"{r0['setup_s']:.1f}s{held}")
             out[arch][label] = dict(r0, ranks=len(res), tokens=None)
         torch.cuda.ipc_collect()
         out[f"spawn {label}"] = dict(
@@ -3017,6 +3047,8 @@ def grad_fingerprints(mesh, cfg, seed: int):
                             ).sample_batch(TRAIN_BATCH, TRAIN_SEQ, step=0)
     batch = {k: torch.from_numpy(v[rows]).long().cuda()
              for k, v in batch.items()}
+    batch.update({k: v[rows].cuda() for k, v in extra_batch(
+        TRAIN_BATCH, TRAIN_SEQ, cfg).items()})
     loss, metrics, grads = compute(params, batch)
     del params
     leaves = tree_fingerprints(grads, seed, mesh, compute.specs)
@@ -3058,12 +3090,30 @@ def compare_fingerprints(tag: str, got: dict, want: dict, tol: float,
     return {p: errs[p] for p in worst}
 
 
+def extra_batch(batch: int, seq: int, cfg) -> dict:
+    """A global batch's ``frames`` (an encoder-decoder: ``enc_seq`` frame
+    embeddings a row) or ``vis_embeds`` (a VLM: ``n_vis_tokens`` patch
+    embeddings a row), on the host: normal values from a generator seeded
+    with TRAIN_EXTRA_SEED, the same in every process and every step (the
+    stand-in of the stubbed frontends). ``train``'s ``extra_batch_fn``."""
+    gen = torch.Generator().manual_seed(TRAIN_EXTRA_SEED)
+    out = {}
+    if cfg.is_encdec:
+        out["frames"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                    generator=gen)
+    if cfg.n_vis_tokens:
+        out["vis_embeds"] = torch.randn(
+            (batch, cfg.n_vis_tokens, cfg.d_model), generator=gen)
+    return out
+
+
 def train_mesh_rank(mesh, job):
     """One rank of ``[train-mesh]``: ``train()`` on its slices (the whole
     tree initialised from the seed on the card, sliced, dropped), batch
-    8 x 128 of the synthetic corpus, remat on; its history (with each
-    step's peak memory), the bytes of its parameter slices and of one
-    gathered layer group, and the collectives by kind."""
+    8 x 128 of the synthetic corpus (with ``extra_batch``'s frames or
+    visual embeddings), remat on; its history (with each step's peak
+    memory), the bytes of its parameter slices and of one gathered layer
+    group, and the collectives by kind."""
     t0 = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3075,15 +3125,19 @@ def train_mesh_rank(mesh, job):
                                  log_every=1, seed=job["seed"]),
                 AdamWConfig(lr=1e-3), mesh, device="cuda",
                 log_fn=lambda m: print(m.replace("[trainer]",
-                                                 f"[{tag}] {cfg.name}")))
+                                                 f"[{tag}] {cfg.name}")),
+                extra_batch_fn=(extra_batch if cfg.is_encdec
+                                or cfg.n_vis_tokens else None))
     torch.cuda.synchronize()
     local = sum(t.numel() * t.element_size()
                 for t in tree_leaves(res["params"]))
     group = sum(t[0].numel() * t.element_size()
                 for t in tree_leaves(res["params"]["blocks"]))
     data = mesh.shape[list(mesh.axis_names).index("data")]
+    rows = TRAIN_BATCH // data
     work = obs_costs.train_step_work(
-        cfg, mesh, tokens=TRAIN_BATCH // data * TRAIN_SEQ)
+        cfg, mesh, tokens=rows * TRAIN_SEQ, enc_tokens=rows * cfg.enc_seq
+        if cfg.is_encdec else 0, vis_tokens=rows * cfg.n_vis_tokens)
     return dict(rank=mesh.rank, history=res["history"], local_bytes=local,
                 flops=work["flops"],
                 fingerprint=fingerprint,
@@ -3156,6 +3210,9 @@ def check_train_runs(tag: str, what: str, label: str, mesh_res, one,
           f"{one['local_bytes'] / 2**30:.3f}, one gathered group "
           f"{r0['gathered_group_bytes'] / 2**30:.3f}; bound "
           f"{bound / 2**30:.3f}")
+    print(f"[{tag}] {what}: seconds of the run (spawned rank's fingerprint "
+          f"and train(), set-up included): rank 0 {r0['rank_s']:.1f}, one "
+          f"process {one['rank_s']:.1f}")
     print(f"[{tag}] {what}: rank 0's collectives a step: "
           f"{r0['collectives'] / steps:.0f} in "
           f"{r0['collective_s'] / steps:.3f}s; by kind (calls, s, payload "
@@ -3170,17 +3227,29 @@ def check_train_runs(tag: str, what: str, label: str, mesh_res, one,
 # ---------------------------------------------------------------------------
 # phase 7x: MoE, SSM and hybrid stacks on the training mesh
 # ---------------------------------------------------------------------------
-# (tag, arch, mesh shape, layers) of the runs that train() for
-# TRAIN_MESH_STEPS steps: stablelm-1.6b's dense path ([train-mesh]);
-# mamba2-370m whole (48 layers: in_proj cut over model and gathered, the
-# mixer replicated), hymba-1.5b at 4 of its 32 layers (one group of its
-# pattern: a global and three windowed hybrid layers; its 25 heads train
-# at M = 1). The runs of one shape share a
-# spawn, and every run's one-process reference shares one (1, 1) spawn
+# (tag, arch, mesh shape, depth: overrides of the published config) of
+# the runs that train() for TRAIN_MESH_STEPS steps: stablelm-1.6b's dense
+# path ([train-mesh]); mamba2-370m whole (48 layers: in_proj cut over
+# model and gathered, the mixer replicated), hymba-1.5b at 4 of its 32
+# layers (one group of its pattern: a global and three windowed hybrid
+# layers; its 25 heads and 5 KV heads do not divide 2, so the attention
+# block replicates over model while the mixer and the FFN are cut, and
+# its vocab 32001 replicates the embedding), whisper-medium at 2 of its
+# 24 encoder and 2 of its 24 decoder layers over its 1500 frames (TP in
+# the encoder, the self- and the cross-attention; vocab 51865
+# replicated), internvl2-2b at 2 of its 24 layers with its 256 visual
+# tokens (vocab 92553 replicated). The runs of one shape share a spawn,
+# and every run's one-process reference shares one (1, 1) spawn
 TRAIN_MESH_RUNS = (
-    ("train-mesh", "stablelm-1.6b", TRAIN_MESH_SHAPE, TRAIN_MESH_LAYERS),
-    ("train-mesh-x", "mamba2-370m", (2, 2), 48),
-    ("train-mesh-x", "hymba-1.5b", (2, 1), 4))
+    ("train-mesh", "stablelm-1.6b", TRAIN_MESH_SHAPE,
+     dict(n_layers=TRAIN_MESH_LAYERS)),
+    ("train-mesh-x", "mamba2-370m", (2, 2), dict(n_layers=48)),
+    ("train-mesh-x", "hymba-1.5b", (2, 2), dict(n_layers=4)),
+    ("train-mesh-x", "whisper-medium", (2, 2),
+     dict(n_layers=2, n_enc_layers=2)),
+    ("train-mesh-x", "internvl2-2b", (2, 2), dict(n_layers=2)))
+# the frames' and the visual embeddings' generator (extra_batch)
+TRAIN_EXTRA_SEED = 7
 # dbrx-132b at 1 of its 40 layers on (1, 2): expert parallelism, 8 whole
 # experts a rank; step 0 only: one layer with the embedding and head is
 # 4.49 G parameters, 18.0 GB in fp32, and fp32 moments beside the
@@ -3413,9 +3482,9 @@ def train_mesh_phases(seed: int):
     two phases' results."""
     t_phase = time.monotonic()
     torch.cuda.empty_cache()
-    jobs = [dict(cfg=dataclasses.replace(get_config(arch), n_layers=layers),
+    jobs = [dict(cfg=dataclasses.replace(get_config(arch), **depth),
                  seed=seed, tag=tag)
-            for tag, arch, _, layers in TRAIN_MESH_RUNS]
+            for tag, arch, _, depth in TRAIN_MESH_RUNS]
     ranks, secs = {}, {}
     for shape in dict.fromkeys(run[2] for run in TRAIN_MESH_RUNS):
         mine = [i for i, run in enumerate(TRAIN_MESH_RUNS)
@@ -3431,9 +3500,16 @@ def train_mesh_phases(seed: int):
                  timeout_s=900.0)[0]
     secs["(1,1)"] = time.monotonic() - t0
     out = {"train-mesh": {"layers": TRAIN_MESH_LAYERS}, "train-mesh-x": {}}
-    for i, (tag, arch, shape, layers) in enumerate(TRAIN_MESH_RUNS):
-        what = (f"{arch}, {layers} of {get_config(arch).n_layers} layers, "
-                f"full width")
+    for i, (tag, arch, shape, depth) in enumerate(TRAIN_MESH_RUNS):
+        full = get_config(arch)
+        what = (f"{arch}, {depth['n_layers']} of {full.n_layers} "
+                + (f"decoder layers and {depth['n_enc_layers']} of "
+                   f"{full.n_enc_layers} encoder layers over "
+                   f"{full.enc_seq} frames"
+                   if full.is_encdec else "layers")
+                + (f" with {full.n_vis_tokens} visual tokens"
+                   if full.n_vis_tokens else "")
+                + ", full width")
         tol, rtol = ((TRAIN_MESH_GRAD_TOL, TRAIN_MESH_RTOL)
                      if tag == "train-mesh" else
                      (TRAIN_MESH_X_GRAD_TOL, TRAIN_MESH_X_RTOL))
@@ -3473,9 +3549,9 @@ def summary(rows, launches, bw_name, hymba_attn_launches: int,
     attention rows over a data rank's page slice (D = 2, the slower
     slice's time, the merge's beside it), with the launches of rank 0 of
     the mesh phase's (2, 2) run (at hymba-1.5b's shapes: of rank 0 of
-    ``[mesh-x]``'s (2, 1) run). The dbrx expert rows also carry
-    ``ep_rank_launches``: rank 0's decode qmm launches on ``[mesh-x]``'s
-    (2, 2) expert-parallel mesh."""
+    ``[mesh-x]``'s (2, 2) run, every KV head on each model rank). The
+    dbrx expert rows also carry ``ep_rank_launches``: rank 0's decode qmm
+    launches on ``[mesh-x]``'s (2, 2) expert-parallel mesh."""
     pick = {"qmm_decode": ("M=4 K=2048 N=5632", "float32"),
             "qmm_colstrip": ("M=512 K=2048 N=5632", "float32"),
             "ragged_paged_attention": ("chunk S=128", "float32"),
@@ -3652,7 +3728,7 @@ def main(argv=None) -> int:
         moe["b graphed"]["launches"]["ragged_paged_attention"],
         hd_launches["stablelm-3b"], hd_launches["gemma2-2b"],
         meshed["(2,2)"]["launches"]["ragged_paged_attention"],
-        family_meshed["hymba-1.5b"]["(2,1)"]["launches"][
+        family_meshed["hymba-1.5b"]["(2,2)"]["launches"][
             "ragged_paged_attention"],
         family_meshed["dbrx-132b"]["(2,2)"]["launches"]["qmm_decode"])
     args.out.parent.mkdir(parents=True, exist_ok=True)

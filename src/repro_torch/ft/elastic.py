@@ -59,6 +59,8 @@ def reshard_restore(tree_like, directory: str, mesh, spec_fn,
     """Restore a checkpoint written on any mesh onto ``mesh``:
     ``tree_like`` holds this rank's slices (structure, dtypes, devices),
     ``spec_fn(path, whole array, mesh)`` gives each leaf's spec
-    (``launch.sharding.param_spec``). Returns ``(tree, step)``."""
+    (``launch.sharding.param_spec``; ``functools.partial(param_spec,
+    cfg=cfg)`` where the model's heads may not divide ``model``). Returns
+    ``(tree, step)``."""
     return ckpt.restore(tree_like, directory, step=step,
                         slice_fn=shd.restore_slicer(mesh, spec_fn))

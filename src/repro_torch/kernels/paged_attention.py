@@ -185,15 +185,15 @@ def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int,
     return out
 
 
-def shard_compatible(mesh, n_pages_total: int, n_kv: int) -> bool:
-    """Whether the arena and the heads divide the mesh: the page axis over
-    ``data`` (equal page slices) and the KV heads over ``model`` (heads
-    stay whole on a rank)."""
+def shard_compatible(mesh, n_pages_total: int) -> bool:
+    """Whether the arena divides the mesh: the page axis over ``data``
+    (equal page slices). The KV heads need not divide ``model``: where
+    they do not, every model rank holds all of them
+    (``launch.sharding.local_arena``)."""
     if mesh is None:
         return True
     from repro_torch.launch.mesh import axis_size
-    d, m = axis_size(mesh, "data"), axis_size(mesh, "model")
-    return n_pages_total % max(d, 1) == 0 and n_kv % max(m, 1) == 0
+    return n_pages_total % max(axis_size(mesh, "data"), 1) == 0
 
 
 def merge_slices(parts) -> torch.Tensor:

@@ -7,6 +7,19 @@ tuple): name-based over the flattened parameter path, stacked leaves
 (``blocks/``, ``encoder/blocks/``, ``xattn/``) with a leading None, and a
 dim that does not divide its axis replicated, as ``_finalize`` does.
 
+Given the model's config (``cfg``), an attention block whose heads or KV
+heads do not divide ``model`` replicates over it whole: ``attn/w[qkvo]``
+and ``attn/b[qkvo]``, under ``xattn/`` and ``encoder/blocks/`` too, keep
+their ``data`` (FSDP) cut and lose their ``model`` one, and every model
+rank runs every head of the block (``layers.attn_replicated``). The dim
+rule alone cannot decide this: hymba-1.5b's ``wq`` has 1600 columns and
+its ``wk`` / ``wv`` 320, which divide 2 but would give a rank 12.5 and
+2.5 heads. JAX cuts the columns and lets GSPMD reshard; the port runs
+the block whole, with the same result. A vocab that does not divide
+``model`` needs no rule of its own: ``_finalize`` replicates the
+embedding's and the head's vocab dim, and the model code reads the
+table's width.
+
 Serving departs from them in three ways, each with the same result:
 
   * the ``data`` entries of ``_RULES`` are FSDP, a training layout, so
@@ -47,30 +60,34 @@ replicated where it does not (a dim that does not divide).
 
 The paged arena: pages over ``data`` (rank ``d`` holds global pages
 ``[d * n_local, (d + 1) * n_local)``, so the null page 0 lives on data
-rank 0) and the fused KV dim over ``model`` (whole heads: ``n_kv % M ==
-0`` is required, ``kernels.paged_attention.shard_compatible``); block
-tables replicate. On a mesh with ``D > 1`` each rank's slice carries one
-more page past its ``n_local``, the sink: the K/V rows of pages other
-ranks hold are written there, and no block table ever maps it. The SSM
+rank 0) and the fused KV dim over ``model`` where the KV heads divide it
+(whole heads a rank), every KV head on every model rank where they do
+not (the block replicates); block tables replicate. On a mesh with ``D >
+1`` each rank's slice carries one more page past its ``n_local``, the
+sink: the K/V rows of pages other ranks hold are written there, and no
+block table ever maps it. The SSM
 and conv state of mamba and hybrid blocks is whole on every rank (JAX
 puts its slot dim on the dp axes): every data rank runs every lane, and
 every model rank runs the whole mixer.
 
-Training (every decoder-only stack: dense, local/global attention, MoE,
-Mamba2 and hybrid; ``check_train_mesh``) keeps the JAX rules whole (FSDP
+Training (every stack: dense, local/global attention, MoE, Mamba2,
+hybrid, encoder-decoder and VLM; ``check_train_mesh`` refuses only a
+``d_ff`` that does not divide ``model``) keeps the JAX rules whole (FSDP
 on ``data``, TP on ``model``; ``train_specs``, ``train_slices``): every
-large parameter is cut along
-both, and a dim that does not divide its axis replicates, as
-``_finalize`` does. Each rank holds its slice of the parameters, of the
-gradients and of both AdamW moments. The leaves that end up replicated
+large parameter is cut along both, and a dim that does not divide its
+axis replicates, as ``_finalize`` does (an attention block whose heads do
+not divide ``model`` whole, given ``cfg``). Each rank holds its slice of
+the parameters, of the gradients and of both AdamW moments. The leaves that end up replicated
 over ``data`` are the norms (``norm1``, ``norm2``, ``final_norm``), the
 attention biases (``bq``/``bk``/``bv``) and any leaf whose FSDP dim does
 not divide the data axis; their gradients need a SUM over ``data`` in
 place of the reduce-scatter (``grad_axes``), and the global norm counts
 them once (``owns``). The attention biases are also replicated over
 ``model`` while each rank adds only its heads' slice of them, so their
-gradients are partial there and take a SUM over ``model``; so is the
-MoE router, replicated over ``model`` while each rank's gates combine
+gradients are partial there and take a SUM over ``model`` (not in a
+replicated attention block, whose every leaf, like a replicated
+embedding and head, gets its whole gradient on every model rank); so is
+the MoE router, replicated over ``model`` while each rank's gates combine
 only its experts (``models.moe``). The MoE expert stacks follow the
 expert rules (EP on ``model`` when it divides ``E``, else the Megatron
 cut of each expert's hidden units), FSDP on their ``d`` dim. The Mamba2
@@ -100,8 +117,12 @@ from repro_torch.core.serving_quant import ROW_SHARDED
 from repro_torch.launch import collectives as C
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import kvcache as KV
+from repro_torch.models.layers import attn_replicated
 
 _STACKED_PREFIXES = ("blocks/", "encoder/blocks/", "xattn/")
+# the leaves of an attention block: self-attention, the encoder's and the
+# decoder's cross-attention (``xattn/xattn/``)
+_ATTN_LEAF = r"attn/(w[qkvo]|b[qkvo])$"
 
 # (regex on path, spec for the trailing (non-stacked) dims)
 _RULES = [
@@ -149,8 +170,27 @@ def _finalize(spec, stacked, ndim, shape, mesh) -> Tuple:
                  else None for dim, ax in zip(shape, spec))
 
 
-def param_spec(path: str, leaf, mesh) -> Tuple:
-    """The JAX PartitionSpec of one parameter leaf, as a tuple."""
+def replicated_attn_leaf(path: str, cfg, mesh) -> bool:
+    """Whether ``path`` is a leaf of an attention block (``attn/``,
+    ``xattn/``, ``encoder/blocks/attn/``) that replicates over ``model``
+    because ``cfg``'s heads or KV heads do not divide it
+    (``layers.attn_replicated``)."""
+    return (cfg is not None and re.search(_ATTN_LEAF, path) is not None
+            and attn_replicated(cfg, meshlib.axis_size(mesh, "model")))
+
+
+def param_spec(path: str, leaf, mesh, cfg=None) -> Tuple:
+    """The JAX PartitionSpec of one parameter leaf, as a tuple; with
+    ``cfg``, an attention block whose heads do not divide ``model``
+    replicates over it whole (its ``data`` cut kept)."""
+    spec = _dim_spec(path, leaf, mesh)
+    if replicated_attn_leaf(path, cfg, mesh):
+        spec = tuple(None if ax == "model" else ax for ax in spec)
+    return spec
+
+
+def _dim_spec(path: str, leaf, mesh) -> Tuple:
+    """``param_spec`` by the leaf's name and dims alone."""
     stacked = any(path.startswith(p) or ("/" + p) in path
                   for p in _STACKED_PREFIXES)
     shape = tuple(leaf.shape)
@@ -175,14 +215,14 @@ def param_spec(path: str, leaf, mesh) -> Tuple:
     return _finalize((None,) * base_ndim, stacked, ndim, shape, mesh)
 
 
-def serving_spec(path: str, leaf, mesh) -> Tuple:
+def serving_spec(path: str, leaf, mesh, cfg=None) -> Tuple:
     """``param_spec`` with its FSDP ``data`` entries dropped: serving
     weights are replicated over ``data``. ``mamba/conv_w`` stays whole:
     the mixer runs replicated on every model rank."""
     if path.endswith("mamba/conv_w"):
         return (None,) * len(leaf.shape)
     return tuple(None if ax == "data" else ax
-                 for ax in param_spec(path, leaf, mesh))
+                 for ax in param_spec(path, leaf, mesh, cfg))
 
 
 def expert_range(n_experts: int, mesh) -> Tuple[int, int]:
@@ -217,11 +257,14 @@ def _qtensor_field_spec(path: str, leaf, mesh) -> Tuple:
     return tuple(spec)
 
 
-def paged_cache_spec(path: str, leaf, mesh) -> Tuple:
+def paged_cache_spec(path: str, leaf, mesh, cfg=None) -> Tuple:
     """Paged arena leaves (stacked ``[G, ...]``): ``*_pages`` pages on
-    ``data`` and the last dim on ``model`` where each divides; block
-    tables replicated; dense mamba state batch on dp."""
+    ``data`` and the last dim on ``model`` where each divides (with
+    ``cfg``, only where the KV heads divide it too: whole heads a rank);
+    block tables replicated; dense mamba state batch on dp."""
     tp_n = meshlib.axis_size(mesh, "model")
+    if cfg is not None and attn_replicated(cfg, tp_n):
+        tp_n = 1
     data_n = meshlib.axis_size(mesh, "data")
     shape = tuple(leaf.shape)
 
@@ -290,14 +333,23 @@ def _shard_experts(name: str, row: list, mesh) -> list:
     return out
 
 
-def _shard_stream(path: str, leaf, mesh):
+def _shard_stream(path: str, leaf, mesh, cfg=None):
     tp_n = meshlib.axis_size(mesh, "model")
     m = mesh.index("model")
     name = path.split("/")[-1]
     if isinstance(leaf, list):
         if leaf and isinstance(leaf[0], list):   # [G][E] experts
             return [_shard_experts(name, row, mesh) for row in leaf]
-        return [_shard_stream(path, q, mesh) for q in leaf]
+        return [_shard_stream(path, q, mesh, cfg) for q in leaf]
+    if replicated_attn_leaf(path, cfg, mesh):
+        # every model rank runs the whole block through one qmm
+        if isinstance(leaf, ShardedQTensor) and leaf.n_shards > 1:
+            raise ValueError(
+                f"{path}: {cfg.name}'s attention replicates over "
+                f"{tp_n} model ranks and runs whole streams; this one "
+                f"is quantized in {leaf.n_shards} shards (quantize it "
+                f"with tp_shards=1)")
+        return leaf
     if isinstance(leaf, ShardedQTensor):
         if leaf.n_shards == tp_n and tp_n > 1:
             return leaf if list(leaf.held) == [m] else leaf.select(m)
@@ -308,23 +360,25 @@ def _shard_stream(path: str, leaf, mesh):
     return leaf
 
 
-def shard_params(params, mesh):
+def shard_params(params, mesh, cfg=None):
     """This rank's parameters: dense leaves sliced by ``serving_spec``,
     ShardedQTensors of ``M`` shards reduced to the rank's shard (one that
     holds the rank's shard alone passes through), QTensors at TP sites cut
     into the rank's slice, ``[G][E]`` expert lists by ``_shard_experts``
-    (a list that holds the rank's experts alone passes through)."""
+    (a list that holds the rank's experts alone passes through). With
+    ``cfg``, an attention block whose heads do not divide ``model`` stays
+    whole, streams and all."""
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}" if path else k)
                     for k, v in tree.items()}
         if isinstance(tree, torch.Tensor):
-            idx = local_slices(serving_spec(path, tree, mesh), tree.shape,
-                               mesh)
+            idx = local_slices(serving_spec(path, tree, mesh, cfg),
+                               tree.shape, mesh)
             if all(s == slice(None) for s in idx):
                 return tree
             return tree[idx].contiguous()
-        return _shard_stream(path, tree, mesh)
+        return _shard_stream(path, tree, mesh, cfg)
     return walk(params, "")
 
 
@@ -343,22 +397,25 @@ def page_slice(n_pages_total: int, mesh) -> Tuple[int, int]:
 def local_arena(cfg, n_pages_total: int, page: int, max_slots: int,
                 max_pages_per_seq: int, dtype, device, mesh) -> dict:
     """This rank's zeroed arena: its slice of ``n_pages_total`` pages (the
-    sink page after them when ``D > 1``) and of the KV heads."""
+    sink page after them when ``D > 1``) and of the KV heads (all of them
+    where they do not divide ``model``)."""
     import dataclasses
     _, n = page_slice(n_pages_total, mesh)
     sink = meshlib.axis_size(mesh, "data") > 1
     tp_n = meshlib.axis_size(mesh, "model")
+    if attn_replicated(cfg, tp_n):
+        tp_n = 1
     lcfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp_n,
                                n_heads=cfg.n_heads // tp_n)
     return KV.paged_init_cache(lcfg, n + int(sink), page, max_slots,
                                max_pages_per_seq, dtype, device)
 
 
-def shard_arena(arena: dict, mesh) -> dict:
+def shard_arena(arena: dict, mesh, cfg=None) -> dict:
     """This rank's slice of a whole arena (JAX layout, every page of
-    every KV head; ``paged_cache_spec``), with the sink page (zeros) when
-    ``D > 1``; block tables and the SSM and conv rows are copied
-    whole."""
+    every KV head; ``paged_cache_spec``, with ``cfg`` every KV head where
+    they do not divide ``model``), with the sink page (zeros) when ``D >
+    1``; block tables and the SSM and conv rows are copied whole."""
     sink = meshlib.axis_size(mesh, "data") > 1
 
     def walk(tree, path):
@@ -366,7 +423,7 @@ def shard_arena(arena: dict, mesh) -> dict:
             return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
         if not path.endswith("_pages"):
             return tree.clone()
-        spec = paged_cache_spec(path, tree, mesh)
+        spec = paged_cache_spec(path, tree, mesh, cfg)
         first, n = page_slice(tree.shape[1], mesh)
         idx = list(local_slices(spec, tree.shape, mesh))
         idx[1] = slice(first, first + n)
@@ -387,29 +444,29 @@ _MODEL_PARTIAL = r"attn/b[qkv]$|ffn/router$"
 
 
 def check_train_mesh(cfg, mesh) -> None:
-    """Refuse a model the training mesh does not run: encoder-decoder and
-    VLM stacks (``NotImplementedError``, ROADMAP A12), and TP widths that
-    do not divide the model axis. Every decoder-only stack trains:
-    dense, local/global attention, MoE (EP or the Megatron fallback),
-    Mamba2 and hybrid."""
-    if cfg.is_encdec or cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: the training mesh runs decoder-only stacks; "
-            f"encoder-decoder and VLM stacks wait (ROADMAP A12)")
+    """Refuse a model the training mesh does not run: a ``d_ff`` that does
+    not divide the model axis (its FFN's column cut would replicate, and
+    its row-parallel ``w_down`` would then need a model sum of its own;
+    no registry config has one). Every other stack trains: dense,
+    local/global attention, MoE (EP or the Megatron fallback), Mamba2,
+    hybrid, encoder-decoder and VLM; heads that do not divide ``model``
+    replicate the attention block over it, and a vocab that does not
+    divide it replicates the embedding and the head."""
     if mesh is None:
         raise ValueError("the sharded step needs a mesh; one device trains "
                          "with train.step.single_device_step")
     m = meshlib.axis_size(mesh, "model")
-    for name in ("n_heads", "n_kv_heads", "d_ff", "vocab"):
-        if getattr(cfg, name) % m:
-            raise ValueError(f"{cfg.name}: {name} = {getattr(cfg, name)} "
-                             f"does not divide the model axis ({m})")
+    if cfg.d_ff % m:
+        raise ValueError(
+            f"{cfg.name}: d_ff = {cfg.d_ff} does not divide the model axis "
+            f"({m}): the FFN's column cut would replicate while its "
+            f"row-parallel w_down needs a model sum of its own")
 
 
-def train_specs(params, mesh) -> dict:
-    """``{path: spec}`` of a whole parameter tree (``param_spec``; a
-    ``meta`` tree of the shapes will do)."""
-    return {path: param_spec(path, leaf, mesh)
+def train_specs(params, mesh, cfg=None) -> dict:
+    """``{path: spec}`` of a whole parameter tree (``param_spec``, with
+    ``cfg`` for the heads; a ``meta`` tree of the shapes will do)."""
+    return {path: param_spec(path, leaf, mesh, cfg)
             for path, leaf in T.items(params)}
 
 
@@ -450,29 +507,36 @@ def fsdp_gather(specs: dict, mesh):
     return gather
 
 
-def grad_axes(path: str, spec: Tuple, mesh) -> Tuple[str, ...]:
+def grad_axes(path: str, spec: Tuple, mesh, cfg=None) -> Tuple[str, ...]:
     """The axes this leaf's gradient is summed over after the backward
     pass: ``data`` where the leaf is replicated over it, ``model`` for
-    the column-parallel biases and the MoE router, ``pod`` always."""
+    the column-parallel biases and the MoE router, ``pod`` always. A
+    replicated attention block (``cfg``'s heads do not divide ``model``)
+    runs whole on every model rank, so its biases' gradients are whole
+    there and take no SUM over ``model``."""
     out = []
     if "data" not in spec and meshlib.axis_size(mesh, "data") > 1:
         out.append("data")
     if re.search(_MODEL_PARTIAL, path) \
-            and meshlib.axis_size(mesh, "model") > 1:
+            and meshlib.axis_size(mesh, "model") > 1 \
+            and not replicated_attn_leaf(path, cfg, mesh):
         out.append("model")
     if meshlib.axis_size(mesh, "pod") > 1:
         out.append("pod")
     return tuple(out)
 
 
-def restore_slicer(mesh, spec_fn=None) -> Callable:
+def restore_slicer(mesh, spec_fn=None, cfg=None) -> Callable:
     """``slice_fn(path, whole array)`` for ``checkpoint.ckpt.restore``:
     this rank's block of a leaf on disk under ``spec_fn(path, array,
-    mesh)`` (``param_spec`` by default)."""
+    mesh)`` (``param_spec`` by default; ``cfg`` goes to it as a keyword,
+    for the heads)."""
     spec_fn = spec_fn or param_spec
+    kw = {} if cfg is None else {"cfg": cfg}
 
     def slice_fn(path: str, arr):
-        return arr[local_slices(spec_fn(path, arr, mesh), arr.shape, mesh)]
+        return arr[local_slices(spec_fn(path, arr, mesh, **kw), arr.shape,
+                                mesh)]
     return slice_fn
 
 

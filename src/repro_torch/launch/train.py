@@ -10,9 +10,10 @@ Runs on the card (``--device cuda``, the default) or, asked, on the CPU
 up from the newest checkpoint, whatever mesh wrote it.
 
 ``--dp D --tp M`` train on a ``(D, M)`` mesh (FSDP on data, TP and expert
-parallelism on model; ``train.step.build_train_step``; every decoder-only
-stack, while an encoder-decoder or VLM stack exits 2 with the mesh's
-refusal): this process spawns ``D * M`` ranks
+parallelism on model; ``train.step.build_train_step``; every stack of the
+registry, encoder-decoder and VLM stacks with their ``frames`` /
+``vis_embeds`` rows beside the tokens', and heads or a vocab that do not
+divide ``M`` replicated): this process spawns ``D * M`` ranks
 over ``torch.distributed`` (``launch.mesh.spawn``, file rendezvous in a
 temporary directory) and rank 0 logs and prints the final loss.
 ``--dist-backend`` names the backend and has no default: ``gloo`` on the
@@ -23,6 +24,8 @@ rank. On the CPU (~10 s)::
       --reduced --dp 2 --tp 2 --device cpu --dist-backend gloo
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \
       --reduced --steps 20 --dp 2 --tp 2 --device cpu --dist-backend gloo
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium \
+      --reduced --steps 5 --dp 2 --tp 2 --device cpu --dist-backend gloo
 """
 from __future__ import annotations
 

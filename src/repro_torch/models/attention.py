@@ -18,8 +18,12 @@ reference does (no kernel there).
 Under a mesh (``runtime_context.use_mesh``) the block runs the rank's
 ``n_kv / M`` KV heads and their query heads: ``wq``/``wk``/``wv`` are
 column-parallel and ``wo`` row-parallel (``layers.column_linear``,
-``row_linear``). With a page slice (a mesh whose data axis is over 1)
-the arena holds the rank's slice of the pages: the step's K/V rows land
+``row_linear``), the encoder's and the cross-attention's too. Where the
+heads or the KV heads do not divide ``M`` (hymba-1.5b's 25 and 5) the
+block's weights are whole on every model rank and every rank runs every
+head, ``wo`` whole and no sum after it (``layers.attn_replicated``); the
+arena then holds every KV head. With a page slice (a mesh whose data
+axis is over 1) the arena holds the rank's slice of the pages: the step's K/V rows land
 only in pages of the slice, at ``global - first`` (other rows in the
 slice's sink page), the kernel reads the slice's pages, and the slices'
 ``(o, m, l)`` merge over the data group (``kernels.paged_attention.
@@ -36,7 +40,8 @@ from repro_torch import runtime_context as ctx
 from repro_torch.kernels import paged_attention as kpa
 from repro_torch.kernels.ref import ragged_paged_attention_ref
 from repro_torch.models.kvcache import quantize_kv
-from repro_torch.models.layers import (apply_rotary, column_linear, linear,
+from repro_torch.models.layers import (apply_rotary, attn_replicated,
+                                       column_linear, linear,
                                        rotary_cos_sin, row_linear, softcap,
                                        tp_input, tp_size)
 
@@ -229,22 +234,20 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     ``positions[0, 0]``). ``tap(name, value)`` records the inputs of
     ``wq`` (shared by ``wk`` and ``wv``) and ``wo`` for calibration."""
     b, s, _ = x.shape
-    tp = tp_size()
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads // tp, cfg.n_kv_heads // tp
+    hd, nh, nkv = (cfg.head_dim,) + rank_heads(cfg)
     if tap:
         tap("wq", x)
-    x = tp_input(x)
-    q = column_linear(x, p["wq"], p.get("bq"), use_kernels,
-                      cfg.n_heads * hd).reshape(b, s, nh, hd)
-    k = column_linear(x, p["wk"], p.get("bk"), use_kernels,
-                      cfg.n_kv_heads * hd).reshape(b, s, nkv, hd)
-    v = column_linear(x, p["wv"], p.get("bv"), use_kernels,
-                      cfg.n_kv_heads * hd).reshape(b, s, nkv, hd)
+    x = head_input(x, cfg)
+    q = head_proj(x, p["wq"], p.get("bq"), cfg, use_kernels,
+                  cfg.n_heads).reshape(b, s, nh, hd)
+    k = head_proj(x, p["wk"], p.get("bk"), cfg, use_kernels,
+                  cfg.n_kv_heads).reshape(b, s, nkv, hd)
+    v = head_proj(x, p["wv"], p.get("bv"), cfg, use_kernels,
+                  cfg.n_kv_heads).reshape(b, s, nkv, hd)
     cos, sin = rotary_cos_sin(positions, int(hd * cfg.rotary_pct) // 2 * 2,
                               cfg.rope_theta)
     q = apply_rotary(q, cos, sin, cfg.rotary_pct)
     k = apply_rotary(k, cos, sin, cfg.rotary_pct)
-    full_in = cfg.n_heads * hd
 
     if cache is None:
         kw = dict(q_positions=positions, kv_positions=positions, causal=True,
@@ -253,7 +256,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             out = attend_chunked(q, k, v, chunk=cfg.attn_chunk, **kw)
         else:
             out = attend(q, k, v, **kw)
-        return _out_proj(p, out, tap, use_kernels, full_in)
+        return out_proj(p, out, tap, use_kernels, cfg)
     valid = valid_len if valid_len is not None else positions[:, -1] + 1
     if "k_pages" not in cache:                       # contiguous cache
         pos0 = 0 if s > 1 else (pos if pos is not None else positions[0, 0])
@@ -264,7 +267,7 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-        return _out_proj(p, out, tap, use_kernels, full_in)
+        return out_proj(p, out, tap, use_kernels, cfg)
     page_slice = ctx.current_page_slice()
     paged_cache_write(cache, k, v, positions, valid_len=valid_len,
                       page_slice=page_slice)
@@ -295,45 +298,83 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         out = attend(q, k_all, v_all, q_positions=positions,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
-    return _out_proj(p, out, tap, use_kernels, full_in)
+    return out_proj(p, out, tap, use_kernels, cfg)
 
 
-def _out_proj(p: dict, out: torch.Tensor, tap, use_kernels: bool,
-              full_in: int) -> torch.Tensor:
+def rank_heads(cfg):
+    """``(query heads, KV heads)`` an attention block runs on this rank:
+    its ``1 / M`` of each under TP, all of them off a mesh or where they
+    do not divide ``M`` (``layers.attn_replicated``)."""
+    tp = tp_size()
+    if tp == 1 or attn_replicated(cfg, tp):
+        return cfg.n_heads, cfg.n_kv_heads
+    return cfg.n_heads // tp, cfg.n_kv_heads // tp
+
+
+def _split_heads(cfg) -> bool:
+    """Whether this rank runs a slice of the heads (TP)."""
+    return tp_size() > 1 and not attn_replicated(cfg)
+
+
+def head_input(x: torch.Tensor, cfg) -> torch.Tensor:
+    """``x`` entering a block's q/k/v projections: through ``tp_input``
+    under TP (its gradient summed over the model ranks' head slices), as
+    it is where every rank runs every head (the gradient whole there)."""
+    return tp_input(x) if _split_heads(cfg) else x
+
+
+def head_proj(x: torch.Tensor, w, b, cfg, use_kernels: bool,
+              heads: int) -> torch.Tensor:
+    """A q, k or v projection onto ``heads`` heads: this rank's slice of
+    them under TP (``column_linear``), all of them otherwise."""
+    if _split_heads(cfg):
+        return column_linear(x, w, b, use_kernels, heads * cfg.head_dim)
+    return linear(x, w, b, use_kernels)
+
+
+def out_proj(p: dict, out: torch.Tensor, tap, use_kernels: bool,
+              cfg) -> torch.Tensor:
     """``wo`` over the heads ``out [B, S, H, hd]`` (the rank's heads under
-    a mesh, of ``full_in`` inputs), its input tapped."""
+    TP, summed over the model group by ``row_linear``; all of them, and
+    no sum, where the block replicates), its input tapped."""
     b, s, nh, hd = out.shape
     flat = out.reshape(b, s, nh * hd)
     if tap:
         tap("wo", flat)
-    return row_linear(flat, p["wo"], p.get("bo"), use_kernels, full_in)
+    if _split_heads(cfg):
+        return row_linear(flat, p["wo"], p.get("bo"), use_kernels,
+                          cfg.n_heads * hd)
+    return linear(flat, p["wo"], p.get("bo"), use_kernels)
 
 
 def cross_attn_block(p: dict, x: torch.Tensor, enc_kv: dict, cfg, *,
                      use_kernels: bool = True) -> torch.Tensor:
     """Cross-attention of the encoder-decoder's decoder: queries from
     ``x`` (no rotary), keys and values ``enc_kv["xk"/"xv"] [B, T, KV,
-    hd]`` precomputed from the encoder, non-causal."""
+    hd]`` precomputed from the encoder (the rank's KV heads), non-causal.
+    Under a mesh it runs the rank's heads as ``attn_block`` does."""
     b, s, _ = x.shape
-    hd, nh = cfg.head_dim, cfg.n_heads
-    q = linear(x, p["wq"], p.get("bq"), use_kernels).reshape(b, s, nh, hd)
+    hd, nh, _ = (cfg.head_dim,) + rank_heads(cfg)
+    q = head_proj(head_input(x, cfg), p["wq"], p.get("bq"), cfg,
+                  use_kernels, cfg.n_heads).reshape(b, s, nh, hd)
     k, v = enc_kv["xk"], enc_kv["xv"]
     t = k.shape[1]
     pos_q = torch.arange(s, device=x.device)[None, :].expand(b, s)
     pos_k = torch.arange(t, device=x.device)[None, :].expand(b, t)
     out = attend(q, k, v, q_positions=pos_q, kv_positions=pos_k,
                  causal=False, window=None, attn_softcap=cfg.attn_softcap)
-    return linear(out.reshape(b, s, nh * hd), p["wo"], p.get("bo"),
-                  use_kernels)
+    return out_proj(p, out, None, use_kernels, cfg)
 
 
 def precompute_cross_kv(p: dict, enc_out: torch.Tensor, cfg,
                         use_kernels: bool = True) -> dict:
-    """One decoder layer's cross-attention K/V from the encoder output."""
+    """One decoder layer's cross-attention K/V from the encoder output
+    (the rank's KV heads under TP)."""
     b, t, _ = enc_out.shape
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
-    k = linear(enc_out, p["wk"], p.get("bk"), use_kernels
-               ).reshape(b, t, nkv, hd)
-    v = linear(enc_out, p["wv"], p.get("bv"), use_kernels
-               ).reshape(b, t, nkv, hd)
+    hd, _, nkv = (cfg.head_dim,) + rank_heads(cfg)
+    h = head_input(enc_out, cfg)
+    k = head_proj(h, p["wk"], p.get("bk"), cfg, use_kernels,
+                  cfg.n_kv_heads).reshape(b, t, nkv, hd)
+    v = head_proj(h, p["wv"], p.get("bv"), cfg, use_kernels,
+                  cfg.n_kv_heads).reshape(b, t, nkv, hd)
     return {"xk": k, "xv": v}

@@ -19,6 +19,13 @@ each token, summed over the model group. ``gathered_linear`` (the Mamba2
 ``in_proj``, whose output splits at boundaries the column cut does not
 respect) makes a column-parallel product's outputs whole again right
 after it (``tp_gather``). Off a mesh all four are the plain ops.
+Where a dim does not divide the model axis its weight is whole on every
+rank and its consumer runs whole: ``embed_tokens`` and
+``cross_entropy_loss`` read a whole vocab off the table's and the
+logits' width, and an attention block whose heads do not divide
+(``attn_replicated``) runs every head through plain ``linear``, outside
+``tp_input``, whose backward would sum the ranks' whole input gradients
+into M times the true one.
 
 Training on a mesh takes gradients through the same code: the sums over
 the model group are ``launch.collectives.sum_over`` (in place, as
@@ -86,6 +93,16 @@ def tp_size() -> int:
     if mesh is None or "model" not in mesh.axis_names:
         return 1
     return mesh.devices.shape[list(mesh.axis_names).index("model")]
+
+
+def attn_replicated(cfg, m: Optional[int] = None) -> bool:
+    """Whether attention runs whole on every one of ``m`` model ranks (the
+    current mesh's by default): where the heads or the KV heads do not
+    divide ``m`` the block's leaves replicate over ``model``
+    (``launch.sharding.param_spec`` with ``cfg``), so every rank runs
+    every head, with ``wo`` whole and no sum."""
+    m = tp_size() if m is None else m
+    return m > 1 and bool(cfg.n_heads % m or cfg.n_kv_heads % m)
 
 
 def tp_input(x: torch.Tensor) -> torch.Tensor:

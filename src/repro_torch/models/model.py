@@ -24,7 +24,8 @@ from repro_torch import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import kvcache as KV
 from repro_torch.models.attention import (attend, attn_block,
-                                          cross_attn_block,
+                                          cross_attn_block, head_input,
+                                          head_proj, out_proj,
                                           precompute_cross_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy_loss, embed_tokens,
@@ -86,48 +87,65 @@ def group_slice(tree, g: int):
 
 
 def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
-           use_kernels: bool = True) -> torch.Tensor:
+           use_kernels: bool = True, *, remat: bool = False,
+           gather=None) -> torch.Tensor:
     """The whisper encoder over precomputed frame embeddings ``[B, T,
     d]``: ``pos_emb``, then non-causal layers (no rotary, no q/k/v bias,
-    as the reference's), then the final norm."""
+    as the reference's), then the final norm. On a training mesh each
+    layer's leaves come through ``gather`` (``encoder/blocks``), its
+    attention runs the rank's heads (or all of them, where they do not
+    divide ``model``) and its FFN the rank's hidden units, and ``remat``
+    recomputes each layer in the backward pass, as the decoder's
+    groups."""
+    gather = gather if gather is not None else _whole
     enc = params["encoder"]
     x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
     hd = cfg.head_dim
-    for i in range(cfg.n_enc_layers):
-        lp = group_slice(enc["blocks"], i)
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q = linear(h, lp["attn"]["wq"], use_kernels=use_kernels
-                   ).reshape(b, t, cfg.n_heads, hd)
-        k = linear(h, lp["attn"]["wk"], use_kernels=use_kernels
-                   ).reshape(b, t, cfg.n_kv_heads, hd)
-        v = linear(h, lp["attn"]["wv"], use_kernels=use_kernels
-                   ).reshape(b, t, cfg.n_kv_heads, hd)
+
+    def layer(lp, x):
+        lp = gather(lp, "encoder/blocks")
+        h = head_input(rms_norm(x, lp["norm1"], cfg.norm_eps), cfg)
+        q, k, v = (head_proj(h, lp["attn"][w], None, cfg, use_kernels, n
+                             ).reshape(b, t, -1, hd)
+                   for w, n in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                                ("wv", cfg.n_kv_heads)))
         o = attend(q, k, v, q_positions=positions, kv_positions=positions,
                    causal=False, window=None)
-        x = x + linear(o.reshape(b, t, -1), lp["attn"]["wo"],
-                       use_kernels=use_kernels)
+        x = x + out_proj({"wo": lp["attn"]["wo"]}, o, None, use_kernels,
+                          cfg)
         h2 = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + glu_mlp(h2, lp["ffn"], cfg.act, cfg.gated_mlp,
-                        use_kernels=use_kernels)
+        return x + glu_mlp(h2, lp["ffn"], cfg.act, cfg.gated_mlp,
+                           use_kernels=use_kernels, d_ff=cfg.d_ff)
+    if remat:
+        layer = functools.partial(torch_ckpt.checkpoint, layer,
+                                  use_reentrant=False,
+                                  **_remat_kw(cfg.remat_policy))
+    for i in range(cfg.n_enc_layers):
+        x = layer(group_slice(enc["blocks"], i), x)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
-def _decoder_layer(cfg, bp, xp, x, cache, enc_kv, positions, pos,
-                   use_kernels):
+def _decoder_layer(cfg, bp, xp, x, cache, enc_out, positions, pos,
+                   use_kernels, gather):
     """One encoder-decoder decoder layer: self-attention, cross-attention
-    after ``norm_x``, then the FFN."""
+    after ``norm_x`` (its K/V from ``enc_out``, or the cache's
+    ``cross``), then the FFN; its leaves through ``gather`` (``blocks/b0``
+    and ``xattn``). Returns ``(x, the cross K/V)``."""
+    bp, xp = gather(bp, "blocks/b0"), gather(xp, "xattn")
+    kv = (precompute_cross_kv(xp["xattn"], enc_out, cfg, use_kernels)
+          if enc_out is not None else cache["cross"])
     h = rms_norm(x, bp["norm1"], cfg.norm_eps)
     x = x + attn_block(bp["attn"], h, cfg, positions=positions, window=None,
                        cache=cache["self"] if cache is not None else None,
                        pos=pos, use_kernels=use_kernels)
     hx = rms_norm(x, xp["norm_x"], cfg.norm_eps)
-    x = x + cross_attn_block(xp["xattn"], hx, enc_kv, cfg,
+    x = x + cross_attn_block(xp["xattn"], hx, kv, cfg,
                              use_kernels=use_kernels)
     h2 = rms_norm(x, bp["norm2"], cfg.norm_eps)
     return x + glu_mlp(h2, bp["ffn"], cfg.act, cfg.gated_mlp,
-                       use_kernels=use_kernels)
+                       use_kernels=use_kernels, d_ff=cfg.d_ff), kv
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -171,11 +189,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     projections are tensor-parallel (``layers.column_linear`` /
     ``row_linear``), MoE layers expert-parallel (``models.moe``), the
     Mamba2 mixer replicated after its gathered ``in_proj``
-    (``models.ssm``), and a vocab-sharded head gives this rank's slice of
-    the vocab's logits.
+    (``models.ssm``), an attention block whose heads do not divide the
+    model axis whole on every rank, and a vocab-sharded head gives this
+    rank's slice of the vocab's logits (a whole head, all of them, its
+    input outside ``tp_input``). An encoder-decoder's encoder and
+    cross-attention run the same way, their leaves through ``gather``.
 
     ``remat`` recomputes each layer group's activations in the backward
-    pass (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    pass (``torch.utils.checkpoint``, non-reentrant; an encoder-decoder's
+    encoder and decoder layers each), as the reference's
     ``jax.checkpoint`` per group: all of them for ``cfg.remat_policy ==
     "full"``, all but the matmul outputs for ``"dots"`` (JAX's
     ``dots_with_no_batch_dims_saveable``: ``aten.mm`` outputs are saved,
@@ -249,18 +271,23 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
     if cfg.is_encdec:
         if enc_out is None and frames is not None:
-            enc_out = encode(cfg, params, frames, use_kernels)
+            enc_out = encode(cfg, params, frames, use_kernels, remat=remat,
+                             gather=gather)
         dec_cache = cache["b0"] if cache is not None else None
+        layer = functools.partial(
+            _decoder_layer, cfg, positions=positions, pos=pos,
+            use_kernels=use_kernels, gather=gather)
+        if remat:
+            layer = functools.partial(torch_ckpt.checkpoint, layer,
+                                      use_reentrant=False,
+                                      **_remat_kw(cfg.remat_policy))
         cross = []
         for g in range(cfg.n_groups):
             lc = (group_slice(dec_cache, g) if dec_cache is not None
                   else None)
-            xp = group_slice(params["xattn"], g)
-            kv = (precompute_cross_kv(xp["xattn"], enc_out, cfg, use_kernels)
-                  if enc_out is not None else lc["cross"])
+            x, kv = layer(group_slice(params["blocks"]["b0"], g),
+                          group_slice(params["xattn"], g), x, lc, enc_out)
             cross.append(kv)
-            x = _decoder_layer(cfg, group_slice(params["blocks"]["b0"], g),
-                               xp, x, lc, kv, positions, pos, use_kernels)
         if dec_cache is not None and enc_out is not None:
             # the cross K/V stay in the dtype they were computed in, as in
             # the reference's returned cache
@@ -289,8 +316,10 @@ def _forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         x = x[:, n_vis:]
     if skip_head:
         return x
-    logits = linear(tp_input(x), head_weight(cfg, params, gather),
-                    use_kernels=use_kernels)
+    w = head_weight(cfg, params, gather)
+    if isinstance(w, torch.Tensor) and w.shape[-1] != cfg.vocab:
+        x = tp_input(x)                       # a vocab-parallel head
+    logits = linear(x, w, use_kernels=use_kernels)
     logits = softcap(logits, cfg.logit_softcap)
     return logits
 

@@ -113,8 +113,9 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
     On a mesh rank (its slice of the parameters and the arena) the count
     is the rank's own work: its shard of each ShardedQTensor, its slice of
     each cut leaf, only the experts it holds (an expert list's ``None``
-    entries are another rank's), its KV heads (read off the arena) and
-    the whole Mamba2 mixer, which every model rank runs.
+    entries are another rank's), its KV heads (read off the arena: all of
+    them, and every query head, where the attention block replicates)
+    and the whole Mamba2 mixer, which every model rank runs.
 
     Norms, rotary, the K/V scatter, the conv taps, the residual adds,
     the softmax's exponentials and the sampling head are not counted: a
@@ -204,18 +205,25 @@ _TRAIN_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                   "router", "in_proj", "out_proj", "lm_head")
 
 
-def train_step_work(cfg, mesh=None, *, tokens: int,
-                    remat: bool = True) -> Dict[str, float]:
+def train_step_work(cfg, mesh=None, *, tokens: int, remat: bool = True,
+                    enc_tokens: int = 0, vis_tokens: int = 0
+                    ) -> Dict[str, float]:
     """``{"flops", "forward_flops"}``: the matmul FLOPs of one training
     step (``train.step``) on a rank of ``mesh`` (one process without)
     over its ``tokens`` rows, counted from the model's shapes and the
-    training rules (``launch.sharding.param_spec``), as ``step_work``
-    counts a serving call:
+    training rules (``launch.sharding.param_spec`` with ``cfg``), as
+    ``step_work`` counts a serving call:
 
       * every projection at ``tokens`` rows with the rank's part of its
         weight: cut over ``model`` where the rules cut it (column- or
         row-parallel, a vocab slice of the head), whole along ``data``
-        (FSDP gathers it before use);
+        (FSDP gathers it before use), and whole on every model rank where
+        the rules replicate it (an attention block whose heads do not
+        divide ``model``, a head whose vocab does not);
+      * a VLM's layers at ``tokens + vis_tokens`` rows (the visual prefix
+        runs through them; the head does not);
+      * an encoder-decoder's encoder layers, and its cross-attention's
+        ``wk`` / ``wv``, at the frames' ``enc_tokens`` rows;
       * each MoE FFN: the router at ``tokens`` rows, and each expert the
         rank holds (its ``E / M`` under expert parallelism; all ``E``,
         each cut to its ``d_ff / M`` hidden units, under the Megatron
@@ -225,10 +233,11 @@ def train_step_work(cfg, mesh=None, *, tokens: int,
         depend on the routing and are not counted here).
 
     The forward counts once, the backward twice (the input's and the
-    weight's gradients) and, with ``remat``, the layer groups' recompute
-    once more; the head is not recomputed. Attention scores, the SSD
-    scan, the norms and the optimizer are not counted."""
-    groups = head = 0.0
+    weight's gradients) and, with ``remat``, the layers' recompute once
+    more; the head is not recomputed. Attention scores, the SSD scan,
+    the norms and the optimizer are not counted."""
+    layers = head = 0.0
+    block_rows = tokens + vis_tokens
     for path, leaf in T.items(init_params(cfg, device="meta")):
         name = path.split("/")[-1]
         if name not in _TRAIN_MATMULS and not (
@@ -236,20 +245,23 @@ def train_step_work(cfg, mesh=None, *, tokens: int,
             continue
         shape = list(leaf.shape)
         if mesh is not None:
-            for i, ax in enumerate(shd.param_spec(path, leaf, mesh)):
+            for i, ax in enumerate(shd.param_spec(path, leaf, mesh, cfg)):
                 if ax == "model":
                     shape[i] //= meshlib.axis_size(mesh, "model")
-        if path.startswith("blocks/"):
+        if path.startswith(("blocks/", "encoder/", "xattn/")):
             g, shape = shape[0], shape[1:]
+            rows = (enc_tokens if path.startswith("encoder/") or (
+                path.startswith("xattn/") and name in ("wk", "wv"))
+                else block_rows)
             if len(shape) == 3:                       # [E, k, n] experts
-                rows = capacity(tokens, cfg)
-                groups += g * 2.0 * rows * shape[0] * shape[1] * shape[2]
+                rows = capacity(rows, cfg)
+                layers += g * 2.0 * rows * shape[0] * shape[1] * shape[2]
             else:
-                groups += g * 2.0 * tokens * shape[0] * shape[1]
+                layers += g * 2.0 * rows * shape[0] * shape[1]
         else:                                         # the head [d, V]
             head += 2.0 * tokens * shape[0] * shape[1]
-    return {"flops": groups * (4 if remat else 3) + head * 3,
-            "forward_flops": groups + head}
+    return {"flops": layers * (4 if remat else 3) + head * 3,
+            "forward_flops": layers + head}
 
 
 # ---------------------------------------------------------------------------

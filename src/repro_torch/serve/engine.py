@@ -397,7 +397,7 @@ class ServeEngine:
             if cuda_graphs:
                 raise ValueError("a mesh engine runs its steps eagerly: "
                                  "pass cuda_graphs=False")
-            params = shd.shard_params(params, mesh)
+            params = shd.shard_params(params, mesh, cfg)
         self.params = tree_to(params, self.device)
         self.slots = slots
         self.max_len = max_len
@@ -409,10 +409,10 @@ class ServeEngine:
         # the rank's slice of the arena's pages (a data axis over 1)
         self._page_slice = None
         if mesh is not None:
-            if not shard_compatible(mesh, self.n_pages + 1, cfg.n_kv_heads):
+            if not shard_compatible(mesh, self.n_pages + 1):
                 raise ValueError(
-                    f"{self.n_pages} + 1 arena pages and {cfg.n_kv_heads} "
-                    f"KV heads must divide the mesh {mesh.shape}")
+                    f"{self.n_pages} + 1 arena pages must divide the "
+                    f"mesh's data axis {mesh.shape}")
             if meshlib.axis_size(mesh, "data") > 1:
                 self._page_slice = shd.page_slice(self.n_pages + 1, mesh)
         self.max_prefill_tokens = (max_prefill_tokens
@@ -422,7 +422,8 @@ class ServeEngine:
             self.max_pages_per_seq, page_size)
         self._widths = serve_steps.width_ladder(self.chunk)
         # the attention kernel's q block, which the prefill stream account
-        # counts with
+        # counts with (a rank's heads, a slice or all of them, keep the
+        # group size)
         kv_pages_dtype = torch.int8 if cfg.kv_cache_quant else cache_dtype
         self.q_block = (q_block_for(cfg.n_heads // cfg.n_kv_heads,
                                     cfg.head_dim, kv_pages_dtype,

@@ -795,11 +795,14 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
 def check_mesh_cfg(cfg: ModelConfig) -> None:
     """The mesh serves every stack the paged engine serves: dense,
     local/global, MoE (experts over ``model``), SSM and hybrid (the Mamba2
-    mixer replicated on every model rank; ``launch.sharding``);
-    encoder-decoder and VLM stacks wait for ROADMAP A12, as the paged
-    engine serves neither."""
+    mixer replicated on every model rank; ``launch.sharding``), with
+    heads or a vocab that do not divide ``model`` replicated;
+    encoder-decoder and VLM stacks wait for the contiguous prefill and
+    decode on a mesh (ROADMAP A12 (iii)), as the paged engine serves
+    neither."""
     if cfg.is_encdec or cfg.n_vis_tokens:
         raise NotImplementedError(
             f"sharded serving covers decoder-only stacks (dense, "
             f"local/global, MoE, SSM, hybrid); {cfg.name} (family "
-            f"{cfg.family}) waits for ROADMAP A12")
+            f"{cfg.family}) waits for the contiguous prefill and decode "
+            f"on a mesh (ROADMAP A12 (iii))")

@@ -39,7 +39,11 @@ def _loss_and_grads(model_cfg: ModelConfig, params, batch, remat: bool,
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     total, metrics = train_loss(model_cfg, T.unflatten(params, leaves),
                                 batch, remat=remat, gather=gather)
-    grads = torch.autograd.grad(total, leaves)
+    # a leaf the loss does not read (the whisper encoder's q/k/v biases,
+    # which its layers skip, as the reference's) gets zeros, as under
+    # jax.grad
+    grads = torch.autograd.grad(total, leaves, allow_unused=True,
+                                materialize_grads=True)
     return (total.detach(), {k: v.detach() for k, v in metrics.items()},
             T.unflatten(params, list(grads)))
 
@@ -96,7 +100,7 @@ def single_device_step(model_cfg: ModelConfig, opt_cfg: AdamWConfig, *,
     return step
 
 
-def _sum_grads(grads, specs: dict, mesh):
+def _sum_grads(grads, specs: dict, mesh, cfg):
     """Each gradient summed over the axes its leaf needs
     (``sharding.grad_axes``): per axis, the leaves that need it flattened
     into one buffer and reduced in one all_reduce."""
@@ -104,7 +108,7 @@ def _sum_grads(grads, specs: dict, mesh):
     out = dict(items)
     for axis in ("data", "model", "pod"):
         paths = [p for p, _ in items
-                 if axis in shd.grad_axes(p, specs[p], mesh)]
+                 if axis in shd.grad_axes(p, specs[p], mesh, cfg)]
         if not paths:
             continue
         flat = torch.cat([out[p].reshape(-1) for p in paths])
@@ -125,25 +129,30 @@ def mesh_grads_fn(model_cfg: ModelConfig, mesh, microbatches: int = 1, *,
     and its rows of the global batch (``sharding.batch_rows(mesh, B,
     microbatches)``: split over the dp axes, each rank's share of each
     global microbatch), which ``microbatches`` split (they must divide,
-    as the reference's reshape requires). Each group's leaves are
-    gathered over ``data`` just before use and their gradients
-    reduce-scattered back; the TP collectives carry the gradients of the
-    column- and row-parallel products, of the Mamba2 mixer's gather and
-    split and of the MoE block's expert-parallel dispatch; each MoE
-    block's capacity, drops and aux are global over the dp ranks' rows
-    (``models.moe``). After the backward pass the leaves replicated over
-    ``data``, the column-parallel biases and the MoE router over
-    ``model`` and every leaf over ``pod`` are summed there
-    (``sharding.grad_axes``), and the gradients scaled by ``1 / dp``
-    (the global batch's mean is the mean of the dp ranks' means). So the
-    gradients come out sharded as their parameters, and the loss and aux
-    are the global ones, equal on every rank. Every decoder-only stack:
-    dense, local/global attention, MoE, Mamba2 and hybrid
-    (``sharding.check_train_mesh`` refuses encoder-decoder and VLM
-    stacks). ``compute.specs`` is the mesh's ``{path: spec}`` of the
-    parameters."""
+    as the reference's reshape requires). The batch's ``frames`` (an
+    encoder-decoder) and ``vis_embeds`` (a VLM) are batch rows like the
+    tokens: the rank takes the same rows of them, and the microbatches
+    split them alike. Each group's leaves (the encoder's layers and the
+    cross-attention's too) are gathered over ``data`` just before use and
+    their gradients reduce-scattered back; the TP collectives carry the
+    gradients of the column- and row-parallel products, of the Mamba2
+    mixer's gather and split and of the MoE block's expert-parallel
+    dispatch; each MoE block's capacity, drops and aux are global over
+    the dp ranks' rows (``models.moe``). An attention block whose heads
+    do not divide ``model``, and an embedding and head whose vocab does
+    not, run whole on every model rank, with whole gradients there.
+    After the backward pass the leaves replicated over ``data``, the
+    column-parallel biases and the MoE router over ``model`` and every
+    leaf over ``pod`` are summed there (``sharding.grad_axes``), and the
+    gradients scaled by ``1 / dp`` (the global batch's mean is the mean
+    of the dp ranks' means). So the gradients come out sharded as their
+    parameters, and the loss and aux are the global ones, equal on every
+    rank. Every stack but one whose ``d_ff`` does not divide ``model``
+    (``sharding.check_train_mesh``). ``compute.specs`` is the mesh's
+    ``{path: spec}`` of the parameters."""
     shd.check_train_mesh(model_cfg, mesh)
-    specs = shd.train_specs(init_params(model_cfg, device="meta"), mesh)
+    specs = shd.train_specs(init_params(model_cfg, device="meta"), mesh,
+                            model_cfg)
     local = grads_fn(model_cfg, microbatches, remat=remat,
                      gather=shd.fsdp_gather(specs, mesh))
     dp = meshlib.dp_size(mesh)
@@ -155,7 +164,7 @@ def mesh_grads_fn(model_cfg: ModelConfig, mesh, microbatches: int = 1, *,
             raise NotImplementedError("a loss mask over a dp mesh")
         with ctx.use_mesh(mesh, meshlib.dp_axes(mesh), split_rows=True):
             loss, metrics, grads = local(params, batch)
-        grads = _sum_grads(grads, specs, mesh)
+        grads = _sum_grads(grads, specs, mesh, model_cfg)
         if dp > 1:
             # the aux is the global one already, equal on every rank
             grads = T.map_(lambda g: g * (1.0 / dp), grads)

@@ -91,7 +91,9 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
           extra_batch_fn: Optional[Callable] = None) -> Dict:
     """Runs the loop; returns ``{"params", "opt", "history", "corpus",
     "incidents"}`` (on a mesh, ``params`` and ``opt`` are this rank's
-    slices)."""
+    slices). ``extra_batch_fn(global_batch, seq_len, cfg)`` adds the
+    global batch's ``frames`` or ``vis_embeds``, whose rows a mesh rank
+    takes as it takes the tokens'."""
     dev = resolve_device(device)
     # the step first: a mesh refuses a stack before the whole tree exists
     if mesh is None:
@@ -128,7 +130,8 @@ def train(model_cfg: ModelConfig, train_cfg: TrainConfig,
         state_like = {"params": params, "opt": opt_state}
         restored, at = ckpt_lib.restore(
             state_like, train_cfg.ckpt_dir,
-            slice_fn=shd.restore_slicer(mesh) if mesh is not None else None)
+            slice_fn=(shd.restore_slicer(mesh, cfg=model_cfg)
+                      if mesh is not None else None))
         params, opt_state = restored["params"], restored["opt"]
         start_step = at
         log_fn(f"[trainer] resumed from step {at}")

@@ -10,8 +10,9 @@ and the rank function ``tests/test_torch_train_mesh_families.py`` spawns
     counts in the global norm;
   * ``batch_rows`` with microbatches: each dp rank's share of each global
     chunk;
-  * ``check_train_mesh`` accepts every decoder-only stack and refuses
-    whisper-medium and internvl2-2b, naming A12;
+  * ``check_train_mesh`` accepts every decoder-only stack, hymba-1.5b's
+    25 heads, whisper-medium and internvl2-2b at full width, and refuses
+    a ``d_ff`` that does not divide ``model``;
   * on a (1, 1) mesh the sharded step of an MoE and of a Mamba2 stack is
     the single-device step bit for bit (one process keeps its code);
   * at (2, 2): the collectives of one step by kind for reduced dbrx-132b
@@ -22,8 +23,8 @@ and the rank function ``tests/test_torch_train_mesh_families.py`` spawns
     step 2, resumed at (1, 2) and in one process, the losses of the
     unbroken run;
   * the CLI at ``--arch mamba2-370m --reduced --dp 2 --tp 2 --device cpu
-    --dist-backend gloo`` prints the final loss of the run without mesh
-    flags;
+    --dist-backend gloo``, and at ``--arch whisper-medium --reduced --tp
+    2``, prints the final loss of the run without mesh flags;
   * ``obs.costs.train_step_work``: one process's count by hand, and a
     rank's own work (half the experts under expert parallelism, half of
     every cut projection, the whole replicated router).
@@ -234,16 +235,19 @@ def test_batch_rows_with_microbatches():
 
 
 def test_check_train_mesh_accepts_decoder_only_and_refuses_the_rest():
+    """Every stack trains on the mesh, heads and vocabs that do not divide
+    ``model`` included (they replicate); only a ``d_ff`` that does not
+    divide it is refused."""
     mesh = FakeMesh(0, 0)
     for arch in ("dbrx-132b", "mamba2-370m", "hymba-1.5b",
                  "jamba-1.5-large-398b"):
         shd.check_train_mesh(reduced_config(arch), mesh)
-    shd.check_train_mesh(get_config("mamba2-370m"), mesh)
-    with pytest.raises(ValueError, match="n_heads = 25"):
-        shd.check_train_mesh(get_config("hymba-1.5b"), mesh)
-    for arch in ("whisper-medium", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            shd.check_train_mesh(get_config(arch), mesh)
+    for arch in ("mamba2-370m", "hymba-1.5b", "whisper-medium",
+                 "internvl2-2b"):
+        shd.check_train_mesh(get_config(arch), mesh)
+    with pytest.raises(ValueError, match="d_ff = 5505"):
+        shd.check_train_mesh(dataclasses.replace(get_config("hymba-1.5b"),
+                                                 d_ff=5505), mesh)
 
 
 def test_recorded_routes_of_one_process():
@@ -414,17 +418,14 @@ def test_elastic_restart_of_an_moe_stack(meshes):
 def test_train_cli_trains_mamba2_on_a_mesh(capsys):
     """``--arch mamba2-370m --reduced --dp 2 --tp 2`` prints rank 0's
     final loss, that of the run without mesh flags (fp32 reassociation);
-    whisper-medium with mesh flags exits 2 naming A12."""
-    argv = ["--arch", "mamba2-370m", "--reduced", "--steps", "3",
-            "--batch", "4", "--seq", "8", "--device", "cpu"]
-    one = train_cli.main(argv)
-    meshed = train_cli.main(argv + ["--dp", "2", "--tp", "2",
-                                    "--dist-backend", "gloo"])
-    assert "done on a (2, 2) mesh" in capsys.readouterr().out
-    np.testing.assert_allclose(meshed, one, rtol=1e-5)
-    with pytest.raises(SystemExit) as e:
-        train_cli.main(["--arch", "whisper-medium", "--reduced", "--steps",
-                        "1", "--device", "cpu", "--dp", "2",
-                        "--dist-backend", "gloo"])
-    assert e.value.code == 2
-    assert "A12" in capsys.readouterr().err
+    so does whisper-medium (its encoder and cross-attention
+    tensor-parallel, its 512-token vocab cut) with ``--tp 2``."""
+    for arch, mesh in (("mamba2-370m", ["--dp", "2", "--tp", "2"]),
+                       ("whisper-medium", ["--tp", "2"])):
+        argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch",
+                "4", "--seq", "8", "--device", "cpu"]
+        one = train_cli.main(argv)
+        meshed = train_cli.main(argv + mesh + ["--dist-backend", "gloo"])
+        shape = f"({mesh[1] if mesh[0] == '--dp' else 1}, 2)"
+        assert f"done on a {shape} mesh" in capsys.readouterr().out
+        np.testing.assert_allclose(meshed, one, rtol=1e-5)
