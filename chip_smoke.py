@@ -129,8 +129,19 @@ Phases (each prints its own lines; any failure exits nonzero):
                 where the heads replicate
                 (its arena's KV columns), and a dbrx rank holds half the
                 expert codes (its bytes against the whole); rank 0's
-                collectives a round by kind, the phase's seconds;
-  4f. families — the contiguous-cache surface at full width: whisper-medium
+                collectives a round by kind, the phase's seconds; then,
+                in the same spawn, [mesh-contig]: whisper-medium and
+                internvl2-2b at full width on the [families] phase's
+                streams (CUDA IPC, no second PTQ, cut to each rank's
+                slices), serve.steps.build_prefill over a rank's row of
+                the batch of 2 and 16 greedy build_decode steps: every
+                rank's logits (gathered over the mesh) within 1e-3 x
+                max|logits| of one process's family_run through the
+                kernels, its greedy tokens equal, the decode qmm
+                launched, its cache holding 1/M of the KV columns; the
+                collectives by kind;
+  4f. families — (before 4e, whose [mesh-contig] runs on its streams)
+                the contiguous-cache surface at full width: whisper-medium
                 (24 encoder + 24 decoder layers, 1500 frames) and
                 internvl2-2b (24 layers, 256 vision embeddings), random
                 weights, QMC PTQ rho 0.3, a batch of 2 with seeded frames or
@@ -143,6 +154,13 @@ Phases (each prints its own lines; any failure exits nonzero):
                 against the paged engine's tokens: where they part, the
                 legacy logits there must be a near tie (top-2 gap below
                 1e-3 x max|logits|);
+  4g. dryrun  — on the host alone: launch.dryrun.run_cell for
+                stablelm-1.6b's train_4k, prefill_32k and decode_32k cells
+                on the single-node production mesh (32 nodes of 8 H100s),
+                rank 0 on meta tensors under a DryMesh: counted FLOPs and
+                bytes, collectives by kind, argument bytes and roofline
+                terms against the H100 SXM5 datasheet's peaks (labelled:
+                not measurements);
   4a. attn-hd — the attention kernel's head dims 80 and 256 on the
                 engine's default route: stablelm-3b (hd 80, 32 heads, d
                 2560) and gemma2-2b (hd 256, 8/4 heads, window 4096,
@@ -235,6 +253,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -266,7 +285,9 @@ from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
                                      ragged_paged_attention_ref,
                                      unpack3b_ref)
 from repro_torch.kernels.unpack3b import unpack3b_call  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
+from repro_torch.launch import sharding as shd  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models.attention import paged_cache_read  # noqa: E402
 from repro_torch.models.kvcache import quantize_kv  # noqa: E402
@@ -2308,6 +2329,10 @@ def moe_phase(seed: int, kernel_rows, kept: dict) -> dict:
 FAMILY_MESH = (((2, 2), ("dbrx-132b", "mamba2-370m", "hymba-1.5b")),)
 # the kernels each arch's ranks must launch (and every kernel its one
 # process run launched); hymba's streams all take qmm's "ref" path
+# the encoder-decoder and VLM stacks whose contiguous prefill and decode
+# ride the same (2, 2) spawn ([mesh-contig]), on the [families] phase's
+# streams
+FAMILY_CONTIG = ("whisper-medium", "internvl2-2b")
 FAMILY_KERNELS = {"dbrx-132b": ("qmm_decode", "ragged_paged_attention"),
                   "mamba2-370m": ("qmm_decode",),
                   "hymba-1.5b": ("ragged_paged_attention",)}
@@ -2336,7 +2361,8 @@ def family_mesh_rank(mesh, job):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.library()
-    out = {"rank": mesh.rank, "coords": mesh.coords, "archs": {}}
+    out = {"rank": mesh.rank, "coords": mesh.coords, "archs": {},
+           "contig": {}}
     for arch in job["order"]:
         model = job["models"][arch]
         t0 = time.monotonic()
@@ -2367,11 +2393,15 @@ def family_mesh_rank(mesh, job):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    for arch, model in job["contig"].items():
+        out["contig"][arch] = contig_rank(mesh, model)
+        gc.collect()
+        torch.cuda.empty_cache()
     # drop every reference to the parent's streams (CUDA IPC) before the
     # rank exits, so their counters fall to zero and the parent can free
     # them (torch.cuda.ipc_collect); a reference left at exit pins them in
     # the parent for its lifetime
-    for model in job["models"].values():
+    for model in (*job["models"].values(), *job["contig"].values()):
         model.clear()
     gc.collect()
     torch.cuda.synchronize()
@@ -2379,7 +2409,108 @@ def family_mesh_rank(mesh, job):
     return out
 
 
-def family_mesh_phase(seed: int, models: dict) -> dict:
+def contig_rank(mesh, model) -> dict:
+    """One gloo rank of ``[mesh-contig]``: ``serve.steps.build_prefill``
+    over the rank's row of the [families] batch (``sharding.batch_rows``)
+    and ``FAMILY_STEPS`` greedy ``build_decode`` steps on the parent's
+    streams (CUDA IPC), cut to the rank's slices (``shard_params``), with
+    a fresh fp32 cache (``sharding.local_cache``); each call's logits made
+    whole over the mesh (``gather_logits``, kind ``logits``) and held
+    against the one process's ``family_run`` (kernels) on the rank; the
+    launch counts set to 0 just before the run and read just after."""
+    cfg, toks, extra = model["cfg"], model["toks"], model["extra"]
+    b = toks.shape[0]
+    rows = shd.batch_rows(mesh, b)
+    n_vis = cfg.n_vis_tokens if "vis_embeds" in extra else 0
+    max_len = n_vis + FAMILY_PROMPT + FAMILY_STEPS + 1
+    t0 = time.monotonic()
+    local = shd.shard_params(model["qparams"], mesh, cfg)
+    prefill_fn = serve_steps.build_prefill(
+        cfg, mesh, batch=b, seq=FAMILY_PROMPT, cache_len=max_len,
+        cache_dtype=torch.float32)
+    decode_fn = serve_steps.build_decode(cfg, mesh, batch=b,
+                                         cache_len=max_len)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    build.reset_launches()
+    kops.reset_path_counts()
+    k0 = {k: list(v) for k, v in mesh.by_kind.items()}
+    t0 = time.monotonic()
+    with torch.no_grad():
+        lg, cache = prefill_fn(local, toks[rows],
+                               {k: v[rows] for k, v in extra.items()})
+        logits, fed = [serve_steps.gather_logits(lg, mesh, b, cfg)], []
+        for i in range(FAMILY_STEPS):
+            nxt = torch.argmax(logits[-1], dim=-1)
+            fed.append(nxt)
+            lg, cache = decode_fn(local, nxt[rows].reshape(-1, 1), cache,
+                                  n_vis + FAMILY_PROMPT + i)
+            logits.append(serve_steps.gather_logits(lg, mesh, b, cfg))
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches, paths = dict(build.launches), dict(kops.path_counts)
+    kinds = {k: [v[i] - k0.get(k, [0, 0.0, 0])[i] for i in range(3)]
+             for k, v in mesh.by_kind.items()}
+    lk = torch.stack(logits, dim=1)
+    scale = model["logits"].abs().max().item()
+    self_kv = cache["b0"]["self"] if cfg.is_encdec else cache["b0"]["attn"]
+    out = dict(max_abs_diff=(lk - model["logits"]).abs().max().item(),
+               scale=scale, finite=bool(torch.isfinite(lk).all()),
+               tokens_equal=torch.equal(torch.stack(fed, dim=1),
+                                        model["fed"]),
+               launches=launches, paths=paths,
+               by_kind={k: v for k, v in kinds.items() if v[0]},
+               kv_width=self_kv["k"].shape[-1],
+               rows=self_kv["k"].shape[1], setup_s=setup_s, run_s=run_s)
+    del local, cache, lk, logits
+    return out
+
+
+def check_contig(res, contig: dict, shape) -> dict:
+    """The [mesh-contig] checks on every rank's result, and its lines."""
+    label = f"({shape[0]},{shape[1]})"
+    out = {}
+    for arch, model in contig.items():
+        cfg = model["cfg"]
+        want = cfg.kv_dim if attn_replicated(cfg, shape[1]) \
+            else cfg.kv_dim // shape[1]
+        for r in res:
+            got = r["contig"][arch]
+            tag = f"mesh-contig {arch} {label} rank {r['rank']}"
+            require(got["finite"], f"{tag}: non-finite logits")
+            require(got["max_abs_diff"] <= 1e-3 * got["scale"], f"{tag}: "
+                    f"logits differ from one process's by "
+                    f"{got['max_abs_diff']:.3e} > 1e-3 * max|logits| = "
+                    f"{1e-3 * got['scale']:.3e}")
+            require(got["tokens_equal"], f"{tag}: greedy tokens differ "
+                    f"from one process's")
+            require(got["launches"]["qmm_decode"] > 0, f"{tag}: the decode "
+                    f"qmm never launched")
+            require(got["kv_width"] == want, f"{tag}: its cache holds "
+                    f"{got['kv_width']} KV columns, not {want}")
+        r0 = res[0]["contig"][arch]
+        kinds = {k: f"{v[0]} ({v[1] * 1e3:.1f} ms, {v[2] / 1e6:.3f} MB)"
+                 for k, v in sorted(r0["by_kind"].items())}
+        diffs = ", ".join(f"{r['contig'][arch]['max_abs_diff']:.3e}"
+                          for r in res)
+        print(f"[mesh-contig] {arch} {label} gloo, {len(res)} ranks on one "
+              f"card: build_prefill over {FAMILY_PROMPT} tokens + "
+              f"{FAMILY_STEPS} greedy build_decode steps, a rank's row of "
+              f"the batch of 2; every rank's tokens equal one process's, "
+              f"max|logits diff| by rank {diffs} (1e-3 * max|logits| "
+              f"{1e-3 * r0['scale']:.3e}); rank 0: KV columns "
+              f"{r0['kv_width']} of {cfg.kv_dim}, rows {r0['rows']}; "
+              f"collectives by kind (calls, seconds, payload) {kinds}; "
+              f"launches {r0['launches']}; qmm paths {r0['paths']}; run "
+              f"{r0['run_s']:.2f}s, set-up {r0['setup_s']:.2f}s")
+        out[arch] = dict(r0, ranks=len(res),
+                         max_abs_diffs=[r["contig"][arch]["max_abs_diff"]
+                                        for r in res])
+    return out
+
+
+def family_mesh_phase(seed: int, models: dict,
+                      contig: Optional[dict] = None) -> dict:
     """MoE, SSM and hybrid stacks on gloo ranks sharing the card, on the
     streams the ``[moe]`` and ``[hybrid]`` phases built (no second init,
     no second PTQ): dbrx-132b (2 of 40 layers, published widths; its 16
@@ -2400,7 +2531,11 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
     half the expert codes; a hymba rank's arena holds every KV head.
     Rank 0's collectives a round by kind and the phase's seconds are
     printed. ``models`` maps an arch to ``(cfg, qparams,
-    ref_per_call)``."""
+    ref_per_call)``. ``contig`` (``[mesh-contig]``) maps whisper-medium
+    and internvl2-2b to the [families] phase's streams, batch and one
+    process's logits and tokens; the same spawn's ranks run their
+    contiguous prefill and decode after the served archs
+    (``contig_rank``, ``check_contig``)."""
     t_phase = time.monotonic()
     out = {}
     jobs = {}
@@ -2431,7 +2566,8 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
         t0 = time.monotonic()
         res = spawn(family_mesh_rank, shape, backend="gloo",
                     args=(dict(order=archs,
-                               models={a: jobs[a] for a in archs}),),
+                               models={a: jobs[a] for a in archs},
+                               contig=dict(contig or {})),),
                     timeout_s=600.0)
         label = f"({shape[0]},{shape[1]})"
         for arch in archs:
@@ -2479,6 +2615,8 @@ def family_mesh_phase(seed: int, models: dict) -> dict:
                   f"arena KV columns {r0['kv_width']}; set-up "
                   f"{r0['setup_s']:.1f}s{held}")
             out[arch][label] = dict(r0, ranks=len(res), tokens=None)
+        if contig:
+            out["contig"] = check_contig(res, contig, shape)
         torch.cuda.ipc_collect()
         out[f"spawn {label}"] = dict(
             seconds=time.monotonic() - t0,
@@ -2519,10 +2657,12 @@ def family_run(cfg, qparams, toks, extra, use_kernels, feed=None):
     return torch.stack(logits, dim=1), torch.stack(fed, dim=1)
 
 
-def family_arch(arch: str, seed: int) -> dict:
+def family_arch(arch: str, seed: int, kept: Optional[dict] = None) -> dict:
     """One family at its published width: kernels against plain versions
     over prefill and 16 decode steps, decode against one full forward, and
-    the encoder's time and qmm route."""
+    the encoder's time and qmm route. With ``kept`` the streams, the
+    batch and the kernels' logits and tokens stay there for
+    ``[mesh-contig]``."""
     cfg = get_config(arch)
     t0 = time.monotonic()
     params = init_params(cfg, seed, device="cuda")
@@ -2598,6 +2738,9 @@ def family_arch(arch: str, seed: int) -> dict:
               f"{enc_paths}")
         out.update(encoder_ms=enc_ms, encoder_route=route,
                    encoder_paths=enc_paths)
+    if kept is not None:
+        kept[arch] = dict(cfg=cfg, qparams=qparams, toks=toks, extra=extra,
+                          logits=lk, fed=fed)
     del qparams, full, lk, lp
     torch.cuda.empty_cache()
     return out
@@ -2644,13 +2787,38 @@ def legacy_vs_paged(cfg, qparams, seed: int, paged_tokens) -> dict:
                 tokens_per_s=s.tokens_per_s, identical=same, parted=parted)
 
 
-def families_phase(cfg, qparams, seed: int, paged_tokens) -> dict:
-    """whisper-medium and internvl2-2b at full width on the contiguous
-    surface, then the legacy engine against the paged one on
-    stablelm-1.6b."""
-    return {"whisper-medium": family_arch("whisper-medium", seed),
-            "internvl2-2b": family_arch("internvl2-2b", seed),
-            "legacy": legacy_vs_paged(cfg, qparams, seed, paged_tokens)}
+def dryrun_phase() -> dict:
+    """``[dryrun]``, on the host alone: ``launch.dryrun.run_cell`` for
+    stablelm-1.6b's train_4k, prefill_32k and decode_32k cells on the
+    single-node production mesh (32 nodes of 8 H100s), rank 0: its
+    counted work, collectives by kind, argument bytes and roofline terms
+    against the H100 SXM5 datasheet's peaks (not measurements)."""
+    t0 = time.monotonic()
+    out = {}
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell("stablelm-1.6b", shape, multi_pod=False)
+        require(rec["ok"], f"dryrun stablelm-1.6b {shape}: "
+                f"{rec.get('error')}")
+        roof = rec["roofline"]
+        kinds = {k: f"{v['calls']} ({v['bytes'] / 1e6:.1f} MB)"
+                 for k, v in rec["collectives"].items()}
+        print(f"[dryrun] stablelm-1.6b {shape} on {rec['mesh']} (32 x 8 "
+              f"H100), rank 0, counted on meta in {rec['run_s']:.2f}s: "
+              f"{rec['cost']['flops'] / 1e12:.3f} TFLOP, "
+              f"{rec['cost']['bytes accessed'] / 1e9:.3f} GB; collectives "
+              f"by kind (calls, payload) {kinds}; argument bytes "
+              f"{rec['memory']['argument_bytes'] / 1e9:.3f} GB; roofline "
+              f"against datasheet peaks (not measurements): compute "
+              f"{roof['t_compute'] * 1e3:.3f} ms, memory "
+              f"{roof['t_memory'] * 1e3:.3f} ms, collective "
+              f"{roof['t_collective'] * 1e3:.3f} ms -> "
+              f"{roof['bottleneck']}, roofline fraction "
+              f"{roof['roofline_fraction']:.3f}")
+        out[shape] = {k: rec[k] for k in ("cost", "collectives", "memory",
+                                           "roofline", "run_s")}
+    out["seconds"] = time.monotonic() - t0
+    print(f"[dryrun] phase {out['seconds']:.1f}s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3685,14 +3853,19 @@ def main(argv=None) -> int:
                              served["runs"]["b graphed"]["pool_bytes"])
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
                          served["idle"])
-    kept = {}
+    kept, contig = {}, {}
     hybrid = hybrid_phase(args.seed, kept)
     moe = moe_phase(args.seed, rows, kept)
-    family_meshed = family_mesh_phase(args.seed, kept)
+    families = {arch: family_arch(arch, args.seed, contig)
+                for arch in FAMILY_CONTIG}
+    family_meshed = family_mesh_phase(args.seed, kept, contig)
     kept.clear()
+    contig.clear()
     torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
-    families = families_phase(cfg, qparams, args.seed, greedy_tokens)
+    families["legacy"] = legacy_vs_paged(cfg, qparams, args.seed,
+                                         greedy_tokens)
+    dried = dryrun_phase()
     attn_hd = attn_hd_phase(args.seed)
     stepped = whole_step(cfg, qparams, args.seed)
 
@@ -3736,7 +3909,7 @@ def main(argv=None) -> int:
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
         mesh=meshed, moe=moe, mesh_families=family_meshed,
-        families=families, attn_hd=attn_hd,
+        families=families, dryrun=dried, attn_hd=attn_hd,
         step=stepped,
         train=trained, train_mesh=train_meshed,
         train_mesh_x=train_meshed_x,

@@ -1,7 +1,7 @@
 """Architecture config registry: 10 assigned archs + the paper's 4 SLMs.
 
-A copy of ``repro.configs`` (without the ``shapes`` suites, which the port
-does not use yet). `get_config(arch)` returns the full published
+A copy of ``repro.configs``, with the four shape suites of the dry run
+(``configs/shapes.py``). `get_config(arch)` returns the full published
 configuration; `reduced_config(arch)` returns a small same-family config
 for CPU tests (few layers, narrow width, tiny vocab — structure preserved).
 """
@@ -11,6 +11,9 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.configs import shapes  # noqa: F401 (re-exported)
+from repro_torch.configs.shapes import (ShapeSuite, applicable_shapes,
+                                        get_shape)
 
 from repro_torch.configs.internvl2_2b import config as _internvl2
 from repro_torch.configs.dbrx_132b import config as _dbrx
@@ -45,6 +48,12 @@ _REGISTRY = {
     "phi-1.5b": _phi,
     "qwen2.5-1.5b": _qwen,
 }
+
+
+ASSIGNED_ARCHS = ["internvl2-2b", "dbrx-132b", "grok-1-314b",
+                  "stablelm-1.6b", "gemma2-2b", "stablelm-3b", "granite-8b",
+                  "whisper-medium", "mamba2-370m", "jamba-1.5-large-398b"]
+PAPER_ARCHS = ["hymba-1.5b", "llama-3.2-3b", "phi-1.5b", "qwen2.5-1.5b"]
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -87,4 +96,6 @@ def reduced_config(arch: str) -> ModelConfig:
     return dataclasses.replace(cfg, **repl)
 
 
-__all__ = ["get_config", "reduced_config"]
+__all__ = ["ASSIGNED_ARCHS", "PAPER_ARCHS", "ShapeSuite",
+           "applicable_shapes", "get_config", "get_shape", "reduced_config",
+           "shapes"]

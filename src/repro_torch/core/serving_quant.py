@@ -27,6 +27,9 @@ one ``[G, E, din, dout]`` tensor, multiplied by ``torch.bmm``). The port's engin
 switch (``weight_plan``), off by default: the streams go through the qmm
 kernels.
 
+``serving_params_struct`` gives the same tree with no value computed
+(``meta`` streams at the shapes the conversion gives), for the dry run.
+
 ``only_shard=m`` quantizes shard ``m`` of every sharded leaf alone (the
 fields hold one shard, ``first = m``): what TP rank ``m`` does on its
 own slice of the weights, which equals the whole conversion's shard
@@ -71,8 +74,52 @@ def _tileable(din: int, dout: int, cfg: QMCConfig, shards: int = 1,
     return d0 >= r and d1 >= c and d0 % r == 0 and d1 % c == 0
 
 
+def qtensor_struct(w: torch.Tensor, cfg: QMCConfig) -> QTensor:
+    """The QTensor ``quantize_qtensor(w, cfg)`` gives, as ``meta`` tensors
+    of its shapes and dtypes: ``round(rho * n_sub)`` outlier subtiles
+    (``core.partition.subtile_outlier_mask``), each stream at least one
+    subtile long."""
+    r, c = cfg.subtile
+    din, dout = w.shape
+    gr, gc = din // r, dout // c
+    k_out = int(round(cfg.rho * gr * gc))
+    k_out = min(max(k_out, 0), gr * gc)
+    k_in = gr * gc - k_out
+
+    def e(shape, dt):
+        return torch.empty(shape, dtype=dt, device="meta")
+    return QTensor(
+        in_codes=e((max(k_in, 1), r, c), torch.int8),
+        out_codes=e((max(k_out, 1), r, c), torch.int8),
+        stream_pos=e((gr, gc), torch.int32), is_out=e((gr, gc), torch.bool),
+        scale_in=e((1, dout), torch.float32),
+        scale_out=e((1, dout), torch.float32),
+        shape=(din, dout), bits_in=cfg.bits_in, bits_out=cfg.bits_out,
+        subtile=(r, c))
+
+
+def _sharded_struct(w: torch.Tensor, cfg: QMCConfig, n_shards: int,
+                    shard_axis: int = 1,
+                    only: Optional[int] = None) -> ShardedQTensor:
+    """``quantize_qtensor_sharded``'s result as ``meta`` tensors."""
+    shard = list(w.shape)
+    shard[shard_axis] //= n_shards
+    one = qtensor_struct(torch.empty(shard, device="meta"), cfg)
+    n = n_shards if only is None else 1
+    return ShardedQTensor(
+        *(torch.empty((n,) + tuple(getattr(one, f).shape),
+                      dtype=getattr(one, f).dtype, device="meta")
+          for f in ("in_codes", "out_codes", "stream_pos", "is_out",
+                    "scale_in", "scale_out")),
+        shape=tuple(w.shape), bits_in=cfg.bits_in, bits_out=cfg.bits_out,
+        subtile=tuple(cfg.subtile), shard_axis=shard_axis,
+        n_shards=n_shards, first=0 if only is None else only)
+
+
 def _convert_leaf(path: str, leaf: torch.Tensor, cfg: QMCConfig,
-                  shards: int, only: Optional[int]):
+                  shards: int, only: Optional[int],
+                  quantize=quantize_qtensor,
+                  quantize_sharded=quantize_qtensor_sharded):
     din, dout = leaf.shape[-2:]
     sa = _shard_axis_for(path)
     moe = leaf.ndim == 4                 # [G, E, d, ff]: one shard
@@ -86,14 +133,14 @@ def _convert_leaf(path: str, leaf: torch.Tensor, cfg: QMCConfig,
         lo, hi = 0, e
         if only is not None and shards > 1 and e % shards == 0:
             lo, hi = only * (e // shards), (only + 1) * (e // shards)
-        return [[quantize_qtensor(leaf[gi, ei], cfg) if lo <= ei < hi
+        return [[quantize(leaf[gi, ei], cfg) if lo <= ei < hi
                  else None for ei in range(e)] for gi in range(g)]
 
     def convert(w):
         if w.ndim == 2:
             if eff == 1:
-                return quantize_qtensor(w, cfg)
-            return quantize_qtensor_sharded(w, cfg, eff, sa, only=only)
+                return quantize(w, cfg)
+            return quantize_sharded(w, cfg, eff, sa, only=only)
         return [convert(w[i]) for i in range(w.shape[0])]
     return convert(leaf)
 
@@ -109,6 +156,26 @@ def quantize_for_serving(params, qmc: QMCConfig, min_dim: int = 128,
                     for k, v in tree.items()}
         if is_quantizable(path, tree, min_dim):
             return _convert_leaf(path, tree, qmc, tp_shards, only_shard)
+        return tree
+    return walk(params, "")
+
+
+def serving_params_struct(params, qmc: QMCConfig, min_dim: int = 128,
+                          tp_shards: int = 1,
+                          only_shard: Optional[int] = None):
+    """``quantize_for_serving``'s tree with no value computed (the dry
+    run; JAX's ``serving_params_struct``): every leaf it would convert
+    becomes a QTensor or ShardedQTensor of ``device="meta"`` tensors at
+    the shapes that conversion gives (``params`` may be a ``meta`` tree);
+    the rest pass through."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in tree.items()}
+        if is_quantizable(path, tree, min_dim):
+            return _convert_leaf(path, tree, qmc, tp_shards, only_shard,
+                                 quantize=qtensor_struct,
+                                 quantize_sharded=_sharded_struct)
         return tree
     return walk(params, "")
 

@@ -13,7 +13,9 @@ a multiple of 128, or a non-(8, 128) subtile) and ``use_kernels=False``
 take the plain version, "ref".
 
 ``path_counts`` counts the calls of every path. On a CPU tensor every
-path runs the plain version (the kernel wrappers take it there).
+path runs the plain version (the kernel wrappers take it there). A
+``meta`` tensor (the dry run, ``launch.dryrun``) gets an output of the
+product's shape, computes nothing and counts no path.
 """
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ def qmm(x: torch.Tensor, qt: QTensor, use_kernels: bool = True
     x2 = x.reshape(-1, k)
     m = x2.shape[0]
     plan = qmm_plan(m, k, n, qt.subtile, use_kernels)
+    if x.device.type == "meta":               # the dry run: shapes only
+        return x.new_empty((*lead, n))
     path_counts[plan["path"]] += 1
     if plan["path"] == "ref":
         return qmm_ref(x2, qt).reshape(*lead, n)

@@ -29,8 +29,18 @@ first ranks of a group that is already up, the others taking no part
 (``ft.elastic``). Every collective is tallied by kind in ``Mesh.by_kind``
 (calls, seconds, payload bytes: the collective's whole buffer, i.e. an
 all_reduce's tensor, a gather's output, a reduce-scatter's input) beside
-the totals. ``make_production_mesh`` (the v5e pod shapes) is left for the
-cost tooling (ROADMAP A13).
+the totals, and its payload by axis in ``Mesh.by_axis``.
+
+``make_production_mesh`` gives the dry run's meshes (``launch.dryrun``):
+H100 nodes in place of the reference's v5e pods. An NVIDIA DGX H100 node
+holds 8 H100 GPUs joined all to all by NVLink 4 through NVSwitch (NVIDIA
+DGX H100 datasheet), so ``model`` is 8 wide and stays inside a node, and
+``data`` runs over 32 nodes: ``(32, 8)``, 256 GPUs, the reference's
+single-pod device count, and ``(2, 32, 8)`` with a leading ``pod`` axis,
+512 GPUs. No host here has those GPUs, so these are ``DryMesh``es:
+a rank's coordinates and the axis sizes with no process group, whose
+collectives return tensors of the right shape and device and tally
+their kind and payload bytes in ``by_kind`` as a real mesh's do.
 """
 from __future__ import annotations
 
@@ -75,11 +85,13 @@ class Mesh:
         self.collectives = 0          # calls that crossed ranks
         self.collective_seconds = 0.0
         self.by_kind: dict = {}       # kind -> [calls, seconds, bytes]
+        self.by_axis: dict = {}       # axis -> payload bytes
 
     def index(self, axis: str) -> int:
         return self.coords.get(axis, 0)
 
-    def _tally(self, kind: str, t0: float, nbytes: int) -> None:
+    def _tally(self, kind: str, t0: float, nbytes: int, axis: str) -> None:
+        self.by_axis[axis] = self.by_axis.get(axis, 0) + nbytes
         dt = time.perf_counter() - t0
         self.collectives += 1
         self.collective_seconds += dt
@@ -90,7 +102,7 @@ class Mesh:
 
     def reset_counts(self) -> None:
         self.collectives, self.collective_seconds = 0, 0.0
-        self.by_kind = {}
+        self.by_kind, self.by_axis = {}, {}
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
                    kind: str = "serve") -> torch.Tensor:
@@ -101,7 +113,7 @@ class Mesh:
             return t
         t0 = time.perf_counter()
         dist.all_reduce(t, op=_OPS[op], group=group)
-        self._tally(kind, t0, t.numel() * t.element_size())
+        self._tally(kind, t0, t.numel() * t.element_size(), axis)
         return t
 
     def all_gather(self, t: torch.Tensor, axis: str, dim: int,
@@ -117,7 +129,7 @@ class Mesh:
                              *src.shape[1:]))
         t0 = time.perf_counter()
         dist.all_gather_into_tensor(out, src, group=group)
-        self._tally(kind, t0, out.numel() * out.element_size())
+        self._tally(kind, t0, out.numel() * out.element_size(), axis)
         return out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int,
@@ -133,8 +145,66 @@ class Mesh:
                              *src.shape[1:]))
         t0 = time.perf_counter()
         dist.reduce_scatter_tensor(out, src, op=_OPS["sum"], group=group)
-        self._tally(kind, t0, src.numel() * src.element_size())
+        self._tally(kind, t0, src.numel() * src.element_size(), axis)
         return out.movedim(0, dim).contiguous()
+
+
+class DryMesh(Mesh):
+    """One rank's view of a ``shape`` grid with no process group behind
+    it (the dry run: ``meta`` tensors on a mesh no host here holds). Its
+    collectives move nothing: an all_reduce returns its tensor, an
+    all_gather the tensor repeated along ``dim`` ``axis_size`` times, a
+    reduce-scatter this rank's block along ``dim``; each is tallied in
+    ``by_kind`` with the payload a real mesh's call tallies."""
+
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 rank: int = 0):
+        n = int(np.prod(shape))
+        groups = {a: ("dry" if size > 1 else None)
+                  for a, size in zip(axis_names, shape)}
+        groups["all"] = "dry" if n > 1 else None
+        super().__init__(shape, axis_names, rank, "dry", groups,
+                         datetime.timedelta(0))
+
+    def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
+                   kind: str = "serve") -> torch.Tensor:
+        if self.groups.get(axis) is not None:
+            self._tally(kind, time.perf_counter(),
+                        t.numel() * t.element_size(), axis)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int,
+                   kind: str) -> torch.Tensor:
+        if self.groups.get(axis) is None:
+            return t
+        out = torch.cat([t] * axis_size(self, axis), dim=dim).contiguous()
+        self._tally(kind, time.perf_counter(),
+                    out.numel() * out.element_size(), axis)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int,
+                       kind: str) -> torch.Tensor:
+        if self.groups.get(axis) is None:
+            return t
+        n = t.shape[dim] // axis_size(self, axis)
+        self._tally(kind, time.perf_counter(), t.numel() * t.element_size(),
+                    axis)
+        return t.narrow(dim, self.index(axis) * n, n).contiguous()
+
+
+# H100 node shapes (module docstring): 8 GPUs a node on ``model``
+NODE_GPUS = 8
+PRODUCTION_NODES = 32
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0
+                         ) -> DryMesh:
+    """The dry run's production mesh at ``rank``: 32 DGX H100 nodes of 8
+    GPUs, ``(32, 8)`` over ``("data", "model")``, or two such pods,
+    ``(2, 32, 8)`` with a leading pure-DP ``pod`` axis."""
+    shape = ((2, PRODUCTION_NODES, NODE_GPUS) if multi_pod
+             else (PRODUCTION_NODES, NODE_GPUS))
+    return DryMesh(shape, default_axes(shape), rank)
 
 
 def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], *,
@@ -312,6 +382,6 @@ def spawn(fn: Callable, shape: Sequence[int], *, backend: str,
     return [out[r] for r in range(world)]
 
 
-__all__ = ["Mesh", "make_mesh", "grid_mesh", "default_axes", "dp_axes",
-           "tp_axis", "axis_size", "dp_size", "dp_index", "spawn",
-           "BACKENDS"]
+__all__ = ["Mesh", "DryMesh", "make_production_mesh", "make_mesh", "grid_mesh",
+           "default_axes", "dp_axes", "tp_axis", "axis_size", "dp_size",
+           "dp_index", "spawn", "BACKENDS"]

@@ -1,18 +1,29 @@
-"""Roofline terms on the H100 (the part of ``repro.launch.roofline`` that
-``obs/costs.py`` needs: the ``Roofline`` compute and memory terms and
-``from_artifacts``), and the work each serving kernel does, counted from
-its shapes.
+"""Roofline terms on the H100 (the counterpart of
+``repro.launch.roofline``: the ``Roofline`` compute, memory and
+collective terms, ``from_artifacts``, ``model_flops_for`` and
+``useful_bytes_for``), and the work each serving kernel does, counted
+from its shapes.
 
 Peak rates: NVIDIA H100 Tensor Core GPU datasheet, dense rates without
-sparsity, at the card's full power limit:
+sparsity, at the card's full power limit (datasheet figures, not
+measurements):
 
-  ============  =========  ==========  ==========  ==========
-  part          HBM        fp32 cores  TF32 dense  BF16 dense
-  ============  =========  ==========  ==========  ==========
-  H100 SXM5     3.35 TB/s  67 TFLOP/s  495         989
-  H100 PCIe     2.0 TB/s   51          378         756
-  H100 NVL      3.9 TB/s   60          417.5       835.5
-  ============  =========  ==========  ==========  ==========
+  ============  =========  ==========  ==========  ==========  =========
+  part          HBM        fp32 cores  TF32 dense  BF16 dense  NVLink
+  ============  =========  ==========  ==========  ==========  =========
+  H100 SXM5     3.35 TB/s  67 TFLOP/s  495         989         900 GB/s
+  H100 PCIe     2.0 TB/s   51          378         756         600 GB/s
+  H100 NVL      3.9 TB/s   60          417.5       835.5       600 GB/s
+  ============  =========  ==========  ==========  ==========  =========
+
+The NVLink column is the per-GPU total over both directions. Across
+nodes, an NVIDIA DGX H100 node has one ConnectX-7 port at 400 Gb/s
+(50 GB/s a direction) per GPU (DGX H100 datasheet). So the collective
+term takes ``NVLINK_BW`` = 450 GB/s a direction for the bytes a rank
+moves over ``model`` (inside a node: ``launch.mesh.
+make_production_mesh``) and ``NET_BW`` = 50 GB/s for the rest (``data``,
+``pod``, the whole grid), each a rank's payload over one direction of
+its own links.
 
 The serving terms use the SXM5 row (``HBM_BW``, ``TF32_FLOPS``), the
 part this repository's card measurements were taken on; ``peaks``
@@ -21,7 +32,7 @@ picks a row by the card's name for the kernel bounds in
 
   compute    = FLOPs x tensor-core products / TF32 peak
   memory     = bytes / HBM bandwidth
-  collective = 0 (one card; the sharded port is ``ROADMAP.md`` A12)
+  collective = intra-node bytes / NVLINK_BW + other bytes / NET_BW
 
 The compute peak follows the activation dtype the way the kernels run
 their products: the QMC codes (at most 5 bits) and the KV pages are
@@ -34,13 +45,15 @@ The work functions (``qmm_work``, ``matmul_work``, ``attention_work``,
 ``ssd_work``, ``moe_work``) count each input read once and each output written once, and the
 operations the function needs; ``chip_smoke.py``'s kernel bounds and
 ``obs/costs.py``'s per-width step count both call them, so the two
-cannot drift apart. HLO collective parsing, ``model_flops_for`` and
-``useful_bytes_for`` are not ported (``ROADMAP.md`` A13).
+cannot drift apart. There is no HLO to parse for collective bytes (the
+reference's ``collective_bytes``): the dry run's ``launch.mesh.DryMesh``
+tallies every collective a rank's step issues, by kind and by axis, and
+that tally takes its place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 # (name fragment, HBM bytes/s, fp32 FLOP/s outside the tensor cores, dense
 # TF32 FLOP/s): the first fragment found in the card's name wins, so the
@@ -50,6 +63,8 @@ PEAKS = [("H100 PCIe", 2.0e12, 51e12, 378e12),
          ("H100", 3.35e12, 67e12, 495e12)]
 
 _, HBM_BW, FP32_FLOPS, TF32_FLOPS = PEAKS[-1]
+NVLINK_BW = 450e9        # bytes/s a direction, H100 SXM5 NVLink 4
+NET_BW = 50e9            # bytes/s a direction, a DGX H100 GPU's 400 Gb/s
 
 
 def peaks(name: str) -> Tuple[float, float, float, str, bool]:
@@ -118,7 +133,8 @@ def attention_work(*, lanes: int, s: int, n_heads: int, n_kv: int,
 
 def moe_work(*, m: int, cap: int, d: int, n_experts: int, topk: int,
              x_itemsize: int, router_itemsize: int,
-             experts: Sequence[Tuple[float, float]]) -> Tuple[float, float]:
+             experts: Sequence[Tuple[float, float]],
+             router_experts: Optional[int] = None) -> Tuple[float, float]:
     """(bytes, FLOPs) of one MoE FFN over ``m`` token rows
     (``models/moe.py``): the router ``[m, d] @ [d, E]``; ``experts``, the
     (bytes, FLOPs) of each expert product at ``cap`` rows (E x 3 for a
@@ -126,9 +142,11 @@ def moe_work(*, m: int, cap: int, d: int, n_experts: int, topk: int,
     QTensor, ``matmul_work`` for a dense stack); the dispatch (x read,
     the ``[E, cap, d]`` buffer written) and the combine (the expert
     outputs and the ``[m, k]`` fp32 gates read, y written; a multiply
-    and an add per contribution)."""
-    nbytes, flops = matmul_work(m, d, n_experts, x_itemsize,
-                                router_itemsize)
+    and an add per contribution). The router scores ``router_experts``
+    (default ``n_experts``: every expert of the layer, where a rank
+    holds ``n_experts`` of them)."""
+    nbytes, flops = matmul_work(m, d, router_experts or n_experts,
+                                x_itemsize, router_itemsize)
     for b, f in experts:
         nbytes += b
         flops += f
@@ -172,6 +190,10 @@ class Roofline:
     chips: int
     flops_per_dev: float
     bytes_per_dev: float
+    coll_bytes_per_dev: float = 0.0
+    model_flops: float = 0.0      # 6*N_active*D for the step's tokens
+    useful_bytes: float = 0.0     # irreducible weight+cache traffic
+    coll_intra_bytes_per_dev: float = 0.0   # over NVLink, inside a node
     act_dtype: str = "float32"
     t_compute: float = 0.0
     t_memory: float = 0.0
@@ -180,7 +202,9 @@ class Roofline:
     def finalize(self) -> "Roofline":
         self.t_compute = self.flops_per_dev / peak_flops(self.act_dtype)
         self.t_memory = self.bytes_per_dev / HBM_BW
-        self.t_collective = 0.0
+        inter = self.coll_bytes_per_dev - self.coll_intra_bytes_per_dev
+        self.t_collective = (self.coll_intra_bytes_per_dev / NVLINK_BW
+                             + inter / NET_BW)
         return self
 
     @property
@@ -190,17 +214,90 @@ class Roofline:
         return max(terms, key=terms.get)
 
     @property
+    def useful_flops_ratio(self) -> float:
+        total = self.flops_per_dev * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
     def roofline_time(self) -> float:
         """Ideal overlapped execution: max of the three streams."""
         return max(self.t_compute, self.t_memory, self.t_collective)
 
+    @property
+    def roofline_fraction(self) -> float:
+        """Useful work time / bound time, as the reference scores it: the
+        useful FLOPs' time at the compute peak or the irreducible bytes'
+        time at the HBM bandwidth, whichever is larger, over the binding
+        stream."""
+        if self.roofline_time <= 0:
+            return 0.0
+        t_useful_c = (self.model_flops / self.chips) / peak_flops(
+            self.act_dtype)
+        t_useful_b = (self.useful_bytes / self.chips) / HBM_BW
+        return max(t_useful_c, t_useful_b) / self.roofline_time
+
+    @property
+    def bw_fraction(self) -> float:
+        """Irreducible bytes / counted bytes over the mesh."""
+        total = self.bytes_per_dev * self.chips
+        return self.useful_bytes / total if total else 0.0
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d.update(bottleneck=self.bottleneck,
+                 useful_flops_ratio=self.useful_flops_ratio,
+                 roofline_time=self.roofline_time,
+                 roofline_fraction=self.roofline_fraction,
+                 bw_fraction=self.bw_fraction)
+        return d
+
+
+def model_flops_for(cfg, suite) -> float:
+    """6*N_active*D with D = tokens processed by the step (the
+    reference's)."""
+    n = cfg.active_param_count()
+    if suite.kind == "train":
+        tokens = suite.global_batch * suite.seq_len
+        return 6.0 * n * tokens
+    if suite.kind == "prefill":
+        tokens = suite.global_batch * suite.seq_len
+        return 2.0 * n * tokens          # forward only
+    tokens = suite.global_batch           # one token per sequence
+    return 2.0 * n * tokens
+
+
+def useful_bytes_for(cfg, suite, serve_weights: str = "fp16") -> float:
+    """Irreducible global bytes for the step (the reference's): every
+    active weight read once (packed bits when serving QMC) + the valid
+    KV/SSM cache (decode) or activation residency floor (train/prefill:
+    params + grads touched)."""
+    from repro_torch.memsys.workload import kv_bits_per_step
+    n = cfg.active_param_count()
+    w_bits = n * (5.2 if serve_weights == "qtensor"
+                  and suite.kind == "decode" else 16.0)
+    if suite.kind == "train":
+        # fwd + bwd touch params twice, grads once, opt state twice
+        return (3 * w_bits + 2 * cfg.param_count() * 32) / 8.0
+    if suite.kind == "prefill":
+        return w_bits / 8.0
+    cache_bits = kv_bits_per_step(cfg, suite.seq_len) * suite.global_batch
+    return (w_bits + cache_bits) / 8.0
+
 
 def from_artifacts(arch: str, shape: str, mesh_name: str, chips: int,
-                   cost: Dict, act_dtype: str = "float32") -> Roofline:
+                   cost: Dict, coll: Optional[Dict] = None,
+                   model_flops: float = 0.0, useful_bytes: float = 0.0,
+                   act_dtype: str = "float32") -> Roofline:
     """A finalized :class:`Roofline` from a cost dict (``"flops"``,
-    ``"bytes accessed"`` per device)."""
+    ``"bytes accessed"`` per device) and a collective dict (``"total"``
+    payload bytes a device moves, ``"intra_node"`` the part over
+    NVLink)."""
+    coll = coll or {}
     return Roofline(
         arch=arch, shape=shape, mesh=mesh_name, chips=chips,
         flops_per_dev=float(cost.get("flops", 0.0)),
         bytes_per_dev=float(cost.get("bytes accessed", 0.0)),
+        coll_bytes_per_dev=float(coll.get("total", 0.0)),
+        coll_intra_bytes_per_dev=float(coll.get("intra_node", 0.0)),
+        model_flops=model_flops, useful_bytes=useful_bytes,
         act_dtype=act_dtype).finalize()

@@ -70,6 +70,12 @@ and conv state of mamba and hybrid blocks is whole on every rank (JAX
 puts its slot dim on the dp axes): every data rank runs every lane, and
 every model rank runs the whole mixer.
 
+The contiguous cache (``cache_spec``, ``local_cache``, ``shard_cache``;
+``serve.steps.build_prefill`` / ``build_decode``): the batch rows over
+the dp axes where the global batch divides them (else every rank holds
+every row), the KV columns as the arena's, the cross-attention's K/V by
+the rank's KV heads, the SSM and conv state whole over ``model``.
+
 Training (every stack: dense, local/global attention, MoE, Mamba2,
 hybrid, encoder-decoder and VLM; ``check_train_mesh`` refuses only a
 ``d_ff`` that does not divide ``model``) keeps the JAX rules whole (FSDP
@@ -117,7 +123,7 @@ from repro_torch.core.serving_quant import ROW_SHARDED
 from repro_torch.launch import collectives as C
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import kvcache as KV
-from repro_torch.models.layers import attn_replicated
+from repro_torch.models.layers import attn_replicated, rank_config
 
 _STACKED_PREFIXES = ("blocks/", "encoder/blocks/", "xattn/")
 # the leaves of an attention block: self-attention, the encoder's and the
@@ -399,14 +405,9 @@ def local_arena(cfg, n_pages_total: int, page: int, max_slots: int,
     """This rank's zeroed arena: its slice of ``n_pages_total`` pages (the
     sink page after them when ``D > 1``) and of the KV heads (all of them
     where they do not divide ``model``)."""
-    import dataclasses
     _, n = page_slice(n_pages_total, mesh)
     sink = meshlib.axis_size(mesh, "data") > 1
-    tp_n = meshlib.axis_size(mesh, "model")
-    if attn_replicated(cfg, tp_n):
-        tp_n = 1
-    lcfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // tp_n,
-                               n_heads=cfg.n_heads // tp_n)
+    lcfg = rank_config(cfg, meshlib.axis_size(mesh, "model"))
     return KV.paged_init_cache(lcfg, n + int(sink), page, max_slots,
                                max_pages_per_seq, dtype, device)
 
@@ -432,6 +433,94 @@ def shard_arena(arena: dict, mesh, cfg=None) -> dict:
             t = torch.cat([t, torch.zeros_like(t[:, :1])], dim=1)
         return t.contiguous()
     return walk(arena, "")
+
+
+# ---------------------------------------------------------------------------
+# the contiguous cache (``prefill`` / ``decode_step`` on a mesh)
+# ---------------------------------------------------------------------------
+def cache_spec(path: str, leaf, mesh, global_batch: int, cfg=None
+               ) -> Tuple:
+    """A contiguous cache leaf's spec (stacked ``[G, ...]``; JAX's
+    ``cache_spec``): the batch dim on the dp axes where the global batch
+    divides them. K/V ``[G, B, T, KV * hd]`` and their int8 scales ``[G,
+    B, T, KV]`` keep the fused (or head) dim on ``model`` where it divides
+    and, with ``cfg``, only where the KV heads divide ``model`` (all of
+    them on every model rank where they do not: the replicated block).
+
+    Three departures from JAX, each with the same results:
+      * a batch that does not divide the dp axes replicates its rows
+        over them (JAX cuts the sequence over ``data`` instead);
+      * the cross-attention's ``xk`` / ``xv`` ``[L, B, T, KV, hd]`` hold
+        the rank's KV heads under TP (JAX keeps them whole): the rank
+        computes only its heads' cross K/V;
+      * the SSM and conv state is whole over ``model`` (JAX cuts its
+        heads and channels): the Mamba2 mixer runs whole on every model
+        rank, as in the paged arena (``paged_cache_spec``)."""
+    tp_n = meshlib.axis_size(mesh, "model")
+    if cfg is not None and attn_replicated(cfg, tp_n):
+        tp_n = 1
+    b_ax = (_dp_entry(mesh) if batch_spec(mesh, global_batch) else None)
+
+    def heads(dim):
+        return "model" if tp_n > 1 and dim % tp_n == 0 else None
+
+    shape = tuple(leaf.shape)
+    if path.endswith(("/k", "/v", "k_scale", "v_scale")):
+        return (None, b_ax, None, heads(shape[3]))
+    if path.endswith(("xk", "xv")):
+        return (None, b_ax, None, heads(shape[3]), None)
+    if path.endswith(("/ssm", "/conv")):
+        return (None, b_ax) + (None,) * (len(shape) - 2)
+    return ()
+
+
+def _rank_block(t: torch.Tensor, spec: Tuple, mesh,
+                global_batch: int) -> torch.Tensor:
+    """This rank's block of a cache leaf under ``spec``: its batch rows
+    (``batch_rows``) and its slice of each dim on ``model``."""
+    idx = list(local_slices(tuple(a if a == "model" else None
+                                  for a in spec), t.shape, mesh))
+    if len(spec) > 1 and spec[1] is not None:
+        idx[1] = batch_rows(mesh, global_batch)
+    return t[tuple(idx)]
+
+
+def local_cache(cfg, batch: int, max_len: int, dtype, device, mesh
+                ) -> dict:
+    """This rank's zeroed contiguous cache (``init_cache``, or ``{"b0":
+    init_encdec_cache(...)}`` for an encoder-decoder): its rows of a
+    global ``batch`` (all of them where ``batch`` does not divide the dp
+    axes) at the rank's head counts (``layers.rank_config``)."""
+    lcfg = rank_config(cfg, meshlib.axis_size(mesh, "model"))
+    rows = (batch // meshlib.dp_size(mesh) if batch_spec(mesh, batch)
+            else batch)
+    if cfg.is_encdec:
+        return {"b0": KV.init_encdec_cache(lcfg, rows, max_len, dtype,
+                                           device)}
+    return KV.init_cache(lcfg, rows, max_len, dtype, device)
+
+
+def shard_cache(cache: dict, mesh, global_batch: int, cfg=None) -> dict:
+    """This rank's slice of a whole contiguous cache (``cache_spec``),
+    copied."""
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        spec = cache_spec(path, tree, mesh, global_batch, cfg)
+        return _rank_block(tree, spec, mesh, global_batch).clone()
+    return walk(cache, "")
+
+
+def logits_spec(mesh, global_batch: int, cfg=None) -> Tuple:
+    """``[B, S, V]`` logits (JAX's ``logits_spec``): the batch on the dp
+    axes where it divides, the vocab on ``model`` (with ``cfg``, only
+    where the vocab divides it: a head whose vocab does not replicates,
+    ``serve.steps.logits2d``)."""
+    tp_n = meshlib.axis_size(mesh, "model")
+    v_ax = ("model" if "model" in mesh.axis_names and (
+        cfg is None or cfg.vocab % tp_n == 0) else None)
+    b_ax = _dp_entry(mesh) if batch_spec(mesh, global_batch) else None
+    return (b_ax, None, v_ax)
 
 
 # ---------------------------------------------------------------------------

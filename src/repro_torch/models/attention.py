@@ -22,7 +22,12 @@ column-parallel and ``wo`` row-parallel (``layers.column_linear``,
 heads or the KV heads do not divide ``M`` (hymba-1.5b's 25 and 5) the
 block's weights are whole on every model rank and every rank runs every
 head, ``wo`` whole and no sum after it (``layers.attn_replicated``); the
-arena then holds every KV head. With a page slice (a mesh whose data
+arena then holds every KV head. A contiguous cache on a mesh
+(``launch.sharding.local_cache``) holds the rank's rows and the same KV
+columns (the rank's ``n_kv / M`` heads, or all of them), so the block
+writes and reads its own columns; the cross-attention's cached ``xk`` /
+``xv`` hold the rank's KV heads too (``precompute_cross_kv``), where
+JAX keeps them whole. With a page slice (a mesh whose data
 axis is over 1) the arena holds the rank's slice of the pages: the step's K/V rows land
 only in pages of the slice, at ``global - first`` (other rows in the
 slice's sink page), the kernel reads the slice's pages, and the slices'

@@ -41,6 +41,7 @@ serving's all_gather and plain slice.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -103,6 +104,19 @@ def attn_replicated(cfg, m: Optional[int] = None) -> bool:
     every head, with ``wo`` whole and no sum."""
     m = tp_size() if m is None else m
     return m > 1 and bool(cfg.n_heads % m or cfg.n_kv_heads % m)
+
+
+def rank_config(cfg, m: Optional[int] = None):
+    """``cfg`` with the heads an attention block runs on one of ``m``
+    model ranks (the current mesh's by default): ``1 / m`` of the query
+    and KV heads under TP, all of them off a mesh or where the block
+    replicates (``attn_replicated``). A rank's KV cache or arena is
+    allocated at these counts."""
+    m = tp_size() if m is None else m
+    if m == 1 or attn_replicated(cfg, m):
+        return cfg
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                               n_kv_heads=cfg.n_kv_heads // m)
 
 
 def tp_input(x: torch.Tensor) -> torch.Tensor:

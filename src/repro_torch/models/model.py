@@ -29,8 +29,8 @@ from repro_torch.models.attention import (attend, attn_block,
                                           precompute_cross_kv)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy_loss, embed_tokens,
-                                       glu_mlp, linear, rms_norm, softcap,
-                                       tp_input)
+                                       glu_mlp, linear, rank_config,
+                                       rms_norm, softcap, tp_input)
 
 MOE_AUX_WEIGHT = 0.01
 TAP_ROWS = 512          # calibration rows a tap keeps per call
@@ -96,7 +96,8 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     attention runs the rank's heads (or all of them, where they do not
     divide ``model``) and its FFN the rank's hidden units, and ``remat``
     recomputes each layer in the backward pass, as the decoder's
-    groups."""
+    groups. On a serving mesh (``prefill``) the same, on the rank's rows
+    of ``frames`` and its slices of the weights."""
     gather = gather if gather is not None else _whole
     enc = params["encoder"]
     x = frames + enc["pos_emb"][None, :frames.shape[1]].to(frames.dtype)
@@ -426,21 +427,32 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             max_len: int, cache_dtype=torch.bfloat16,
             vis_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            use_kernels: bool = True):
+            use_kernels: bool = True, cache: Optional[dict] = None):
     """Full forward over the prompt into a fresh contiguous cache of
     ``max_len`` positions; returns ``(last_logits [B, V], cache)``. An
     encoder-decoder encodes ``frames`` and keeps each decoder layer's
-    cross K/V in the cache, under ``b0``."""
+    cross K/V in the cache, under ``b0``.
+
+    Under a mesh (``runtime_context.use_mesh``; ``serve.steps.
+    build_prefill``) ``tokens`` and the extras are this rank's rows and
+    ``params`` its slices (``launch.sharding.shard_params``); the cache is
+    ``cache`` (``launch.sharding.local_cache``), else one allocated at
+    the rank's head counts (``layers.rank_config``); the logits are the
+    rank's vocab slice where the head is vocab-parallel, the whole vocab
+    where it replicates."""
     b = tokens.shape[0]
     dev = tokens.device
+    lcfg = rank_config(cfg)
     if cfg.is_encdec:
-        cache = {"b0": KV.init_encdec_cache(cfg, b, max_len, cache_dtype,
-                                            dev)}
+        if cache is None:
+            cache = {"b0": KV.init_encdec_cache(lcfg, b, max_len,
+                                                cache_dtype, dev)}
         enc_out = encode(cfg, params, frames, use_kernels)
         logits = forward(cfg, params, tokens, cache=cache, enc_out=enc_out,
                          use_kernels=use_kernels)
     else:
-        cache = KV.init_cache(cfg, b, max_len, cache_dtype, dev)
+        if cache is None:
+            cache = KV.init_cache(lcfg, b, max_len, cache_dtype, dev)
         logits = forward(cfg, params, tokens, cache=cache,
                          vis_embeds=vis_embeds, use_kernels=use_kernels)
     return logits[:, -1], cache
@@ -450,7 +462,8 @@ def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,
                 cache: dict, pos, *, use_kernels: bool = True):
     """One token step on a contiguous cache (updated in place): ``token
     [B, 1]`` at position ``pos`` (a scalar); returns ``(logits [B, V],
-    cache)``."""
+    cache)``. Under a mesh, as ``prefill``: the rank's rows, slices and
+    cache, and its ``[B_rank, V or V / M]`` logits."""
     logits = forward(cfg, params, token, cache=cache, pos=pos,
                      use_kernels=use_kernels)
     return logits[:, -1], cache

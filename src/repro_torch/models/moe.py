@@ -171,8 +171,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
         keep, cap_b = seg_pos < cap, cap
     else:
         counts = torch.zeros((dp_n, e), dtype=torch.float32, device=dev)
-        counts[dp_k] = torch.bincount(flat_expert, minlength=e).to(
-            torch.float32)
+        # a shape-static count (bincount's size depends on the data)
+        counts[dp_k] = torch.zeros(e, device=dev).index_add_(
+            0, flat_expert, torch.ones(t * k, device=dev))
         stats = C.sum_dp(torch.cat([probs.sum(dim=0), top1.sum(dim=0),
                                     counts.reshape(-1)]), mesh, axes)
         me, ce = stats[:e] / (t * dp_n), stats[e:2 * e] / (t * dp_n)
@@ -181,7 +182,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
         keep = seg_pos + before[se] < cap
         # this rank's kept rows of its busiest expert
         kept_rows = torch.clamp(cap - before, min=0).minimum(counts[dp_k])
-        cap_b = max(1, int(kept_rows[first:stop].max()))
+        # shapes only in the dry run (meta): the bound, not the routing
+        cap_b = (cap if dev.type == "meta"
+                 else max(1, int(kept_rows[first:stop].max())))
     aux = (me * ce).sum() * e
     if partial and mesh.index("model") != 0:
         aux = aux.detach()                # its gradient on model rank 0

@@ -199,6 +199,147 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
             "dtype": str(act).replace("torch.", "")}
 
 
+def contiguous_work(cfg, params: dict, cache: dict, *, rows: int, s: int,
+                    dp: int = 1) -> Dict[str, object]:
+    """``{"flops", "matmul_flops", "bytes", "dtype"}`` of one contiguous
+    call (``serve.steps.build_prefill`` at ``s`` tokens a row,
+    ``build_decode`` at ``s = 1``) over ``rows`` rows, on one rank of a
+    mesh (its parameter slices and its cache, ``launch.sharding.
+    local_cache``) or one process, as ``step_work`` counts a paged call:
+
+      * each projection at ``rows * s`` rows (a VLM's layers at ``rows *
+        (s + n_vis)`` on a prefill, its visual prefix included), QTensor
+        leaves at qmm's padded M (``qmm_plan``), the held shard of a
+        ShardedQTensor, the held experts of a list;
+      * each attention layer over the whole cache slab of ``T`` positions
+        (``attend`` scores every key and masks: a static count, as XLA's
+        is), q read, K/V of ``rows x T`` read, o written;
+      * each MoE FFN at ``models.moe.capacity`` rows a held expert
+        (``launch/roofline.py:moe_work``): the capacity of the call's
+        rows, or with the rows split over ``dp`` ranks
+        (``serve.steps.build_prefill`` / ``build_decode`` where the batch
+        divides) of all ``dp`` ranks' rows, the most a rank runs (it
+        runs its kept rows of its busiest expert, which the routing
+        decides); each Mamba2 mixer's state and scan (``ssd_work``);
+      * an encoder-decoder's encoder on a prefill (its layers at ``rows
+        * enc_seq`` rows, their non-causal attention over ``enc_seq``
+        keys) and the cross-attention: ``wq`` at the call's rows, ``wk`` /
+        ``wv`` at the frames' rows on a prefill only (a decode reads the
+        cached ``xk`` / ``xv``), the scores over ``enc_seq`` keys;
+      * the head at every row of the call (``forward`` computes the
+        logits of every position; ``prefill`` keeps the last).
+
+    ``matmul_flops`` is the part of ``flops`` that ``torch.matmul``,
+    ``torch.bmm`` and ``torch.einsum`` run on dense weights (every term
+    above but the MoE combine and the one-token SSM recurrence), which
+    ``torch.utils.flop_counter.FlopCounterMode`` counts too. Norms,
+    rotary, the cache writes, the conv taps and the softmax are not
+    counted."""
+    act = params["embed"]["tok"].dtype
+    xb = act.itemsize
+    vis = cfg.n_vis_tokens if s > 1 else 0
+    m = rows * (s + vis)
+    enc_m = rows * cfg.enc_seq if (cfg.is_encdec and s > 1) else 0
+    tot = {"flops": 0.0, "matmul": 0.0, "bytes": 0.0}
+
+    def add(b: float, f: float, mm: bool = True) -> None:
+        tot["bytes"] += b
+        tot["flops"] += f
+        if mm:
+            tot["matmul"] += f
+
+    def work(w, n_rows: int) -> Tuple[float, float]:
+        if isinstance(w, ShardedQTensor):
+            parts = [work(w.local(i), n_rows) for i in w.held]
+            return (sum(b for b, _ in parts), sum(f for _, f in parts))
+        if isinstance(w, QTensor):
+            k, n = w.shape
+            m_run = qmm_plan(n_rows, k, n, w.subtile)["pad_m"]
+            return rl.qmm_work(m_run, k, n, xb, w.subtile)
+        k, n = w.shape[-2:]
+        return rl.matmul_work(n_rows, k, n, xb, w.element_size())
+
+    def attention(n_heads: int, n_kv: int, q_rows: int, t: int,
+                  kv_itemsize: int, scaled: bool = False) -> None:
+        add(*rl.attention_work(
+            lanes=rows, s=q_rows, n_heads=n_heads, n_kv=n_kv,
+            hd=cfg.head_dim, page=t, pages=rows, keys=rows * q_rows * t,
+            tbl_entries=0, q_itemsize=xb, kv_itemsize=kv_itemsize,
+            kv_scaled=scaled))
+
+    def heads(n_kv: int) -> Tuple[int, int]:
+        """(query heads, KV heads) of a rank holding ``n_kv`` KV heads."""
+        return cfg.n_heads * n_kv // cfg.n_kv_heads, n_kv
+
+    enc = cfg.is_encdec
+    dec_cache = cache["b0"]["self"] if enc else None
+    for key, blk in params["blocks"].items():
+        moe = cfg.moe_slots[int(key[1:])] and "ffn" in blk
+        for g in range(cfg.n_groups):
+            for part, names in _PROJECTIONS.items():
+                if part == "ffn" and moe:
+                    continue
+                for name in names:
+                    if name in blk.get(part, {}):
+                        add(*work(blk[part][name][g], m))
+            if moe:
+                ffn = blk["ffn"]
+                router = ffn["router"][g]
+                held = [w_e for w_e in ffn["w_up"][g] if w_e is not None]
+                cap = capacity(m * dp, cfg)
+                experts = [work(w_e, cap)
+                           for name in _PROJECTIONS["ffn"] if name in ffn
+                           for w_e in ffn[name][g] if w_e is not None]
+                b, f = rl.moe_work(
+                    m=m, cap=cap, d=cfg.d_model, n_experts=len(held),
+                    topk=cfg.topk, x_itemsize=xb,
+                    router_itemsize=router.element_size(), experts=experts,
+                    router_experts=cfg.n_experts)
+                combine = 2.0 * m * cfg.topk * cfg.d_model
+                add(b, f - combine)
+                add(0.0, combine, mm=False)
+            grp = dec_cache if enc else cache[key]
+            if enc or "attn" in grp:
+                kv = grp if enc else grp["attn"]
+                t = kv["k"].shape[-2]
+                nh, n_kv = heads(kv["k"].shape[-1] // cfg.head_dim)
+                attention(nh, n_kv, s + vis, t, kv["k"].element_size(),
+                          "k_scale" in kv)
+            if not enc and "mamba" in grp:
+                conv = grp["mamba"]["conv"]
+                b, f = rl.ssd_work(
+                    lanes=rows, s=s + vis, chunk=chunk_for(s + vis),
+                    heads=cfg.ssm_nheads, headdim=cfg.ssm_headdim,
+                    d_state=cfg.d_state, conv_rows=conv.shape[-2],
+                    conv_dim=conv.shape[-1],
+                    conv_itemsize=conv.element_size())
+                add(b, f, mm=s + vis > 1)
+    if enc:
+        xa = params["xattn"]["xattn"]
+        cross = cache["b0"]["cross"]
+        nh, n_kv = heads(cross["xk"].shape[-2])
+        for g in range(cfg.n_layers):
+            add(*work(xa["wq"][g], m))
+            add(*work(xa["wo"][g], m))
+            if enc_m:
+                add(*work(xa["wk"][g], enc_m))
+                add(*work(xa["wv"][g], enc_m))
+            attention(nh, n_kv, s, cfg.enc_seq, cross["xk"].element_size())
+        if enc_m:
+            eb = params["encoder"]["blocks"]
+            for g in range(cfg.n_enc_layers):
+                for part, names in _PROJECTIONS.items():
+                    for name in names:
+                        if name in eb.get(part, {}):
+                            add(*work(eb[part][name][g], enc_m))
+                attention(nh, n_kv, cfg.enc_seq, cfg.enc_seq, xb)
+    head = (params["embed"]["tok"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    add(*work(head, rows * s))
+    return {"flops": tot["flops"], "matmul_flops": tot["matmul"],
+            "bytes": tot["bytes"], "dtype": str(act).replace("torch.", "")}
+
+
 # the leaves a training step multiplies by (the head: lm_head, or the tied
 # embedding table)
 _TRAIN_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -206,13 +347,14 @@ _TRAIN_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 
 
 def train_step_work(cfg, mesh=None, *, tokens: int, remat: bool = True,
-                    enc_tokens: int = 0, vis_tokens: int = 0
-                    ) -> Dict[str, float]:
-    """``{"flops", "forward_flops"}``: the matmul FLOPs of one training
-    step (``train.step``) on a rank of ``mesh`` (one process without)
-    over its ``tokens`` rows, counted from the model's shapes and the
-    training rules (``launch.sharding.param_spec`` with ``cfg``), as
-    ``step_work`` counts a serving call:
+                    enc_tokens: int = 0, vis_tokens: int = 0,
+                    itemsize: Optional[int] = None,
+                    moment_itemsize: int = 4) -> Dict[str, float]:
+    """``{"flops", "forward_flops"}``: the matmul FLOPs of one
+    training step (``train.step``) on a rank of ``mesh`` (one process
+    without) over its ``tokens`` rows, counted from the model's shapes
+    and the training rules (``launch.sharding.param_spec`` with ``cfg``),
+    as ``step_work`` counts a serving call:
 
       * every projection at ``tokens`` rows with the rank's part of its
         weight: cut over ``model`` where the rules cut it (column- or
@@ -235,19 +377,34 @@ def train_step_work(cfg, mesh=None, *, tokens: int, remat: bool = True,
     The forward counts once, the backward twice (the input's and the
     weight's gradients) and, with ``remat``, the layers' recompute once
     more; the head is not recomputed. Attention scores, the SSD scan,
-    the norms and the optimizer are not counted."""
+    the norms and the optimizer's arithmetic are not counted. Given the
+    parameters' ``itemsize`` the dict also holds ``bytes``: each of those
+    products' operands read and result written once
+    (``launch/roofline.py:matmul_work``), and the
+    AdamW update over the rank's slice of every leaf (the parameter and
+    its gradient read, the parameter written; both moments read and
+    written at ``moment_itemsize``)."""
     layers = head = 0.0
+    layer_bytes = head_bytes = opt_bytes = 0.0
     block_rows = tokens + vis_tokens
+    size = itemsize or 4
     for path, leaf in T.items(init_params(cfg, device="meta")):
         name = path.split("/")[-1]
-        if name not in _TRAIN_MATMULS and not (
-                path == "embed/tok" and cfg.tie_embeddings):
-            continue
         shape = list(leaf.shape)
+        part = list(leaf.shape)
         if mesh is not None:
             for i, ax in enumerate(shd.param_spec(path, leaf, mesh, cfg)):
                 if ax == "model":
                     shape[i] //= meshlib.axis_size(mesh, "model")
+                if ax is not None:
+                    part[i] //= meshlib.axis_size(mesh, ax)
+        n_part = 1
+        for d in part:
+            n_part *= d
+        opt_bytes += n_part * (3 * size + 4 * moment_itemsize)
+        if name not in _TRAIN_MATMULS and not (
+                path == "embed/tok" and cfg.tie_embeddings):
+            continue
         if path.startswith(("blocks/", "encoder/", "xattn/")):
             g, shape = shape[0], shape[1:]
             rows = (enc_tokens if path.startswith("encoder/") or (
@@ -255,13 +412,27 @@ def train_step_work(cfg, mesh=None, *, tokens: int, remat: bool = True,
                 else block_rows)
             if len(shape) == 3:                       # [E, k, n] experts
                 rows = capacity(rows, cfg)
-                layers += g * 2.0 * rows * shape[0] * shape[1] * shape[2]
+                b, f = rl.matmul_work(rows, shape[1], shape[2], size,
+                                      size)
+                layers += g * shape[0] * f
+                layer_bytes += g * shape[0] * b
             else:
-                layers += g * 2.0 * rows * shape[0] * shape[1]
+                b, f = rl.matmul_work(rows, shape[0], shape[1], size,
+                                      size)
+                layers += g * f
+                layer_bytes += g * b
         else:                                         # the head [d, V]
-            head += 2.0 * tokens * shape[0] * shape[1]
-    return {"flops": layers * (4 if remat else 3) + head * 3,
-            "forward_flops": layers + head}
+            if path == "embed/tok":                   # tied: [V, d]
+                shape = shape[::-1]
+            b, f = rl.matmul_work(tokens, shape[0], shape[1], size, size)
+            head += f
+            head_bytes += b
+    passes = 4 if remat else 3
+    out = {"flops": layers * passes + head * 3,
+           "forward_flops": layers + head}
+    if itemsize is not None:
+        out["bytes"] = layer_bytes * passes + head_bytes * 3 + opt_bytes
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -55,10 +55,11 @@ reports. A rank that fails ends its collectives, so its peers raise too
 (gloo sees the closed connection; a hung peer hits the group's
 timeout). Dense, local/global, MoE (experts over ``model``), SSM and
 hybrid stacks, the Mamba2 mixer replicated on every model rank after its
-gathered ``in_proj`` (``launch.sharding``); KV heads must divide the
-model axis, so a stack whose do not (hymba-1.5b's 5) serves at M = 1;
-encoder-decoder and VLM stacks are refused, as off the mesh (ROADMAP
-A12).
+gathered ``in_proj`` (``launch.sharding``); an attention block whose
+heads do not divide the model axis (hymba-1.5b's 25 and 5) runs whole on
+every model rank; encoder-decoder and VLM stacks are refused, as off the
+mesh, and run on a mesh through ``serve.steps.build_prefill`` /
+``build_decode``.
 
 Token selection runs inside the step (``serve/sampling.py``): per-request
 :class:`~repro_torch.serve.sampling.SamplingParams` ride on
@@ -377,7 +378,8 @@ class ServeEngine:
             raise NotImplementedError(
                 "the paged engine covers decoder-only models; a VLM serves "
                 "text-only through LegacyServeEngine, an encoder-decoder "
-                "through models.model.prefill / decode_step")
+                "through models.model.prefill / decode_step, and both on "
+                "a mesh through serve.steps.build_prefill / build_decode")
         attn_only = all(k.startswith("attn") for k in cfg.pattern)
         if (prefix_cache or inflight_dedup) and not attn_only:
             raise NotImplementedError(

@@ -21,7 +21,13 @@ idle lane (``n_new = 0``) leaves it bit for bit as it was.
 
 ``contiguous_decode(cfg)`` is the legacy per-slot engine's executable:
 one token on a batch-1 contiguous cache (``models.model.decode_step``),
-a plain callable run eagerly.
+a plain callable run eagerly. ``build_prefill`` / ``build_decode`` are
+the contiguous prefill and decode on a rank mesh (as in JAX, where the
+dry-run cells lower them and they serve encoder-decoder and VLM stacks
+sharded): each returns a function that a rank calls eagerly on its
+parameter slices, its rows of the batch and its cache (``launch.
+sharding.local_cache``, ``cache_spec``); ``logits2d`` is their logits'
+spec and ``gather_logits`` makes the whole ``[B, V]`` over the mesh.
 
 These are plain functions. ``build_paged_steps`` wraps them into the step
 set one engine runs, :class:`PagedServeSteps`, the counterpart of the JAX
@@ -95,8 +101,10 @@ from repro_torch import runtime_context as ctx
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh as meshlib
+from repro_torch.launch import sharding as shd
+from repro_torch.models import kvcache as KV
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, forward
+from repro_torch.models.model import decode_step, forward, prefill
 from repro_torch.obs import costs as obs_costs
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -300,6 +308,98 @@ def contiguous_decode(cfg: ModelConfig) -> Callable:
     one contiguous decode step, eager (the JAX counterpart jits it once
     per ModelConfig; there is nothing here to keep per config)."""
     return functools.partial(decode_step, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the contiguous prefill and decode on a rank mesh (JAX
+# ``serve/steps.py:145-217``)
+# ---------------------------------------------------------------------------
+def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
+                 dtype=torch.bfloat16) -> dict:
+    """The whole contiguous cache's shapes and dtypes (``device="meta"``;
+    a rank's: ``launch.sharding.local_cache`` on ``meta``)."""
+    if cfg.is_encdec:
+        return {"b0": KV.init_encdec_cache(cfg, batch, max_len, dtype,
+                                           "meta")}
+    return KV.init_cache(cfg, batch, max_len, dtype, "meta")
+
+
+def _mesh_context(mesh, batch: int):
+    """``use_mesh`` for a contiguous call: the rows split over the dp axes
+    when the global batch divides them (an MoE block's capacity is then
+    global over the dp ranks' rows, as JAX's jit over the global batch
+    has it), else every dp rank runs every row."""
+    return ctx.use_mesh(mesh, meshlib.dp_axes(mesh),
+                        split_rows=bool(shd.batch_spec(mesh, batch)))
+
+
+def build_prefill(cfg: ModelConfig, mesh, *, batch: int, seq: int,
+                  cache_len: Optional[int] = None,
+                  cache_dtype=torch.bfloat16,
+                  use_kernels: bool = True) -> Callable:
+    """``fn(params, tokens, extras, cache=None) -> (last_logits, cache)``
+    on one rank of ``mesh`` (JAX's ``build_prefill``; no jit: each rank
+    calls it eagerly). ``params`` are the rank's slices (``launch.
+    sharding.shard_params``), ``tokens [B_rank, seq]`` and the ``extras``
+    (``frames``, ``vis_embeds``) its rows of the global ``batch``
+    (``sharding.batch_rows``), ``cache`` a cache of ``cache_len`` positions
+    from ``sharding.local_cache`` (one is allocated when None). The logits
+    ``[B_rank, V or V / M]`` follow ``logits2d``. Decoder-only,
+    encoder-decoder and VLM stacks alike, under ``use_mesh`` with the
+    rows split over the dp axes where ``batch`` divides them."""
+    cache_len = cache_len or seq + cfg.n_vis_tokens
+
+    def fn(params, tokens, extras, cache=None):
+        if cache is None:
+            cache = shd.local_cache(cfg, batch, cache_len, cache_dtype,
+                                    tokens.device, mesh)
+        with _mesh_context(mesh, batch):
+            return prefill(cfg, params, tokens, max_len=cache_len,
+                           vis_embeds=extras.get("vis_embeds"),
+                           frames=extras.get("frames"),
+                           use_kernels=use_kernels, cache=cache)
+    return fn
+
+
+def build_decode(cfg: ModelConfig, mesh, *, batch: int, cache_len: int,
+                 use_kernels: bool = True) -> Callable:
+    """``fn(params, token [B_rank, 1], cache, pos) -> (logits, cache)`` on
+    one rank of ``mesh`` (JAX's ``build_decode``): one token step on
+    the rank's cache, updated in place (JAX donates it). On
+    QMC streams quantized after the shard every projection runs through
+    ``kernels.ops.qmm`` (the decode qmm on the card)."""
+    def fn(params, token, cache, pos):
+        with _mesh_context(mesh, batch):
+            return decode_step(cfg, params, token, cache, pos,
+                               use_kernels=use_kernels)
+    return fn
+
+
+def logits2d(mesh, batch: int, cfg: ModelConfig) -> Tuple:
+    """``[B, V]`` spec of ``build_prefill`` / ``build_decode``'s logits
+    (JAX's ``_logits2d``): the batch on the dp axes where it divides, the
+    vocab on ``model`` where it divides (an odd vocab, whisper's 51865 or
+    internvl's 92553, replicates: every model rank holds the whole
+    head)."""
+    b_ax, _, v_ax = shd.logits_spec(mesh, batch, cfg)
+    return (b_ax, v_ax)
+
+
+def gather_logits(logits: torch.Tensor, mesh, batch: int,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The whole ``[B, V]`` from every rank's block of it under
+    ``logits2d``: an all_gather over ``model`` of a vocab slice, then
+    over the dp axes of the rank's rows (``pod``-major, as
+    ``sharding.batch_rows`` lays them out); kind ``logits`` in
+    ``Mesh.by_kind``. For tests and chip_smoke: the steps never need
+    it."""
+    b_ax, v_ax = logits2d(mesh, batch, cfg)
+    if v_ax is not None:
+        logits = mesh.all_gather(logits, "model", -1, kind="logits")
+    if b_ax is not None:
+        for ax in reversed(meshlib.dp_axes(mesh)):
+            logits = mesh.all_gather(logits, ax, 0, kind="logits")
+    return logits
 
 
 def _tallies() -> Dict[str, int]:
@@ -793,16 +893,16 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
 
 
 def check_mesh_cfg(cfg: ModelConfig) -> None:
-    """The mesh serves every stack the paged engine serves: dense,
-    local/global, MoE (experts over ``model``), SSM and hybrid (the Mamba2
-    mixer replicated on every model rank; ``launch.sharding``), with
-    heads or a vocab that do not divide ``model`` replicated;
-    encoder-decoder and VLM stacks wait for the contiguous prefill and
-    decode on a mesh (ROADMAP A12 (iii)), as the paged engine serves
-    neither."""
+    """The mesh step set serves every stack the paged engine serves:
+    dense, local/global, MoE (experts over ``model``), SSM and hybrid
+    (the Mamba2 mixer replicated on every model rank; ``launch.
+    sharding``), with heads or a vocab that do not divide ``model``
+    replicated. Encoder-decoder and VLM stacks, which the paged engine
+    serves neither alone nor on a mesh, run on a mesh through the
+    contiguous ``build_prefill`` / ``build_decode``, as in JAX."""
     if cfg.is_encdec or cfg.n_vis_tokens:
         raise NotImplementedError(
-            f"sharded serving covers decoder-only stacks (dense, "
+            f"the paged step set serves decoder-only stacks (dense, "
             f"local/global, MoE, SSM, hybrid); {cfg.name} (family "
-            f"{cfg.family}) waits for the contiguous prefill and decode "
-            f"on a mesh (ROADMAP A12 (iii))")
+            f"{cfg.family}) runs on a mesh through the contiguous "
+            f"serve.steps.build_prefill / build_decode")

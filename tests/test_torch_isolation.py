@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: ``repro_torch`` and ``chip_smoke`` import
-with ``jax`` and ``repro`` made unimportable, and the port's entry points
+"""The PyTorch port stands alone: ``repro_torch``, ``chip_smoke`` and the
+port's examples (``examples/torch_*.py``) import with ``jax`` and
+``repro`` made unimportable, and the port's entry points
 refuse to run on the CPU unless the caller asks for it."""
 import os
 import subprocess
@@ -29,10 +30,17 @@ for name in ("serve.prefix_cache", "serve.speculative", "serve.sampling",
              "checkpoint.ckpt", "ft.watchdog", "train.step",
              "train.trainer", "launch.train", "tree", "launch.mesh",
              "launch.sharding", "runtime_context", "core.qtensor_sharded",
-             "launch.collectives", "optim.grad_compress", "ft.elastic"):
+             "launch.collectives", "optim.grad_compress", "ft.elastic",
+             "launch.dryrun", "launch.hillclimb", "configs.shapes"):
     assert "repro_torch." + name in names, name
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+import importlib.util, pathlib
+examples = sorted(pathlib.Path(sys.argv[1], "examples").glob("torch_*.py"))
+assert len(examples) == 4, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "repro")
                 and sys.modules[m] is not None)

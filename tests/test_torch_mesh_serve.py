@@ -247,8 +247,9 @@ class _StandInMesh:
 
 
 def test_mesh_refusals():
-    """Encoder-decoder and VLM stacks wait for A12 (iii), the contiguous
-    prefill and decode on a mesh, on the mesh step set, as the paged
+    """Encoder-decoder and VLM stacks are refused by the mesh step set,
+    which names the contiguous ``build_prefill`` / ``build_decode`` that
+    serve them on a mesh (``test_torch_mesh_contig.py``), as the paged
     engine serves neither (hybrid, SSM and MoE stacks are served:
     ``test_torch_mesh_families.py``; heads that do not divide ``model``
     too: ``test_torch_mesh_heads.py``); a mesh engine runs eagerly; shard
@@ -257,7 +258,7 @@ def test_mesh_refusals():
     for kw in (dict(family="encdec", is_encdec=True, n_enc_layers=2),
                dict(family="vlm", n_vis_tokens=8)):
         cfg = ModelConfig(name="tx", **kw, **BASE)
-        with pytest.raises(NotImplementedError, match=r"A12 \(iii\)"):
+        with pytest.raises(NotImplementedError, match="build_prefill"):
             build_paged_steps(cfg, page=8, n_pages=15, max_slots=4,
                               max_pages_per_seq=4, cache_dtype=None,
                               device="cpu", cuda_graphs=False,
