@@ -44,9 +44,11 @@ Phases (each prints its own lines; any failure exits nonzero):
                 quantizing its own shard (bit-equal to the whole
                 conversion's), give the tokens of one process serving the
                 whole conversion (4 of the prompts, 12 new tokens each);
-                every rank launches B1, B2 and B3 and
-                never qmm's "ref" path; the collectives a round and their
-                seconds, and which collectives gloo takes on CUDA tensors;
+                at D = 2 each data rank runs 2 of the 4 lanes outside
+                attention (the row split); every rank launches B1, B2 and
+                B3 and never qmm's "ref" path; the collectives a round by
+                kind equal mesh_kinds' count; their seconds, and which
+                collectives gloo takes on CUDA tensors;
   4x. serve-x — the same width and engine settings: sampled lanes (half
                 the serve phase's requests at temperature 0.8, top_k 50,
                 top_p 0.95, one at top_k 1) graphed twice, alone through
@@ -114,10 +116,12 @@ Phases (each prints its own lines; any failure exits nonzero):
   4e. mesh-x  — MoE, SSM and hybrid stacks on gloo ranks sharing the card,
                 on the [moe] and [hybrid] phases' streams (no second init
                 or PTQ), 4 of the serve prompts with 12 new tokens each,
-                eager, all at (2, 2) in one spawn: dbrx-132b (2 layers;
-                expert parallelism, 8 of the 16 experts a rank), then
-                mamba2-370m (in_proj gathered, the mixer replicated),
-                then hymba-1.5b (its 25 heads and 5 KV heads do not
+                eager, all at (2, 2) in one spawn, 2 lanes a data rank:
+                dbrx-132b (2 layers; expert parallelism, 8 of the 16
+                experts a rank; its routing global over the data ranks'
+                rows), then mamba2-370m (full: 48 layers; in_proj
+                gathered, the mixer replicated), then hymba-1.5b (full:
+                32 layers; its 25 heads and 5 KV heads do not
                 divide 2: every model rank runs the whole attention
                 block, the attention kernel over its page slice of all
                 5 KV heads; the mixer and the FFN cut); every rank gives
@@ -127,8 +131,9 @@ Phases (each prints its own lines; any failure exits nonzero):
                 qmm's "ref" path only as the plan sends its own leaves
                 there (hymba's K = 1600 leaves), holds every KV head
                 where the heads replicate
-                (its arena's KV columns), and a dbrx rank holds half the
-                expert codes (its bytes against the whole); rank 0's
+                (its arena's KV columns), a dbrx rank holds half the
+                expert codes and a mamba2 or hymba rank half the SSM and
+                conv rows (bytes against the whole); rank 0's
                 collectives a round by kind, the phase's seconds; then,
                 in the same spawn, [mesh-contig]: whisper-medium and
                 internvl2-2b at full width on the [families] phase's
@@ -139,11 +144,17 @@ Phases (each prints its own lines; any failure exits nonzero):
                 max|logits| of one process's family_run through the
                 kernels, its greedy tokens equal, the decode qmm
                 launched, its cache holding 1/M of the KV columns; the
-                collectives by kind;
+                collectives by kind; and hymba-1.5b (4 of 32 layers; its
+                qmm paths one process's) and stablelm-1.6b (full; B2
+                launched on every rank, qmm's "ref" path never) at
+                batch 1 on the sequence cut: 12 prompt tokens into 32
+                positions, 16 greedy steps, every row and 16 of the 32
+                positions a rank, 2 merges an attention layer a call;
   4f. families — (before 4e, whose [mesh-contig] runs on its streams)
                 the contiguous-cache surface at full width: whisper-medium
-                (24 encoder + 24 decoder layers, 1500 frames) and
-                internvl2-2b (24 layers, 256 vision embeddings), random
+                (24 encoder + 24 decoder layers, 1500 frames)
+                and internvl2-2b (24 layers, 256 vision
+                embeddings), random
                 weights, QMC PTQ rho 0.3, a batch of 2 with seeded frames or
                 vision embeddings: prefill and 16 greedy decode steps
                 through the kernels and through the plain versions, and
@@ -176,7 +187,8 @@ Phases (each prints its own lines; any failure exits nonzero):
                 and through the plain versions, logits compared;
   6. ptq      — the PTQ entry point at full stablelm-1.6b width: unpack3b
                 against its plain version at the read path's sizes, with
-                its time; quantize_model with every ported method and the
+                its time; quantize_model with every ported method
+                (PTQ_LAYERS of its 24 layers) and the
                 cache-less forward on one 2 x 256 token batch (finite
                 logits, QMC drifts less than RTN-INT4, as
                 examples/quickstart.py asserts); the ReRAM read path
@@ -194,7 +206,7 @@ Phases (each prints its own lines; any failure exits nonzero):
                 step, peak memory, the losses (all finite, the last two
                 steps' mean below the first step's), the parameters moved;
   7m. train-mesh — sharded training (FSDP on data, TP on model) of
-                stablelm-1.6b at full width (TRAIN_MESH_LAYERS = 4 of its
+                stablelm-1.6b at full width (TRAIN_MESH_LAYERS = 2 of its
                 24 layers) on gloo ranks sharing the card:
                 step 0's gradients of the sharded step and train() at
                 (2, 2) for TRAIN_MESH_STEPS steps with remat, batch 8 x
@@ -503,6 +515,32 @@ def patterned_qtensor(k, n, pattern, gen):
                    is_out=torch.as_tensor(mask, device="cuda"),
                    scale_in=scale(), scale_out=scale(), shape=(k, n),
                    bits_in=3, bits_out=5, subtile=(8, 128))
+
+
+def check_row_split_padding(timer, gen) -> dict:
+    """The padding a row split costs qmm (``kernels.ops.qmm`` under
+    ``runtime_context.current_row_split``): a data rank's 64 rows of a
+    128-row prefill chunk (stablelm-1.6b's 2048 x 5632 projection) take
+    one process's column-strip route, padded to 128 rows, where the 64
+    rows alone would take the decode-width kernel; both timed, and the
+    padded call's rows held bit for bit against the whole chunk's."""
+    k, n = QMM_SHAPES[1]
+    qt = quantize_qtensor(make_weight(k, n, gen),
+                          QMCConfig(rho=0.3, granularity="subtile"))
+    x = torch.randn((128, k), generator=gen, device="cuda")
+    whole = kops.qmm(x, qt)
+    half = kops.qmm(x[:64], qt, plan_m=128)
+    torch.cuda.synchronize()
+    require(torch.equal(half, whole[:64]), "qmm: a rank's 64 rows under "
+            "the 128-row plan differ from the whole chunk's")
+    padded = timer(lambda: kops.qmm(x[:64], qt, plan_m=128))
+    alone = timer(lambda: kops.qmm(x[:64], qt))
+    print(f"[kernels] qmm row split: 64 of 128 rows at K={k} N={n} padded "
+          f"to the column strip {padded:.4f} ms, the 64 rows alone on the "
+          f"decode-width kernel {alone:.4f} ms (padding costs "
+          f"{padded - alone:+.4f} ms a call); bit-identical to the whole "
+          f"chunk's rows")
+    return dict(padded_ms=padded, alone_ms=alone, k=k, n=n)
 
 
 def check_patterns(timer, peak, gen, rows):
@@ -855,6 +893,11 @@ def check_sliced_attention(timer, peak, gen, rows):
                 f"attention {label}: the merged slices differ from the "
                 f"whole-arena call")
         merge_ms = timer(lambda: merge_slices(parts))
+        # the merge's byte bound: each slice's (o, m, l) read once, the
+        # merged o written once
+        merge_bytes = sum(t.numel() * t.element_size() for part in parts
+                          for t in part) + merged.numel() * 4
+        merge_bound_ms = merge_bytes / bw * 1e3
         slow = max(per, key=lambda r: r["ms"])
         rows.append(dict(kernel="ragged_paged_attention", shape=label,
                          dtype="float32", max_abs_err=max(
@@ -864,7 +907,8 @@ def check_sliced_attention(timer, peak, gen, rows):
                          library_ms=max(r["library_ms"] for r in per),
                          bound_ms=max(r["bound_ms"] for r in per),
                          bound_by=max(per, key=lambda r: r["bound_ms"])[
-                             "bound_by"], merge_ms=merge_ms, slices=per))
+                             "bound_by"], merge_ms=merge_ms,
+                         merge_bound_ms=merge_bound_ms, slices=per))
         for r in per:
             print(f"[kernels] attention {label} slice [{r['first']}, "
                   f"+{r['pages']}) err={r['max_abs_err']:.2e} "
@@ -872,7 +916,9 @@ def check_sliced_attention(timer, peak, gen, rows):
                   f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} "
                   f"({r['bound_by']})")
         print(f"[kernels] attention {label}: merge of the 2 slices "
-              f"{merge_ms:.4f} ms; merged = whole-arena call")
+              f"{merge_ms:.4f} ms, bound {merge_bound_ms:.6f} ms (bytes: "
+              f"{merge_bytes} B over {bw / 1e12:.2f} TB/s); merged = "
+              f"whole-arena call")
 
 
 # ---------------------------------------------------------------------------
@@ -1213,11 +1259,16 @@ def mesh_rank(mesh, job):
     build.reset_launches()
     kops.reset_path_counts()
     c0, cs0 = mesh.collectives, mesh.collective_seconds
+    k0 = {k: v[0] for k, v in mesh.by_kind.items()}
     eng.run(reqs)
     torch.cuda.synchronize()
     st = eng.stats
     out.update(tokens=[r.out_tokens for r in reqs],
                launches=dict(build.launches), paths=dict(kops.path_counts),
+               by_kind={k: v[0] - k0.get(k, 0)
+                        for k, v in mesh.by_kind.items()
+                        if v[0] - k0.get(k, 0)},
+               rows_per_rank=st.rows_per_rank,
                rounds=st.rounds, tokens_out=st.tokens_out, wall_s=st.wall_s,
                tokens_per_s=st.tokens_per_s,
                round_ms_p50=float(np.median(st.step_seconds) * 1e3),
@@ -1237,6 +1288,26 @@ def qtensors_and_shards(tree):
             yield from qtensors_and_shards(v)
     elif isinstance(tree, (QTensor, ShardedQTensor)):
         yield tree
+
+
+def mesh_kinds(cfg, shape, slots: int = 4) -> dict:
+    """The collectives a greedy round of the mesh step set makes on a
+    dense stack, by kind: at ``D > 1`` the page slices' merge (2 an
+    attention layer) and, where the slots divide ``D``, each attention
+    layer's gather of its lanes' ``q | k | v`` (``rows``) and one gather
+    of the lanes' tokens; at ``M > 1`` the row sums after ``wo`` and
+    ``w_down`` and the vocab-parallel embedding's (``tp``) and the
+    vocab-parallel head's max, argmin and softmax sum (``head``)."""
+    d, m = shape
+    n = cfg.n_layers
+    out = {}
+    if d > 1:
+        out["merge"] = 2 * n
+        if slots % d == 0:
+            out.update(rows=n, tokens=1)
+    if m > 1:
+        out.update(tp=2 * n + 1, head=3)
+    return out
 
 
 def mesh_phase(cfg, qparams, seed: int, greedy_tokens) -> dict:
@@ -1269,8 +1340,20 @@ def mesh_phase(cfg, qparams, seed: int, greedy_tokens) -> dict:
                     f"{r['rank']}: qmm took its 'ref' path")
             require(r["tokens"] == res[0]["tokens"], f"mesh {label}: rank "
                     f"{r['rank']}'s tokens differ from rank 0's")
+            rows = 4 // shape[0]
+            require(r["rows_per_rank"] == rows, f"mesh {label} rank "
+                    f"{r['rank']}: runs {r['rows_per_rank']} lanes, not "
+                    f"{rows}")
+            want = {k: v * r["rounds"]
+                    for k, v in mesh_kinds(cfg, shape).items()}
+            require(r["by_kind"] == want, f"mesh {label} rank {r['rank']}: "
+                    f"collectives by kind {r['by_kind']}, predicted {want}")
         r0 = res[0]
         per_round = r0["collectives"] / r0["rounds"]
+        print(f"[mesh] {label}: {r0['rows_per_rank']} of 4 lanes a rank "
+              f"outside attention; collectives a round by kind "
+              f"{ {k: v / r0['rounds'] for k, v in r0['by_kind'].items()} } "
+              f"= the prediction {mesh_kinds(cfg, shape)} on every rank")
         print(f"[mesh] {label} gloo, {len(res)} ranks on one card: "
               f"{r0['tokens_out']} tokens, {r0['rounds']} rounds, "
               f"{r0['wall_s']:.3f}s, {r0['tokens_per_s']:.1f} tok/s, round "
@@ -2349,6 +2432,12 @@ def expert_codes(tree) -> int:
     return 0
 
 
+def ssm_bytes(arena) -> int:
+    """Bytes of the SSM and conv rows an arena holds."""
+    return sum(t.numel() * t.element_size() for g in arena.values()
+               if "mamba" in g for t in g["mamba"].values())
+
+
 def family_mesh_rank(mesh, job):
     """One gloo rank of ``[mesh-x]``: each arch of ``job["order"]`` in turn
     served through ``ServeEngine(mesh=...)`` on the parent's streams (CUDA
@@ -2388,6 +2477,7 @@ def family_mesh_rank(mesh, job):
             round_ms_p50=float(np.median(st.step_seconds) * 1e3),
             by_kind={k: v for k, v in kinds.items() if v[0]},
             expert_bytes=held, setup_s=setup_s,
+            rows_per_rank=st.rows_per_rank, ssm_bytes=ssm_bytes(eng._arena),
             kv_width=next((g["attn"]["k_pages"].shape[-1]
                            for g in eng._arena.values() if "attn" in g), 0))
         del eng
@@ -2419,14 +2509,15 @@ def contig_rank(mesh, model) -> dict:
     against the one process's ``family_run`` (kernels) on the rank; the
     launch counts set to 0 just before the run and read just after."""
     cfg, toks, extra = model["cfg"], model["toks"], model["extra"]
-    b = toks.shape[0]
+    b, prompt = toks.shape
+    steps = model.get("steps", FAMILY_STEPS)
     rows = shd.batch_rows(mesh, b)
     n_vis = cfg.n_vis_tokens if "vis_embeds" in extra else 0
-    max_len = n_vis + FAMILY_PROMPT + FAMILY_STEPS + 1
+    max_len = model.get("cache_len") or n_vis + prompt + steps + 1
     t0 = time.monotonic()
     local = shd.shard_params(model["qparams"], mesh, cfg)
     prefill_fn = serve_steps.build_prefill(
-        cfg, mesh, batch=b, seq=FAMILY_PROMPT, cache_len=max_len,
+        cfg, mesh, batch=b, seq=prompt, cache_len=max_len,
         cache_dtype=torch.float32)
     decode_fn = serve_steps.build_decode(cfg, mesh, batch=b,
                                          cache_len=max_len)
@@ -2440,11 +2531,11 @@ def contig_rank(mesh, model) -> dict:
         lg, cache = prefill_fn(local, toks[rows],
                                {k: v[rows] for k, v in extra.items()})
         logits, fed = [serve_steps.gather_logits(lg, mesh, b, cfg)], []
-        for i in range(FAMILY_STEPS):
+        for i in range(steps):
             nxt = torch.argmax(logits[-1], dim=-1)
             fed.append(nxt)
             lg, cache = decode_fn(local, nxt[rows].reshape(-1, 1), cache,
-                                  n_vis + FAMILY_PROMPT + i)
+                                  n_vis + prompt + i)
             logits.append(serve_steps.gather_logits(lg, mesh, b, cfg))
     torch.cuda.synchronize()
     run_s = time.monotonic() - t0
@@ -2461,7 +2552,8 @@ def contig_rank(mesh, model) -> dict:
                launches=launches, paths=paths,
                by_kind={k: v for k, v in kinds.items() if v[0]},
                kv_width=self_kv["k"].shape[-1],
-               rows=self_kv["k"].shape[1], setup_s=setup_s, run_s=run_s)
+               rows=self_kv["k"].shape[1], positions=self_kv["k"].shape[2],
+               cache_len=max_len, setup_s=setup_s, run_s=run_s)
     del local, cache, lk, logits
     return out
 
@@ -2484,19 +2576,46 @@ def check_contig(res, contig: dict, shape) -> dict:
                     f"{1e-3 * got['scale']:.3e}")
             require(got["tokens_equal"], f"{tag}: greedy tokens differ "
                     f"from one process's")
-            require(got["launches"]["qmm_decode"] > 0, f"{tag}: the decode "
-                    f"qmm never launched")
+            if "paths" in model:
+                # hymba's streams take qmm's routes by plan (K = 1600:
+                # the plain version), as the one process's run does
+                require(got["paths"] == model["paths"], f"{tag}: qmm paths "
+                        f"{got['paths']}, one process's {model['paths']}")
+            else:
+                require(got["launches"]["qmm_decode"] > 0
+                        and got["paths"]["ref"] == 0, f"{tag}: the decode "
+                        f"qmm never launched, or qmm took its plain 'ref' "
+                        f"path ({got['paths']})")
             require(got["kv_width"] == want, f"{tag}: its cache holds "
                     f"{got['kv_width']} KV columns, not {want}")
+            if model.get("seq_cut"):
+                calls = 1 + model["steps"]
+                n_attn = cfg.n_groups * sum(
+                    k.startswith(("attn", "hybrid")) for k in cfg.pattern)
+                require(got["positions"] * shape[0] == got["cache_len"]
+                        and got["rows"] == model["toks"].shape[0],
+                        f"{tag}: its cache holds {got['rows']} rows of "
+                        f"{got['positions']} of {got['cache_len']} positions,"
+                        f" not every row of 1/{shape[0]} of them")
+                require(got["by_kind"].get("merge", [0])[0]
+                        == 2 * n_attn * calls, f"{tag}: {got['by_kind']} "
+                        f"merges, predicted {2 * n_attn * calls} (2 an "
+                        f"attention layer a call)")
         r0 = res[0]["contig"][arch]
         kinds = {k: f"{v[0]} ({v[1] * 1e3:.1f} ms, {v[2] / 1e6:.3f} MB)"
                  for k, v in sorted(r0["by_kind"].items())}
         diffs = ", ".join(f"{r['contig'][arch]['max_abs_diff']:.3e}"
                           for r in res)
+        b, prompt = model["toks"].shape
+        where = (f"every row, {r0['positions']} of {r0['cache_len']} "
+                 f"positions a rank (the sequence cut)"
+                 if model.get("seq_cut") else
+                 f"a rank's {r0['rows']} of {b} rows")
         print(f"[mesh-contig] {arch} {label} gloo, {len(res)} ranks on one "
-              f"card: build_prefill over {FAMILY_PROMPT} tokens + "
-              f"{FAMILY_STEPS} greedy build_decode steps, a rank's row of "
-              f"the batch of 2; every rank's tokens equal one process's, "
+              f"card: build_prefill over {prompt} tokens + "
+              f"{model.get('steps', FAMILY_STEPS)} greedy build_decode "
+              f"steps, batch {b}, {cfg.n_layers} layers: {where}; every "
+              f"rank's tokens equal one process's, "
               f"max|logits diff| by rank {diffs} (1e-3 * max|logits| "
               f"{1e-3 * r0['scale']:.3e}); rank 0: KV columns "
               f"{r0['kv_width']} of {cfg.kv_dim}, rows {r0['rows']}; "
@@ -2509,19 +2628,70 @@ def check_contig(res, contig: dict, shape) -> dict:
     return out
 
 
+def first_layers(cfg, qparams, n: int):
+    """``(cfg, qparams)`` cut to the first ``n`` layers (whole groups of
+    the pattern): each stacked leaf, a tensor or a per-group list, keeps
+    its first ``n / len(pattern)`` groups; the embedding, the final norm
+    and the head stay."""
+    g = n // len(cfg.pattern)
+
+    def first_groups(tree):
+        if isinstance(tree, dict):
+            return {k: first_groups(v) for k, v in tree.items()}
+        return tree[:g]
+    return (dataclasses.replace(cfg, n_layers=n),
+            dict(qparams, blocks=first_groups(qparams["blocks"])))
+
+
+# the depth of the [mesh-contig] batch-1 calls' streams: hymba-1.5b's one
+# group of its layer pattern (a global and three windowed hybrid layers);
+# stablelm-1.6b whole
+SEQ_LAYERS = {"hymba-1.5b": 4, "stablelm-1.6b": 24}
+SEQ_PROMPT, SEQ_STEPS, SEQ_CACHE = 12, 16, 32
+
+
+def seq_contig(cfg, qparams, seed: int) -> dict:
+    """A ``[mesh-contig]`` batch-1 call (the sequence-parallel contiguous
+    cache, ``launch.sharding.seq_slice``) on a phase's streams cut to
+    their first ``SEQ_LAYERS[cfg.name]`` layers: hymba-1.5b, the hybrid
+    stack of the ``long_500k`` cell, whose K = 1600 streams take qmm's
+    plain version by plan, and stablelm-1.6b, whose streams tile, so that
+    B2 runs under the cut; a ``SEQ_PROMPT``-token prompt into a
+    ``SEQ_CACHE``-position cache and ``SEQ_STEPS`` greedy decode steps,
+    which cross the data ranks' boundary at position 16; one process's
+    ``family_run`` (kernels) is the reference, and its qmm paths for
+    hymba."""
+    cut, qp = first_layers(cfg, qparams, SEQ_LAYERS[cfg.name])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    toks = torch.randint(2, cfg.vocab, (1, SEQ_PROMPT), generator=gen,
+                         device="cuda")
+    kops.reset_path_counts()
+    lk, fed = family_run(cut, qp, toks, {}, True, steps=SEQ_STEPS,
+                         max_len=SEQ_CACHE)
+    torch.cuda.synchronize()
+    out = dict(cfg=cut, qparams=qp, toks=toks, extra={}, logits=lk,
+               fed=fed, steps=SEQ_STEPS, cache_len=SEQ_CACHE, seq_cut=True)
+    if kops.path_counts["ref"]:
+        out["paths"] = dict(kops.path_counts)
+    return out
+
+
 def family_mesh_phase(seed: int, models: dict,
                       contig: Optional[dict] = None) -> dict:
     """MoE, SSM and hybrid stacks on gloo ranks sharing the card, on the
     streams the ``[moe]`` and ``[hybrid]`` phases built (no second init,
     no second PTQ): dbrx-132b (2 of 40 layers, published widths; its 16
-    experts over ``model``: 8 a rank) and then mamba2-370m (full width and
-    depth; ``in_proj`` cut into 2192 columns a rank and gathered, the
-    mixer replicated, ``out_proj`` row-parallel) and hymba-1.5b (full;
-    its 25 heads and 5 KV heads do not divide 2, so every model rank runs
+    experts over ``model``: 8 a rank) and then mamba2-370m (full width,
+    full depth; ``in_proj`` cut into 2192 columns a rank and
+    gathered, the mixer replicated, ``out_proj`` row-parallel) and
+    hymba-1.5b (full width and depth; its 25 heads and 5 KV heads do not
+    divide 2, so every model rank runs
     the whole attention block over its page slice of all 5 KV heads,
     while the Mamba2 mixer and the FFN are cut as mamba2's; its vocab
     32001 replicates too) at (2, 2); each on 4 of the serve phase's
-    prompts with 12 new tokens. On every rank: the tokens of one process
+    prompts with 12 new tokens, 2 lanes a data rank (the row split). On
+    every rank: the tokens of one process
     serving the same streams and requests eagerly, the decode qmm
     launched for dbrx and mamba2 and the attention kernel for dbrx and
     hymba (and every kernel the one process's run launched), qmm's "ref"
@@ -2554,7 +2724,8 @@ def family_mesh_phase(seed: int, models: dict,
                    launches=dict(build.launches),
                    paths=dict(kops.path_counts), rounds=eng.stats.rounds,
                    seconds=time.monotonic() - t0,
-                   expert_bytes=expert_codes(qparams))
+                   expert_bytes=expert_codes(qparams),
+                   ssm_bytes=ssm_bytes(eng._arena))
         del eng
         torch.cuda.empty_cache()
         print(f"[mesh-x] {arch} one process, eager: {len(reqs)} requests x "
@@ -2597,6 +2768,19 @@ def family_mesh_phase(seed: int, models: dict,
                     require(2 * got["expert_bytes"] == one["expert_bytes"],
                             f"{tag}: holds {got['expert_bytes']} B of expert "
                             f"codes, not half of {one['expert_bytes']}")
+                require(got["rows_per_rank"] == 4 // shape[0], f"{tag}: runs "
+                        f"{got['rows_per_rank']} of 4 lanes, not "
+                        f"{4 // shape[0]}")
+                require(shape[0] * got["ssm_bytes"] == one["ssm_bytes"],
+                        f"{tag}: its arena holds {got['ssm_bytes']} B of SSM "
+                        f"and conv rows, not 1/{shape[0]} of "
+                        f"{one['ssm_bytes']}")
+                if c.n_experts and shape[0] > 1:
+                    require(got["by_kind"].get("moe_dp", [0])[0]
+                            == got["rounds"] * sum(c.moe_slots)
+                            * c.n_groups, f"{tag}: the MoE layers' routing "
+                            f"was not global over the dp ranks' rows "
+                            f"(moe_dp {got['by_kind'].get('moe_dp')})")
             r0 = res[0]["archs"][arch]
             per_round = {k: f"{v[0] / r0['rounds']:.1f} "
                             f"({v[1] / r0['rounds'] * 1e3:.2f} ms, "
@@ -2605,6 +2789,9 @@ def family_mesh_phase(seed: int, models: dict,
             held = (f"; rank 0 holds {r0['expert_bytes'] / 1e9:.3f} GB of "
                     f"the {one['expert_bytes'] / 1e9:.3f} GB of expert "
                     f"codes" if one["expert_bytes"] else "")
+            if one["ssm_bytes"]:
+                held += (f"; rank 0's arena holds {r0['ssm_bytes']} B of the "
+                         f"{one['ssm_bytes']} B of SSM and conv rows")
             print(f"[mesh-x] {arch} {label} gloo, {len(res)} ranks on one "
                   f"card: every rank's tokens equal one process's; rank 0: "
                   f"{r0['tokens_out']} tokens, {r0['rounds']} rounds, "
@@ -2612,7 +2799,8 @@ def family_mesh_phase(seed: int, models: dict,
                   f"round ms p50 {r0['round_ms_p50']:.2f}); collectives a "
                   f"round by kind (calls, seconds, payload): {per_round}; "
                   f"launches {r0['launches']}; qmm paths {r0['paths']}; "
-                  f"arena KV columns {r0['kv_width']}; set-up "
+                  f"arena KV columns {r0['kv_width']}; lanes a rank "
+                  f"{r0['rows_per_rank']} of 4; set-up "
                   f"{r0['setup_s']:.1f}s{held}")
             out[arch][label] = dict(r0, ranks=len(res), tokens=None)
         if contig:
@@ -2634,24 +2822,26 @@ def family_mesh_phase(seed: int, models: dict,
 FAMILY_PROMPT, FAMILY_STEPS = 16, 16
 
 
-def family_run(cfg, qparams, toks, extra, use_kernels, feed=None):
-    """``prefill`` over the prompt, then ``FAMILY_STEPS`` greedy
+def family_run(cfg, qparams, toks, extra, use_kernels, feed=None,
+               steps: int = FAMILY_STEPS, max_len: Optional[int] = None):
+    """``prefill`` over the prompt ``toks [B, P]``, then ``steps`` greedy
     ``decode_step`` calls (fed ``feed``'s tokens when given, so a second
-    run follows the first one's positions); returns the logits of every
+    run follows the first one's positions) on a cache of ``max_len``
+    positions (default one past the last); returns the logits of every
     call [B, 1 + steps, V] and the tokens fed."""
-    b = toks.shape[0]
+    b, prompt = toks.shape
     n_vis = cfg.n_vis_tokens if "vis_embeds" in extra else 0
-    max_len = n_vis + FAMILY_PROMPT + FAMILY_STEPS + 1
+    max_len = max_len or n_vis + prompt + steps + 1
     lg, cache = prefill(cfg, qparams, toks, max_len=max_len,
                         cache_dtype=torch.float32, use_kernels=use_kernels,
                         **extra)
     logits, fed = [lg], []
-    for i in range(FAMILY_STEPS):
+    for i in range(steps):
         nxt = (feed[:, i] if feed is not None
                else torch.argmax(logits[-1], dim=-1))
         fed.append(nxt)
         lg, cache = decode_step(cfg, qparams, nxt.reshape(b, 1), cache,
-                                n_vis + FAMILY_PROMPT + i,
+                                n_vis + prompt + i,
                                 use_kernels=use_kernels)
         logits.append(lg)
     return torch.stack(logits, dim=1), torch.stack(fed, dim=1)
@@ -2905,12 +3095,19 @@ def drift(ref: torch.Tensor, out: torch.Tensor) -> float:
     return float((ref - out).abs().mean() / (ref.abs().mean() + 1e-9))
 
 
+# the depth of ptq_quickstart's stablelm-1.6b (of 24 layers): GPTQ's
+# per-column updates are small launches, 52.5-98.7 s over 24 layers by
+# the host's speed, and every layer takes the same path
+PTQ_LAYERS = 8
+
+
 def ptq_quickstart(cfg, seed: int):
-    """examples/quickstart.py at full width on the card: every ported
-    quantize_model method, the cache-less forward over one 2 x 256 batch.
-    That forward also captures the calibration taps GPTQ and AWQ take (as
-    the paper's table 3 does). At most two full-width trees (the dense
-    one and one quantized) live on the card at a time."""
+    """examples/quickstart.py at full width on the card, ``PTQ_LAYERS``
+    deep: every ported quantize_model method, the cache-less forward over
+    one 2 x 256 batch. That forward also captures the calibration taps
+    GPTQ and AWQ take (as the paper's table 3 does). At most two trees
+    (the dense one and one quantized) live on the card at a time."""
+    cfg = dataclasses.replace(cfg, n_layers=PTQ_LAYERS)
     params = init_params(cfg, seed, device="cuda")
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab, size=(2, 256)), device="cuda")
@@ -3136,7 +3333,7 @@ def train_phase(cfg, seed: int) -> dict:
 TRAIN_MESH_STEPS, TRAIN_MESH_SHAPE = 3, (2, 2)
 # 4 of stablelm-1.6b's 24 layers: the dense path's per-layer work is the
 # same at any depth, and the time went to [train-mesh-x]
-TRAIN_MESH_LAYERS = 4
+TRAIN_MESH_LAYERS = 2
 # (2, 2) against one process: fp32 sums split over ranks and reduced in
 # another order differ in the last bits, and AdamW's m / sqrt(v) turns a
 # last-bit difference of a near-zero gradient into a whole lr-sized step
@@ -3397,8 +3594,8 @@ def check_train_runs(tag: str, what: str, label: str, mesh_res, one,
 # ---------------------------------------------------------------------------
 # (tag, arch, mesh shape, depth: overrides of the published config) of
 # the runs that train() for TRAIN_MESH_STEPS steps: stablelm-1.6b's dense
-# path ([train-mesh]); mamba2-370m whole (48 layers: in_proj cut over
-# model and gathered, the mixer replicated), hymba-1.5b at 4 of its 32
+# path ([train-mesh]); mamba2-370m at 16 of its 48 layers (in_proj cut
+# over model and gathered, the mixer replicated), hymba-1.5b at 4 of its 32
 # layers (one group of its pattern: a global and three windowed hybrid
 # layers; its 25 heads and 5 KV heads do not divide 2, so the attention
 # block replicates over model while the mixer and the FFN are cut, and
@@ -3820,6 +4017,10 @@ def main(argv=None) -> int:
           f"{bw / 1e12:.2f} TB/s, {fl / 1e12:.0f} TFLOP/s fp32, "
           f"{tc / 1e12:.0f} TFLOP/s TF32 tensor cores")
 
+    def lap(label: str) -> None:
+        """The whole run's clock after a phase."""
+        print(f"[time] {label} done at {time.monotonic() - t_start:.1f}s")
+
     t0 = time.monotonic()
     build.library()
     print(f"[build] {build.build_info['path']} in "
@@ -3832,11 +4033,13 @@ def main(argv=None) -> int:
     rows = []
     check_qmm(timer, peak, gen, rows)
     check_patterns(timer, peak, gen, rows)
+    padding = check_row_split_padding(timer, gen)
     empty = check_empty_launch(timer)
     check_attention(timer, peak, gen, rows)
     check_sliced_attention(timer, peak, gen, rows)
     check_expert_qmm(timer, peak, gen, rows)
     del timer
+    lap("kernels")
 
     cfg = get_config("stablelm-1.6b")
     t0 = time.monotonic()
@@ -3848,17 +4051,28 @@ def main(argv=None) -> int:
     print(f"[serve] stablelm-1.6b full width: init + QMC PTQ on the card in "
           f"{time.monotonic() - t0:.1f}s")
     served, greedy_tokens = serve_phase(cfg, qparams, args.seed)
+    lap("serve")
     meshed = mesh_phase(cfg, qparams, args.seed, greedy_tokens)
+    lap("mesh")
     extended = serve_x_phase(cfg, qparams, args.seed, greedy_tokens,
                              served["runs"]["b graphed"]["pool_bytes"])
+    lap("serve-x")
     observed = obs_phase(cfg, qparams, args.seed, greedy_tokens,
                          served["idle"])
+    lap("obs")
     kept, contig = {}, {}
     hybrid = hybrid_phase(args.seed, kept)
+    lap("hybrid")
     moe = moe_phase(args.seed, rows, kept)
+    lap("moe")
     families = {arch: family_arch(arch, args.seed, contig)
                 for arch in FAMILY_CONTIG}
+    contig["hymba-1.5b batch 1"] = seq_contig(*kept["hymba-1.5b"][:2],
+                                              args.seed)
+    contig["stablelm-1.6b batch 1"] = seq_contig(cfg, qparams, args.seed)
+    lap("families")
     family_meshed = family_mesh_phase(args.seed, kept, contig)
+    lap("mesh-x")
     kept.clear()
     contig.clear()
     torch.cuda.ipc_collect()
@@ -3867,6 +4081,7 @@ def main(argv=None) -> int:
                                          greedy_tokens)
     dried = dryrun_phase()
     attn_hd = attn_hd_phase(args.seed)
+    lap("legacy, dryrun, attn-hd")
     stepped = whole_step(cfg, qparams, args.seed)
 
     timer = Timer()
@@ -3888,8 +4103,11 @@ def main(argv=None) -> int:
     fig4 = fig4_rows()
     del qparams
     torch.cuda.empty_cache()
+    lap("step, ptq")
     trained = train_phase(cfg, args.seed)
+    lap("train")
     train_meshed, train_meshed_x = train_mesh_phases(args.seed)
+    lap("train-mesh")
 
     launches = dict(served["runs"]["b graphed"]["launches"],
                     unpack3b=ptq_launches["unpack3b"])
@@ -3907,6 +4125,7 @@ def main(argv=None) -> int:
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(
         device=name, nvidia_smi=smi, rows=rows, empty_launch=empty,
+        row_split_padding=padding,
         serve=served, serve_x=extended, obs=observed, hybrid=hybrid,
         mesh=meshed, moe=moe, mesh_families=family_meshed,
         families=families, dryrun=dried, attn_hd=attn_hd,

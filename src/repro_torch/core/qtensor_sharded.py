@@ -196,8 +196,8 @@ def qmm_shard(x: torch.Tensor, sqt: ShardedQTensor, mesh,
     ``qmm_shard_map``): a column shard runs the rank's qmm (B2 or B3 by
     ``qmm_plan``) into its own ``N / S`` output columns; a row shard runs
     it on the rank's ``K / S`` slice of x (x arrives as that slice), then
-    one ``all_reduce`` SUM over ``axis``. Batch rows are every lane's: the
-    data axis does not split them in serving."""
+    one ``all_reduce`` SUM over ``axis``. Batch rows are the rank's (every
+    lane's where the batch does not divide the dp axes)."""
     y = kops.qmm(x, sqt.local(mesh.index(axis)), use_kernels=use_kernels)
     if sqt.shard_axis == 0:
         mesh.all_reduce(y, axis, "sum", kind="tp")

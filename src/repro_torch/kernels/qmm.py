@@ -8,7 +8,7 @@ picks between them and pads M.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -130,15 +130,18 @@ def decode_counters(device: torch.device, stream: int,
     return buf
 
 
-def qmm_decode(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+def qmm_decode(x: torch.Tensor, qt: QTensor,
+               plan_m: Optional[int] = None) -> torch.Tensor:
     """x [M, K] @ dequant(qt) via the decode-width kernel (M % 8 == 0),
-    one launch whatever the K split."""
+    one launch whatever the K split; the split is planned on ``plan_m``
+    rows (default M: a rank's share of a batch passes the batch's, so
+    that each row sums its partials in the batch's order)."""
     if x.device.type == "cpu":
         return qmm_ref(x, qt)
     _check(x, qt, 8)
     m, k = x.shape
     n = qt.shape[1]
-    splits, rows = decode_splits(m, k, n)
+    splits, rows = decode_splits(plan_m or m, k, n)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = build.library()
     with torch.cuda.device(x.device):
@@ -159,14 +162,16 @@ def qmm_decode(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return y
 
 
-def qmm_colstrip(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """x [M, K] @ dequant(qt) via the column-strip kernel (M % 128 == 0)."""
+def qmm_colstrip(x: torch.Tensor, qt: QTensor,
+                 plan_m: Optional[int] = None) -> torch.Tensor:
+    """x [M, K] @ dequant(qt) via the column-strip kernel (M % 128 == 0),
+    its K split planned on ``plan_m`` rows (default M)."""
     if x.device.type == "cpu":
         return qmm_ref(x, qt)
     _check(x, qt, 128)
     m, k = x.shape
     n = qt.shape[1]
-    splits, rows = colstrip_splits(m, k, n)
+    splits, rows = colstrip_splits(plan_m or m, k, n)
     partial = (torch.empty((splits, m, n), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)

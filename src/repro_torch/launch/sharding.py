@@ -65,16 +65,23 @@ rank 0) and the fused KV dim over ``model`` where the KV heads divide it
 not (the block replicates); block tables replicate. On a mesh with ``D >
 1`` each rank's slice carries one more page past its ``n_local``, the
 sink: the K/V rows of pages other ranks hold are written there, and no
-block table ever maps it. The SSM
-and conv state of mamba and hybrid blocks is whole on every rank (JAX
-puts its slot dim on the dp axes): every data rank runs every lane, and
-every model rank runs the whole mixer.
+block table ever maps it. The serving step's batch follows JAX's
+``batch_spec`` over ``max_slots`` (``serve_rows``): where the slots
+divide the dp axes, data rank ``k`` runs lanes ``[k B / D, (k + 1) B /
+D)`` through every layer outside attention and holds only those lanes'
+SSM and conv rows (``paged_cache_spec``: the slot dim on ``data``);
+where they do not, every rank runs every lane and holds every row. Every
+model rank runs the whole mixer over its rows.
 
 The contiguous cache (``cache_spec``, ``local_cache``, ``shard_cache``;
 ``serve.steps.build_prefill`` / ``build_decode``): the batch rows over
-the dp axes where the global batch divides them (else every rank holds
-every row), the KV columns as the arena's, the cross-attention's K/V by
-the rank's KV heads, the SSM and conv state whole over ``model``.
+the dp axes where the global batch divides them; where it does not, the
+K/V sequence over ``data`` (JAX's sequence-parallel cache: data rank
+``d`` holds positions ``[d T / D, (d + 1) T / D)`` of every row,
+``seq_slice``) where ``T`` divides it, else every position on every
+rank; the KV columns as the arena's, the cross-attention's K/V by the
+rank's KV heads, the SSM and conv state whole over ``model`` (and over
+``data`` where the batch does not divide).
 
 Training (every stack: dense, local/global attention, MoE, Mamba2,
 hybrid, encoder-decoder and VLM; ``check_train_mesh`` refuses only a
@@ -400,28 +407,57 @@ def page_slice(n_pages_total: int, mesh) -> Tuple[int, int]:
     return mesh.index("data") * n, n
 
 
+def serve_rows(mesh, max_slots: int) -> Optional[slice]:
+    """The lanes this rank runs through every layer outside attention
+    (JAX's ``batch_spec`` over ``max_slots``): lanes ``[k B / D, (k + 1) B
+    / D)`` of dp rank ``k`` where ``max_slots`` divides the dp size ``D >
+    1``; None where every rank runs every lane (``D = 1``, or slots that
+    do not divide ``D``, where ``batch_spec`` replicates)."""
+    if meshlib.dp_size(mesh) == 1 or not batch_spec(mesh, max_slots):
+        return None
+    return batch_rows(mesh, max_slots)
+
+
+def _state_rows(path: str, leaf, mesh):
+    """The index of this rank's block of an arena's SSM or conv leaf
+    (``paged_cache_spec``: its slots on ``data`` where they divide it)."""
+    return local_slices(paged_cache_spec(path, leaf, mesh), leaf.shape,
+                        mesh)
+
+
 def local_arena(cfg, n_pages_total: int, page: int, max_slots: int,
                 max_pages_per_seq: int, dtype, device, mesh) -> dict:
     """This rank's zeroed arena: its slice of ``n_pages_total`` pages (the
-    sink page after them when ``D > 1``) and of the KV heads (all of them
-    where they do not divide ``model``)."""
+    sink page after them when ``D > 1``), of the KV heads (all of them
+    where they do not divide ``model``) and of the slots' SSM and conv
+    rows (``serve_rows``); block tables whole."""
     _, n = page_slice(n_pages_total, mesh)
     sink = meshlib.axis_size(mesh, "data") > 1
     lcfg = rank_config(cfg, meshlib.axis_size(mesh, "model"))
-    return KV.paged_init_cache(lcfg, n + int(sink), page, max_slots,
-                               max_pages_per_seq, dtype, device)
+    arena = KV.paged_init_cache(lcfg, n + int(sink), page, max_slots,
+                                max_pages_per_seq, dtype, device)
+    for key, grp in arena.items():
+        if "mamba" in grp:
+            grp["mamba"] = {
+                name: leaf[_state_rows(f"/{key}/mamba/{name}", leaf,
+                                       mesh)].contiguous()
+                for name, leaf in grp["mamba"].items()}
+    return arena
 
 
 def shard_arena(arena: dict, mesh, cfg=None) -> dict:
     """This rank's slice of a whole arena (JAX layout, every page of
     every KV head; ``paged_cache_spec``, with ``cfg`` every KV head where
     they do not divide ``model``), with the sink page (zeros) when ``D >
-    1``; block tables and the SSM and conv rows are copied whole."""
+    1`` and the rank's SSM and conv rows; block tables are copied
+    whole."""
     sink = meshlib.axis_size(mesh, "data") > 1
 
     def walk(tree, path):
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}") for k, v in tree.items()}
+        if path.endswith(("/ssm", "/conv")):
+            return tree[_state_rows(path, tree, mesh)].clone()
         if not path.endswith("_pages"):
             return tree.clone()
         spec = paged_cache_spec(path, tree, mesh, cfg)
@@ -442,14 +478,14 @@ def cache_spec(path: str, leaf, mesh, global_batch: int, cfg=None
                ) -> Tuple:
     """A contiguous cache leaf's spec (stacked ``[G, ...]``; JAX's
     ``cache_spec``): the batch dim on the dp axes where the global batch
-    divides them. K/V ``[G, B, T, KV * hd]`` and their int8 scales ``[G,
-    B, T, KV]`` keep the fused (or head) dim on ``model`` where it divides
-    and, with ``cfg``, only where the KV heads divide ``model`` (all of
-    them on every model rank where they do not: the replicated block).
+    divides them, else the K/V sequence on ``data`` where it divides
+    ``data`` (the sequence-parallel cache). K/V ``[G, B, T, KV * hd]``
+    and their int8 scales ``[G, B, T, KV]`` keep the fused (or head) dim
+    on ``model`` where it divides and, with ``cfg``, only where the KV
+    heads divide ``model`` (all of them on every model rank where they do
+    not: the replicated block).
 
-    Three departures from JAX, each with the same results:
-      * a batch that does not divide the dp axes replicates its rows
-        over them (JAX cuts the sequence over ``data`` instead);
+    Two departures from JAX, each with the same results:
       * the cross-attention's ``xk`` / ``xv`` ``[L, B, T, KV, hd]`` hold
         the rank's KV heads under TP (JAX keeps them whole): the rank
         computes only its heads' cross K/V;
@@ -466,7 +502,10 @@ def cache_spec(path: str, leaf, mesh, global_batch: int, cfg=None
 
     shape = tuple(leaf.shape)
     if path.endswith(("/k", "/v", "k_scale", "v_scale")):
-        return (None, b_ax, None, heads(shape[3]))
+        seq = None
+        if b_ax is None and shape[2] % meshlib.axis_size(mesh, "data") == 0:
+            seq = "data"
+        return (None, b_ax, seq, heads(shape[3]))
     if path.endswith(("xk", "xv")):
         return (None, b_ax, None, heads(shape[3]), None)
     if path.endswith(("/ssm", "/conv")):
@@ -474,11 +513,26 @@ def cache_spec(path: str, leaf, mesh, global_batch: int, cfg=None
     return ()
 
 
+def seq_slice(mesh, global_batch: int, cache_len: int
+              ) -> Optional[Tuple[int, int, int]]:
+    """``(first, n, total)``: the positions ``[first, first + n)`` of a
+    ``cache_len`` contiguous cache this rank holds under ``cache_spec``'s
+    sequence cut (data rank ``d``: ``n = T / D``, ``first = d n``); None
+    where it holds every position (the batch divides the dp axes, ``T``
+    does not divide ``data``, or ``data`` is 1)."""
+    d = meshlib.axis_size(mesh, "data")
+    if d == 1 or batch_spec(mesh, global_batch) or cache_len % d:
+        return None
+    n = cache_len // d
+    return mesh.index("data") * n, n, cache_len
+
+
 def _rank_block(t: torch.Tensor, spec: Tuple, mesh,
                 global_batch: int) -> torch.Tensor:
     """This rank's block of a cache leaf under ``spec``: its batch rows
-    (``batch_rows``) and its slice of each dim on ``model``."""
-    idx = list(local_slices(tuple(a if a == "model" else None
+    (``batch_rows``), its slice of each dim on ``model`` and its
+    positions under the sequence cut."""
+    idx = list(local_slices(tuple(a if a in ("model", "data") else None
                                   for a in spec), t.shape, mesh))
     if len(spec) > 1 and spec[1] is not None:
         idx[1] = batch_rows(mesh, global_batch)
@@ -490,14 +544,17 @@ def local_cache(cfg, batch: int, max_len: int, dtype, device, mesh
     """This rank's zeroed contiguous cache (``init_cache``, or ``{"b0":
     init_encdec_cache(...)}`` for an encoder-decoder): its rows of a
     global ``batch`` (all of them where ``batch`` does not divide the dp
-    axes) at the rank's head counts (``layers.rank_config``)."""
+    axes) at the rank's head counts (``layers.rank_config``), and its
+    ``T / D`` positions of the ``max_len`` under the sequence cut
+    (``seq_slice``)."""
     lcfg = rank_config(cfg, meshlib.axis_size(mesh, "model"))
     rows = (batch // meshlib.dp_size(mesh) if batch_spec(mesh, batch)
             else batch)
+    cut = seq_slice(mesh, batch, max_len)
+    t = cut[1] if cut is not None else max_len
     if cfg.is_encdec:
-        return {"b0": KV.init_encdec_cache(lcfg, rows, max_len, dtype,
-                                           device)}
-    return KV.init_cache(lcfg, rows, max_len, dtype, device)
+        return {"b0": KV.init_encdec_cache(lcfg, rows, t, dtype, device)}
+    return KV.init_cache(lcfg, rows, t, dtype, device)
 
 
 def shard_cache(cache: dict, mesh, global_batch: int, cfg=None) -> dict:

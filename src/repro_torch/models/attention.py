@@ -32,7 +32,15 @@ axis is over 1) the arena holds the rank's slice of the pages: the step's K/V ro
 only in pages of the slice, at ``global - first`` (other rows in the
 slice's sink page), the kernel reads the slice's pages, and the slices'
 ``(o, m, l)`` merge over the data group (``kernels.paged_attention.
-merge_over``).
+merge_over``). Where the serving step splits its lanes over ``data``
+(``runtime_context.current_row_axes``) a rank computes q, K and V for
+its lanes only and gathers them over ``data`` before the write and the
+kernel, which run every lane, and keeps its lanes' rows of the merged
+output. A contiguous cache cut over ``data`` by sequence
+(``runtime_context.current_seq_slice``: a batch that does not divide the
+dp axes) holds the rank's positions: the write lands where it falls in
+the cut, and the rank's ``(o, m, l)`` over its positions
+(``attend_partial``) merge over ``data`` the same way.
 """
 from __future__ import annotations
 
@@ -51,6 +59,41 @@ from repro_torch.models.layers import (apply_rotary, attn_replicated,
                                        tp_input, tp_size)
 
 
+def _grouped_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q [B,S,H,D] scaled by D^-1/2 and grouped as [B,S,KV,G,D] in fp32.
+    The scale is a fill on the device, not a copy from the host: a CUDA
+    graph of the step can capture it."""
+    b, s, h, d = q.shape
+    scale = torch.full((), d ** -0.5, dtype=q.dtype, device=q.device)
+    return (q.reshape(b, s, n_kv, h // n_kv, d) * scale).float()
+
+
+def _masked_scores(qg: torch.Tensor, k: torch.Tensor,
+                   q_positions: torch.Tensor, kv_positions: torch.Tensor, *,
+                   causal: bool, window: Optional[int],
+                   live: Optional[torch.Tensor],
+                   attn_softcap: Optional[float]):
+    """The softcapped scores [B,KV,G,S,T] of ``_grouped_q``'s ``qg``
+    against ``k`` [B,T,KV,D], -1e30 where a key is masked (causal, the
+    window, or not ``live`` [B,T]), and that mask. Positions are
+    absolute token indices, as in the JAX reference."""
+    b, s = qg.shape[:2]
+    t = k.shape[1]
+    scores = softcap(torch.einsum("bskgd,btkd->bkgst", qg, k.float()),
+                     attn_softcap)
+    pq = q_positions[:, None, None, :, None]
+    pk = kv_positions[:, None, None, None, :]
+    if live is None:
+        mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool, device=qg.device)
+    else:
+        mask = live[:, None, None, None, :]
+    if causal:
+        mask = mask & (pk <= pq)
+    if window is not None:
+        mask = mask & (pq - pk < window)
+    return torch.where(mask, scores, torch.full_like(scores, -1e30)), mask
+
+
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            q_positions: torch.Tensor, kv_positions: torch.Tensor,
            kv_valid_len: Optional[torch.Tensor] = None, causal: bool = True,
@@ -59,26 +102,11 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q [B,S,H,D]; k,v [B,T,KV,D]; positions are absolute token indices.
     Returns [B,S,H,D]. Masks use -1e30, as the JAX reference."""
     b, s, h, d = q.shape
-    t = k.shape[1]
-    n_kv = k.shape[2]
-    qg = q.reshape(b, s, n_kv, h // n_kv, d)
-    # a fill on the device, not a copy from the host: a CUDA graph of the
-    # step can capture it
-    scale = torch.full((), d ** -0.5, dtype=q.dtype, device=q.device)
-    scores = torch.einsum("bskgd,btkd->bkgst", (qg * scale).float(),
-                          k.float())
-    scores = softcap(scores, attn_softcap)
-    pq = q_positions[:, None, None, :, None]
-    pk = kv_positions[:, None, None, None, :]
-    mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (pk <= pq)
-    if window is not None:
-        mask = mask & (pq - pk < window)
-    if kv_valid_len is not None:
-        valid = kv_positions < kv_valid_len[:, None]
-        mask = mask & valid[:, None, None, None, :]
-    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    live = (None if kv_valid_len is None
+            else kv_positions < kv_valid_len[:, None])
+    scores, _ = _masked_scores(_grouped_q(q, k.shape[2]), k, q_positions,
+                               kv_positions, causal=causal, window=window,
+                               live=live, attn_softcap=attn_softcap)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
     return out.reshape(b, s, h, d)
@@ -102,23 +130,16 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_positions = F.pad(kv_positions, (0, pad), value=2 ** 30)
         t += pad
     g = h // n_kv
-    scale = torch.full((), d ** -0.5, dtype=q.dtype, device=q.device)
-    qg = (q.reshape(b, s, n_kv, g, d) * scale).float()
-    pq = q_positions[:, None, None, :, None]             # [B,1,1,S,1]
+    qg = _grouped_q(q, n_kv)
     m = torch.full((b, n_kv, g, s), -1e30, device=q.device)
     l = torch.zeros((b, n_kv, g, s), device=q.device)
     acc = torch.zeros((b, n_kv, g, s, d), device=q.device)
     for c0 in range(0, t, chunk):
         k_c, v_c = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        pk = kv_positions[:, c0:c0 + chunk][:, None, None, None, :]
-        scores = softcap(torch.einsum("bskgd,btkd->bkgst", qg, k_c.float()),
-                         attn_softcap)
-        mask = pk < 2 ** 30
-        if causal:
-            mask = mask & (pk <= pq)
-        if window is not None:
-            mask = mask & (pq - pk < window)
-        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+        pk = kv_positions[:, c0:c0 + chunk]
+        scores, _ = _masked_scores(qg, k_c, q_positions, pk, causal=causal,
+                                   window=window, live=pk < 2 ** 30,
+                                   attn_softcap=attn_softcap)
         m_new = torch.maximum(m, scores.amax(dim=-1))
         p = torch.exp(scores - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -191,15 +212,18 @@ def paged_cache_read(cache: dict, dtype, n_kv: int, hd: int):
 
 
 def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                 pos0) -> dict:
+                 pos0, cut=None) -> dict:
     """Write K/V of ``s`` tokens at ``pos0`` (an int or a 0-dim tensor)
     into one group's contiguous cache ``[B, T, KV*hd]``, in place; int8
     caches take ``quantize_kv``'s codes and scales. As the reference's
-    ``dynamic_update_slice``, a start past ``T - s`` is clamped to it."""
+    ``dynamic_update_slice``, a start past ``T - s`` is clamped to it.
+    Under a sequence cut (``cut = (first, n, total)``) the cache holds
+    positions ``[first, first + n)`` of ``total``: the clamp is taken on
+    ``total`` and only the tokens that land in the cut are written, at
+    ``global - first``; a multi-token call starts at an int (the
+    prefill's 0), a one-token call may start at a tensor (its write
+    keeps the old row where it lands elsewhere: no host read)."""
     b, s, n_kv, hd = k.shape
-    start = torch.as_tensor(pos0, dtype=torch.int64, device=k.device)
-    idx = torch.arange(s, device=k.device) + torch.clamp(
-        start, 0, cache["k"].shape[1] - s)
     if "k_scale" in cache:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
@@ -210,6 +234,29 @@ def _cache_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
         dt = cache["k"].dtype
         writes = {"k": k.to(dt).reshape(b, s, n_kv * hd),
                   "v": v.to(dt).reshape(b, s, n_kv * hd)}
+    if cut is not None:
+        first, n, total = cut
+        if isinstance(pos0, torch.Tensor):
+            if s != 1:
+                raise ValueError("a multi-token write into a cut cache "
+                                 "starts at an int")
+            g = torch.clamp(pos0.to(torch.int64), 0, total - 1) - first
+            own = (g >= 0) & (g < n)
+            idx = torch.clamp(g, 0, n - 1).reshape(1).to(k.device)
+            for name, val in writes.items():
+                old = cache[name].index_select(1, idx)
+                cache[name].index_copy_(1, idx, torch.where(own, val, old))
+            return cache
+        lo = min(max(int(pos0), 0), total - s)
+        a, z = max(lo, first), min(lo + s, first + n)
+        if a < z:
+            idx = torch.arange(a - first, z - first, device=k.device)
+            for name, val in writes.items():
+                cache[name].index_copy_(1, idx, val[:, a - lo:z - lo])
+        return cache
+    start = torch.as_tensor(pos0, dtype=torch.int64, device=k.device)
+    idx = torch.arange(s, device=k.device) + torch.clamp(
+        start, 0, cache["k"].shape[1] - s)
     for name, val in writes.items():
         cache[name].index_copy_(1, idx, val)
     return cache
@@ -265,6 +312,11 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     valid = valid_len if valid_len is not None else positions[:, -1] + 1
     if "k_pages" not in cache:                       # contiguous cache
         pos0 = 0 if s > 1 else (pos if pos is not None else positions[0, 0])
+        cut = ctx.current_seq_slice()
+        if cut is not None:
+            return out_proj(p, _sliced_contiguous(
+                cache, q, k, v, pos0, cut, positions, valid, window, cfg),
+                tap, use_kernels, cfg)
         _cache_write(cache, k, v, pos0)
         k_all, v_all = _cache_read(cache, x.dtype, nkv, hd)
         t_max = k_all.shape[1]
@@ -274,10 +326,14 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                      window=window, attn_softcap=cfg.attn_softcap)
         return out_proj(p, out, tap, use_kernels, cfg)
     page_slice = ctx.current_page_slice()
-    paged_cache_write(cache, k, v, positions, valid_len=valid_len,
-                      page_slice=page_slice)
     kw = dict(n_kv=nkv, head_dim=hd, window=window,
               attn_softcap=cfg.attn_softcap)
+    if ctx.current_row_axes() and page_slice is not None:
+        out = _rows_over_slice(cache, q, k, v, kw, use_kernels,
+                               paged_attention)
+        return out_proj(p, out, tap, use_kernels, cfg)
+    paged_cache_write(cache, k, v, positions, valid_len=valid_len,
+                      page_slice=page_slice)
     if page_slice is not None:
         if not paged_attention:
             raise NotImplementedError(
@@ -304,6 +360,97 @@ def attn_block(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                      kv_positions=kv_pos, kv_valid_len=valid, causal=True,
                      window=window, attn_softcap=cfg.attn_softcap)
     return out_proj(p, out, tap, use_kernels, cfg)
+
+
+def _rows_over_slice(cache: dict, q, k, v, kw: dict, use_kernels: bool,
+                     paged_attention: bool) -> torch.Tensor:
+    """Attention of a rank that runs its lanes' rows (a row split over
+    ``data``) over its page slice of the arena: its lanes' ``q | k | v``
+    gathered over ``data`` in one all_gather (kind ``rows``), every lane's
+    K/V rows that fall in the slice written (the others to the sink),
+    the ragged kernel over the slice for every lane, the slices merged
+    over ``data`` (``merge_over``), and the rank's lanes' output kept.
+    Positions, ``valid_len`` and the block tables are every lane's
+    (``runtime_context.current_lanes``)."""
+    if not paged_attention:
+        raise NotImplementedError(
+            "a sliced arena is read through the ragged kernel "
+            "(paged_attention=True); the full-width gather needs every "
+            "page")
+    mesh = ctx.current_mesh()
+    lanes = ctx.current_lanes()
+    if lanes is None or ctx.current_row_axes() != ("data",):
+        raise ValueError("a row split over the page slices needs every "
+                         "lane's positions and the rows split over "
+                         "'data' alone (serve.steps' mesh step set)")
+    positions, valid = lanes
+    b, s, nh, hd = q.shape
+    nkv = k.shape[2]
+    fused = torch.cat([q.reshape(b, s, -1), k.reshape(b, s, -1),
+                       v.reshape(b, s, -1)], dim=-1)
+    fused = mesh.all_gather(fused.contiguous(), "data", 0, kind="rows")
+    qa, ka, va = torch.split(fused, [nh * hd, nkv * hd, nkv * hd], dim=-1)
+    big = fused.shape[0]
+    qa = qa.reshape(big, s, nh, hd)
+    page_slice = ctx.current_page_slice()
+    paged_cache_write(cache, ka.reshape(big, s, nkv, hd),
+                      va.reshape(big, s, nkv, hd), positions,
+                      valid_len=valid, page_slice=page_slice)
+    call = (kpa.ragged_paged_attention_call if use_kernels
+            else ragged_paged_attention_ref)
+    o, m, l = call(qa.contiguous(), cache, positions[:, 0], valid,
+                   page_slice=page_slice, **kw)
+    out = kpa.merge_over(o, m, l, mesh).to(q.dtype)
+    first = mesh.index("data") * b
+    return out[first:first + b]
+
+
+def attend_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                   kv_valid_len: torch.Tensor, window: Optional[int] = None,
+                   attn_softcap: Optional[float] = None):
+    """Causal attention of ``q [B, S, H, D]`` over one slice of the keys
+    (``k``, ``v`` ``[B, T, KV, D]`` at absolute ``kv_positions``), in the
+    form slices merge in (``kernels.paged_attention.merge_over``): ``(o
+    [B, S, H, D] fp32, m [B, S, H], l [B, S, H])``, ``o`` normalised over
+    the slice's live keys, a row with none ``(0, -1e30, 0)``. Masked
+    probabilities are zeroed explicitly (a row whose every score is
+    masked would otherwise weigh its keys evenly)."""
+    b, s, h, d = q.shape
+    scores, mask = _masked_scores(
+        _grouped_q(q, k.shape[2]), k, q_positions, kv_positions,
+        causal=True, window=window,
+        live=kv_positions < kv_valid_len[:, None], attn_softcap=attn_softcap)
+    m = scores.amax(dim=-1)                              # [B,KV,G,S]
+    p = torch.where(mask, torch.exp(scores - m[..., None]),
+                    torch.zeros_like(scores))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgst,btkd->bkgsd", p, v.float())
+    o = o / torch.clamp_min(l, 1e-30)[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return (o, m.permute(0, 3, 1, 2).reshape(b, s, h),
+            l.permute(0, 3, 1, 2).reshape(b, s, h))
+
+
+def _sliced_contiguous(cache: dict, q, k, v, pos0, cut, positions, valid,
+                       window, cfg) -> torch.Tensor:
+    """Attention over a contiguous cache cut over ``data`` (``cut =
+    (first, n, total)``: the rank holds positions ``[first, first + n)``
+    of ``total``): the step's K/V written at the positions of the cut
+    (``_cache_write`` at the global position, clamped as the reference
+    clamps), the rank's ``(o, m, l)`` over its positions at their global
+    key positions (the causal mask, the window and ``valid``), merged
+    over ``data`` (``merge_over``)."""
+    first, n, total = cut
+    b, s, nkv, hd = k.shape
+    _cache_write(cache, k, v, pos0, cut)
+    k_all, v_all = _cache_read(cache, q.dtype, nkv, hd)
+    kv_pos = (first + torch.arange(n, device=q.device))[None, :].expand(
+        b, -1)
+    o, m, l = attend_partial(q, k_all, v_all, q_positions=positions,
+                             kv_positions=kv_pos, kv_valid_len=valid,
+                             window=window, attn_softcap=cfg.attn_softcap)
+    return kpa.merge_over(o, m, l, ctx.current_mesh()).to(q.dtype)
 
 
 def rank_heads(cfg):

@@ -17,18 +17,22 @@ own streams (the qmm kernels on the card), where the reference
 dequantizes the stack on every call.
 
 On a serving mesh (``runtime_context.use_mesh``; the weights cut by
-``launch.sharding``) every model rank routes every row on the replicated
-router and dispatches with one process's capacity (every rank runs every
-lane, so ``capacity`` counts the same rows). Under expert parallelism
-(``E % M == 0``) a rank holds experts ``[m E/M, (m + 1) E/M)`` whole
-(a ``[E]`` QTensor list with ``None`` elsewhere, or a dense ``[E/M, d,
-ff]`` stack), dispatches only the assignments to its experts, runs only
-their rows and combines only their contributions; under the Megatron
-fallback it holds its slice of every expert's hidden units (a whole
-expert's output is cut to that slice before ``w_down``) and its
-combine is a partial sum. Either way one all_reduce SUM over ``model``
+``launch.sharding``) every model rank routes every row it runs on the
+replicated router and dispatches with one process's capacity: where the
+step's lanes split over ``data`` the block is global over the data
+ranks' rows, as below for training, and where every rank runs every
+lane ``capacity`` counts the same rows. Each expert's qmm plans its
+route on that capacity, whatever share of it a rank runs. Under expert
+parallelism (``E % M == 0``) a rank holds experts ``[m E/M, (m + 1)
+E/M)`` whole (a ``[E]`` QTensor list with ``None`` elsewhere, or a dense
+``[E/M, d, ff]`` stack), dispatches only the assignments to its
+experts, runs only their rows and combines only their contributions;
+under the Megatron fallback it holds its slice of every expert's hidden
+units (a whole expert's output is cut to that slice before ``w_down``)
+and its combine is a partial sum. Either way one all_reduce SUM over ``model``
 (kind ``moe``) per layer completes ``y``, in place of the dense FFN's
-``w_down`` sum; no all-to-all, and nothing is read back to the host.
+``w_down`` sum; no all-to-all (and, off a row split, nothing is read
+back to the host).
 Rank ``m``'s experts are ids above rank ``m - 1``'s, so the sum groups
 the one-process combine's ascending terms by rank.
 
@@ -68,7 +72,8 @@ each token's k contributions in ascending expert id, starting from zero
 (the order of the reference's sorted scatter-add), so eager and graphed
 runs give the same bits; the dispatch writes each kept assignment to its
 own row and dropped ones to a spare row that is cut off. (The global
-capacity's buffer size is read to the host: training only.)
+capacity's buffer size is read to the host: rows split over dp only,
+whose mesh steps run eagerly.)
 """
 from __future__ import annotations
 
@@ -79,11 +84,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import runtime_context as ctx
+from repro_torch.kernels import ops as kops
 from repro_torch.launch import collectives as C
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.sharding import expert_range
-from repro_torch.models.layers import (_ACTS, _tp_local, linear, matmul_any,
-                                       tp_input, tp_size)
+from repro_torch.models.layers import (_ACTS, _tp_local, linear, tp_input,
+                                       tp_size)
 
 _ROUTES: Optional[list] = None
 
@@ -111,14 +117,17 @@ def _ff_rows(w, first: int) -> int:
     return w[first].shape[0] if isinstance(w, list) else w.shape[1]
 
 
-def _experts(buf: torch.Tensor, w, use_kernels: bool,
-             first: int) -> torch.Tensor:
-    """``[n, cap, din] @ w[first + i]`` for each of the ``n`` experts this
-    rank holds: one ``bmm`` over a dense ``[n, din, dout]`` stack, or one
-    qmm per expert over a list of QTensors."""
+def _experts(buf: torch.Tensor, w, use_kernels: bool, first: int,
+             cap: int) -> torch.Tensor:
+    """``[n, cap_b, din] @ w[first + i]`` for each of the ``n`` experts
+    this rank holds: one ``bmm`` over a dense ``[n, din, dout]`` stack, or
+    one qmm per expert over a list of QTensors, its route planned on the
+    call's capacity ``cap`` (one process's rows an expert, whatever
+    ``cap_b`` a rank of a row split runs)."""
     if isinstance(w, torch.Tensor):
         return torch.bmm(buf, w.to(buf.dtype))
-    return torch.stack([matmul_any(buf[i], w[first + i], use_kernels)
+    return torch.stack([kops.qmm(buf[i], w[first + i], use_kernels,
+                                 plan_m=cap)
                         for i in range(buf.shape[0])])
 
 
@@ -207,13 +216,14 @@ def moe_block(p: dict, x: torch.Tensor, cfg, *, use_kernels: bool = True,
         # w_down are cut to the rank's slice; never the reverse: an
         # (8, 128) subtile grid cuts w_up's columns only where it cuts
         # w_down's rows too
-        h = _experts(buf, p[name], use_kernels, first)
+        h = _experts(buf, p[name], use_kernels, first, cap)
         return _tp_local(h) if h.shape[-1] != ff_rows else h
     if cfg.gated_mlp:
         h = act(hidden("w_gate")) * hidden("w_up")
     else:
         h = act(hidden("w_up"))
-    y_buf = _experts(h, p["w_down"], use_kernels, first).reshape(rows, d)
+    y_buf = _experts(h, p["w_down"], use_kernels, first, cap).reshape(
+        rows, d)
 
     # combine: every assignment's row back in (token, choice) order, then
     # each token's k contributions summed in ascending expert id

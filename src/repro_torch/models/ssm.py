@@ -17,7 +17,8 @@ column-parallel, as JAX's rule has it, but its cut does not fall on the
 after the product (``layers.gathered_linear``: one all_reduce over
 ``model``); the mixer (the conv, the scan or recurrence, the gated norm
 over the whole ``d_inner``) then runs replicated on every model rank,
-over the whole state, and ``out_proj`` is row-parallel: the rank
+over the whole state of the rows it runs (a data rank's lanes where the
+serving step splits them), and ``out_proj`` is row-parallel: the rank
 multiplies its rows of ``y``, summed over ``model``
 (``layers.row_linear``). A weight the mesh leaves whole (a dim that does
 not divide, a stream whose cut would split a subtile) takes the plain

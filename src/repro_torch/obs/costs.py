@@ -89,10 +89,15 @@ _PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
                 "ffn": ("w_up", "w_gate", "w_down")}
 
 
-def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
-              ) -> Dict[str, object]:
+def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int,
+              rows: Optional[int] = None) -> Dict[str, object]:
     """``{"flops", "bytes", "dtype"}`` of one step call over ``lanes``
-    lanes at token width ``c`` (``lanes = 1`` for ``solo_step``).
+    lanes at token width ``c`` (``lanes = 1`` for ``solo_step``), of
+    which this rank runs ``rows`` (default all) through the layers
+    outside attention (a data rank of the mesh step set whose lanes are
+    split, ``launch.sharding.serve_rows``: its projections, mixers and
+    head at ``rows * c`` rows, QTensor leaves padded under the plan of all
+    ``lanes * c``; its attention over every lane).
 
       * each projection at the rows its matmul runs: a QTensor leaf
         through ``kernels.ops.qmm`` at M padded to 8 (``qmm_plan``), with
@@ -124,27 +129,30 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
     count)."""
     act = params["embed"]["tok"].dtype
     xb = act.itemsize
-    m = lanes * c
+    own = lanes if rows is None else rows
+    m = own * c
+    split = lanes // own
     flops = nbytes = 0.0
 
-    def work(w, rows: int) -> Tuple[float, float]:
+    def work(w, n_rows: int, plan_m: int) -> Tuple[float, float]:
         if isinstance(w, ShardedQTensor):        # the shards it holds
-            parts = [work(w.local(i), rows) for i in w.held]
+            parts = [work(w.local(i), n_rows, plan_m) for i in w.held]
             return (sum(b for b, _ in parts), sum(f for _, f in parts))
         if isinstance(w, QTensor):
             k, n = w.shape
-            m_run = qmm_plan(rows, k, n, w.subtile)["pad_m"]
+            m_run = qmm_plan(n_rows, k, n, w.subtile,
+                             plan_m=plan_m)["pad_m"]
             return rl.qmm_work(m_run, k, n, xb, w.subtile)
         k, n = w.shape[-2:]
-        return rl.matmul_work(rows, k, n, xb, w.element_size())
+        return rl.matmul_work(n_rows, k, n, xb, w.element_size())
 
     def matmul(w) -> None:
         nonlocal flops, nbytes
-        b, f = work(w, m)
+        b, f = work(w, m, m * split)
         nbytes += b
         flops += f
 
-    cap = capacity(m, cfg) if cfg.n_experts else 0
+    cap = capacity(m * split, cfg) if cfg.n_experts else 0
     for key, blk in params["blocks"].items():
         grp = arena[key]
         moe = cfg.moe_slots[int(key[1:])] and "ffn" in blk
@@ -164,7 +172,7 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
                     m=m, cap=cap, d=cfg.d_model, n_experts=len(held),
                     topk=cfg.topk, x_itemsize=xb,
                     router_itemsize=router.element_size(),
-                    experts=[work(w_e, cap)
+                    experts=[work(w_e, cap, cap)
                              for name in _PROJECTIONS["ffn"] if name in ffn
                              for w_e in ffn[name][g] if w_e is not None]))
             if "attn" in grp:
@@ -183,7 +191,7 @@ def step_work(cfg, params: dict, arena: dict, *, lanes: int, c: int
             if "mamba" in grp:
                 conv = grp["mamba"]["conv"]
                 works.append(rl.ssd_work(
-                    lanes=lanes, s=c, chunk=chunk_for(c),
+                    lanes=own, s=c, chunk=chunk_for(c),
                     heads=cfg.ssm_nheads,
                     headdim=cfg.ssm_headdim, d_state=cfg.d_state,
                     conv_rows=conv.shape[-2], conv_dim=conv.shape[-1],
@@ -211,9 +219,13 @@ def contiguous_work(cfg, params: dict, cache: dict, *, rows: int, s: int,
         (s + n_vis)`` on a prefill, its visual prefix included), QTensor
         leaves at qmm's padded M (``qmm_plan``), the held shard of a
         ShardedQTensor, the held experts of a list;
-      * each attention layer over the whole cache slab of ``T`` positions
-        (``attend`` scores every key and masks: a static count, as XLA's
-        is), q read, K/V of ``rows x T`` read, o written;
+      * each attention layer over the rank's cache slab of ``T``
+        positions (``attend`` scores every key and masks: a static count,
+        as XLA's is; ``T / D`` of them under the sequence cut of
+        ``launch.sharding.seq_slice``, read off the cache), q read, K/V of
+        ``rows x T`` read, o written; QTensor leaves padded under the plan
+        of ``dp`` ranks' rows where the rows are split (``kernels.ops.
+        qmm``);
       * each MoE FFN at ``models.moe.capacity`` rows a held expert
         (``launch/roofline.py:moe_work``): the capacity of the call's
         rows, or with the rows split over ``dp`` ranks
@@ -248,13 +260,16 @@ def contiguous_work(cfg, params: dict, cache: dict, *, rows: int, s: int,
         if mm:
             tot["matmul"] += f
 
-    def work(w, n_rows: int) -> Tuple[float, float]:
+    def work(w, n_rows: int, plan_m: Optional[int] = None
+             ) -> Tuple[float, float]:
         if isinstance(w, ShardedQTensor):
-            parts = [work(w.local(i), n_rows) for i in w.held]
+            parts = [work(w.local(i), n_rows, plan_m) for i in w.held]
             return (sum(b for b, _ in parts), sum(f for _, f in parts))
         if isinstance(w, QTensor):
             k, n = w.shape
-            m_run = qmm_plan(n_rows, k, n, w.subtile)["pad_m"]
+            m_run = qmm_plan(n_rows, k, n, w.subtile,
+                             plan_m=n_rows * dp if plan_m is None
+                             else plan_m)["pad_m"]
             return rl.qmm_work(m_run, k, n, xb, w.subtile)
         k, n = w.shape[-2:]
         return rl.matmul_work(n_rows, k, n, xb, w.element_size())
@@ -287,7 +302,7 @@ def contiguous_work(cfg, params: dict, cache: dict, *, rows: int, s: int,
                 router = ffn["router"][g]
                 held = [w_e for w_e in ffn["w_up"][g] if w_e is not None]
                 cap = capacity(m * dp, cfg)
-                experts = [work(w_e, cap)
+                experts = [work(w_e, cap, cap)
                            for name in _PROJECTIONS["ffn"] if name in ffn
                            for w_e in ffn[name][g] if w_e is not None]
                 b, f = rl.moe_work(

@@ -47,9 +47,13 @@ runs its plain PyTorch version.
 ranks, as the JAX engine's ``mesh=`` does: every rank runs this host loop
 on the same requests, with its slice of the weights (``launch.sharding.
 shard_params``: TP over ``model``, replicated over ``data``) and of the
-arena (pages over ``data``, KV heads over ``model``), through the mesh
+arena (pages over ``data``, KV heads over ``model``, the slots' SSM and
+conv rows over ``data`` where the slots divide it), through the mesh
 step set (``steps.build_paged_steps(mesh=...)``: eager, no solo lane, so
-``cuda_graphs=False`` must be passed). The weight plan is off under a
+``cuda_graphs=False`` must be passed), which runs a data rank's share of
+the lanes where the slots divide the data axis and every lane where they
+do not, as JAX's ``batch_spec`` has it (``EngineStats.rows_per_rank``
+says which). The weight plan is off under a
 mesh, as in JAX. Every rank's host state and tokens are the same; rank 0
 reports. A rank that fails ends its collectives, so its peers raise too
 (gloo sees the closed connection; a hung peer hits the group's
@@ -220,6 +224,10 @@ class EngineStats:
     spec_rounds: int = 0
     spec_draft_tokens: int = 0
     spec_accepted_tokens: int = 0
+    # lanes this rank runs through the layers outside attention: the
+    # engine's slots, or a data rank's share where the mesh step set
+    # splits them (launch.sharding.serve_rows)
+    rows_per_rank: int = 0
     # the step set's graphs during this run: captures, their seconds,
     # replays (all 0 off the card or with cuda_graphs=False)
     graph_captures: int = 0
@@ -567,6 +575,7 @@ class ServeEngine:
                                  f"{len(r.prompt)} > max_len={self.max_len}")
         pool = self._ensure_pool()
         steps = self._steps
+        self.stats.rows_per_rank = steps.rows_per_rank
         # observability: the explicit tracer/registry or the process
         # defaults (the default tracer is disabled: every span site is
         # then one branch)

@@ -54,7 +54,15 @@ The mesh step set (``build_paged_steps(..., mesh=...)``, built like the
 JAX one): every step runs under ``runtime_context.use_mesh`` with the
 rank's page slice, so the model is tensor-parallel over ``model`` and
 attention reads the rank's pages and merges over ``data``; the head
-selects over vocab shards (``sampling.select_tokens_tp``). It has no
+selects over vocab shards (``sampling.select_tokens_tp``). Its batch
+follows JAX's ``batch_spec`` over ``max_slots`` (``launch.sharding.
+serve_rows``, ``PagedServeSteps.rows``): where the slots divide the data
+axis, data rank ``k`` runs lanes ``[k B / D, (k + 1) B / D)`` through
+every layer outside attention and through the head, each attention layer
+gathers its lanes' ``q | k | v`` over ``data`` (kind ``rows``) and runs
+every lane over its page slice, and the lanes' tokens go to every rank
+in one all_gather (kind ``tokens``); where they do not, every rank runs
+every lane. It has no
 solo lane (``solo_step`` is None, as JAX's is under a mesh), and it runs
 eagerly: ``cuda_graphs=False`` must be passed, because gloo collectives
 cannot be captured (and NCCL inside a graph waits for a host with one
@@ -62,9 +70,10 @@ card per rank). Its page ops copy a COW page whose source and
 destination sit on different data ranks with one all_reduce SUM over the
 data group (every page copy of the call packed into one int32 buffer, the
 source rank's bytes and zeros elsewhere: exact). The pipelined loop and
-speculative decode run on it unchanged (they only call the step). Its
-page ops zero a reseated slot's SSM and conv rows on every rank (the
-state is whole on each), and ``reset_state`` is the same function.
+speculative decode run on it unchanged (they only call the step and
+read the gathered tokens). Its page ops zero a reseated slot's SSM and
+conv rows on the rank that holds them (every rank where the lanes are
+not split), as its ``reset_state`` does.
 
 Kernel launch tallies (``kernels.build.launches``, ``kernels.ops.
 path_counts``) are Python counters that a replay does not move: each
@@ -145,15 +154,38 @@ def default_n_pages(slots: int, max_pages_per_seq: int, mesh=None) -> int:
 def step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, arena: dict,
          start: torch.Tensor, n_new: torch.Tensor,
          samp: Dict[str, torch.Tensor], *, sampled: bool = True,
-         use_kernels: bool = True, paged_attention: bool = True):
+         use_kernels: bool = True, paged_attention: bool = True,
+         rows: Optional[slice] = None):
     """The ONE serving step: ragged chunked prefill + batched decode.
     ``samp`` holds the lane params ``temp``, ``top_k``, ``top_p`` [B] and
     ``key`` [B, 2] (int32 holding uint32 bits); ``sampled=False`` promises
-    that no lane samples (``select_tokens``)."""
+    that no lane samples (``select_tokens``).
+
+    ``rows`` (a rank of the mesh step set whose lanes are split over
+    ``data``, ``launch.sharding.serve_rows``) runs only those lanes
+    through the model and the head, each with its own ``samp`` row, while
+    attention reads every lane's positions and ``valid_len``
+    (``runtime_context.current_lanes``); the lanes' tokens and logprobs
+    then go to every rank in one all_gather over ``data`` (kind
+    ``tokens``), so the host loop reads every lane's."""
     c = tokens.shape[1]
     positions = start[:, None] + torch.arange(
         c, dtype=start.dtype, device=start.device)[None, :]
     valid = start + n_new
+    if rows is not None:
+        mesh = ctx.current_mesh()
+        with ctx.use_mesh(mesh, ctx.current_dp(), ctx.current_page_slice(),
+                          split_rows=True, lanes=(positions, valid)):
+            tok, logp = step(cfg, params, tokens[rows], arena, start[rows],
+                             n_new[rows], {k: v[rows]
+                                           for k, v in samp.items()},
+                             sampled=sampled, use_kernels=use_kernels,
+                             paged_attention=paged_attention)
+        packed = torch.stack([tok, logp.view(torch.int32)], dim=-1)
+        packed = mesh.all_gather(packed.contiguous(), "data", 0,
+                                 kind="tokens")
+        return packed[..., 0], packed[..., 1].contiguous().view(
+            torch.float32)
     logits = forward(cfg, params, tokens, positions=positions, cache=arena,
                      valid_len=valid, use_kernels=use_kernels,
                      paged_attention=paged_attention)
@@ -205,7 +237,8 @@ def apply_page_ops(arena: dict, tables: torch.Tensor,
                    copy_src: Optional[torch.Tensor] = None,
                    copy_dst: Optional[torch.Tensor] = None,
                    reset: Optional[torch.Tensor] = None, mesh=None,
-                   page_slice: Optional[Tuple[int, int]] = None) -> dict:
+                   page_slice: Optional[Tuple[int, int]] = None,
+                   rows: Optional[slice] = None) -> dict:
     """One round's page maintenance, in place (counterpart of
     ``_apply_page_ops_body``): page ``copy_dst[i]`` of every page leaf
     becomes a copy of page ``copy_src[i]`` (the device half of
@@ -216,7 +249,9 @@ def apply_page_ops(arena: dict, tables: torch.Tensor,
     Groups without attention have no pages or table. In place because the
     step set's graphs read the arena by address. With a ``page_slice``
     (a rank of a mesh whose data axis is over 1) the page ids are global
-    and the copies cross ranks (``_copy_pages_across``)."""
+    and the copies cross ranks (``_copy_pages_across``); with ``rows``
+    (the rank's lanes of a row split) the arena holds only those slots'
+    SSM and conv rows, and ``reset``'s entries for them apply."""
     if copy_src is not None and page_slice is not None:
         _copy_pages_across(arena, copy_src, copy_dst, mesh, page_slice)
         copy_src = None
@@ -232,8 +267,9 @@ def apply_page_ops(arena: dict, tables: torch.Tensor,
             tbl = attn["block_tbl"]
             tbl.copy_(tables.to(torch.int32)[None].expand_as(tbl))
         if "mamba" in grp and reset is not None:
+            own = reset if rows is None else reset[rows]
             for leaf in grp["mamba"].values():
-                mask = (reset != 0).view((1, -1) + (1,) * (leaf.dim() - 2))
+                mask = (own != 0).view((1, -1) + (1,) * (leaf.dim() - 2))
                 leaf.masked_fill_(mask, 0)
     return arena
 
@@ -274,12 +310,19 @@ def _copy_pages_across(arena: dict, copy_src: torch.Tensor,
         o += size + (-size) % 16
 
 
-def reset_state(arena: dict, slot: int) -> dict:
+def reset_state(arena: dict, slot: int, rows: Optional[slice] = None
+                ) -> dict:
     """Zero lane ``slot``'s SSM and conv rows in every group, in place
     (counterpart of ``_reset_state_body``): a freshly seated slot's
     recurrent state starts from zero, whatever its previous occupant
     left. The engine folds resets into ``apply_page_ops``; this is the
-    one-slot form the step set exposes, as JAX's does."""
+    one-slot form the step set exposes, as JAX's does. With ``rows`` (the
+    rank's lanes of a row split, whose rows alone the arena holds) only
+    the rank that holds ``slot`` zeroes it, at its local row."""
+    if rows is not None:
+        if not rows.start <= slot < rows.stop:
+            return arena
+        slot -= rows.start
     for grp in arena.values():
         if "mamba" in grp:
             for leaf in grp["mamba"].values():
@@ -324,13 +367,16 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int,
     return KV.init_cache(cfg, batch, max_len, dtype, "meta")
 
 
-def _mesh_context(mesh, batch: int):
+def _mesh_context(mesh, batch: int, cache_len: int):
     """``use_mesh`` for a contiguous call: the rows split over the dp axes
     when the global batch divides them (an MoE block's capacity is then
     global over the dp ranks' rows, as JAX's jit over the global batch
-    has it), else every dp rank runs every row."""
+    has it), else every dp rank runs every row and holds its sequence cut
+    of the cache (``launch.sharding.seq_slice``: attention merges the
+    data ranks' slices)."""
     return ctx.use_mesh(mesh, meshlib.dp_axes(mesh),
-                        split_rows=bool(shd.batch_spec(mesh, batch)))
+                        split_rows=bool(shd.batch_spec(mesh, batch)),
+                        seq_slice=shd.seq_slice(mesh, batch, cache_len))
 
 
 def build_prefill(cfg: ModelConfig, mesh, *, batch: int, seq: int,
@@ -353,7 +399,7 @@ def build_prefill(cfg: ModelConfig, mesh, *, batch: int, seq: int,
         if cache is None:
             cache = shd.local_cache(cfg, batch, cache_len, cache_dtype,
                                     tokens.device, mesh)
-        with _mesh_context(mesh, batch):
+        with _mesh_context(mesh, batch, cache_len):
             return prefill(cfg, params, tokens, max_len=cache_len,
                            vis_embeds=extras.get("vis_embeds"),
                            frames=extras.get("frames"),
@@ -369,7 +415,7 @@ def build_decode(cfg: ModelConfig, mesh, *, batch: int, cache_len: int,
     QMC streams quantized after the shard every projection runs through
     ``kernels.ops.qmm`` (the decode qmm on the card)."""
     def fn(params, token, cache, pos):
-        with _mesh_context(mesh, batch):
+        with _mesh_context(mesh, batch, cache_len):
             return decode_step(cfg, params, token, cache, pos,
                                use_kernels=use_kernels)
     return fn
@@ -721,9 +767,10 @@ class PageOps(_CostTables):
 
     def __init__(self, max_slots: int, max_pages_per_seq: int,
                  device: torch.device, mesh=None,
-                 page_slice: Optional[Tuple[int, int]] = None):
+                 page_slice: Optional[Tuple[int, int]] = None,
+                 rows: Optional[slice] = None):
         self._init_cost_tables("apply_page_ops", device)
-        self.mesh, self.page_slice = mesh, page_slice
+        self.mesh, self.page_slice, self.rows = mesh, page_slice, rows
         self.slots = max_slots
         self.n_tbl = max_slots * max_pages_per_seq
         self.shape = (max_slots, max_pages_per_seq)
@@ -750,7 +797,7 @@ class PageOps(_CostTables):
                        dev[o:o + n] if copies else None,
                        dev[o + n:o + 2 * n] if copies else None,
                        dev[o + 2 * n:] if len(resets) else None,
-                       self.mesh, self.page_slice)
+                       self.mesh, self.page_slice, self.rows)
         if capture:
             self.cost_by_key.setdefault("call", {"flops": 0.0, "bytes": 0.0})
             self._record("call", t0)
@@ -789,6 +836,15 @@ class PagedServeSteps:
     reset_state: Optional[Callable] = None
     mesh: Optional[object] = None
     page_slice: Optional[Tuple[int, int]] = None
+    rows: Optional[slice] = None     # a rank's lanes (launch.sharding.
+                                     # serve_rows); None: every lane
+
+    @property
+    def rows_per_rank(self) -> int:
+        """Lanes this rank runs through the layers outside attention."""
+        if self.rows is None:
+            return self.max_slots
+        return self.rows.stop - self.rows.start
 
     def compatible_with(self, *, page, n_pages, max_slots,
                         max_pages_per_seq, cache_dtype, chunk,
@@ -840,8 +896,14 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
     of the arena when the data axis is over 1, and ``cuda_graphs`` must
     be False."""
     dev = resolve_device(device)
+    rows = None
     if mesh is not None:
         check_mesh_cfg(cfg)
+        if meshlib.axis_size(mesh, "pod") > 1:
+            raise NotImplementedError(
+                "the mesh step set serves on a (data, model) mesh: its "
+                "pages and lanes split over 'data'")
+        rows = shd.serve_rows(mesh, max_slots)
         if cuda_graphs:
             raise ValueError(
                 "the mesh step set runs eagerly: pass cuda_graphs=False "
@@ -867,14 +929,16 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
                         sampled=sampled, **kw)
         with ctx.use_mesh(mesh, dp, page_slice):
             return step(cfg, params, tokens, arena, start, n_new, samp,
-                        sampled=sampled, **kw)
+                        sampled=sampled, rows=rows, **kw)
 
     def solo_body(params, tokens, arena, start, n_new, samp, slot, sampled):
         return solo_step(cfg, params, tokens, arena, slot, start, n_new,
                          samp, sampled=sampled, **kw)
 
     common = dict(widths=widths, device=dev, cuda_graphs=cuda_graphs,
-                  work=functools.partial(obs_costs.step_work, cfg),
+                  work=functools.partial(
+                      obs_costs.step_work, cfg,
+                      rows=None if rows is None else rows.stop - rows.start),
                   pool=pool, stream=stream)
     return PagedServeSteps(
         cfg=cfg, page=page, n_pages=n_pages, max_slots=max_slots,
@@ -885,11 +949,11 @@ def build_paged_steps(cfg: ModelConfig, *, page: int, n_pages: int,
         solo_step=(GraphedStep("solo_step", solo_body, lanes=1, **common)
                    if mesh is None else None),
         apply_page_ops=PageOps(max_slots, max_pages_per_seq, dev, mesh,
-                               page_slice),
-        reset_state=(reset_state if any(
+                               page_slice, rows),
+        reset_state=(functools.partial(reset_state, rows=rows) if any(
             k == "mamba" or k.startswith("hybrid") for k in cfg.pattern)
             else None),
-        mesh=mesh, page_slice=page_slice)
+        mesh=mesh, page_slice=page_slice, rows=rows)
 
 
 def check_mesh_cfg(cfg: ModelConfig) -> None:

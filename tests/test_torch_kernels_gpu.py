@@ -43,7 +43,9 @@ tensors over gloo: reduced dbrx-132b (expert parallelism, capacity and
 aux over the dp ranks) and mamba2-370m (the gathered ``in_proj``, the
 split into ``out_proj``) at (2, 2) with 2 microbatches, step 0's
 gradients against one process's on the card at rtol 1e-4 and atol 2e-6
-* max|g| (``tests/test_torch_train_mesh_families.py``'s)."""
+* max|g| (``tests/test_torch_train_mesh_families.py``'s). A row split's
+half batch through B2 and B3 planned on the whole batch (``plan_m``)
+bit-identical to the whole batch's rows."""
 import sys
 from pathlib import Path
 
@@ -191,6 +193,33 @@ def test_decode_stream_patterns(gen, m, k, n, pattern, dtype):
     assert torch.equal(y, again)                      # deterministic
     err = (y.float() - want.float()).abs().max().item()
     assert err <= QMM_TOL[dtype] * want.float().abs().max().item()
+    assert _decode_counters_zero()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m,route", [(8, "decode"), (64, "decode"),
+                                     (128, "colstrip"), (512, "colstrip")])
+def test_qmm_half_rows_under_the_global_plan(gen, m, route, dtype):
+    """A data rank of a row split runs half a batch's rows through
+    ``kernels.ops.qmm`` planned on the whole batch's (``plan_m``): the
+    whole batch's route and K split, the half padded to the route's
+    multiple (64 rows take the column strip at M = 128), and each half's
+    rows bit-identical to the whole batch's; at decode width (M 8, 64:
+    a 4-row half padded to 8) and at column-strip chunks (M 128, 512)."""
+    k, n = 2048, 5632
+    qt = _streams(k, n, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    kops.reset_path_counts()
+    whole = kops.qmm(x, qt)
+    assert kops.path_counts[route] == 1
+    half = m // 2
+    for part in (slice(0, half), slice(half, m)):
+        kops.reset_path_counts()
+        got = kops.qmm(x[part], qt, plan_m=m)
+        torch.cuda.synchronize()
+        assert kops.path_counts[route] == 1
+        assert torch.equal(got, whole[part])
     assert _decode_counters_zero()
 
 

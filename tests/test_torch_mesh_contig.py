@@ -33,8 +33,9 @@ then 4 greedy decode steps, every call's logits gathered to ``[B, V]``:
 ``cache_spec`` against JAX's, leaf by leaf, for a reduced config of every
 family at (2, 2), for a batch that divides the dp axis and one that does
 not, with the departures ``launch.sharding.cache_spec`` names applied to
-JAX's spec (the sequence cut, the cross heads, the Mamba2 state's
-heads), and ``shard_cache`` against ``local_cache``'s shapes.
+JAX's spec (the cross heads, the Mamba2 state's heads; the sequence cut
+over ``data`` for a batch that does not divide it is JAX's own), and
+``shard_cache`` against ``local_cache``'s shapes.
 """
 import dataclasses
 import functools
@@ -231,8 +232,6 @@ def _departed(path, jspec, leaf, cfg, mesh, batch):
     tp = mesh.devices.shape[list(mesh.axis_names).index("model")]
     split_heads = not attn_replicated(cfg, tp)
     if path.endswith(("/k", "/v", "k_scale", "v_scale")):
-        if spec[2] == "data":                  # the sequence cut
-            spec[2] = None
         if not split_heads:
             spec[3] = None
     elif path.endswith(("xk", "xv")):
@@ -276,7 +275,9 @@ def _leaves(tree, path=""):
 @pytest.mark.parametrize("batch", [4, 3])
 def test_shard_cache_gives_local_cache_shapes(arch, batch):
     """A whole cache cut by ``shard_cache`` has ``local_cache``'s leaves
-    and the rank's rows and columns of every leaf, on every rank."""
+    and the rank's rows, positions (the sequence cut of a batch that does
+    not divide the data axis) and columns of every leaf, on every
+    rank."""
     cfg = reduced_config(arch)
     gen = torch.Generator().manual_seed(0)
 
@@ -293,13 +294,16 @@ def test_shard_cache_gives_local_cache_shapes(arch, batch):
         assert {k: tuple(v.shape) for k, v in cut.items()} == \
             {k: tuple(v.shape) for k, v in want.items()}
         rows = shd.batch_rows(mesh, batch)
+        seq = shd.seq_slice(mesh, batch, 8)
+        pos = (slice(None) if seq is None
+               else slice(seq[0], seq[0] + seq[1]))
         for path, leaf in _leaves(whole):
             if path.endswith("/k"):
                 m = mesh.index("model")
                 n = cut[path].shape[-1]
                 np.testing.assert_array_equal(
                     cut[path].numpy(),
-                    leaf[:, rows, :, m * n:(m + 1) * n].numpy())
+                    leaf[:, rows, pos, m * n:(m + 1) * n].numpy())
 
 
 def test_logits_spec_matches_jax():

@@ -224,10 +224,14 @@ def test_moe_expert_parallel_tokens_drops_and_codes(shape, meshed, ref,
 def test_moe_collectives_a_round(shape, meshed, ref, models):
     """Per round on every rank: one ``moe`` all_reduce per MoE layer (the
     layer's only model-axis sum), one ``tp`` sum per attention layer's
-    ``wo`` and one for the vocab-parallel embedding, and at D = 2 the
-    page-slice merge's two per attention layer; nothing else (the
-    ``lm_head`` stream's 64-column cut would split a subtile, so the head
-    is whole and selects without a collective)."""
+    ``wo`` and one for the vocab-parallel embedding, and at D = 2 (4
+    slots: each data rank runs 2 lanes) the page-slice merge's two per
+    attention layer, each attention layer's gather of its lanes' ``q | k
+    | v`` (``rows``), each MoE layer's sum over the dp ranks' rows
+    (``moe_dp``: the capacity is global over them) and the one gather of
+    the lanes' tokens (``tokens``); nothing else (the ``lm_head``
+    stream's 64-column cut would split a subtile, so the head is whole
+    and selects without a collective)."""
     cfg = models["moe"][2]
     head = shd.shard_params(models["moe"][3], StandInMesh(shape, (0, 1)))[
         "lm_head"]
@@ -241,7 +245,11 @@ def test_moe_collectives_a_round(shape, meshed, ref, models):
             want = {"moe": _layers(cfg, moe=True) * rounds,
                     "tp": (1 + _layers(cfg, "attn")) * rounds}
             if shape[0] > 1:
+                assert got["stats"]["rows_per_rank"] == 2
                 want["merge"] = 2 * _layers(cfg, "attn") * rounds
+                want["rows"] = _layers(cfg, "attn") * rounds
+                want["moe_dp"] = _layers(cfg, moe=True) * rounds
+                want["tokens"] = rounds
             assert {k: v for k, v in got["by_kind"].items() if v} == want
 
 

@@ -258,7 +258,9 @@ def test_replicated_heads_serve_on_the_mesh(runs, reference, shape):
     all ``n_kv * hd`` = 16 KV columns on every model rank; B1's entry ran
     (over the rank's page slice at D = 2); the only collectives are the
     Mamba2 mixer's ``gather``, the ``tp`` sums after its ``out_proj`` and
-    the FFN's ``w_down``, and the page slices' ``merge`` at D = 2."""
+    the FFN's ``w_down``, and at D = 2 (its slots split over ``data``) the
+    page slices' ``merge``, each attention layer's gather of its lanes'
+    ``q | k | v`` (``rows``) and the gather of the lanes' tokens."""
     cfg = case_cfg(HYMBA5)
     assert runs["tokens"] == reference["tokens"]
     for r in runs[shape]:
@@ -270,6 +272,8 @@ def test_replicated_heads_serve_on_the_mesh(runs, reference, shape):
         kinds = dict(gather=cfg.n_layers, tp=2 * cfg.n_layers)
         if shape[0] > 1:
             kinds["merge"] = 2 * cfg.n_layers
+            kinds["rows"] = cfg.n_layers
+            kinds["tokens"] = 1
         assert s["by_kind"] == {k: v * s["rounds"]
                                 for k, v in kinds.items()}
 
