@@ -289,8 +289,10 @@ from repro_torch.core.qtensor_sharded import ShardedQTensor  # noqa: E402
 from repro_torch.core.serving_quant import quantize_for_serving  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import paged_attention as kpa  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    merge_slices, q_block_for, ragged_paged_attention_call)
+    first_page, merge_slices, q_block_for, ragged_paged_attention_call,
+    span_plan)
 from repro_torch.kernels.qmm import (empty_launch,  # noqa: E402
                                      qmm_colstrip, qmm_decode)
 from repro_torch.kernels.ref import (qmm_ref,  # noqa: E402
@@ -637,6 +639,51 @@ def attn_cost(q, cache, q_start, n_new, live, *, n_kv, hd, page, window):
         kv_scaled="k_scale_pages" in cache)
 
 
+def pages_walked(qs, kl, s, page, q_blk, window, tbl=None,
+                 page_slice=None):
+    """Pages the kernel walks for one KV head, summed over lanes and q
+    blocks (``span_plan``'s rule, which the kernel computes on the card),
+    under the window and without it."""
+    args = (qs.tolist(), kl.tolist(), s, page, 1 << 30)
+    kw = dict(q_block=q_blk, tbl=tbl, page_slice=page_slice)
+
+    def count(plan):
+        return sum(p1 - p0 for lane in plan for spans in lane
+                   for p0, p1 in spans)
+    return (count(span_plan(*args, window=window, **kw)),
+            count(span_plan(*args, **kw)))
+
+
+def poison_before_window(cache, q_start, window, page):
+    """A copy of a case's arena with NaN in every page of a lane's table
+    that lies wholly before the window of the lane's first query (its K
+    and V, or an int8 arena's scales). No row sees those keys; a kernel
+    that still multiplies them gives NaN (0 x NaN), one that walks from
+    the window's first page gives the bits of the clean arena."""
+    out = dict(cache)
+    tbl = cache["block_tbl"].tolist()
+    ids = [tbl[b][p] for b, qs in enumerate(q_start.tolist())
+           for p in range(first_page(qs, page, window))]
+    names = (("k_scale_pages", "v_scale_pages") if "k_scale_pages" in cache
+             else ("k_pages", "v_pages"))
+    for name in names:
+        t = cache[name].clone()
+        if ids:
+            t[torch.tensor(ids, device=t.device)] = float("nan")
+        out[name] = t
+    return out, len(ids)
+
+
+def call_and_route(fn):
+    """Run ``fn`` (one attention call); return its result and the route
+    the kernel took, from the wrapper's route counts."""
+    before = dict(kpa.route_launches)
+    out = fn()
+    took = [r for r in kpa.ROUTES if kpa.route_launches[r] > before[r]]
+    require(len(took) == 1, f"attention: routes taken {took}")
+    return out, took[0]
+
+
 def check_attention(timer, peak, gen, rows):
     """The attention kernel at the serve phase's shapes (hd 64, 32 KV
     heads, 4 lanes, page 16) over fp32, int8 and bf16 pages (bf16 q with
@@ -703,10 +750,23 @@ def check_attention(timer, peak, gen, rows):
         if label == DBRX_CHUNK:
             require(q_blk == 8, f"attention {label}: q block {q_blk}, "
                     f"expected the halved 8")
-        o, m, l = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+        (o, m, l), route = call_and_route(
+            lambda: ragged_paged_attention_call(q, cache, qs, kl, **kw))
         o_r, m_r, l_r = ragged_paged_attention_ref(q, cache, qs, kl, **kw)
         torch.cuda.synchronize()
         s = q.shape[1]
+        require((route == "bf16-mma") == (dt == "bfloat16"),
+                f"attention {label} {dt}: took the {route} route")
+        walked, unwindowed = pages_walked(qs, kl, s, page, q_blk, window)
+        poisoned = 0
+        if window is not None:  # no page before the window is multiplied
+            bad, poisoned = poison_before_window(cache, qs, window, page)
+            ob, mb, lb = ragged_paged_attention_call(q, bad, qs, kl, **kw)
+            require(torch.equal(ob, o) and torch.equal(mb, m)
+                    and torch.equal(lb, l),
+                    f"attention {label} {dt}: {poisoned} NaN pages before "
+                    f"the window changed the output")
+            del bad, ob, mb, lb
         pos = torch.arange(s, device="cuda")[None, :]
         valid = pos < n_new[:, None]                      # [B, S]
         require(bool((o[~valid] == 0).all()), f"attention {label}: dead "
@@ -748,8 +808,11 @@ def check_attention(timer, peak, gen, rows):
                          dtype=dt, max_abs_err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                         q_block=q_blk))
+                         q_block=q_blk, attn_route=route,
+                         pages_walked=walked, pages_unwindowed=unwindowed,
+                         nan_pages_before_window=poisoned))
         print(f"[kernels] attention {label:38s} {dt:8s} q_blk={q_blk} "
+              f"route={route} walked={walked}/{unwindowed} "
               f"err={err:.2e} "
               f"ms={ms:.4f} host={host_ms:.4f} plain={plain_ms:.4f} "
               f"sdpa={lib_ms:.4f} ratio={ms / lib_ms:.3f} "
@@ -838,7 +901,14 @@ def check_sliced_attention(timer, peak, gen, rows):
                          if k.endswith("_pages") else v)
                      for k, v in cache.items()}
             kws = dict(kw, page_slice=(first, n))
-            o, m, l = ragged_paged_attention_call(q, local, qs, kl, **kws)
+            (o, m, l), route = call_and_route(
+                lambda: ragged_paged_attention_call(q, local, qs, kl, **kws))
+            walked = pages_walked(
+                qs, kl, q.shape[1], page,
+                min(q_block_for(g, hd, torch.float32,
+                                cache["block_tbl"].shape[1], page),
+                    q.shape[1]), window,
+                tbl=cache["block_tbl"].tolist(), page_slice=(first, n))
             o_r, m_r, l_r = ragged_paged_attention_ref(q, local, qs, kl,
                                                        **kws)
             torch.cuda.synchronize()
@@ -883,7 +953,8 @@ def check_sliced_attention(timer, peak, gen, rows):
             b_ms, b_by = bound(nbytes, flops, bw, fl)
             per.append(dict(first=first, pages=n, ms=ms, plain_ms=plain_ms,
                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                            max_abs_err=err))
+                            max_abs_err=err, attn_route=route,
+                            pages_walked=walked))
             parts.append((o, m, l))
         whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
         merged = merge_slices(parts)
@@ -911,7 +982,9 @@ def check_sliced_attention(timer, peak, gen, rows):
                          merge_bound_ms=merge_bound_ms, slices=per))
         for r in per:
             print(f"[kernels] attention {label} slice [{r['first']}, "
-                  f"+{r['pages']}) err={r['max_abs_err']:.2e} "
+                  f"+{r['pages']}) route={r['attn_route']} walked="
+                  f"{r['pages_walked'][0]}/{r['pages_walked'][1]} "
+                  f"err={r['max_abs_err']:.2e} "
                   f"ms={r['ms']:.4f} plain={r['plain_ms']:.4f} "
                   f"sdpa={r['library_ms']:.4f} bound={r['bound_ms']:.4f} "
                   f"({r['bound_by']})")
@@ -4026,6 +4099,7 @@ def main(argv=None) -> int:
     print(f"[build] {build.build_info['path']} in "
           f"{time.monotonic() - t0:.1f}s")
     print(build.build_info["log"])
+    lap("build")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)

@@ -8,11 +8,14 @@ imports that tree's ``repro_torch`` and ``chip_smoke`` and times, with
 ``chip_smoke.Timer`` (median of 20 CUDA-event runs, L2 flushed), the
 kernel at the chip_smoke attention shapes every tree takes: the serve
 phase's decode, long decode and chunk lanes (hd 64, 32 KV heads) over
-fp32, int8 and bf16 pages, hymba-1.5b's (G = 5, window 1024) and
-dbrx-132b's (hd 128, G = 6) over fp32 pages, stablelm-3b's (hd 80) and
+fp32, int8 and bf16 pages, hymba-1.5b's (G = 5, window 1024) over every
+page kind, dbrx-132b's (hd 128, G = 6) over fp32 pages, stablelm-3b's
+(hd 80) and
 gemma2-2b's (hd 256, G = 2, window 4096, softcap 50) over every page
-kind. One line of JSON per process, then a table of ms per shape and
-tree.
+kind, and each of two page slices (D = 2, pages numbered as the pool
+hands them out, fp32 pages) at the serve phase's decode and chunk lanes
+and hymba-1.5b's decode (chip_smoke's rows 3d and 3d-h). One line of JSON
+per process, then a table of ms per shape and tree.
 
     python scripts/torch_attn_pairs.py --trees build/parent build/change
     python scripts/torch_attn_pairs.py --trees ... --only "hymba|dbrx"
@@ -36,10 +39,11 @@ CASES = [(f"{name} {dt}", lanes, 32, 1, dt, None, 64)
          for name, lanes in (("decode", DECODE), ("decode<=4096", LONG),
                              ("chunk S=128", CHUNK))
          for dt in PAGES] + [
-    ("hymba decode", [(2047, 1), (1800, 1), (1030, 1), (0, 0)], 5, 5,
-     "float32", 1024, 64),
-    ("hymba chunk", [(1100, 128), (1500, 100), (2047, 1), (0, 0)], 5, 5,
-     "float32", 1024, 64),
+    case for dt in PAGES for case in (
+        (f"hymba decode {dt}", [(2047, 1), (1800, 1), (1030, 1), (0, 0)],
+         5, 5, dt, 1024, 64),
+        (f"hymba chunk {dt}", [(1100, 128), (1500, 100), (2047, 1), (0, 0)],
+         5, 5, dt, 1024, 64))] + [
     ("dbrx decode", [(200, 1), (150, 1), (31, 1), (0, 0)], 8, 6,
      "float32", None, 128),
     ("dbrx chunk", CHUNK, 8, 6, "float32", None, 128)] + [
@@ -50,6 +54,11 @@ CASES = [(f"{name} {dt}", lanes, 32, 1, dt, None, 64)
          2, dt, 4096, 256, 50.0),
         (f"g2 chunk {dt}", [(4200, 128), (6000, 100), (8191, 1), (0, 0)],
          4, 2, dt, 4096, 256, 50.0))]
+# over a data rank's page slice: (label, lanes, KV heads, G, window)
+SLICED = [("sliced decode", DECODE, 32, 1, None),
+          ("sliced chunk", CHUNK, 32, 1, None),
+          ("sliced hymba decode", [(2047, 1), (1800, 1), (1030, 1), (0, 0)],
+           5, 5, 1024)]
 
 
 def one(tree: Path, seed: int) -> dict:
@@ -73,6 +82,20 @@ def one(tree: Path, seed: int) -> dict:
                   attn_softcap=cap[0] if cap else None)
         ms[label] = timer(lambda: ragged_paged_attention_call(
             q, cache, qs, kl, **kw))
+    for label, lanes, n_kv, g, window in SLICED:
+        q, cache, qs, kl, _, _ = cs.make_attn_case(
+            lanes, n_kv=n_kv, g=g, hd=64, page=16, quantized=False, gen=gen)
+        cs.in_order(cache)
+        n = cache["k_pages"].shape[0]
+        for i, (first, pages) in enumerate(((0, n // 2),
+                                            (n // 2, n - n // 2))):
+            local = {k: (v[first:first + pages].contiguous()
+                         if k.endswith("_pages") else v)
+                     for k, v in cache.items()}
+            kw = dict(n_kv=n_kv, head_dim=64, window=window,
+                      page_slice=(first, pages))
+            ms[f"{label} {i}"] = timer(lambda: ragged_paged_attention_call(
+                q, local, qs, kl, **kw))
     return {"tree": str(tree), "ms": ms,
             "device": torch.cuda.get_device_name(0)}
 
@@ -98,6 +121,7 @@ def main() -> int:
     if a.only:
         import re
         CASES[:] = [c for c in CASES if re.search(a.only, c[0])]
+        SLICED[:] = [c for c in SLICED if re.search(a.only, c[0])]
     if a.tree is not None:                     # one child process
         if a.build_only:
             sys.path[:0] = [str(a.tree / "src")]
@@ -125,7 +149,9 @@ def main() -> int:
             r["process_s"] = time.monotonic() - t0
             print(json.dumps(r), flush=True)
             results.append(r)
-    for label, *_ in CASES:
+    labels = [c[0] for c in CASES] + [f"{c[0]} {i}" for c in SLICED
+                                       for i in (0, 1)]
+    for label in labels:
         cells = []
         for t in trees:
             xs = [r["ms"][label] for r in results if r["tree"] == str(t)]

@@ -8,8 +8,9 @@
 // and tanh softcap; GQA (G = H / KV query rows share one KV head); int8
 // pages carry per-(page slot, head) bf16 scales; q may be fp32 or bf16 and
 // the pages fp32, bf16 or int8, each widened to fp32 on the way into the
-// product, as the reference casts them (paged_attention.py:118-121);
-// online softmax. Rows at
+// product, as the reference casts them (paged_attention.py:118-121),
+// except bf16 q over bf16 pages, whose products are bf16 tensor-core
+// products (exact in fp32 for q K^T); online softmax. Rows at
 // positions >= kv_len come out exactly 0. Outputs o plus the softmax state
 // (m, l) of every row.
 //
@@ -20,8 +21,13 @@
 //
 //   * Split-KV (flash-decoding). The causally live pages of one (lane, KV
 //     head, q block) -- ceil(min(kv_len, q_start + (qb+1)*q_blk) / page),
-//     the bound the engine's prefill_kv_pages_live counter mirrors -- are
-//     cut into spans of span_pages pages (a multiple of one ring stage).
+//     the bound the engine's prefill_kv_pages_live counter mirrors -- from
+//     the window's first page on (first_page: max(0, q0 - window + 1) /
+//     page for the block's first query q0, computed on the device, so a
+//     graphed step stays one replay; page 0 without a window) are cut into
+//     spans of span_pages pages (a multiple of one ring stage). Pages
+//     wholly before the window are never read: the reference's masked
+//     keys there add exactly 0.
 //     grid = (span, lane * KV head, q block). A span block writes its
 //     partial (o*l, m, l) to an fp32 workspace; a second pass merges the
 //     spans of each row in span order (deterministic, no atomics) -- the
@@ -42,17 +48,29 @@
 //     + lo*hi) keep fp32 accuracy. int8 K is exact in TF32 and its scale
 //     factors out of the dot (s = ks[t] * (q . k_int8[t])), so only q is
 //     split; vs[t] is folded into p before PV, where p is split. bf16
-//     pages are exact in TF32 too (8 significant bits of 11): widened by
-//     a shift as they leave the ring, they take the int8 route's two
-//     products, with no scale. Each
+//     pages under an fp32 q are exact in TF32 too (8 significant bits of
+//     11): widened by a shift as they leave the ring, they take the int8
+//     route's two products, with no scale. Each
 //     warp owns one m tile and a group of 16-key tiles with its own
 //     running (m, l, acc); the reduction index of QK^T is permuted so the
 //     score fragment is PV's A fragment as it stands, and the shared
 //     memory rows are padded so every fragment load is conflict-free.
-//   * Decode path (S = 1, R = G rows): a 16-row mma tile would be G/16
-//     full, so each warp takes one 16-key tile of the stage and the lanes
-//     split hd (hd/32 dims each; hd 80 runs as 96 with dims 80-95 dead:
-//     q 0, nothing loaded or stored); dots are warp-shuffle reductions.
+//   * The bf16-mma route, bf16 q over bf16 pages (route_of; its own
+//     chunk unit, paged_attention_chunk_bf16.cu, and decode kernel): q
+//     stays bf16 and unscaled; QK^T takes one mma.sync m16n8k16 bf16 per
+//     16 dims and 8 keys (exact products, fp32 sums; the scale and
+//     softcap then apply to the fp32 score), PV two per 16 keys and 8
+//     dims on p as bf16 hi + lo (2^-18 of p kept, where the reference
+//     multiplies in fp32); K and V fragments come by ldmatrix (.trans for
+//     V) off the same ring, whose 16-byte row padding keeps them
+//     conflict-free. The chunk path's warps own m tiles and key groups as
+//     on the TF32 route; the decode path puts the G <= 8 rows in one m
+//     tile (rows G..15 zero) per 16-key warp tile.
+//   * Decode path otherwise (S = 1, R = G rows): a 16-row mma tile would
+//     be G/16 full, so each warp takes one 16-key tile of the stage and the
+//     lanes split hd (hd/32 dims each; hd 80 runs as 96 with dims 80-95
+//     dead: q 0, nothing loaded or stored); dots are warp-shuffle
+//     reductions.
 //   * The warps' softmax states are merged in warp order through shared
 //     memory at the end of the span.
 //   * A page slice (a data rank's part of the arena, on a mesh; JAX's
@@ -65,12 +83,14 @@
 //     0), which the cross-rank merge weighs 0. The slice is a template
 //     switch (SLICED): the kernels of unsliced calls carry none of it.
 //
-// Sources: this file (chunk path, span merge, C entry points), the decode
-// path's kernel in paged_attention_decode.cuh, instantiated for fp32,
+// Sources: this file (chunk path, span merge, C entry points), the chunk
+// path of the bf16-mma route in paged_attention_chunk_bf16.cu, the decode
+// path's kernels in paged_attention_decode.cuh, instantiated for fp32,
 // int8 and bf16 pages in paged_attention_decode.cu, _i8.cu and _bf16.cu
-// and, over a page slice, in their _sliced.cu (one unit per page kind and
-// slicing, built in parallel: 16 instantiations each), and
-// paged_attention.cuh (what all share).
+// (with the bf16-mma decode kernel) and, over a page slice, in their
+// _sliced.cu (one unit per page kind and slicing, built in parallel: 16-21
+// instantiations each), and paged_attention.cuh (what all share, the
+// bf16 fragment helpers among it).
 #include "paged_attention.cuh"
 
 namespace qmc_pa {
@@ -96,7 +116,7 @@ attn_chunk_kernel(Args a) {
   if (!span_of<SLICED>(a, rows, s)) return;
 
   const Layout L = layout(HD, KIND, rows_pad, groups, a.span_pages,
-                          a.stages, true);
+                          a.stages, true, false);
   constexpr int TILES = stage_keys(HD, KIND) / KEY_TILE;
   int* tbl_s = reinterpret_cast<int*>(smem);
   unsigned char* ring = smem + L.tbl;
@@ -352,11 +372,13 @@ __global__ void __launch_bounds__(128) attn_merge_kernel(Args a) {
   if (row >= rows_total) return;
   const int b = (int)(row / ((size_t)a.S_pad * a.H));
   const int t = (int)((row / a.H) % a.S_pad);
-  const int n_live = live_pages(a, b, t / a.q_blk);
-  int n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+  const int qb = t / a.q_blk;
+  const int n_live = live_pages(a, b, qb);
+  const int lo = n_live ? first_page(a, b, qb) : 0;
+  int n_sp = (n_live - lo + a.span_pages - 1) / a.span_pages;
   if constexpr (SLICED) {
     int p0, len;
-    n_sp = n_live ? slice_chunks(a, b, n_live, -1, &p0, &len) : 0;
+    n_sp = n_live ? slice_chunks(a, b, lo, n_live, -1, &p0, &len) : 0;
   }
   if (n_sp <= 1) return;  // written by its only span (or dead)
   float mx = NEG;
@@ -408,6 +430,8 @@ int launch_chunk_kind(dim3 grid, int threads, int smem, const Args& a,
 
 int launch_span(dim3 grid, int threads, int smem, const Args& a,
                 cudaStream_t st) {
+  if (a.q_blk > 1 && route_of(a.q_blk, a.q_bf16, a.kind) == ROUTE_BF16_MMA)
+    return launch_chunk_bf16(grid, threads, smem, a, st);
   if (a.q_blk > 1)
     return a.sliced ? launch_chunk_kind<true>(grid, threads, smem, a, st)
                     : launch_chunk_kind<false>(grid, threads, smem, a, st);
@@ -447,15 +471,20 @@ Geometry geometry(int rows, int q_blk, int hd, int kind) {
 }
 
 int smem_bytes(int rows, int q_blk, int hd, int kind, int span_pages,
-               int* stages) {
+               int q_bf16, int* stages) {
   const Geometry g = geometry(rows, q_blk, hd, kind);
-  // three stages while two blocks still fit on an SM, else two
+  const bool mma16 = route_of(q_blk, q_bf16, kind) == ROUTE_BF16_MMA;
+  // three stages while two blocks still fit on an SM, else two, decided on
+  // fp32 q rows; the bf16-mma route's chunk kernel always takes two (more
+  // blocks an SM: its short spans wait on latency, not on the ring), so it
+  // never needs more bytes than the other routes
   for (int s = 3; s >= 2; --s) {
     const Layout L = layout(hd, kind, g.rows_pad, g.groups, span_pages, s,
-                            g.chunk);
-    if (s == 2 || L.total <= 113 * 1024) {
+                            g.chunk, false);
+    if (s == 2 || (L.total <= 113 * 1024 && !(mma16 && g.chunk))) {
       *stages = s;
-      return L.total;
+      return layout(hd, kind, g.rows_pad, g.groups, span_pages, s, g.chunk,
+                    mma16).total;
     }
   }
   return 0;
@@ -470,11 +499,18 @@ extern "C" {
 
 // Dynamic shared memory bytes one span block needs (R = q_blk * G rows).
 // The wrapper checks it against the 227 KB a block may opt into.
-// kind: 0 fp32 pages, 1 int8 pages with bf16 scales, 2 bf16 pages.
+// kind: 0 fp32 pages, 1 int8 pages with bf16 scales, 2 bf16 pages;
+// q_bf16: q is bf16.
 int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int kind,
-                                    int span_pages) {
+                                    int span_pages, int q_bf16) {
   int stages;
-  return smem_bytes(R, q_blk, hd, kind, span_pages, &stages);
+  return smem_bytes(R, q_blk, hd, kind, span_pages, q_bf16, &stages);
+}
+
+// The route a call takes (Route: 0 the chunk path's TF32 products, 1 bf16
+// products of bf16 q over bf16 pages, 2 the decode path's shuffle dots).
+int qmc_ragged_paged_attention_route(int q_blk, int q_bf16, int kind) {
+  return route_of(q_blk, q_bf16, kind);
 }
 
 // q [B, S_pad, H, hd] fp32, or bf16 when q_bf16 (S_pad a multiple of
@@ -482,8 +518,10 @@ int qmc_ragged_paged_attention_smem(int R, int q_blk, int hd, int kind,
 // scales [n_pages, page, KV] (kind 1) or bf16 (kind 2);
 // tbl [B, P] int32; q_start / kv_len [B] int32. o [B, S_pad, H, hd] and
 // m / l [B, S_pad, H] fp32. window <= 0 and softcap <= 0 mean off. Spans
-// of span_pages pages (a multiple of stage_keys(hd, kind) / page), n_spans = ceil(P /
-// span_pages); with n_spans > 1, po / pm / pl are the fp32 workspace
+// of span_pages pages (a multiple of stage_keys(hd, kind) / page) cut from
+// each q block's window floor (first_page), n_spans = ceil(W / span_pages)
+// for W = P, or min(P, ceil((window + q_blk - 1) / page) + 1) under a
+// window; with n_spans > 1, po / pm / pl are the fp32 workspace
 // [n_spans, B, S_pad, H(, hd)]. slice_pages > 0: the pages hold the slice
 // [slice_first, slice_first + slice_pages) of the global arena, table
 // entries are global page ids and only those inside the slice are read
@@ -525,7 +563,8 @@ int qmc_ragged_paged_attention(
   a.slice_pages = slice_pages;
   const int rows = q_blk * (H / KV);
   const Geometry g = geometry(rows, q_blk, hd, kind);
-  const int smem = smem_bytes(rows, q_blk, hd, kind, span_pages, &a.stages);
+  const int smem = smem_bytes(rows, q_blk, hd, kind, span_pages, q_bf16,
+                              &a.stages);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_spans, B * KV, S_pad / q_blk);
   const int rc = launch_span(grid, g.threads, smem, a, st);

@@ -1,6 +1,7 @@
 // Shared pieces of the ragged paged-attention kernels (paged_attention.cu:
 // the chunk path, the span merge and the C entry points;
-// paged_attention_decode.cu: the decode path). The design note is at the
+// paged_attention_chunk_bf16.cu: the chunk path of bf16 q over bf16 pages;
+// paged_attention_decode*.cu: the decode path). The design note is at the
 // top of paged_attention.cu.
 #pragma once
 #include <cuda_bf16.h>
@@ -15,11 +16,24 @@ constexpr int STAGE_KEYS = 64;  // keys per ring stage (stage_keys: 32 for
 constexpr int KEY_TILE = 16;    // keys per warp work item
 constexpr int MAX_THREADS = 256;
 constexpr float NEG = -1e30f;  // the reference's mask value
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // What the K/V pages hold. fp32 pages are split into hi + lo TF32 parts on
-// the chunk path; int8 codes (with bf16 scales) and bf16 values are exact
-// in TF32 and are widened to fp32 as they leave the ring.
+// the chunk path; int8 codes (with bf16 scales) and bf16 values under an
+// fp32 q are exact in TF32 and are widened to fp32 as they leave the ring;
+// bf16 values under a bf16 q go to bf16 tensor-core products as they are.
 enum Kind { KIND_F32 = 0, KIND_I8 = 1, KIND_BF16 = 2 };
+
+// Which kernel family a call runs (route_of): the chunk path's TF32
+// products, the bf16 products of bf16 q over bf16 pages (chunk and
+// decode), or the decode path's warp-shuffle dots.
+enum Route { ROUTE_TF32 = 0, ROUTE_BF16_MMA = 1, ROUTE_SHUFFLE = 2 };
+
+__host__ __device__ inline int route_of(int q_blk, int q_bf16, int kind) {
+  if (q_bf16 && kind == KIND_BF16) return ROUTE_BF16_MMA;
+  return q_blk > 1 ? ROUTE_TF32 : ROUTE_SHUFFLE;
+}
 
 struct Args {
   const void* q;  // fp32, or bf16 when q_bf16 (widened as it is read)
@@ -67,9 +81,12 @@ __host__ __device__ constexpr int stage_keys(int hd, int kind) {
   return row_bytes(hd, kind) > 512 ? STAGE_KEYS / 2 : STAGE_KEYS;
 }
 
+// chunk: the chunk path, whose q rows sit beside the ring: fp32 hi + lo
+// TF32 parts, or bf16 as given on the bf16-mma route (mma16).
 __host__ __device__ inline Layout layout(int hd, int kind, int rows_pad,
                                          int groups, int span_pages,
-                                         int stages, bool chunk) {
+                                         int stages, bool chunk,
+                                         bool mma16) {
   Layout L;
   // 16 bytes of padding per row (fp32 K: 32) make the fragment loads
   // conflict-free (see the note in paged_attention.cu)
@@ -81,7 +98,9 @@ __host__ __device__ inline Layout layout(int hd, int kind, int rows_pad,
             (kind == KIND_I8 ? 2 * 4 * L.keys : 0);
   L.tbl = align16(span_pages * 4);
   L.ring = stages * L.stage;
-  L.q = chunk ? 2 * rows_pad * (hd + 8) * 4 : 0;
+  L.q = !chunk ? 0
+        : mma16 ? rows_pad * (hd + 8) * 2
+                : 2 * rows_pad * (hd + 8) * 4;
   // the warps' final states, written over the ring once it is drained
   L.scratch = groups * rows_pad * (hd + 2) * 4;
   L.total = L.tbl + (L.ring > L.scratch ? L.ring : L.scratch) + L.q;
@@ -128,6 +147,58 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- bf16 tensor-core fragments (the bf16-mma route) ---------------------
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of a
+// 16-byte row of matrix l / 8, and register i of lane l receives elements
+// (l / 4, 2 (l % 4) .. + 1) of matrix i; .trans gives its transpose's.
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* row) {
+  const unsigned p = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(p));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const void* row) {
+  const unsigned p = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(p));
+}
+// c += a * b, m16n8k16, bf16 inputs, fp32 accumulate
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// the same with rows 8-15 of a zero (a decode tile: G <= 8 rows): a0, a2
+// are rows 0-7's fragments, c their two sums; rows 8-15's are dropped
+__device__ __forceinline__ void mma16_top(float (&c)[2], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  float d2, d3;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(c[0]),
+        "f"(c[1]), "f"(0.f), "f"(0.f));
+}
+// (x0, x1) as bf16 pairs hi + lo: hi their rounding, lo the rounding of
+// the exact rest, so x = hi + lo + r with |r| <= 2^-18 |x|
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 __device__ __forceinline__ float bf16_half(uint32_t word, int odd) {
   const uint16_t bits = odd ? (uint16_t)(word >> 16) : (uint16_t)word;
   return __bfloat162float(__ushort_as_bfloat16(bits));
@@ -154,25 +225,36 @@ __device__ __forceinline__ int live_pages(const Args& a, int b, int qb) {
   return (limit + a.page - 1) / a.page;
 }
 
+// First page of the walk of (lane b, q block qb): the page of the first key
+// its first query sees under the window, max(0, q0 - window + 1) / page
+// (0 without a window). No row of the block sees a key below it, so the
+// spans are cut from it to live_pages; the pages before it are never read.
+// kernels/paged_attention.py:first_page mirrors it.
+__device__ __forceinline__ int first_page(const Args& a, int b, int qb) {
+  if (a.window <= 0) return 0;
+  const int q0 = a.q_start[b] + qb * a.q_blk;
+  return max(0, q0 - a.window + 1) / a.page;
+}
+
 // Whether table entry e lies in the slice.
 __device__ __forceinline__ bool in_slice(const Args& a, int e) {
   return (unsigned)(e - a.slice_first) < (unsigned)a.slice_pages;
 }
 
-// The spans of a sliced call: lane b's first n table entries split into
+// The spans of a sliced call: lane b's table entries [lo, n) split into
 // runs of consecutive entries in the slice, each run cut into chunks of
 // span_pages pages from its start (so a span's pages are consecutive
 // logical pages, all in the slice, and its key positions stay linear).
 // Returns the number of chunks; chunk `want`, when it exists, starts at
 // logical page *p0 and holds *len pages. Every lane of a warp calls it
 // and gets the same answer (ballots over 32 entries at a time).
-__device__ inline int slice_chunks(const Args& a, int b, int n, int want,
-                                   int* p0, int* len) {
+__device__ inline int slice_chunks(const Args& a, int b, int lo, int n,
+                                   int want, int* p0, int* len) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const size_t row = (size_t)b * a.P;
   int count = 0, run = -1, first = -1, end = -1;
-  for (int base = 0; base < n; base += 32) {
+  for (int base = lo; base < n; base += 32) {
     const int p = base + lane;
     const bool in = p < n && in_slice(a, a.tbl[row + p]);
     const unsigned outs = ~__ballot_sync(0xffffffffu, in);
@@ -280,41 +362,66 @@ __device__ __forceinline__ bool visible(const Args& a, int pos_q, int pos_k,
          (a.window <= 0 || pos_q - pos_k < a.window);
 }
 
+// The keys a row at position pos_q sees, [lo, hi] (hi < lo: none): the
+// rule of visible() as a range, for a row that exists (row) in a lane
+// whose kv_len is kl.
+__device__ __forceinline__ void row_keys(const Args& a, bool row, int pos_q,
+                                         int kl, int& lo, int& hi) {
+  if (!row || pos_q >= kl) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  hi = pos_q;
+  lo = a.window > 0 ? pos_q - a.window + 1 : 0;
+}
+
 // The span's epilogue: merge the warps' states (groups in order) and write
-// the final (o, m, l) (one span) or this span's partial.
-__device__ inline void epilogue(const Args& a, const float* scratch, int groups,
-                         int rows, int rows_pad, int b, int h, int qb, int sp,
-                         int n_sp) {
+// the final (o, m, l) (one span) or this span's partial. Each row's weights
+// are computed once: rows' threads turn each group's m into its weight
+// exp(m - max m) in place and write the row's (m, l), then every element
+// sums its groups' partials.
+__device__ inline void epilogue(const Args& a, float* scratch, int groups,
+                                int rows, int rows_pad, int b, int h, int qb,
+                                int sp, int n_sp) {
   const int hd = a.hd;
   const int stride = hd + 2;  // per row: hd accumulators, then m, l
   const size_t rows_total = (size_t)a.B * a.S_pad * a.H;
-  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     float mx = NEG;
     for (int gi = 0; gi < groups; ++gi)
       mx = fmaxf(mx, scratch[((size_t)gi * rows_pad + r) * stride + hd]);
-    float acc = 0.f, lsum = 0.f;
+    float lsum = 0.f;
     for (int gi = 0; gi < groups; ++gi) {
-      const float* s = scratch + ((size_t)gi * rows_pad + r) * stride;
+      float* s = scratch + ((size_t)gi * rows_pad + r) * stride;
       const float w = expf(s[hd] - mx);
-      acc += s[d] * w;
       lsum += s[hd + 1] * w;
+      s[hd] = w;
     }
+    scratch[(size_t)r * stride + hd + 1] = lsum;  // group 0's l: read
     const size_t row = out_row(a, b, h, qb, r);
     if (n_sp == 1) {
-      a.o[row * hd + d] = acc / fmaxf(lsum, 1e-30f);
-      if (d == 0) {
-        a.m[row] = mx;
-        a.l[row] = lsum;
-      }
+      a.m[row] = mx;
+      a.l[row] = lsum;
     } else {
-      const size_t prow = (size_t)sp * rows_total + row;
-      a.po[prow * hd + d] = acc;
-      if (d == 0) {
-        a.pm[prow] = mx;
-        a.pl[prow] = lsum;
-      }
+      a.pm[(size_t)sp * rows_total + row] = mx;
+      a.pl[(size_t)sp * rows_total + row] = lsum;
     }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    float acc = 0.f;
+    for (int gi = 0; gi < groups; ++gi) {
+      const float* s = scratch + ((size_t)gi * rows_pad + r) * stride;
+      acc += s[d] * s[hd];
+    }
+    const size_t row = out_row(a, b, h, qb, r);
+    if (n_sp == 1)
+      a.o[row * hd + d] =
+          acc / fmaxf(scratch[(size_t)r * stride + hd + 1], 1e-30f);
+    else
+      a.po[((size_t)sp * rows_total + row) * hd + d] = acc;
   }
 }
 
@@ -344,14 +451,18 @@ __device__ inline bool span_of(const Args& a, int rows, Span& s) {
   s.h = blockIdx.y - s.b * a.KV;
   s.qb = blockIdx.z;
   const int n_live = live_pages(a, s.b, s.qb);
-  if constexpr (SLICED) {  // the chunks of the live runs in the slice
+  // the walk: pages [lo, n_live), from the window's first page
+  const int lo = n_live ? first_page(a, s.b, s.qb) : 0;
+  const int n_walk = n_live - lo;
+  if constexpr (SLICED) {  // the chunks of the walk's runs in the slice
     // runs are at most ceil(n / 2) (an entry outside the slice parts two),
     // so chunks at most that plus n / span_pages: a block past it has no
     // chunk to walk and leaves before the scan
-    if (n_live && s.sp >= (n_live + 1) / 2 + n_live / a.span_pages)
+    if (n_live && s.sp >= (n_walk + 1) / 2 + n_walk / a.span_pages)
       return false;
     int n_pg = 0;
-    s.n_sp = n_live ? slice_chunks(a, s.b, n_live, s.sp, &s.p0, &n_pg) : 0;
+    s.n_sp = n_live ? slice_chunks(a, s.b, lo, n_live, s.sp, &s.p0, &n_pg)
+                    : 0;
     if (s.n_sp == 0) {  // none of the q block's pages in the slice: rows 0
       if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
       return false;
@@ -363,9 +474,9 @@ __device__ inline bool span_of(const Args& a, int rows, Span& s) {
       if (s.sp == 0) write_dead(a, s.b, s.h, s.qb, rows);
       return false;
     }
-    s.n_sp = (n_live + a.span_pages - 1) / a.span_pages;
+    s.n_sp = (n_walk + a.span_pages - 1) / a.span_pages;
     if (s.sp >= s.n_sp) return false;
-    s.p0 = s.sp * a.span_pages;
+    s.p0 = lo + s.sp * a.span_pages;
     const int p1 = min(n_live, s.p0 + a.span_pages);
     s.n_keys = (p1 - s.p0) * a.page;
   }
@@ -406,9 +517,14 @@ __device__ inline void load_span_table(const Args& a, const Span& s,
   }
 }
 
+// The chunk path's bf16-mma route (bf16 q over bf16 pages), both slicings:
+// paged_attention_chunk_bf16.cu.
+int launch_chunk_bf16(dim3 grid, int threads, int smem, const Args& a,
+                      cudaStream_t stream);
+
 // The decode path's launchers, one unit per page kind and slicing so that
 // they compile in parallel: paged_attention_decode.cu (fp32), _i8.cu,
-// _bf16.cu, and the _sliced.cu of each.
+// _bf16.cu (both routes of bf16 pages), and the _sliced.cu of each.
 int launch_decode_f32(dim3 grid, int smem, const Args& a,
                       cudaStream_t stream);
 int launch_decode_i8(dim3 grid, int smem, const Args& a, cudaStream_t stream);

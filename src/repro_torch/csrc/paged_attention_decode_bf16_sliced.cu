@@ -1,7 +1,8 @@
 // Ragged paged attention, decode path (S = 1), over bf16 pages of a page
 // slice (a data rank's, on a mesh): the instantiations of
-// paged_attention_decode.cuh's kernel for that page kind and slicing, in
-// a unit of their own so that they compile in parallel with the others.
+// paged_attention_decode.cuh's kernels for that page kind and slicing
+// (the shuffle route under an fp32 q, the bf16-mma route under a bf16 q),
+// in a unit of their own so that they compile in parallel with the others.
 // Design note: paged_attention.cu.
 #include "paged_attention_decode.cuh"
 
@@ -9,6 +10,8 @@ namespace qmc_pa {
 
 int launch_decode_bf16_sliced(dim3 grid, int smem, const Args& a,
                               cudaStream_t st) {
+  if (a.q_bf16)  // bf16 q over bf16 pages: the bf16-mma route
+    return launch_decode_bf16_mma<true>(grid, smem, a, st);
   return launch_decode_kind<KIND_BF16, true>(grid, smem, a, st);
 }
 

@@ -46,7 +46,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _P],
     "qmc_ragged_paged_attention": [_P] * 14 + [_I] * 9 + [_F, _F]
                                   + [_I] * 6 + [_P],
-    "qmc_ragged_paged_attention_smem": [_I] * 5,
+    "qmc_ragged_paged_attention_smem": [_I] * 6,
+    "qmc_ragged_paged_attention_route": [_I] * 3,
     "qmc_unpack3b": [_P, _P, _L, _P],
     "qmc_empty": [_P],
 }

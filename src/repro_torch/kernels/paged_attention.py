@@ -11,21 +11,30 @@ the pages of ``block_tbl[b]`` causally, bounded by ``kv_len[b]``; query
 rows at or past ``kv_len`` emit exactly 0.
 
 The kernel walks each (lane, KV head, q block)'s causally live pages only
-(``live_pages``). A q block is ``Q_BLOCK`` tokens, halved by ``q_block_for``
+(``live_pages``), and under a sliding window only from the window's first
+page on (``first_page``: the page of the first key the block's first
+query sees). A q block is ``Q_BLOCK`` tokens, halved by ``q_block_for``
 where its rows and page ring outgrow a block's shared memory (hd 128 at
 G = 6 over fp32 pages, dbrx-132b: 8 tokens). The same ``q_block_for``
 sets the block of the host-side stream account
 (``memsys.workload.chunk_pages_streamed``, the engine's
-``prefill_kv_pages_live`` counter), which stays page-for-page with the
-kernel's loop bound. The live pages are cut into spans of
-``span_pages`` pages, one block each (split-KV); ``span_plan`` lists the
-page ranges the span blocks walk, and the kernel's second pass merges the
-spans of a row in span order.
+``prefill_kv_pages_live`` counter), which counts every causally live page
+as the reference does: without a window it equals the pages the kernel
+walks, under a window the kernel reads fewer (``live_pages(...,
+window=)``). The walk is cut into spans of ``span_pages`` pages, one
+block each (split-KV); ``span_plan`` lists the page ranges the span
+blocks walk, and the kernel's second pass merges the spans of a row in
+span order.
 
 q may be fp32 or bf16 and the pages fp32, bf16 or int8 (with bf16
-scales): the kernel widens each to fp32 as it reads it, as the reference
-casts them, and returns ``(o, m, l)`` in fp32; ``ragged_paged_attention``
-casts ``o`` to q's dtype.
+scales), and the kernel returns ``(o, m, l)`` in fp32;
+``ragged_paged_attention`` casts ``o`` to q's dtype. It takes one of
+three routes (``route``, counted in ``route_launches``): bf16 q over bf16
+pages runs bf16 tensor-core products (``"bf16-mma"``: q times K exact in
+fp32, p as bf16 hi + lo against V); otherwise q and the pages are widened
+to fp32 as they are read, as the reference casts them, and a chunk runs
+TF32 tensor-core products at fp32 accuracy (``"tf32"``), a decode step
+fp32 warp-shuffle dots (``"shuffle"``).
 
 A page slice ``(first, n)`` (JAX's ``meta``) says that the pages passed
 hold global pages ``[first, first + n)`` of the arena, a data rank's slice
@@ -65,6 +74,9 @@ _MAX_G = 8                # decode rows (G) / chunk 16-row m tiles
 # the kernel's page kinds (csrc/paged_attention.cuh: Kind) and their bytes
 _PAGE_KIND = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
 _KIND_BYTES = {0: 4, 1: 1, 2: 2}
+# the kernel's routes (csrc/paged_attention.cuh: Route) and their launches
+ROUTES = ("tf32", "bf16-mma", "shuffle")
+route_launches = {r: 0 for r in ROUTES}
 
 
 def stage_keys(hd: int, kind: int) -> int:
@@ -74,23 +86,48 @@ def stage_keys(hd: int, kind: int) -> int:
     return STAGE_KEYS // 2 if hd * _KIND_BYTES[kind] > 512 else STAGE_KEYS
 
 
+def first_page(q0: int, page: int, window: Optional[int] = None) -> int:
+    """First page the kernel walks for a q block whose first query sits at
+    ``q0``: the page of the first key that query sees under the window,
+    ``max(0, q0 - window + 1) // page`` (no row of the block sees a key
+    below it); 0 without a window (``csrc/paged_attention.cuh:
+    first_page``)."""
+    return max(0, q0 - window + 1) // page if window else 0
+
+
 def live_pages(q_start: int, kv_len: int, qb: int, q_blk: int,
-               page: int) -> int:
+               page: int, window: Optional[int] = None) -> int:
     """Causally live pages of q block ``qb`` of one lane: 0 when the block
     is dead (its first position is at or past ``kv_len``), else
-    ``ceil(min(kv_len, q_start + (qb+1)*q_blk) / page)``."""
-    if q_start + qb * q_blk >= kv_len:
+    ``ceil(min(kv_len, q_start + (qb+1)*q_blk) / page)``; under a
+    ``window``, those from ``first_page`` on (the pages the kernel
+    walks)."""
+    q0 = q_start + qb * q_blk
+    if q0 >= kv_len:
         return 0
-    return -(-min(kv_len, q_start + (qb + 1) * q_blk) // page)
+    return (-(-min(kv_len, q0 + q_blk) // page)
+            - first_page(q0, page, window))
 
 
-def slice_runs(tbl_row, n: int, page_slice) -> list:
-    """The runs ``[p0, p1)`` of consecutive entries among a lane's first
-    ``n`` table entries (global page ids) that lie in ``page_slice =
+def walk_width(n_tbl: int, page: int, q_blk: int,
+               window: Optional[int] = None) -> int:
+    """The most pages one (lane, q block) walks over ``[., n_tbl]``
+    tables: ``n_tbl``, or under a window ``min(n_tbl, ceil((window + q_blk
+    - 1) / page) + 1)`` (its rows see keys ``[q0 - window + 1, q0 + q_blk
+    - 1]``). The wrapper sizes the span split, the grid and the partial
+    workspace by it."""
+    if not window:
+        return n_tbl
+    return min(n_tbl, -(-(window + q_blk - 1) // page) + 1)
+
+
+def slice_runs(tbl_row, n: int, page_slice, lo: int = 0) -> list:
+    """The runs ``[p0, p1)`` of consecutive entries among a lane's table
+    entries ``[lo, n)`` (global page ids) that lie in ``page_slice =
     (first, pages)``: what a sliced call walks."""
     first, n_slice = page_slice
     runs, start = [], None
-    for p in range(n + 1):
+    for p in range(lo, n + 1):
         inside = p < n and 0 <= int(tbl_row[p]) - first < n_slice
         if inside and start is None:
             start = p
@@ -113,13 +150,15 @@ def span_pages(n_items: int, n_tbl: int, page: int, n_sm: int = 132,
 
 
 def smem_bytes(rows: int, q_blk: int, hd: int, kind: int,
-               n_span_pages: int) -> int:
+               n_span_pages: int, q_bf16: bool = False) -> int:
     """Dynamic shared memory of one span block over ``rows = q_blk * G``
     query rows (``csrc/paged_attention.cu:smem_bytes`` and the ``Layout``
     of ``paged_attention.cuh``, which the card test holds it to): the
     span's table, the page ring (three stages while two blocks fit an SM,
-    else two) or the warps' final states over it, and a chunk's q rows as
-    fp32 hi + lo."""
+    else two, decided on fp32 q rows; always two on the bf16-mma route's
+    chunk path) or the warps' final states over it, and a chunk's q rows
+    as fp32 hi + lo, or as bf16 on the bf16-mma route (``q_bf16`` over bf16
+    pages), which so never needs more."""
     chunk = q_blk > 1
     keys = stage_keys(hd, kind)
     tiles = keys // 16        # 16-key warp work items per ring stage
@@ -135,11 +174,14 @@ def smem_bytes(rows: int, q_blk: int, hd: int, kind: int,
     stage = keys * (k_row + rb + 16) + (8 * keys if kind == 1 else 0)
     tbl = -(-n_span_pages * 4 // 16) * 16
     q = 2 * rows_pad * (hd + 8) * 4 if chunk else 0
+    # the bf16-mma route's q rows: bf16, not fp32 hi + lo
+    q_mma = rows_pad * (hd + 8) * 2 if chunk else 0
+    mma16 = q_bf16 and kind == _PAGE_KIND[torch.bfloat16]
     scratch = groups * rows_pad * (hd + 2) * 4
-    for stages in (3, 2):
+    for stages in (3, 2):   # decided on fp32 q rows; a bf16-mma chunk: 2
         total = tbl + max(stages * stage, scratch) + q
-        if stages == 2 or total <= 113 * 1024:
-            return total
+        if stages == 2 or (total <= 113 * 1024 and not (mma16 and chunk)):
+            return total - q + q_mma if mma16 else total
 
 
 def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
@@ -149,7 +191,8 @@ def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
     span such a table can give outgrow a block's shared memory. A call of
     width ``s`` runs ``min(q_block_for(...), s)``; the engine's stream
     account counts with the same block (pages the kernel does not take
-    keep ``Q_BLOCK``)."""
+    keep ``Q_BLOCK``). It sizes q rows as fp32 hi + lo, so a bf16 q (whose
+    rows take less) gets the same block."""
     kind = _PAGE_KIND.get(page_dtype)
     if kind is None:
         return Q_BLOCK
@@ -163,26 +206,49 @@ def q_block_for(g: int, hd: int, page_dtype: torch.dtype, n_tbl: int,
 
 
 def span_plan(q_start, kv_len, s: int, page: int, n_span_pages: int,
-              q_block: int = Q_BLOCK, tbl=None, page_slice=None) -> list:
+              q_block: int = Q_BLOCK, tbl=None, page_slice=None,
+              window: Optional[int] = None) -> list:
     """The page ranges ``[p0, p1)`` the span blocks of each (lane, q block)
     walk, per lane and q block, for queries of width ``s`` in blocks of
     ``min(q_block, s)`` tokens (what the kernel computes on the card from
-    the same rule). With a ``page_slice`` (and the tables ``tbl [B, P]``)
-    the spans are each run of the slice's live pages (``slice_runs``) cut
-    into ``n_span_pages`` from its start."""
+    the same rule): the live pages from ``first_page`` on (page 0 without
+    a ``window``). With a ``page_slice`` (and the tables ``tbl [B, P]``)
+    the spans are each run of the slice's walked pages (``slice_runs``)
+    cut into ``n_span_pages`` from its start."""
     q_blk = min(q_block, s)
     out = []
     for b, (qs, kl) in enumerate(zip(q_start, kv_len)):
         lane = []
         for qb in range(-(-s // q_blk)):
             n = live_pages(int(qs), int(kl), qb, q_blk, page)
-            runs = [(0, n)] if page_slice is None else slice_runs(
-                tbl[b], n, page_slice)
+            lo = first_page(int(qs) + qb * q_blk, page, window) if n else 0
+            runs = [(lo, n)] if page_slice is None else slice_runs(
+                tbl[b], n, page_slice, lo)
             lane.append([(p0, min(r1, p0 + n_span_pages))
                          for r0, r1 in runs
                          for p0 in range(r0, r1, n_span_pages)])
         out.append(lane)
     return out
+
+
+def n_spans_for(width: int, n_span_pages: int, n_slice: int = 0) -> int:
+    """Span blocks of the grid (and partials of the workspace) for walks
+    of at most ``width`` pages: ``ceil(width / n_span_pages)``; over a
+    page slice of ``n_slice`` pages, at most ``ceil(width / 2)`` runs (an
+    entry outside the slice parts two) plus ``width // n_span_pages``
+    chunks (``csrc/paged_attention.cuh:span_of``)."""
+    if not n_slice:
+        return max(1, -(-width // n_span_pages))
+    return max(1, min(width, n_slice,
+                      (width + 1) // 2 + width // n_span_pages))
+
+
+@functools.lru_cache(maxsize=None)
+def route(q_blk: int, q_bf16: bool, kind: int) -> str:
+    """The route the library takes for a call (``csrc/paged_attention.cuh:
+    route_of``): ``"bf16-mma"``, ``"tf32"`` or ``"shuffle"``."""
+    return ROUTES[build.library().qmc_ragged_paged_attention_route(
+        q_blk, int(q_bf16), kind)]
 
 
 def shard_compatible(mesh, n_pages_total: int) -> bool:
@@ -324,15 +390,15 @@ def ragged_paged_attention_call(
     qb_n = -(-s // q_blk)
     s_pad = qb_n * q_blk
     first, n_slice = page_slice if page_slice is not None else (0, 0)
-    sp = span_pages(b * n_kv * qb_n, n_tbl, page, _sm_count(q.device),
+    # the widest walk (under a window, from its first page) sets the span
+    # split, the grid and the workspace
+    width = walk_width(n_tbl, page, q_blk, window)
+    sp = span_pages(b * n_kv * qb_n, width, page, _sm_count(q.device),
                     stage_keys(hd, kind))
-    # a sliced call's spans are chunks of runs of entries in the slice:
-    # at most ceil(n_tbl / 2) runs (an entry outside parts two), so at most
-    # that plus n_tbl // sp chunks (csrc/paged_attention.cuh:span_of)
-    n_spans = max(1, -(-n_tbl // sp) if not n_slice
-                  else min(n_tbl, n_slice, (n_tbl + 1) // 2 + n_tbl // sp))
+    n_spans = n_spans_for(width, sp, n_slice)
+    q_bf16 = q.dtype == torch.bfloat16
     smem = lib.qmc_ragged_paged_attention_smem(q_blk * g, q_blk, hd, kind,
-                                               sp)
+                                               sp, int(q_bf16))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"kernel needs {smem} B of shared memory "
                          f"(> {_SMEM_LIMIT})")
@@ -367,10 +433,11 @@ def ragged_paged_attention_call(
             b, s_pad, h, n_kv, hd, page, n_tbl, q_blk,
             int(window) if window is not None else 0,
             float(attn_softcap) if attn_softcap else 0.0,
-            float(hd) ** -0.5, int(q.dtype == torch.bfloat16), kind, sp,
+            float(hd) ** -0.5, int(q_bf16), kind, sp,
             n_spans, first, n_slice, stream)
     build.check(rc, "ragged_paged_attention")
     build.count_launch("ragged_paged_attention")
+    route_launches[route(q_blk, q_bf16, kind)] += 1
     return o[:, :s], m[:, :s], l[:, :s]
 
 

@@ -10,16 +10,20 @@ engine keeps: every causally live page is visited exactly once, and the
 live-page total equals ``memsys.workload.chunk_pages_streamed`` (the
 engine's ``prefill_kv_pages_live`` counter), in the port and in the JAX
 package; where the kernel halves its q block (``q_block_for``), the
-engine counts with the halved block."""
+engine counts with the halved block. Under a sliding window the kernel
+walks from the window's first page (``first_page``): exactly the pages
+some live row of the block sees, within the grid and workspace the
+wrapper sizes by ``walk_width``."""
 import numpy as np
 import pytest
 import torch
 
 from repro.memsys.workload import chunk_pages_streamed as jax_streamed
 from repro_torch.kernels.paged_attention import (Q_BLOCK, STAGE_KEYS,
-                                                 live_pages, q_block_for,
-                                                 smem_bytes, span_pages,
-                                                 span_plan, stage_keys)
+                                                 live_pages, n_spans_for,
+                                                 q_block_for, smem_bytes,
+                                                 span_pages, span_plan,
+                                                 stage_keys, walk_width)
 from repro_torch.kernels.qmm import COLSTRIP_BM, colstrip_splits
 from repro_torch.memsys.workload import chunk_pages_streamed
 from repro_torch.models.config import ModelConfig
@@ -76,6 +80,69 @@ def test_span_plan_visits_every_live_page_once(seed, n, s, page, max_start,
             assert len(spans) <= -(-n_tbl // sp)          # within the grid
             assert all(p1 - p0 <= sp for p0, p1 in spans)
             assert len(visited) == live_pages(qs, kl, qb, q_blk, page)
+
+
+WINDOWS = {  # window as a function of (page, the largest kv_len)
+    "w1": lambda page, top: 1,
+    "page-1": lambda page, top: page - 1,
+    "page": lambda page, top: page,
+    "3page+5": lambda page, top: 3 * page + 5,
+    "past-kv": lambda page, top: top + 1,
+}
+
+
+@pytest.mark.parametrize("wname", list(WINDOWS))
+@pytest.mark.parametrize("seed,n,s,page,max_start,n_sm", CASES)
+def test_windowed_span_plan_walks_only_what_the_window_reaches(
+        seed, n, s, page, max_start, n_sm, wname):
+    """Under a window the plan visits exactly the pages that some live row
+    of the block sees (keys ``[pos - window + 1, pos]``), each once, in
+    spans that fit the wrapper's windowed grid and workspace; over a page
+    slice, exactly those of them in the slice; a window past every
+    kv_len gives the unwindowed plan, and ``window=None`` today's."""
+    lanes = _lanes(seed, n, s, max_start)
+    q_start = [a for a, _ in lanes]
+    kv_len = [a + b for a, b in lanes]
+    window = WINDOWS[wname](page, max(kv_len))
+    q_blk = min(Q_BLOCK, s)
+    qb_n = -(-s // q_blk)
+    n_tbl = max(-(-kl // page) for kl in kv_len) + 1
+    width = walk_width(n_tbl, page, q_blk, window)
+    assert width <= n_tbl
+    sp = span_pages(n * 4 * qb_n, width, page, n_sm)
+    plan = span_plan(q_start, kv_len, s, page, sp, window=window)
+    # a table of distinct page ids, and a slice holding half of them
+    rng = np.random.default_rng(seed + 100)
+    tbl = rng.permutation(len(lanes) * n_tbl).reshape(len(lanes), n_tbl)
+    cut = (len(lanes) * n_tbl // 3, len(lanes) * n_tbl // 2)
+    sliced = span_plan(q_start, kv_len, s, page, sp, tbl=tbl,
+                       page_slice=cut, window=window)
+    for b, (qs, kl) in enumerate(zip(q_start, kv_len)):
+        for qb in range(qb_n):
+            q0 = qs + qb * q_blk
+            want = set()
+            for pos_q in range(q0, min(kl, q0 + q_blk)):
+                lo = max(0, pos_q - window + 1)
+                want |= {p for p in range(n_tbl)
+                         if p * page <= pos_q and (p + 1) * page > lo}
+            for spans, keep, n_sp in (
+                    (plan[b][qb], want, n_spans_for(width, sp)),
+                    (sliced[b][qb],
+                     {p for p in want if 0 <= tbl[b, p] - cut[0] < cut[1]},
+                     n_spans_for(width, sp, cut[1]))):
+                visited = [p for p0, p1 in spans for p in range(p0, p1)]
+                assert len(visited) == len(set(visited))  # once each
+                assert set(visited) == keep               # all, no more
+                assert len(spans) <= n_sp                 # within the grid
+                assert all(p1 - p0 <= sp for p0, p1 in spans)
+            assert len(want) == live_pages(qs, kl, qb, q_blk, page, window)
+            assert len(want) <= width
+    unwindowed = span_plan(q_start, kv_len, s, page, sp)
+    assert span_plan(q_start, kv_len, s, page, sp, window=None) == unwindowed
+    if wname == "past-kv":
+        assert plan == unwindowed
+        assert sliced == span_plan(q_start, kv_len, s, page, sp, tbl=tbl,
+                                   page_slice=cut)
 
 
 @pytest.mark.parametrize("seed,n,s,page,max_start,n_sm", CASES)

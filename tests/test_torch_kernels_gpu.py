@@ -35,8 +35,16 @@ over a page slice (a data rank's) at hd 80, 128 and 256 on every page
 kind against the sliced plain version (attention tolerances), the
 slices merged against the whole-arena call, and the whole-arena slice
 bit-identical to a call without one; over 2 slices at hymba-1.5b's shapes
-(G = 5, window 1024). The serving mesh's MoE rank (expert parallelism at
-M = 2): its experts' products through the qmm kernels, one ``moe`` sum,
+(G = 5, window 1024). bf16 q over bf16 pages on the bf16-mma route (the
+route counter says so) at hd 32, 64, 80, 128 and 256 and G 1, 2, 5, 6 and
+8, on both paths, with and without window and softcap and over 2 page
+slices; the walk from the window's first page at its edges (a floor mid-
+page and on a page boundary, spans cut off the page-0 grid, window 1, a
+window past kv_len) on every page kind, sliced too, and on every windowed
+case NaN in the pages before a lane's window leaves the output's bits as
+they were (no page before the window is read). The serving mesh's MoE
+rank (expert parallelism at M = 2): its experts' products through the qmm
+kernels, one ``moe`` sum,
 the two ranks' partial outputs adding up to the whole block's within
 1e-4 * max|y|. The training mesh's collectives with gradients on CUDA
 tensors over gloo: reduced dbrx-132b (expert parallelism, capacity and
@@ -367,7 +375,9 @@ def _attn_check(lanes, *, n_kv, g, quantized, gen, window=None, cap=None,
                 page=16, hd=64, bf16=False):
     """Kernel vs plain on one ragged case; returns the kernel's o. Rows at
     or past kv_len must be exactly 0 (m = -1e30, l = 0), two calls
-    bit-identical."""
+    bit-identical; under a window, NaN in every page before a lane's
+    window (``chip_smoke.poison_before_window``) leaves the output's bits
+    as they were: the kernel walks from the window's first page."""
     q, cache, qs, kl, n_new, _ = _attn_case(
         lanes, n_kv=n_kv, g=g, hd=hd, page=page, quantized=quantized,
         gen=gen, bf16=bf16)
@@ -385,6 +395,12 @@ def _attn_check(lanes, *, n_kv, g, quantized, gen, window=None, cap=None,
     for got, want in ((o, o_r), (m, m_r), (l, l_r)):
         torch.testing.assert_close(got[valid], want[valid], atol=1e-5,
                                    rtol=1e-4)
+    if window is not None:
+        bad, _ = _from_chip_smoke("poison_before_window")(cache, qs, window,
+                                                          page)
+        ob, mb, lb = ragged_paged_attention_call(q, bad, qs, kl, **kw)
+        assert torch.equal(ob, o) and torch.equal(mb, m) \
+            and torch.equal(lb, l)
     return o
 
 
@@ -438,6 +454,96 @@ def test_attention_bf16_queries_and_pages(gen, kv, path, g):
         n = min(16, kv)
         lanes = ((kv - n, n), (0, 0), (40, 16))
     _attn_check(lanes, n_kv=4, g=g, quantized=False, gen=gen, bf16=True)
+
+
+def _sliced_check(q, cache, qs, kl, n_new, kw, slices=2):
+    """The kernel over each of ``slices`` page slices (one launch each)
+    against the sliced plain version (rows with no key in a slice exactly
+    (0, -1e30, 0)), and the slices merged against the whole-arena call
+    (dead rows 0)."""
+    from repro_torch.kernels.paged_attention import merge_slices
+    n_pages = cache["k_pages"].shape[0]
+    bounds = [round(i * n_pages / slices) for i in range(slices + 1)]
+    build.reset_launches()
+    parts = []
+    for a, b in zip(bounds, bounds[1:]):
+        local = _local(cache, a, b - a)
+        o, m, l = ragged_paged_attention_call(q, local, qs, kl,
+                                              page_slice=(a, b - a), **kw)
+        o_r, m_r, l_r = ragged_paged_attention_ref(
+            q, local, qs, kl, page_slice=(a, b - a), **kw)
+        torch.cuda.synchronize()
+        live = l_r > 0
+        assert (o[~live] == 0).all() and (l[~live] == 0).all()
+        assert (m[~live] == -1e30).all()
+        for got, want in ((o, o_r), (m, m_r), (l, l_r)):
+            torch.testing.assert_close(got[live], want[live], atol=1e-5,
+                                       rtol=1e-4)
+        parts.append((o, m, l))
+    assert build.launches["ragged_paged_attention"] == slices
+    whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
+    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
+    merged = merge_slices(parts)
+    torch.testing.assert_close(merged[valid], whole[valid], atol=1e-5,
+                               rtol=1e-4)
+    assert (merged[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("g", [1, 2, 5, 6, 8])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+def test_attention_bf16_mma_route(gen, path, hd, g):
+    """bf16 q over bf16 pages takes the bf16-mma route (the route counter
+    says so) at every head dim and G the kernels take, on both paths:
+    without window and softcap, with both, and over 2 page slices with
+    the window, against the plain version at the attention tolerances."""
+    from repro_torch.kernels import paged_attention as kpa
+    if path == "decode":
+        lanes = ((300, 1), (0, 0), (17, 1), (95, 1))
+    else:
+        lanes = ((0, 40), (60, 16), (0, 0), (130, 1))
+    before = kpa.route_launches["bf16-mma"]
+    for window, cap in ((None, None), (40, 30.0)):
+        _attn_check(lanes, n_kv=2, g=g, hd=hd, quantized=False, gen=gen,
+                    bf16=True, window=window, cap=cap)
+    assert kpa.route_launches["bf16-mma"] - before == 2 * 2 + 1
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        lanes, n_kv=2, g=g, hd=hd, page=16, quantized=False, gen=gen,
+        bf16=True)
+    _from_chip_smoke("in_order")(cache)
+    _sliced_check(q, cache, qs, kl, n_new,
+                  dict(n_kv=2, head_dim=hd, window=40, attn_softcap=30.0))
+
+
+@pytest.mark.parametrize("edge", ["mid-page", "page-boundary",
+                                  "straddles-spans", "window-1",
+                                  "past-kv_len"])
+@pytest.mark.parametrize("path", ["decode", "chunk"])
+@pytest.mark.parametrize("pages", ["fp32", "int8", "bf16"])
+def test_attention_window_floor_edges(gen, pages, path, edge):
+    """The walk from the window's first page: lane 0's first query at 100
+    sees keys from 71 (mid-page 4) or from 64 (page 4's first key); a
+    window of 120 floors lane 1 mid-way through page 5, so that its
+    spans of 4 pages (one KV head) start off the page-0 grid; a window of
+    1 (each row sees itself), and one past every kv_len. Against the
+    plain version, with NaN in the pages before each lane's window
+    (``_attn_check``), and over 2 page slices numbered as the pool hands
+    them out (a run straddling the floor starts at it)."""
+    window = {"mid-page": 30, "page-boundary": 37, "straddles-spans": 120,
+              "window-1": 1, "past-kv_len": 10_000}[edge]
+    if path == "decode":
+        lanes = ((100, 1), (215, 1), (0, 0), (39, 1))
+    else:
+        lanes = ((100, 16), (200, 16), (0, 0), (37, 3))
+    kw = dict(n_kv=1, g=2, quantized=pages == "int8", gen=gen,
+              bf16=pages == "bf16")
+    _attn_check(lanes, window=window, **kw)
+    q, cache, qs, kl, n_new, _ = _attn_case(
+        lanes, n_kv=1, g=2, hd=64, page=16, quantized=pages == "int8",
+        gen=gen, bf16=pages == "bf16")
+    _from_chip_smoke("in_order")(cache)
+    _sliced_check(q, cache, qs, kl, n_new,
+                  dict(n_kv=1, head_dim=64, window=window))
 
 
 @pytest.mark.parametrize("q_bf16", [False, True], ids=["fp32q", "bf16q"])
@@ -1205,8 +1311,9 @@ def test_attention_gemma2_shapes_hd256_window_softcap(gen, path, pages):
 def test_smem_bytes_mirror_the_librarys(gen):
     """``kernels.paged_attention.smem_bytes`` (which ``q_block_for`` and
     so the engine's stream account read on any device) equals the
-    library's own count on every path, page kind and span width (hd 256
-    over fp32 pages: 32-key stages)."""
+    library's own count on every path, page kind, q dtype and span width
+    (hd 256 over fp32 pages: 32-key stages; bf16 q over bf16 pages: the
+    bf16-mma route's bf16 q rows, never more than fp32 q's)."""
     from repro_torch.kernels.paged_attention import smem_bytes
     lib = build.library()
     for hd in (32, 64, 80, 128, 256):
@@ -1215,10 +1322,15 @@ def test_smem_bytes_mirror_the_librarys(gen):
                              (8, 6), (16, 1), (16, 2), (16, 5), (16, 6),
                              (16, 8)):
                 for sp in (4, 16, 64, 2048):
-                    want = lib.qmc_ragged_paged_attention_smem(
+                    for q_bf16 in (0, 1):
+                        want = lib.qmc_ragged_paged_attention_smem(
+                            q_blk * g, q_blk, hd, kind, sp, q_bf16)
+                        assert smem_bytes(q_blk * g, q_blk, hd, kind, sp,
+                                          bool(q_bf16)) == want, (
+                            hd, kind, q_blk, g, sp, q_bf16)
+                    assert smem_bytes(q_blk * g, q_blk, hd, kind, sp,
+                                      True) <= smem_bytes(
                         q_blk * g, q_blk, hd, kind, sp)
-                    assert smem_bytes(q_blk * g, q_blk, hd, kind,
-                                      sp) == want, (hd, kind, q_blk, g, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -1240,7 +1352,7 @@ def _local(cache, first, n):
 
 
 @pytest.mark.parametrize("slices", [2, 4])
-@pytest.mark.parametrize("hd", [80, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("pages", ["fp32", "bf16", "int8"])
 def test_sliced_attention_matches_sliced_plain(gen, pages, hd, slices):
     """The kernel over each of 2 or 4 page slices (the rows whose pages
@@ -1248,34 +1360,9 @@ def test_sliced_attention_matches_sliced_plain(gen, pages, hd, slices):
     chunk and decode lanes beside an idle one; the slices merged
     (``merge_slices``) against the kernel over the whole arena; a slice
     with no live page of a row gives o 0, m -1e30, l 0."""
-    from repro_torch.kernels.paged_attention import merge_slices
     q, cache, qs, kl, n_new = _slice_case(gen, hd, pages)
-    kw = dict(n_kv=2, head_dim=hd)
-    n_pages = cache["k_pages"].shape[0]
-    bounds = [round(i * n_pages / slices) for i in range(slices + 1)]
-    build.reset_launches()
-    parts = []
-    for a, b in zip(bounds, bounds[1:]):
-        local = _local(cache, a, b - a)
-        o, m, l = ragged_paged_attention_call(q, local, qs, kl,
-                                              page_slice=(a, b - a), **kw)
-        o_r, m_r, l_r = ragged_paged_attention_ref(
-            q, local, qs, kl, page_slice=(a, b - a), **kw)
-        torch.cuda.synchronize()
-        live = l_r > 0
-        assert (o[~live] == 0).all() and (l[~live] == 0).all()
-        assert (m[~live] == -1e30).all()
-        for got, want in ((o, o_r), (m, m_r), (l, l_r)):
-            torch.testing.assert_close(got[live], want[live], atol=1e-5,
-                                       rtol=1e-4)
-        parts.append((o, m, l))
-    assert build.launches["ragged_paged_attention"] == slices
-    whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
-    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
-    merged = merge_slices(parts)
-    torch.testing.assert_close(merged[valid], whole[valid], atol=1e-5,
-                               rtol=1e-4)
-    assert (merged[~valid] == 0).all()
+    _sliced_check(q, cache, qs, kl, n_new, dict(n_kv=2, head_dim=hd),
+                  slices)
 
 
 @pytest.mark.parametrize("pages", ["fp32", "bf16", "int8"])
@@ -1505,39 +1592,20 @@ def test_moe_ep_rank_runs_its_experts_through_qmm(gen, rows):
         1e-4 * float(whole.abs().max())
 
 
-@pytest.mark.parametrize("pages", ["fp32", "bf16"])
+@pytest.mark.parametrize("pages", ["fp32", "bf16", "int8"])
 def test_sliced_attention_at_hymba_shapes(gen, pages):
     """The kernel over each of 2 page slices at hymba-1.5b's shapes (5 KV
     heads of 25, G = 5, hd 64, its 1024-token window, kv_len up to 2048;
     chip_smoke's row 3d-h), decode lanes and a chunk past the window,
     against the sliced plain version; the slices merged against the
     whole-arena call."""
-    from repro_torch.kernels.paged_attention import merge_slices
     lanes = ((2047, 1), (1800, 1), (1100, 128), (0, 0), (1030, 1))
     q, cache, qs, kl, n_new, _ = _attn_case(
-        lanes, n_kv=5, g=5, hd=64, page=16, quantized=False, gen=gen,
-        bf16=pages == "bf16")
+        lanes, n_kv=5, g=5, hd=64, page=16, quantized=pages == "int8",
+        gen=gen, bf16=pages == "bf16")
     _from_chip_smoke("in_order")(cache)
-    kw = dict(n_kv=5, head_dim=64, window=1024)
-    n_pages = cache["k_pages"].shape[0]
-    parts = []
-    for a, b in ((0, n_pages // 2), (n_pages // 2, n_pages)):
-        local = _local(cache, a, b - a)
-        o, m, l = ragged_paged_attention_call(q, local, qs, kl,
-                                              page_slice=(a, b - a), **kw)
-        o_r, m_r, l_r = ragged_paged_attention_ref(
-            q, local, qs, kl, page_slice=(a, b - a), **kw)
-        torch.cuda.synchronize()
-        live = l_r > 0
-        assert (o[~live] == 0).all() and (l[~live] == 0).all()
-        for got, want in ((o, o_r), (m, m_r), (l, l_r)):
-            torch.testing.assert_close(got[live], want[live], atol=1e-5,
-                                       rtol=1e-4)
-        parts.append((o, m, l))
-    whole, _, _ = ragged_paged_attention_call(q, cache, qs, kl, **kw)
-    valid = torch.arange(q.shape[1], device="cuda")[None, :] < n_new[:, None]
-    torch.testing.assert_close(merge_slices(parts)[valid], whole[valid],
-                               atol=1e-5, rtol=1e-4)
+    _sliced_check(q, cache, qs, kl, n_new,
+                  dict(n_kv=5, head_dim=64, window=1024))
 
 
 # ---------------------------------------------------------------------------
