@@ -6,9 +6,11 @@ complete ("X") duration events plus instant ("i") point events, in the
 Chrome ``traceEvents`` format — load the exported file in Perfetto
 (https://ui.perfetto.dev) or ``chrome://tracing``. Timestamps are
 microseconds from the tracer's construction (``time.perf_counter``
-based), one track per Python thread. Pure host-side: tracing a round
-costs a handful of ``perf_counter`` calls and dict appends; a *disabled*
-tracer costs one branch per call site. No call of this module may run
+based), one track per Python thread, and on the card one ``device``
+track read from CUDA events (below). Tracing a round costs a handful of
+``perf_counter`` calls and dict appends, and on the card three pairs of
+event records at most; a *disabled* tracer costs one branch per call
+site. No call of this module may run
 inside a ``torch.cuda.graph`` capture: the step set's graphs hold device
 work only, and every span, instant and counter is recorded around them.
 
@@ -79,6 +81,41 @@ Scheduler / cache / jit events:
     declared surface: the late-flag-flip bug class, surfaced instead of
     silently stalling a round 10x.
 
+The step call's pieces (port-only, no counterpart in the JAX trace) —
+complete events on an enabled tracer, nested inside ``round/device_step``,
+``round/dispatch`` or ``round/retire``, never ``phase_seconds`` keys
+(``serve/engine.py``):
+
+  * ``step/stage``   — ``GraphedStep.stage``: packing the round's inputs
+    into pinned staging and enqueuing their upload.
+  * ``step/launch``  — the graph replay (on the CPU, or with
+    ``cuda_graphs=False``, the eager run) and the enqueue of the readback
+    copy; args: ``c`` (the width), ``rows`` (lanes run x C), ``live``
+    (Σ ``n_new``), ``solo``, ``pipelined`` (the round enters the
+    pipeline), ``kv`` (each live lane's ``start + n_new``).
+  * ``step/wait``    — the host waiting on the readback event (nothing to
+    wait on on the CPU), in a synchronous round and in a pipelined retire.
+
+The device's clock (port-only; on the card with an enabled tracer, nothing
+on the CPU) — complete events on the ``device`` track (``tid``
+:data:`DEVICE_TID`), in the tracer's microseconds:
+
+  * ``device/step``      — one round's device work, from the staging upload
+    through the readback copy.
+  * ``device/page_ops``  — a page-ops flush that enqueued anything (copies,
+    resets, block tables).
+
+  Each is a pair of timing CUDA events on the current stream
+  (:meth:`Tracer.device_span`), taken from a pool reused across runs. The
+  engine anchors the clock at the start of each traced run
+  (:meth:`Tracer.device_anchor`: ``torch.cuda.synchronize()``, one event,
+  ``perf_counter`` read beside it) and turns the pairs into events at its
+  end (:meth:`Tracer.resolve_device`): device time is the anchor's host
+  time plus the events' elapsed time from it. A ``torch.profiler`` window
+  tied to the tracer by a marker kernel reads on the same clock.
+  :func:`idle_by_span` charges the device's idle time to the innermost
+  host span open over it (``EngineStats.device_idle_s``).
+
 Counter tracks — "C" events rendering as value lanes on the timeline:
 
   * ``pool/pages``  — per round (``serve/engine.py``): arena pages
@@ -91,11 +128,16 @@ Counter tracks — "C" events rendering as value lanes on the timeline:
 """
 from __future__ import annotations
 
+import bisect
+import heapq
 import json
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+# the ``tid`` of the device track (no Python thread has ident 0)
+DEVICE_TID = 0
 
 
 class _NullSpan:
@@ -129,6 +171,56 @@ class _Span:
         return False
 
 
+class _NullDeviceSpan:
+    """Shared no-op device span: a disabled tracer, or no anchored run."""
+
+    __slots__ = ()
+
+    def begin(self) -> None:
+        pass
+
+    def end(self) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_DEVICE_SPAN = _NullDeviceSpan()
+
+
+class _DeviceSpan:
+    """A pair of timing events on the current stream: :meth:`begin` records
+    the first, :meth:`end` the second (also usable as a context manager).
+    A span whose ``begin`` never ran records nothing."""
+
+    __slots__ = ("tracer", "name", "args", "i0")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict):
+        self.tracer, self.name, self.args = tracer, name, args
+        self.i0 = None
+
+    def begin(self) -> None:
+        self.i0 = self.tracer._record_event()
+
+    def end(self) -> None:
+        if self.i0 is not None:
+            self.tracer._device_pairs.append(
+                (self.name, self.i0, self.tracer._record_event(), self.args))
+            self.i0 = None
+
+    def __enter__(self):
+        self.begin()
+        return self
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
+
+
 class Tracer:
     """Chrome-trace span/instant recorder.
 
@@ -146,6 +238,15 @@ class Tracer:
         self._t0 = time.perf_counter()
         self._pid = os.getpid()
         self._lock = threading.Lock()
+        # the device clock: timing events reused across runs, how many the
+        # current run has recorded, its (name, begin, end, args) pairs, its
+        # anchor (event index, perf_counter seconds) and the stream that
+        # was current at the anchor, which every event of the run records on
+        self._device_events: list = []
+        self._device_used = 0
+        self._device_pairs: List[tuple] = []
+        self._anchor: Optional[Tuple[int, float]] = None
+        self._stream = None
 
     # ---- recording -----------------------------------------------------
     def _ts(self, t: float) -> float:
@@ -196,6 +297,71 @@ class Tracer:
         with self._lock:
             self.events.append(ev)
 
+    # ---- the device clock ----------------------------------------------
+    def device_anchor(self) -> None:
+        """Start a run on the device clock: wait for the device, record an
+        anchor event on the current stream (the run's device spans record
+        on it too) and read ``perf_counter`` beside it. A no-op when
+        disabled or without CUDA; the engine calls it at the start of each
+        traced run on the card."""
+        if not self.enabled:
+            return
+        import torch
+        if not torch.cuda.is_available():
+            return
+        torch.cuda.synchronize()
+        self._stream = torch.cuda.current_stream()
+        self._device_pairs.clear()          # what an aborted run left
+        self._device_used = 0
+        i = self._record_event()
+        self._anchor = (i, time.perf_counter())
+
+    def device_span(self, name: str, **args):
+        """A pair of timing events around device work enqueued on the
+        run's stream (:class:`_DeviceSpan`); the shared no-op span when
+        disabled or before :meth:`device_anchor` (so always on the CPU).
+        :meth:`resolve_device` turns the pair into an "X" event."""
+        if not self.enabled or self._anchor is None:
+            return _NULL_DEVICE_SPAN
+        return _DeviceSpan(self, name, args)
+
+    def _record_event(self) -> int:
+        import torch
+        if self._device_used == len(self._device_events):
+            self._device_events.append(torch.cuda.Event(enable_timing=True))
+        i = self._device_used
+        self._device_events[i].record(self._stream)
+        self._device_used = i + 1
+        return i
+
+    def resolve_device(self) -> List[dict]:
+        """End a run on the device clock: wait for its last event, append
+        each pair as an "X" event on the device track (``tid``
+        :data:`DEVICE_TID`) in the tracer's microseconds, and free the
+        events for the next run. Returns the new events ([] without an
+        anchor)."""
+        if self._anchor is None:
+            return []
+        i_anchor, t_anchor = self._anchor
+        events = self._device_events
+        events[self._device_used - 1].synchronize()
+        since, base = events[i_anchor].elapsed_time, self._ts(t_anchor)
+        out = []
+        for name, i0, i1, args in self._device_pairs:
+            ts = base + 1e3 * since(events[i0])
+            dur = base + 1e3 * since(events[i1]) - ts
+            ev = {"name": name, "ph": "X", "ts": ts, "dur": dur,
+                  "pid": self._pid, "tid": DEVICE_TID}
+            if args:
+                ev["args"] = args
+            out.append(ev)
+        with self._lock:
+            self.events.extend(out)
+        self._device_pairs.clear()
+        self._device_used = 0
+        self._anchor = self._stream = None
+        return out
+
     # ---- export --------------------------------------------------------
     def to_json(self) -> dict:
         return {"traceEvents": list(self.events),
@@ -220,6 +386,63 @@ class Tracer:
                 out[ev["name"]] = out.get(ev["name"], 0.0) \
                     + ev["dur"] * 1e-6
         return out
+
+
+# ---------------------------------------------------------------------------
+# the device's idle time, split by the host span it overlaps
+# ---------------------------------------------------------------------------
+OUTSIDE = "between rounds"
+
+
+def union(spans: Sequence[Tuple[float, float]], t0: float, t1: float
+          ) -> List[Tuple[float, float]]:
+    """The union of ``(start, end)`` intervals clipped to ``[t0, t1]``, as
+    sorted disjoint intervals."""
+    out: List[Tuple[float, float]] = []
+    for a, b in sorted((max(a, t0), min(b, t1)) for a, b in spans
+                       if b > t0 and a < t1):
+        if out and a <= out[-1][1]:
+            if b > out[-1][1]:
+                out[-1] = (out[-1][0], b)
+        elif b > a:
+            out.append((a, b))
+    return out
+
+
+def idle_by_span(host_spans: Sequence[Tuple[float, float, str]],
+                 device_spans: Sequence[Tuple[float, float]], t0: float,
+                 t1: float) -> Dict[str, float]:
+    """The device's idle time in ``[t0, t1]`` (the window less the union of
+    ``device_spans``), charged to the host spans ``(start, end, name)``:
+    each gap is cut at every host-span boundary it crosses, and each piece
+    goes to the innermost span open over it (of those open, the one begun
+    last; of two begun together, the one that ends first), or to
+    :data:`OUTSIDE` where none is. The charges sum to the window less the
+    busy time; times in the unit given."""
+    busy = union(device_spans, t0, t1)
+    edges = [t0] + [x for ab in busy for x in ab] + [t1]
+    gaps = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
+    spans = sorted((a, b, name) for a, b, name in host_spans
+                   if b > a and b > t0 and a < t1)
+    cuts = sorted({x for a, b, _ in spans for x in (a, b)})
+    out: Dict[str, float] = {}
+    # the spans begun so far, the innermost on top (latest start, then
+    # earliest end); those that have ended leave it when they surface
+    heap: List[Tuple[float, float, str]] = []
+    si = 0
+    for g0, g1 in gaps:
+        inner = cuts[bisect.bisect_right(cuts, g0):
+                     bisect.bisect_left(cuts, g1)]
+        for p, q in zip([g0] + inner, inner + [g1]):
+            while si < len(spans) and spans[si][0] <= p:
+                a, b, name = spans[si]
+                heapq.heappush(heap, (-a, b, name))
+                si += 1
+            while heap and heap[0][1] <= p:
+                heapq.heappop(heap)
+            name = heap[0][2] if heap else OUTSIDE
+            out[name] = out.get(name, 0.0) + (q - p)
+    return out
 
 
 # ---------------------------------------------------------------------------

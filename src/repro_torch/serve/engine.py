@@ -123,7 +123,16 @@ even with tracing off, and, on an enabled tracer, as spans inside one
 the ``serve_*`` metrics (``obs/metrics.py``). On the card
 ``round/device_step`` closes after the readback event has been waited
 on, so device time never shows as host time; in the pipelined loop that
-wait is ``round/retire``'s. With ``obs.costs`` capture on, the run also
+wait is ``round/retire``'s. An enabled tracer also gets the step call's
+port-only ``step/stage``, ``step/launch`` (with the round's width, rows,
+live rows and lane lengths) and ``step/wait`` spans, and on the card the
+device's own clock: a ``device/step`` span of CUDA events around each
+round's device work and a ``device/page_ops`` span around each page-ops
+flush, anchored at the run's start and resolved at its end into
+``EngineStats.device_busy_s`` / ``device_window_s`` / ``device_idle_s``
+(the idle time by the host span it overlaps; ``obs/trace.py``). Every
+round counts the step's rows (``step_rows``) and live rows
+(``step_live_rows``), traced or not. With ``obs.costs`` capture on, the run also
 leaves a :class:`~repro_torch.obs.costs.CostReport` in
 ``last_cost_report``.
 """
@@ -233,6 +242,11 @@ class EngineStats:
     graph_captures: int = 0
     capture_s: float = 0.0
     graph_replays: int = 0
+    # rows the step computed (lanes run x C: [slots, C], or [1, C] on the
+    # solo lane) and the live ones among them (Σ n_new: chunk tokens, one
+    # per decode lane, verify drafts), every round
+    step_rows: int = 0
+    step_live_rows: int = 0
     # per round: wall seconds from its dispatch to its emission (a
     # pipelined round's comes one round later) and tokens emitted; per
     # request: seconds from run() start to its first token
@@ -247,6 +261,16 @@ class EngineStats:
     # preempted request's discarded emissions are dropped with its tokens
     emit_times: Dict[int, List[float]] = dataclasses.field(
         default_factory=dict)
+    # the device clock of a traced run on the card (None off the card or
+    # with tracing off; obs/trace.py): the union of the device/* spans
+    # inside the run's window, the window (the clock's anchor, after a
+    # synchronize, to the loop's end), and the window's idle device
+    # seconds by the innermost host span open over them (round/*, step/*,
+    # "round", or "between rounds"; obs.trace.idle_by_span), which sum to
+    # window - busy
+    device_busy_s: Optional[float] = None
+    device_window_s: Optional[float] = None
+    device_idle_s: Optional[Dict[str, float]] = None
 
     @property
     def tokens_per_s(self) -> float:
@@ -257,14 +281,9 @@ class EngineStats:
         """Page-ops calls the batching avoided (one call per op)."""
         return max(0, self.page_ops_batched - self.page_op_flushes)
 
-    def per_token_latencies(self) -> List[float]:
-        return [s / t for s, t in zip(self.step_seconds, self.step_tokens)
-                if t]
-
     def itl_s(self) -> List[float]:
         """Per-request inter-token latencies: the gaps between a request's
-        consecutive emissions (unlike ``per_token_latencies``, which
-        spreads a round over all its tokens, prefill chunks included)."""
+        consecutive emissions."""
         gaps: List[float] = []
         for times in self.emit_times.values():
             gaps.extend(b - a for a, b in zip(times, times[1:]))
@@ -525,23 +544,28 @@ class ServeEngine:
     def step_set(self) -> Optional[serve_steps.PagedServeSteps]:
         return self._steps
 
-    def _flush_page_ops(self, pool: PagedKVPool) -> None:
+    def _flush_page_ops(self, pool: PagedKVPool,
+                        trc: obs_trace.Tracer) -> None:
         """The round's queued page copies, state resets and changed block
         tables in one page-ops call (more than ``slots`` copies drain in
         extra calls; the resets ride with the first); a round with nothing
-        queued and clean tables skips it."""
+        queued and clean tables skips it. On the card with tracing on, a
+        ``device/page_ops`` span covers the calls' device work."""
         copies, resets = self._pending_copies, self._pending_resets
         if not (copies or resets or pool.tables_dirty):
             return
         pool.check_tables()
         n_ops = len(copies) + len(resets) + 1
+        dev = trc.device_span("device/page_ops")
         first = True
         while first or copies:
             batch, copies[:] = copies[:self.slots], copies[self.slots:]
-            self._steps.apply_page_ops(self._arena, pool.block_tables,
-                                       batch, resets if first else ())
+            self._steps.apply_page_ops(
+                self._arena, pool.block_tables, batch,
+                resets if first else (), mark=dev.begin if first else None)
             self.stats.page_op_flushes += 1
             first = False
+        dev.end()
         pool.tables_rebuilds += 1
         pool.tables_dirty = False
         self.stats.page_ops_batched += n_ops
@@ -588,6 +612,13 @@ class ServeEngine:
 
         def phase(name: str) -> _PhaseSpan:
             return _PhaseSpan(name, trc, phase_hist, self.stats)
+
+        # the device clock of a traced run on the card: anchored here,
+        # resolved after the loop
+        clock = trc.enabled and self.device.type == "cuda"
+        if clock:
+            trc.device_anchor()
+            ev0, t_clock0 = len(trc.events), time.perf_counter()
 
         # release slot pages an aborted run may have left mapped (cached
         # pages survive) and re-base the pool's counters
@@ -840,21 +871,43 @@ class ServeEngine:
             self.stats.step_tokens.append(emitted)
             return emitted
 
-        def dispatch(toks_in, start, n_new, solo_slot=None):
-            """The round's one step call; never waits for the device."""
-            params = self._exec_params
-            if solo_slot is not None:
-                s0 = solo_slot
-                tok_d, logp_d = steps.solo_step(
-                    params, toks_in, self._arena, start[s0:s0 + 1],
-                    n_new[s0:s0 + 1],
-                    {k: v[s0:s0 + 1] for k, v in self._samp.items()},
-                    slot=s0)
-                self.stats.solo_rounds += 1
+        def dispatch(rec, toks_in, start, n_new, pipelined: bool) -> None:
+            """The round's one step call and the start of its readback
+            (``rec["tok_dev"]``, ``rec["logp_dev"]``, ``rec["ready"]``);
+            never waits for the device. With tracing on: ``step/stage``,
+            then ``step/launch`` over the replay and the readback's
+            enqueue, and on the card a ``device/step`` span from the
+            upload through the readback copy."""
+            s0 = rec["solo_slot"]
+            if s0 is None:
+                fn, slot = steps.step, 0
+                args = (toks_in, self._arena, start, n_new, self._samp)
             else:
-                tok_d, logp_d = steps.step(params, toks_in, self._arena,
-                                           start, n_new, self._samp)
-            return tok_d, logp_d
+                fn, slot = steps.solo_step, s0
+                args = (toks_in, self._arena, start[s0:s0 + 1],
+                        n_new[s0:s0 + 1],
+                        {k: v[s0:s0 + 1] for k, v in self._samp.items()})
+                self.stats.solo_rounds += 1
+            rows = fn.lanes * rec["c_len"]
+            live = int(n_new.sum())
+            self.stats.step_rows += rows
+            self.stats.step_live_rows += live
+            if not trc.enabled:
+                rec["tok_dev"], rec["logp_dev"] = fn(
+                    self._exec_params, *args, slot=slot)
+                readback(rec)
+                return
+            dev = trc.device_span("device/step")
+            with trc.span("step/stage"):
+                staged = fn.stage(self._exec_params, *args, slot=slot,
+                                  mark=dev.begin)
+            kv = (start + n_new)[n_new > 0].tolist()
+            with trc.span("step/launch", c=rec["c_len"], rows=rows,
+                          live=live, solo=s0 is not None,
+                          pipelined=pipelined, kv=kv):
+                rec["tok_dev"], rec["logp_dev"] = fn.launch(staged)
+                readback(rec)
+                dev.end()
 
         def readback(rec) -> None:
             """Start the copy of the round's outputs to the host: into
@@ -880,8 +933,9 @@ class ServeEngine:
         def gather(rec):
             """The round's outputs as full-width host arrays (dead lanes
             carry DEAD_TOKEN); waits for the readback."""
-            if rec["ready"] is not None:
-                rec["ready"].synchronize()
+            with trc.span("step/wait"):
+                if rec["ready"] is not None:
+                    rec["ready"].synchronize()
             tok = rec["tok_host"].numpy()
             logp = rec["logp_host"].numpy()
             s0 = rec["solo_slot"]
@@ -968,18 +1022,16 @@ class ServeEngine:
                         pages_for(int(start[s]) + 1, self.page) for s in dec)
                     self.stats.kv_pages_full += (len(dec)
                                                  * self.max_pages_per_seq)
-                    self._flush_page_ops(pool)
+                    self._flush_page_ops(pool, trc)
                     s0 = (dec[0] if len(dec) == 1 and steps.solo_step
                           is not None else None)
                 with phase("round/dispatch"):
                     tok_in = serve_steps.carry_decode_tokens(
                         inflight["tok_dev"], s0)
-                    tok_d, logp_d = dispatch(tok_in, start, n_new, s0)
                     rec = {"order": dec, "plan": {}, "verify": {},
                            "act_dec": dec, "n_new": n_new, "c_len": 1,
-                           "ts": ts, "tok_dev": tok_d, "logp_dev": logp_d,
-                           "solo_slot": s0, "lag_free": set()}
-                    readback(rec)
+                           "ts": ts, "solo_slot": s0, "lag_free": set()}
+                    dispatch(rec, tok_in, start, n_new, pipelined=True)
                 self.stats.decode_steps += 1
                 self.stats.rounds += 1
                 self.stats.pipelined_rounds += 1
@@ -1117,7 +1169,7 @@ class ServeEngine:
                     self.stats.prefill_kv_pages_written += (
                         pages_for(int(pos[s]) + plan[s], self.page)
                         - int(pos[s]) // self.page)
-                self._flush_page_ops(pool)
+                self._flush_page_ops(pool, trc)
                 live = np.flatnonzero(n_new > 0)
                 s0 = (int(live[0]) if len(live) == 1 and steps.solo_step
                       is not None else None)
@@ -1129,15 +1181,12 @@ class ServeEngine:
                        and not sched.pending)
             with phase("round/dispatch" if overlap
                        else "round/device_step"):
-                tok_d, logp_d = dispatch(
-                    toks if s0 is None else toks[s0:s0 + 1], start, n_new,
-                    s0)
                 rec = {"order": order, "plan": plan, "verify": verify,
                        "act_dec": act_dec, "n_new": n_new,
-                       "c_len": c_len, "ts": ts, "tok_dev": tok_d,
-                       "logp_dev": logp_d, "solo_slot": s0,
+                       "c_len": c_len, "ts": ts, "solo_slot": s0,
                        "lag_free": set()}
-                readback(rec)
+                dispatch(rec, toks if s0 is None else toks[s0:s0 + 1],
+                         start, n_new, pipelined=overlap)
                 if not overlap:
                     nxt, logp_h = gather(rec)   # ends after the readback
             if act_dec:
@@ -1156,6 +1205,8 @@ class ServeEngine:
             # every lane finished or deferred its free during the lag
             retire(inflight)
             inflight = None
+        if clock:
+            self._read_device_clock(trc, ev0, t_clock0)
 
         self.stats.preemptions = sched.preemptions
         self.stats.pages_peak = max(self.stats.pages_peak, pool.pages_peak)
@@ -1176,6 +1227,24 @@ class ServeEngine:
             self.last_cost_report = report
             obs_costs.flush_metrics(reg, report)
         return requests
+
+    def _read_device_clock(self, trc: obs_trace.Tracer, ev0: int,
+                           t0: float) -> None:
+        """The traced run's device fields of ``EngineStats``: its device
+        spans resolved on the tracer, over the window from ``t0`` (just
+        after the clock's anchor) to now; the idle time split by the run's
+        host spans (the tracer's events from index ``ev0``)."""
+        t0_us, t1_us = trc._ts(t0), trc._ts(time.perf_counter())
+        host = [(e["ts"], e["ts"] + e["dur"], e["name"])
+                for e in trc.events[ev0:] if e["ph"] == "X"]
+        device = [(e["ts"], e["ts"] + e["dur"])
+                  for e in trc.resolve_device()]
+        s = self.stats
+        s.device_window_s = (t1_us - t0_us) * 1e-6
+        s.device_busy_s = sum(b - a for a, b in obs_trace.union(
+            device, t0_us, t1_us)) * 1e-6
+        s.device_idle_s = {k: v * 1e-6 for k, v in obs_trace.idle_by_span(
+            host, device, t0_us, t1_us).items()}
 
     def _flush_metrics(self, reg: obs_metrics.Registry,
                        admissions: Dict[str, int]) -> None:

@@ -584,7 +584,8 @@ class GraphedStep(_CostTables):
     ``sampling.lane_inputs`` table of this width's lanes; ``tokens`` may
     also be a tensor on the device (``carry_decode_tokens``). The head
     runs its sampled branch when a live lane (``n_new > 0``) has ``temp >
-    0``. Counters: ``calls``, ``creations`` (widths given buffers, at most
+    0``. A call is :meth:`stage` then :meth:`launch`, which the engine
+    calls apart to trace them. Counters: ``calls``, ``creations`` (widths given buffers, at most
     ``len(widths)`` per binding), ``captures`` (at most two heads per
     width), ``compiles`` (captures when graphed, else creations; the
     ``jit/compile`` events) against ``surface`` (two heads per width
@@ -653,7 +654,8 @@ class GraphedStep(_CostTables):
                         "compiles beyond a step's declared surface",
                         labels=("fn",)).inc(fn=self.name)
 
-    def _stage(self, w: _Width, tokens, start, n_new, samp, slot) -> None:
+    def _stage(self, w: _Width, tokens, start, n_new, samp, slot,
+               mark=None) -> None:
         host = w.upload.host()
         lanes, c = w.tokens.shape
         o = lanes * c
@@ -666,6 +668,8 @@ class GraphedStep(_CostTables):
             host[o + i * lanes:o + (i + 1) * lanes].copy_(_host_i32(x))
         host[o + 5 * lanes:o + 7 * lanes].copy_(_host_i32(samp["key"]))
         host[o + 7 * lanes] = int(slot)
+        if mark is not None:
+            mark()
         w.upload.send()
         if on_device:
             w.tokens.copy_(tokens)
@@ -714,6 +718,15 @@ class GraphedStep(_CostTables):
         return _Graph(graph, tally, tok, logp)
 
     def __call__(self, params, tokens, arena, start, n_new, samp, slot=0):
+        return self.launch(self.stage(params, tokens, arena, start, n_new,
+                                      samp, slot))
+
+    def stage(self, params, tokens, arena, start, n_new, samp, slot=0,
+              mark=None) -> tuple:
+        """A call's first half: binds the trees, picks the width and head,
+        packs the inputs and enqueues their upload; ``mark()``, where
+        given, runs just before the upload's enqueue (the engine's device
+        span starts there). Returns what :meth:`launch` takes."""
         capture = obs_costs.capture_enabled()
         t0 = time.perf_counter()
         self.calls += 1
@@ -726,7 +739,14 @@ class GraphedStep(_CostTables):
                                               lanes=self.lanes, c=c)
         sampled = bool(np.any((np.asarray(samp["temp"]) > 0)
                               & (np.asarray(n_new) > 0)))
-        self._stage(w, tokens, start, n_new, samp, slot)
+        self._stage(w, tokens, start, n_new, samp, slot, mark)
+        return params, arena, w, c, sampled, capture, t0
+
+    def launch(self, staged: tuple):
+        """A call's second half: the replay (capturing the width's graph
+        first if it has none), or the eager run; returns the static
+        outputs."""
+        params, arena, w, c, sampled, capture, t0 = staged
         captured_s = 0.0
         if not self.graphed:
             tok, logp = self._run(params, arena, w, sampled)
@@ -748,7 +768,7 @@ class GraphedStep(_CostTables):
             self.replays += 1
             out = g.tok, g.logp
         if capture:
-            self._record(key, t0, captured_s)
+            self._record(f"C{c}", t0, captured_s)
         return out
 
 
@@ -776,7 +796,10 @@ class PageOps(_CostTables):
         self.shape = (max_slots, max_pages_per_seq)
         self.upload = _Upload((self.n_tbl + 3 * max_slots,), device)
 
-    def __call__(self, arena: dict, tables, copies=(), resets=()) -> dict:
+    def __call__(self, arena: dict, tables, copies=(), resets=(),
+                 mark=None) -> dict:
+        """``mark()``, where given, runs just before the upload's enqueue
+        (the engine's device span starts there)."""
         capture = obs_costs.capture_enabled()
         t0 = time.perf_counter()
         copies = list(copies)
@@ -791,6 +814,8 @@ class PageOps(_CostTables):
         for slot in resets:
             lanes[2, slot] = 1
         host[self.n_tbl:].copy_(torch.from_numpy(lanes.reshape(-1)))
+        if mark is not None:
+            mark()
         dev = self.upload.send()
         o, n = self.n_tbl, self.slots
         apply_page_ops(arena, dev[:o].view(self.shape),

@@ -5,12 +5,18 @@
     ``tests/test_obs.py``, and their process defaults kept apart from the
     JAX package's;
   * trace parity: for one run, the port's and the JAX engine's event
-    streams (name, ph and args; timestamps, ``jit/*`` instants and
-    ``cost/*`` tracks dropped) are equal on greedy, sampled, prefix-cache
+    streams (name, ph and args; timestamps, ``jit/*`` instants,
+    ``cost/*`` tracks and the port-only ``step/*`` and ``device/*``
+    spans dropped) are equal on greedy, sampled, prefix-cache
     with dedup, speculative (k = 4), pipelined and preempting engines, and
     so are the registry totals (the ``serve_jit_*`` series apart; the
     phase histogram by count) and the ``phase_seconds`` keys;
   * token conservation and one ``req/first_token`` per emitting request;
+  * the step call's ``step/*`` spans inside their round phase, one
+    ``step/launch`` a round whose rows add up to ``EngineStats.
+    step_rows`` / ``step_live_rows``, the device fields None on the CPU
+    and with tracing off, and ``obs.trace.idle_by_span`` on synthetic
+    intervals;
   * the step set's compile events (``jit/compile`` per new width,
     ``jit/unexpected_retrace`` past the surface);
   * the serving CLI's ``--trace-out``, ``--metrics-out``, ``--cost-report``
@@ -179,6 +185,49 @@ def test_span_nesting_and_phase_totals():
     assert totals["inner"] <= totals["outer"]
 
 
+# (host spans, device spans, window, charges): nested phases where the
+# innermost wins; overlapping device spans; gaps crossing several spans and
+# uncovered pieces; spans and device work clipped to the window, and two
+# spans begun together (the one that ends first is the inner)
+IDLE_CASES = {
+    "nested": ([(0, 100, "round"), (40, 90, "round/device_step"),
+                (50, 60, "step/launch"), (60, 90, "step/wait")],
+               [(52, 80)], (0, 100),
+               {"round": 50, "round/device_step": 10, "step/launch": 2,
+                "step/wait": 10}),
+    "overlapping_device": ([], [(10, 30), (20, 40), (35, 50)], (0, 60),
+                           {obs_trace.OUTSIDE: 20}),
+    "crossing": ([(5, 15, "a"), (15, 25, "b"), (30, 35, "c")],
+                 [(0, 2), (40, 45)], (0, 50),
+                 {obs_trace.OUTSIDE: 18, "a": 10, "b": 10, "c": 5}),
+    "clipped": ([(-10, 20, "outer"), (5, 20, "inner"), (5, 8, "first"),
+                 (90, 130, "late")],
+                [(-5, 2), (10, 12), (95, 140), (150, 160)], (0, 100),
+                {"outer": 3, "first": 3, "inner": 10, "late": 5,
+                 obs_trace.OUTSIDE: 70}),
+}
+
+
+@pytest.mark.parametrize("case", list(IDLE_CASES))
+def test_idle_by_span(case):
+    host, device, (t0, t1), want = IDLE_CASES[case]
+    got = obs_trace.idle_by_span(host, device, t0, t1)
+    assert got == pytest.approx(want)
+    busy = sum(b - a for a, b in obs_trace.union(device, t0, t1))
+    assert sum(got.values()) == pytest.approx(t1 - t0 - busy)
+
+
+def test_device_clock_records_nothing_on_the_cpu():
+    """An enabled tracer without an anchored run (always on the CPU) hands
+    out the shared no-op device span and resolves to nothing."""
+    t = Tracer()
+    t.device_anchor()
+    assert t.device_span("device/x") is t.device_span("device/y", a=1)
+    with t.device_span("device/x"):
+        pass
+    assert t.resolve_device() == [] and t.events == []
+
+
 def test_default_tracer_swap():
     assert not obs_trace.get_tracer().enabled   # process default is off
     mine = Tracer()
@@ -303,7 +352,8 @@ def _both(weights, scenario):
 
 def _stream(tracer):
     return [(e["name"], e["ph"], e.get("args", {})) for e in tracer.events
-            if not e["name"].startswith(("jit/", "cost/"))]
+            if not e["name"].startswith(("jit/", "cost/", "step/",
+                                         "device/"))]
 
 
 def _totals(reg):
@@ -405,8 +455,42 @@ def test_conservation_and_one_first_token(runs, scenario):
     # emission timestamps cover every delivered token; ITL gaps >= 0
     assert sum(len(t) for t in s.emit_times.values()) == s.tokens_out
     assert all(g >= 0 for g in s.itl_s())
-    assert len(s.per_token_latencies()) == sum(1 for t in s.step_tokens
-                                               if t)
+
+
+STEP_PARENTS = ("round/device_step", "round/dispatch", "round/retire")
+
+
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_step_spans_and_row_counters(runs, scenario):
+    """Each ``step/*`` span sits inside a step phase; one ``step/launch``
+    a round, whose ``rows`` and ``live`` sum to ``step_rows`` and
+    ``step_live_rows``; the live rows are the prefilled tokens, one a
+    decode lane and the verified drafts; no device clock on the CPU."""
+    eng, _, trc, _ = runs[scenario][0]
+    s = eng.stats
+    x = [e for e in trc.events if e["ph"] == "X"]
+    parents = [e for e in x if e["name"] in STEP_PARENTS]
+    steps = [e for e in x if e["name"].startswith("step/")]
+    for e in steps:
+        assert any(p["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                   <= p["ts"] + p["dur"] + 1e-3 for p in parents), e
+    launches = [e["args"] for e in steps if e["name"] == "step/launch"]
+    names = [e["name"] for e in steps]
+    assert len(launches) == names.count("step/stage") == s.rounds
+    assert names.count("step/wait") == s.rounds
+    assert sum(a["rows"] for a in launches) == s.step_rows
+    assert sum(a["live"] for a in launches) == s.step_live_rows
+    for a in launches:
+        assert a["rows"] == a["c"] * (1 if a["solo"] else eng.slots)
+        assert len(a["kv"]) <= a["rows"] // a["c"]
+        assert len(a["kv"]) <= a["live"] <= len(a["kv"]) * a["c"]
+    assert any(a["pipelined"] for a in launches) == (scenario == "pipelined")
+    decode_lanes = sum(e["args"]["decode_lanes"] for e in x
+                       if e["name"] == "round")
+    assert s.step_live_rows == (s.prefill_tokens + decode_lanes
+                                + s.spec_draft_tokens)
+    assert not [e for e in trc.events if e["name"].startswith("device/")]
+    assert s.device_busy_s is s.device_window_s is s.device_idle_s is None
 
 
 def test_tracing_off_records_phases_only(weights):
@@ -423,6 +507,9 @@ def test_tracing_off_records_phases_only(weights):
         "round/admit", "round/grant", "round/host_prep",
         "round/device_step", "round/emit"}
     assert reg.counter("serve_rounds_total").value() == eng.stats.rounds
+    s = eng.stats
+    assert s.step_rows >= s.step_live_rows > 0       # counted untraced too
+    assert s.device_busy_s is s.device_window_s is s.device_idle_s is None
 
 
 # ==========================================================================
